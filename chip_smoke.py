@@ -6,14 +6,24 @@ Run from the root of a checkout, with no arguments:
 
     python3 chip_smoke.py
 
-It builds the port's CUDA kernel from the sources in the checkout, checks it
-against its plain PyTorch version on the card at the flagship's shapes,
-drives the flagship IceCube 3-year pipeline
+It builds the port's three CUDA kernels (the oscillation chain, its tangent
+and its multitangent) from the sources in the checkout, checks each against
+its plain PyTorch version on the card at the flagship's shapes, and drives
+the flagship IceCube 3-year pipeline
 (``settings/pipeline/IceCube_3y_neutrinos.cfg``: 240k events, 200x200
-oscillation grid) through ``Pipeline(..., device="cuda").get_outputs()`` in
-float32 and float64, compares each template with the same pipeline run on
-the CPU in float64, and times the kernel and the template. It exits non-zero
-on any failed check; the last line of a passing run is
+oscillation grid, 15 free parameters) on the card through its two paths:
+
+- the eager template, ``Pipeline(..., device="cuda").get_outputs()``, in
+  float32 and float64, each template compared with the same pipeline run on
+  the CPU in float64;
+- the fit, ``Pipeline(...).compile().build_objective(data, "mod_chi2")``:
+  the analytic ``value_and_grad`` (float64 on the card against the CPU in
+  float64, against central finite differences, and with separate tangents
+  against the multitangent; float32 against float64), and the bounded
+  L-BFGS Asimov fit (``analysis/device_fit.minimize_on_device``) in float32.
+
+It times the kernels, the gradient and the fit. It exits non-zero on any
+failed check; the last line of a passing run is
 ``{"ok": true, "device": {...}}``.
 
 The float64 runs (CPU reference and card) happen in a child process, since
@@ -33,15 +43,54 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CFG = "settings/pipeline/IceCube_3y_neutrinos.cfg"
 KERNEL_SOURCE = "pisa_tpu_torch/csrc/osc_chain.cu"
-KERNEL_REPLACES = "pisa_tpu/ops/osc/pallas_chain.py:562"
+# each kernel's name and the TPU kernel it replaces (file:line)
+KERNELS = {
+    "osc_chain": "pisa_tpu/ops/osc/pallas_chain.py:562",
+    "osc_chain_tangent": "pisa_tpu/ops/osc/pallas_chain.py:584",
+    "osc_chain_multitangent": "pisa_tpu/ops/osc/pallas_chain.py:888",
+}
+FREE_THETA = (1, 2, 5)  # the flagship frees theta13, theta23, dm31
+
+# H100 SXM peaks (NVIDIA data sheet): vector (non-tensor-core) float32 and
+# float64 rates, HBM3 bandwidth
+PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
+HBM_BYTES_PER_S = 3.35e12
 
 # kernel vs plain version on the card (max abs difference of probabilities)
 KERNEL_ATOL = {"float64": 1e-10, "float32": 1e-4}
+# tangent (and multitangent tangents) vs plain, relative to the largest
+# |tangent| of the direction: float64 differs by operation order; float32
+# by rounding, which reaches 8.55e-5 on probabilities <= 1 in the primal
+TANGENT_RTOL = {"float64": 1e-9, "float32": 1e-3}
+# multitangent primal vs the plain primal and the primal kernel
+MULTI_PRIMAL_ATOL = {"float64": 1e-10, "float32": 1e-4}
 # card template vs CPU float64 template, relative per bin: float64 differs
 # only by summation order (atomics, matmul blocking); float32 by rounding,
 # judged on bins holding >= 1 expected event
 TEMPLATE_RTOL = {"float64": 1e-9, "float32": 1e-4}
 MIN_EVENTS_FP32 = 1.0
+
+# value_and_grad of mod_chi2 at the perturbed point (see gradient_point):
+# card float64 vs CPU float64, both in float64 up to operation order: value
+# relative, gradient entry by entry (rtol, plus atol as a fraction of the
+# largest |gradient|)
+VG_FP64 = {"value": 1e-9, "grad_rtol": 1e-7, "grad_atol": 1e-9}
+# central finite differences of the card float64 objective (h = 1e-5 in
+# rescaled units) vs its analytic gradient: the truncation (h^2/6 times the
+# third derivative) and the rounding (~eps |f| / h, ~3e-8 here) stay under
+# these (rtol, plus atol as a fraction of the largest |gradient|)
+FD_STEP = 1e-5
+FD_TOL = {"rtol": 1e-4, "atol": 1e-7}
+# separate tangent launches vs one multitangent launch per sign, in
+# max |difference| / max |gradient|: the same arithmetic, fused differently
+TANGENTS_VS_MULTI = {"float64": 1e-10, "float32": 1e-3}
+# card float32 vs card float64 on the same data: the float32 template is
+# within ~1.5e-6 per bin and the float32 tangents within ~3e-4 of their
+# direction's largest, which the metric's (data - template) amplifies
+VG_FP32 = {"value": 1e-4, "grad_rtol": 1e-2, "grad_atol": 1e-4}
+# the Asimov fit recovers theta23 to this, in rescaled units
+# (tests/test_device_fit.py:140)
+FIT_TOL = 5e-3
 
 
 def check(cond, msg):
@@ -112,10 +161,132 @@ def check_template(out, label):
     return total
 
 
+# -- the gradient path: shared by both processes --------------------------------
+def launch_counts(chain):
+    return (chain.launch_count, chain.tangent_launch_count,
+            chain.multitangent_launch_count)
+
+
+def reset_launch_counts(chain):
+    chain.launch_count = 0
+    chain.tangent_launch_count = 0
+    chain.multitangent_launch_count = 0
+
+
+def expected_vg_launches(multitangent):
+    """(primal, tangent, multitangent) launches of one value_and_grad: the
+    two primal launches (nu, nubar) of the forward, then per sign one
+    tangent launch per free oscillation parameter, or one multitangent
+    launch."""
+    if multitangent:
+        return (2, 0, 2)
+    return (2, 2 * len(FREE_THETA), 0)
+
+
+def gradient_point(ct):
+    """The value_and_grad point: the nominal rescaled values clipped to
+    [0.15, 0.85] (tests/test_rate_defer.py:79-94) plus a seeded offset in
+    [-0.1, 0.1], clipped again (test_rate_defer.py:97-116), so that the
+    objective is away from its minimum at the nominal Asimov data."""
+    import numpy as np
+
+    v0 = np.clip(ct.current_rescaled_values(), 0.15, 0.85)
+    rng = np.random.RandomState(5)
+    return np.clip(v0 + rng.uniform(-0.1, 0.1, v0.size), 0.15, 0.85)
+
+
+def value_and_grad_counted(pipeline, chain, vg, v, multitangent):
+    """One value_and_grad with the backward's tangent route chosen; returns
+    the value, the gradient (numpy) and the kernel launches it made."""
+    import torch
+
+    pipeline["osc.prob3"].multitangent = multitangent
+    try:
+        before = launch_counts(chain)
+        value, grad = vg(v)
+        if torch.cuda.is_initialized():
+            torch.cuda.synchronize()
+        after = launch_counts(chain)
+    finally:
+        pipeline["osc.prob3"].multitangent = False
+    return (float(value), grad.cpu().numpy(),
+            tuple(a - b for a, b in zip(after, before)))
+
+
+def rel_max(got, want):
+    """max |got - want| / max |want|."""
+    import numpy as np
+
+    return float(np.abs(np.asarray(got) - np.asarray(want)).max()
+                 / np.abs(np.asarray(want)).max())
+
+
+def grad_mismatch(got, want, rtol, atol_fraction):
+    """Worst entry of |got - want| / (rtol |want| + atol_fraction max|want|):
+    at most 1 when every entry is within its bound."""
+    import numpy as np
+
+    got, want = np.asarray(got), np.asarray(want)
+    allowed = rtol * np.abs(want) + atol_fraction * np.abs(want).max()
+    return float((np.abs(got - want) / allowed).max())
+
+
+def gradient_worker(cpu_pipeline, gpu_pipeline, chain):
+    """float64 value_and_grad of mod_chi2 at full width: the CPU and the
+    card, the card's central finite differences, and separate tangents
+    against the multitangent. Returns arrays for the npz."""
+    import numpy as np
+
+    for pipeline in (cpu_pipeline, gpu_pipeline):
+        pipeline.params.reset_all()
+    cpu_ct = cpu_pipeline.compile()
+    data = cpu_ct.get_outputs()  # Asimov data at nominal
+    v = gradient_point(cpu_ct)
+    _, cpu_vg = cpu_ct.build_objective(data, "mod_chi2")
+    # the CPU takes the plain tangents; the one-pass (batched) multitangent
+    # is the quicker of the two there, and gives the same gradient
+    t0 = time.perf_counter()
+    cpu_value, cpu_grad, _ = value_and_grad_counted(
+        cpu_pipeline, chain, cpu_vg, v, True)
+    cpu_seconds = time.perf_counter() - t0
+
+    ct = gpu_pipeline.compile()
+    check(ct.free_names == cpu_ct.free_names, "free params differ")
+    value_fn, vg = ct.build_objective(data, "mod_chi2")
+    value, grad, launches = value_and_grad_counted(gpu_pipeline, chain, vg,
+                                                   v, False)
+    value_m, grad_m, launches_m = value_and_grad_counted(gpu_pipeline, chain,
+                                                         vg, v, True)
+    fd = np.empty_like(grad)
+    for i in range(v.size):
+        step = np.zeros_like(v)
+        step[i] = FD_STEP
+        fd[i] = (float(value_fn(v + step)) - float(value_fn(v - step))) / (
+            2 * FD_STEP)
+    out = {
+        "vg|free_names": np.asarray(ct.free_names),
+        "vg|v": v,
+        "vg|cpu_value": np.asarray(cpu_value),
+        "vg|cpu_grad": cpu_grad,
+        "vg|cpu_seconds": np.asarray(cpu_seconds),
+        "vg|value": np.asarray(value),
+        "vg|grad": grad,
+        "vg|value_multi": np.asarray(value_m),
+        "vg|grad_multi": grad_m,
+        "vg|fd": fd,
+        "vg|launches": np.asarray(launches),
+        "vg|launches_multi": np.asarray(launches_m),
+    }
+    for m in data:
+        out[f"data|{m.name}"] = np.asarray(m.hist)
+    return out
+
+
 # -- the float64 child ---------------------------------------------------------
 def reference_worker(path):
-    """float64: the CPU reference and the card run at every point; saved to
-    `path` (npz) with the card's launch counts."""
+    """float64: the CPU reference and the card run at every template point,
+    then the gradient phase (gradient_worker); saved to `path` (npz) with the
+    card's launch counts."""
     import numpy as np
     import torch
 
@@ -125,7 +296,8 @@ def reference_worker(path):
 
     check(FTYPE_NAME == "fp64", f"reference worker runs {FTYPE_NAME}")
     t0 = time.perf_counter()
-    cpu_out, _ = run_points(Pipeline(CFG, device="cpu"), ureg, chain)
+    cpu_pipeline = Pipeline(CFG, device="cpu")
+    cpu_out, _ = run_points(cpu_pipeline, ureg, chain)
     t_cpu = time.perf_counter() - t0
     gpu_pipeline = Pipeline(CFG, device="cuda")
     chain.launch_count = 0
@@ -141,6 +313,7 @@ def reference_worker(path):
                 arrays[f"{tag}|{label}|w|{name}"] = hists[name]
                 arrays[f"{tag}|{label}|e|{name}"] = errs[name]
         arrays[f"launches|{label}"] = np.asarray(launches[label])
+    arrays.update(gradient_worker(cpu_pipeline, gpu_pipeline, chain))
     np.savez(path, **arrays)
 
 
@@ -202,11 +375,64 @@ def flagship_geometry(dtype):
     ), params
 
 
-def kernel_vs_plain(chain):
-    """Kernel vs plain version on the card: flagship geometry, nu and nubar,
-    nominal NuFIT and 3 seeded random theta, in float64 and float32. Then
-    CUDA-event times of both at that shape. Returns the summary per dtype."""
+def flagship_thetas(params):
+    """Nominal NuFIT and 3 seeded random theta (the same for every dtype)."""
     import numpy as np
+
+    nominal = [
+        params["theta12"].m_as("rad"), params["theta13"].m_as("rad"),
+        params["theta23"].m_as("rad"), params["deltacp"].m_as("rad"),
+        params["deltam21"].m_as("eV**2"), params["deltam31"].m_as("eV**2"),
+    ]
+    rng = np.random.RandomState(20261016)
+    return [nominal] + [
+        [np.radians(rng.uniform(31, 36)), np.radians(rng.uniform(8, 9)),
+         np.radians(rng.uniform(38, 52)), np.radians(rng.uniform(0, 360)),
+         rng.uniform(7e-5, 8e-5),
+         rng.choice([-1, 1]) * rng.uniform(2.3e-3, 2.7e-3)]
+        for _ in range(3)
+    ]
+
+
+def pack_and_directions(chain, theta, nubar, dtype):
+    """The pack on the card and the 6 columns of its Jacobian in theta (the
+    directions the gradient's tangents run along), (6, 57)."""
+    import torch
+
+    th = torch.tensor(theta, dtype=torch.float64)
+    jac = torch.func.jacfwd(lambda t: chain.theta_to_pvec(t, nubar))(th)
+    return (chain.theta_to_pvec(th, nubar).to("cuda", dtype),
+            jac.T.contiguous().to("cuda", dtype))
+
+
+def kernel_bound(chain, geom, k, with_primal):
+    """Least time of one launch on the card: operations
+    (chain.chain_operations, counted for this geometry's layer steps) over
+    the peak rate of the dtype, or bytes (inputs read once: energy, bounds,
+    the slab entries the chains reach, the pack and its directions; outputs
+    written once) over the memory rate; the larger, and which it is."""
+    dname = str(geom["e"].dtype).split(".")[-1]
+    size = geom["e"].element_size()
+    n = geom["e"].shape[0]
+    steps = int((geom["dist"] > 0).sum())
+    slab_entries = int(geom["nl"].long().sum())
+    per_point, per_step = chain.chain_operations(k)
+    ops = n * per_point + steps * per_step
+    outputs = 6 * n * (k + (1 if with_primal else 0))
+    nbytes = size * (n + 2 * slab_entries + chain.N_PACK * (1 + k)
+                     + outputs) + 4 * n
+    t_ops = ops / PEAK_FLOPS[dname] * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return {"bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "ops": ops, "bytes": nbytes}
+
+
+def kernel_vs_plain(chain):
+    """Primal kernel vs plain version on the card: flagship geometry, nu and
+    nubar, nominal NuFIT and 3 seeded random theta, in float64 and float32.
+    Then CUDA-event times of both at that shape. Returns the summary per
+    dtype."""
     import torch
 
     summary = {}
@@ -214,19 +440,7 @@ def kernel_vs_plain(chain):
     for dtype in (torch.float64, torch.float32):
         dname = str(dtype).split(".")[-1]
         geom, params = flagship_geometry(dtype)
-        nominal = [
-            params["theta12"].m_as("rad"), params["theta13"].m_as("rad"),
-            params["theta23"].m_as("rad"), params["deltacp"].m_as("rad"),
-            params["deltam21"].m_as("eV**2"), params["deltam31"].m_as("eV**2"),
-        ]
-        rng = np.random.RandomState(20261016)  # the same theta per dtype
-        thetas = [nominal] + [
-            [np.radians(rng.uniform(31, 36)), np.radians(rng.uniform(8, 9)),
-             np.radians(rng.uniform(38, 52)), np.radians(rng.uniform(0, 360)),
-             rng.uniform(7e-5, 8e-5),
-             rng.choice([-1, 1]) * rng.uniform(2.3e-3, 2.7e-3)]
-            for _ in range(3)
-        ]
+        thetas = flagship_thetas(params)
         args = (geom["e"], geom["dens"], geom["dist"], geom["nl"])
         worst = vs_exact = 0.0
         for i, theta in enumerate(thetas):
@@ -255,13 +469,132 @@ def kernel_vs_plain(chain):
             print(f"  float32 kernel vs float64 plain: max abs {vs_exact:.3e}"
                   " (the float32 algorithm's own error)")
 
-        pvec = chain.theta_to_pvec(nominal, 1).to("cuda", dtype)
+        pvec = chain.theta_to_pvec(thetas[0], 1).to("cuda", dtype)
         ms = cuda_time(lambda: chain.chain_probs(pvec, *args), 200)
         plain_ms = cuda_time(lambda: chain.chain_probs_reference(pvec, *args),
                              10)
-        print(f"time, {dname}, N={n}: kernel {ms:.4f} ms,"
-              f" plain PyTorch {plain_ms:.4f} ms (CUDA events)")
-        summary[dname] = {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms}
+        bound = kernel_bound(chain, geom, 0, True)
+        print(f"time, osc_chain {dname}, N={n}: kernel {ms:.4f} ms,"
+              f" plain PyTorch {plain_ms:.4f} ms (CUDA events); bound"
+              f" {bound['bound_ms']:.5f} ms by {bound['bound_by']}"
+              f" ({bound['ops']} operations, {bound['bytes']} bytes)")
+        summary[dname] = {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+                          **bound}
+    return summary
+
+
+def tangent_vs_plain(chain):
+    """Tangent kernel vs plain version (forward-mode derivative of the plain
+    primal) on the card: flagship geometry, nu and nubar, nominal and 3
+    seeded theta, all 6 pack-Jacobian directions, float64 and float32. The
+    error of a direction is max|kernel - plain| over its (2, 3, N) output
+    relative to that output's max|plain|. Then CUDA-event times."""
+    import torch
+
+    summary = {}
+    for dtype in (torch.float64, torch.float32):
+        dname = str(dtype).split(".")[-1]
+        geom, params = flagship_geometry(dtype)
+        thetas = flagship_thetas(params)
+        args = (geom["e"], geom["dens"], geom["dist"], geom["nl"])
+        worst_rel = worst_abs = 0.0
+        for theta in thetas:
+            for nubar in (1, -1):
+                pvec, dirs = pack_and_directions(chain, theta, nubar, dtype)
+                for d in dirs:
+                    got = chain.chain_tangent(pvec, d, *args)
+                    ref = chain.chain_tangent_reference(pvec, d, *args)
+                    torch.cuda.synchronize()
+                    check(bool(torch.isfinite(got).all()),
+                          f"{dname}: tangent kernel output not finite")
+                    err = float((got - ref).abs().max())
+                    worst_abs = max(worst_abs, err)
+                    worst_rel = max(worst_rel,
+                                    err / float(ref.abs().max()))
+        print(f"tangent kernel vs plain, {dname}: max rel {worst_rel:.3e}"
+              f" (bound {TANGENT_RTOL[dname]:g}; 4 theta x 2 signs x 6"
+              f" directions), max abs {worst_abs:.3e}")
+        check(worst_rel <= TANGENT_RTOL[dname],
+              f"{dname}: tangent kernel disagrees with plain by {worst_rel}")
+        pvec, dirs = pack_and_directions(chain, thetas[0], 1, dtype)
+        d = dirs[2].contiguous()  # theta23
+        ms = cuda_time(lambda: chain.chain_tangent(pvec, d, *args), 200)
+        plain_ms = cuda_time(
+            lambda: chain.chain_tangent_reference(pvec, d, *args), 5)
+        bound = kernel_bound(chain, geom, 1, False)
+        print(f"time, osc_chain_tangent {dname}: kernel {ms:.4f} ms, plain"
+              f" PyTorch {plain_ms:.4f} ms (CUDA events); bound"
+              f" {bound['bound_ms']:.5f} ms by {bound['bound_by']}"
+              f" ({bound['ops']} operations, {bound['bytes']} bytes)")
+        summary[dname] = {"max_abs_err": worst_abs, "max_rel_err": worst_rel,
+                          "ms": ms, "plain_ms": plain_ms, **bound}
+    return summary
+
+
+def multitangent_vs_plain(chain):
+    """Multitangent kernel (K = 3: the flagship's free theta13, theta23,
+    dm31) on the card against its plain version and against the primal and
+    tangent kernels: flagship geometry, nu and nubar, nominal and 3 seeded
+    theta, float64 and float32. Then CUDA-event times."""
+    import torch
+
+    summary = {}
+    for dtype in (torch.float64, torch.float32):
+        dname = str(dtype).split(".")[-1]
+        geom, params = flagship_geometry(dtype)
+        thetas = flagship_thetas(params)
+        args = (geom["e"], geom["dens"], geom["dist"], geom["nl"])
+        errs = {"plain_p": 0.0, "plain_t": 0.0, "plain_t_abs": 0.0,
+                "kern_p": 0.0, "kern_t": 0.0}
+        for theta in thetas:
+            for nubar in (1, -1):
+                pvec, dirs = pack_and_directions(chain, theta, nubar, dtype)
+                dpvecs = dirs[list(FREE_THETA)].contiguous()
+                out, dout = chain.chain_multitangent(pvec, dpvecs, *args)
+                ref_p, ref_t = chain.chain_multitangent_reference(
+                    pvec, dpvecs, *args)
+                kern_p = chain.chain_probs(pvec, *args)
+                kern_t = torch.stack(
+                    [chain.chain_tangent(pvec, d, *args) for d in dpvecs])
+                torch.cuda.synchronize()
+                check(bool(torch.isfinite(out).all())
+                      and bool(torch.isfinite(dout).all()),
+                      f"{dname}: multitangent kernel output not finite")
+                scale = ref_t.abs().amax(dim=(1, 2, 3), keepdim=True)
+                errs["plain_p"] = max(errs["plain_p"],
+                                      float((out - ref_p).abs().max()))
+                errs["plain_t"] = max(errs["plain_t"], float(
+                    ((dout - ref_t).abs() / scale).max()))
+                errs["plain_t_abs"] = max(errs["plain_t_abs"], float(
+                    (dout - ref_t).abs().max()))
+                errs["kern_p"] = max(errs["kern_p"],
+                                     float((out - kern_p).abs().max()))
+                errs["kern_t"] = max(errs["kern_t"], float(
+                    ((dout - kern_t).abs() / scale).max()))
+        print(f"multitangent kernel (K=3), {dname}: primal vs plain"
+              f" {errs['plain_p']:.3e}, vs primal kernel {errs['kern_p']:.3e}"
+              f" (bound {MULTI_PRIMAL_ATOL[dname]:g} abs); tangents vs plain"
+              f" {errs['plain_t']:.3e}, vs tangent kernel {errs['kern_t']:.3e}"
+              f" (bound {TANGENT_RTOL[dname]:g} rel); 4 theta x 2 signs")
+        check(max(errs["plain_p"], errs["kern_p"]) <= MULTI_PRIMAL_ATOL[dname],
+              f"{dname}: multitangent primal off by {errs}")
+        check(max(errs["plain_t"], errs["kern_t"]) <= TANGENT_RTOL[dname],
+              f"{dname}: multitangent tangents off by {errs}")
+        pvec, dirs = pack_and_directions(chain, thetas[0], 1, dtype)
+        dpvecs = dirs[list(FREE_THETA)].contiguous()
+        ms = cuda_time(lambda: chain.chain_multitangent(pvec, dpvecs, *args),
+                       200)
+        plain_ms = cuda_time(
+            lambda: chain.chain_multitangent_reference(pvec, dpvecs, *args), 3)
+        bound = kernel_bound(chain, geom, len(FREE_THETA), True)
+        print(f"time, osc_chain_multitangent {dname} (K=3): kernel {ms:.4f}"
+              f" ms, plain PyTorch {plain_ms:.4f} ms (CUDA events); bound"
+              f" {bound['bound_ms']:.5f} ms by {bound['bound_by']}"
+              f" ({bound['ops']} operations, {bound['bytes']} bytes)")
+        summary[dname] = {"max_abs_err": max(errs["plain_p"],
+                                             errs["plain_t_abs"]),
+                          "max_rel_err": errs["plain_t"], "ms": ms,
+                          "plain_ms": plain_ms, **bound}
     return summary
 
 
@@ -297,6 +630,228 @@ def compare(ref, got, label, dname, n_events_mask):
           f"{label}: card {dname} template off the CPU reference")
 
 
+def check_gradient_fp64(ref):
+    """Phase checks of the float64 value_and_grad (run in the child)."""
+    free_names = [str(n) for n in ref["vg|free_names"]]
+    value, grad = float(ref["vg|value"]), ref["vg|grad"]
+    cpu_value, cpu_grad = float(ref["vg|cpu_value"]), ref["vg|cpu_grad"]
+    print(f"value_and_grad, float64, full width, {len(free_names)} free"
+          f" params: card {value!r} vs CPU {cpu_value!r}")
+    for name, a, b, f in zip(free_names, grad, cpu_grad, ref["vg|fd"]):
+        print(f"  d/d {name:22s} card {a: .10e}  CPU {b: .10e}"
+              f"  central FD {f: .10e}")
+    value_err = abs(value - cpu_value) / abs(cpu_value)
+    grad_err = grad_mismatch(grad, cpu_grad, VG_FP64["grad_rtol"],
+                             VG_FP64["grad_atol"])
+    fd_err = grad_mismatch(ref["vg|fd"], grad, FD_TOL["rtol"], FD_TOL["atol"])
+    multi_err = rel_max(ref["vg|grad_multi"], grad)
+    print(f"  card vs CPU: value rel {value_err:.3e} (bound"
+          f" {VG_FP64['value']:g}); gradient {rel_max(grad, cpu_grad):.3e} of"
+          f" max|g|, worst entry at {grad_err:.3e} of its bound (rtol"
+          f" {VG_FP64['grad_rtol']:g}, atol {VG_FP64['grad_atol']:g} max|g|);"
+          f" CPU value_and_grad {float(ref['vg|cpu_seconds']):.1f} s")
+    print(f"  central FD (h={FD_STEP:g}) vs card: {rel_max(ref['vg|fd'], grad):.3e}"
+          f" of max|g|, worst entry at {fd_err:.3e} of its bound")
+    print(f"  separate tangents vs multitangent: {multi_err:.3e} of max|g|"
+          f" (bound {TANGENTS_VS_MULTI['float64']:g}); values"
+          f" {value!r} / {float(ref['vg|value_multi'])!r}")
+    launches = tuple(int(x) for x in ref["vg|launches"])
+    launches_m = tuple(int(x) for x in ref["vg|launches_multi"])
+    print(f"  launches (primal, tangent, multitangent) per value_and_grad:"
+          f" {launches} separate, {launches_m} multitangent")
+    check(value_err <= VG_FP64["value"], "float64 card value off the CPU's")
+    check(grad_err <= 1.0, "float64 card gradient off the CPU's")
+    check(fd_err <= 1.0, "float64 gradient off the finite differences")
+    check(multi_err <= TANGENTS_VS_MULTI["float64"],
+          "float64 multitangent gradient off the separate tangents'")
+    check(launches == expected_vg_launches(False),
+          f"float64 value_and_grad launches {launches}")
+    check(launches_m == expected_vg_launches(True),
+          f"float64 multitangent value_and_grad launches {launches_m}")
+
+
+def median_wall(fn, reps):
+    import numpy as np
+    import torch
+
+    walls = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    return float(np.median(walls)), float(min(walls))
+
+
+def count_host_syncs(fn):
+    """fn() with torch's CUDA sync debug mode warning at every operation
+    that waits for the card (a value read back, a copy to the host); returns
+    the number of such waits and fn's result."""
+    import warnings
+
+    import torch
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            result = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message) for w in caught), result
+
+
+def profile_device_busy(fn):
+    """torch.profiler over one call: its wall, the device time of the
+    kernels it ran, and the ops with the most device and host time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+
+    def device_us(event):
+        for attr in ("self_device_time_total", "self_cuda_time_total"):
+            if hasattr(event, attr):
+                return float(getattr(event, attr))
+        return 0.0
+
+    events = prof.key_averages()
+    total_us = sum(device_us(e) for e in events)
+    top = sorted(events, key=device_us, reverse=True)[:8]
+    top_host = sorted(events, key=lambda e: e.self_cpu_time_total,
+                      reverse=True)[:8]
+    return (wall, total_us / 1e3,
+            [(e.key, device_us(e) / 1e3, e.count)
+             for e in top if device_us(e) > 0],
+            [(e.key, e.self_cpu_time_total / 1e3, e.count)
+             for e in top_host])
+
+
+def gradient_and_fit_fp32(pipeline, chain, ref, smi):
+    """The slice's main path in float32 on the card: compile, value_and_grad
+    (separate tangents, then the multitangent), the Asimov fit; checks
+    against the float64 card run; then times. Returns the launch counts of
+    the main path and the timings."""
+    import numpy as np
+    import torch
+
+    from pisa_tpu_torch.analysis.device_fit import minimize_on_device
+
+    pipeline.params.reset_all()
+    free_names = [str(n) for n in ref["vg|free_names"]]
+    data = {k.split("|", 1)[1]: v for k, v in ref.items()
+            if k.startswith("data|")}
+    v = ref["vg|v"]
+    torch.cuda.reset_peak_memory_stats()
+
+    # -- the main path: counts from 0 to here ...
+    reset_launch_counts(chain)
+    t0 = time.perf_counter()
+    ct = pipeline.compile()
+    compile_s = time.perf_counter() - t0
+    check(ct.free_names == free_names, "float32 free params differ")
+    value_fn, vg = ct.build_objective(data, "mod_chi2")
+    value, grad, launches = value_and_grad_counted(pipeline, chain, vg, v,
+                                                   False)
+    value_m, grad_m, launches_m = value_and_grad_counted(pipeline, chain, vg,
+                                                         v, True)
+    v0 = ct.current_rescaled_values()
+    asimov = ct.get_outputs(v0)
+    fit_value_fn, _ = ct.build_objective(asimov, "mod_chi2")
+    i23 = ct.free_names.index("theta23")
+    x0 = v0.copy()
+    x0[i23] = min(0.95, x0[i23] + 0.10)
+    los, his = ct._current_bounds()
+    t0 = time.perf_counter()
+    fit = minimize_on_device(fit_value_fn.raw, x0, los, his)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    main_path = launch_counts(chain)
+    # ... and read here.
+
+    value64, grad64 = float(ref["vg|value"]), ref["vg|grad"]
+    value_err = abs(value - value64) / abs(value64)
+    grad_err = grad_mismatch(grad, grad64, VG_FP32["grad_rtol"],
+                             VG_FP32["grad_atol"])
+    multi_err = rel_max(grad_m, grad)
+    print(f"value_and_grad, float32 card vs float64 card: value {value!r} vs"
+          f" {value64!r} (rel {value_err:.3e}, bound {VG_FP32['value']:g});"
+          f" gradient {rel_max(grad, grad64):.3e} of max|g|, worst entry at"
+          f" {grad_err:.3e} of its bound (rtol {VG_FP32['grad_rtol']:g}, atol"
+          f" {VG_FP32['grad_atol']:g} max|g|)")
+    for name, a, b in zip(free_names, grad, grad64):
+        print(f"  d/d {name:22s} float32 {a: .6e}  float64 {b: .6e}"
+              f"  rel {abs(a - b) / max(abs(b), 1e-300):.2e}")
+    print(f"  separate tangents vs multitangent (float32): {multi_err:.3e} of"
+          f" max|g| (bound {TANGENTS_VS_MULTI['float32']:g})")
+    print(f"  launches (primal, tangent, multitangent) per value_and_grad:"
+          f" {launches} separate, {launches_m} multitangent")
+    check(value_err <= VG_FP32["value"], "float32 value off float64")
+    check(grad_err <= 1.0, "float32 gradient off float64")
+    check(multi_err <= TANGENTS_VS_MULTI["float32"],
+          "float32 multitangent gradient off the separate tangents'")
+    check(launches == expected_vg_launches(False),
+          f"float32 value_and_grad launches {launches}")
+    check(launches_m == expected_vg_launches(True),
+          f"float32 multitangent value_and_grad launches {launches_m}")
+
+    moved = float(fit["x"][i23] - v0[i23])
+    print(f"Asimov fit, float32 on the card, from theta23 +0.10 rescaled:"
+          f" nit {fit['nit']}, nfev {fit['nfev']}, fun {fit['fun']!r},"
+          f" theta23 off by {moved:.3e}"
+          f" rescaled (bound {FIT_TOL:g}), largest param offset"
+          f" {float(np.abs(fit['x'] - v0).max()):.3e}; wall {fit_s:.3f} s"
+          f" [{smi}]")
+    check(np.isfinite(fit["fun"]) and abs(moved) <= FIT_TOL,
+          "the Asimov fit did not recover theta23")
+    print(f"main path (compile, 2 value_and_grad, fit) launches: primal"
+          f" {main_path[0]}, tangent {main_path[1]}, multitangent"
+          f" {main_path[2]}; compile {compile_s:.3f} s")
+    check(all(n > 0 for n in main_path), "a kernel of the path never ran")
+
+    # -- timings and host syncs, not counted
+    times = {"compile_s": compile_s, "fit_s": fit_s, "fit_nit": fit["nit"]}
+    syncs, again = count_host_syncs(
+        lambda: minimize_on_device(fit_value_fn.raw, x0, los, his))
+    print(f"host syncs of the fit (torch.cuda sync debug mode, a second run):"
+          f" {syncs} over {again['nit']} iterations and {again['nfev']}"
+          f" evaluations ({syncs / max(again['nit'], 1):.1f} per iteration)")
+    for label, multi in (("value_and_grad", False),
+                         ("value_and_grad multitangent", True)):
+        pipeline["osc.prob3"].multitangent = multi
+        vg(v)
+        times[label] = median_wall(lambda: vg(v), 10)
+        pipeline["osc.prob3"].multitangent = False
+    value_fn(v)
+    times["value"] = median_wall(lambda: value_fn(v), 10)
+    for label in ("value", "value_and_grad", "value_and_grad multitangent"):
+        med, low = times[label]
+        print(f"float32 {label} wall (10 calls): median {med * 1e3:.2f} ms,"
+              f" min {low * 1e3:.2f} ms [{smi}]")
+    wall, device_ms, top, top_host = profile_device_busy(lambda: vg(v))
+    times["busy"] = device_ms / (wall * 1e3)
+    print(f"torch.profiler, one float32 value_and_grad: wall {wall * 1e3:.2f}"
+          f" ms, device time {device_ms:.3f} ms, device busy"
+          f" {100 * times['busy']:.1f}% (of the unprofiled median:"
+          f" {100 * device_ms / (times['value_and_grad'][0] * 1e3):.1f}%)"
+          f" [{smi}]")
+    print("  most device time:")
+    for key, ms, count in top:
+        print(f"  {ms:9.3f} ms  {count:5d}x  {key[:90]}")
+    print("  most host time (self, under the profiler):")
+    for key, ms, count in top_host:
+        print(f"  {ms:9.3f} ms  {count:5d}x  {key[:90]}")
+    print(f"torch.cuda.max_memory_allocated (float32 compile, gradient, fit):"
+          f" {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB [{smi}]")
+    return main_path, times
+
+
 def main():
     if not os.path.isdir(os.path.join(ROOT, "pisa_tpu_torch")):
         print("chip_smoke.py must run from a checkout of the repository"
@@ -319,7 +874,11 @@ def main():
 
     smi = device_lines()
     build_kernel(chain)
-    kernel = kernel_vs_plain(chain)
+    kernels = {
+        "osc_chain": kernel_vs_plain(chain),
+        "osc_chain_tangent": tangent_vs_plain(chain),
+        "osc_chain_multitangent": multitangent_vs_plain(chain),
+    }
 
     # float64: CPU reference and card run, in a child process
     with tempfile.TemporaryDirectory() as tmp:
@@ -349,17 +908,18 @@ def main():
         compare(cpu, unpack("gpu", label), label, "float64", False)
         print(f"float64 card {label}: {int(ref[f'launches|{label}'])} kernel"
               " launches")
+    check_gradient_fp64(ref)
 
-    # float32 main path on the card
+    # float32, the eager template path on the card
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     pipeline = Pipeline(CFG, device="cuda")
     torch.cuda.synchronize()
     print(f"float32 Pipeline(...) setup on the card:"
           f" {time.perf_counter() - t0:.2f} s")
-    chain.launch_count = 0
+    reset_launch_counts(chain)
     out, launches = run_points(pipeline, ureg, chain)
-    main_path_launches = chain.launch_count
+    eager_launches = launch_counts(chain)
     torch.cuda.synchronize()
     for label, _, osc_changed in param_points(ureg):
         total = check_template(out[label], f"card float32 {label}")
@@ -368,7 +928,8 @@ def main():
               f" {launches[label]} kernel launches")
         check(launches[label] == (2 if osc_changed else 0),
               f"float32 {label}: {launches[label]} kernel launches")
-    check(main_path_launches > 0, "the main path launched no kernel")
+    check(eager_launches == (4, 0, 0),
+          f"the eager path's launches {eager_launches}")
 
     # get_outputs wall time: with an oscillation recompute, and cached
     walls = {"recompute": [], "cached": []}
@@ -388,20 +949,34 @@ def main():
               f" [{smi}]")
     print(f"torch.cuda.max_memory_allocated (float32 pipeline):"
           f" {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB [{smi}]")
-    for dname, k in kernel.items():
-        print(f"kernel {dname}: {k['ms']:.4f} ms, plain {k['plain_ms']:.4f} ms"
-              f" [{smi}]")
 
-    print(json.dumps({"kernels": [{
-        "name": "osc_chain",
-        "route": "cuda",
-        "source": KERNEL_SOURCE,
-        "replaces": KERNEL_REPLACES,
-        "launches": main_path_launches,
-        "max_abs_err": kernel["float32"]["max_abs_err"],
-        "ms": kernel["float32"]["ms"],
-        "plain_ms": kernel["float32"]["plain_ms"],
-    }]}))
+    # float32, the gradient and fit path on the card (the slice's main path)
+    main_path, _ = gradient_and_fit_fp32(pipeline, chain, ref, smi)
+
+    for name, k in kernels.items():
+        for dname, t in k.items():
+            print(f"kernel {name} {dname}: {t['ms']:.4f} ms, plain"
+                  f" {t['plain_ms']:.4f} ms, bound {t['bound_ms']:.5f} ms by"
+                  f" {t['bound_by']} [{smi}]")
+    lines = []
+    for (name, replaces), launches in zip(KERNELS.items(), main_path):
+        k = kernels[name]["float32"]
+        lines.append({
+            "name": name,
+            "route": "cuda",
+            "source": KERNEL_SOURCE,
+            "replaces": replaces,
+            "launches": launches,
+            "max_abs_err": k["max_abs_err"],
+            "ms": k["ms"],
+            "plain_ms": k["plain_ms"],
+            "bound_ms": k["bound_ms"],
+            "bound_by": k["bound_by"],
+            "library_ms": None,
+            "dtype": "float32",
+            "max_rel_err": k.get("max_rel_err"),
+        })
+    print(json.dumps({"kernels": lines}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -211,10 +211,49 @@ class Container:
         """Current representation becomes the only valid one for `key`."""
         self.validity[key] = {_rep_hash(self._representation): True}
         # a rewritten coordinate invalidates index caches built on it
-        stale = [k for k, names in self._flatidx_names.items() if key in names]
+        self.drop_index_caches({key})
+
+    def drop_index_caches(self, keys):
+        """Forget the cached indices built on any coordinate in `keys`."""
+        stale = [k for k, names in self._flatidx_names.items()
+                 if not keys.isdisjoint(names)]
         for k in stale:
             del self._flatidx[k]
             del self._flatidx_names[k]
+
+    # -- state, for template evaluations --------------------------------------
+    def state(self):
+        """The variables, their validity and the representation (not the
+        index caches, which are parameter-independent), as a value that
+        :meth:`set_state` installs."""
+        return (
+            {k: dict(v) for k, v in self._data.items()},
+            {k: dict(v) for k, v in self.validity.items()},
+            self._representation,
+            dict(self._representations),
+            dict(self.translation_modes),
+        )
+
+    def set_state(self, state):
+        """Install a :meth:`state`; index caches built on a coordinate whose
+        tensors differ between the two states are dropped."""
+        data, validity, rep, reps, modes = state
+
+        def same(a, b):
+            return (a is None) == (b is None) and (
+                a is None or (a.keys() == b.keys()
+                              and all(a[h] is b[h] for h in a))
+            )
+
+        self.drop_index_caches(
+            {k for k in set(data) | set(self._data)
+             if not same(data.get(k), self._data.get(k))}
+        )
+        self._data = {k: dict(v) for k, v in data.items()}
+        self.validity = {k: dict(v) for k, v in validity.items()}
+        self._representation = rep
+        self._representations = dict(reps)
+        self.translation_modes = dict(modes)
 
     def _binning_coord(self, key):
         """The unrolled weighted-center grid of binning dimension `key`,
@@ -496,6 +535,17 @@ class ContainerSet:
         for vc in self.linked_containers:
             vc.unlink()
         self.linked_containers = []
+
+    # -- state, for template evaluations --------------------------------------
+    def state(self):
+        """Every container's :meth:`Container.state`."""
+        return [(c, c.state()) for c in self.containers]
+
+    def set_state(self, state):
+        """Unlink and install a :meth:`state` in every container."""
+        self.unlink_containers()
+        for c, c_state in state:
+            c.set_state(c_state)
 
     # -- outputs --------------------------------------------------------------
     def get_mapset(self, key, error=None):

@@ -29,12 +29,10 @@ from pisa_tpu_torch.utils.random_numbers import get_random_state
 
 
 def _stats():
-    """The metrics module (``utils/stats.py``), resolved at call time. It is
-    not ported yet: ROADMAP queue 1, item 7."""
-    raise NotImplementedError(
-        "metrics need pisa_tpu_torch.utils.stats, which ROADMAP queue 1"
-        " item 7 ports"
-    )
+    """The metrics module (``utils/stats.py``), resolved at call time."""
+    from pisa_tpu_torch.utils import stats
+
+    return stats
 
 __all__ = ["Map", "MapSet", "rebin", "reduceToHist"]
 
@@ -492,7 +490,7 @@ class Map:
         else:
             exp = np.asarray(expected_values)
             var = None
-        fn = getattr(stats, metric)
+        fn = stats.metric_function(metric)
         if var is None:
             var = np.zeros_like(exp)
         if metric in ("chi2", "llh", "poisson_llh"):

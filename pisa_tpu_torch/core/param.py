@@ -8,8 +8,14 @@ TPU-first rebuild of reference ``pisa/core/param.py:77,579,769,1604``.
 Params are mutable host-side objects; identity-sharing (one Param object
 aliased by several stages/pipelines) is the mechanism by which a single
 fit parameter steers multiple pipeline components, exactly as in the
-reference (``pipeline.py:342-346``). Magnitudes are stripped before anything
-enters jitted code.
+reference (``pipeline.py:342-346``).
+
+A compiled template (``core/template.py``) sets free params to Quantities
+whose magnitude is a 0-d torch tensor that carries the autograd graph
+("template mode"). Such values keep their graph through ``m_as``, are not
+range-checked (the template maps [0, 1] into the range itself), hash to None
+(no compute caching) and rescale with torch ops; nothing calls ``float()``
+on them.
 """
 
 from __future__ import annotations
@@ -17,6 +23,7 @@ from __future__ import annotations
 from collections.abc import MutableSequence, Sequence
 
 import numpy as np
+import torch
 
 from pisa_tpu_torch import FTYPE, HASH_SIGFIGS, ureg
 from pisa_tpu_torch.core.prior import Prior
@@ -30,6 +37,14 @@ from pisa_tpu_torch.utils.random_numbers import get_random_state
 __all__ = ["Param", "DerivedParam", "ParamSet", "ParamSelector"]
 
 FTYPE_PREC = np.finfo(FTYPE).eps
+
+
+def _is_tensor_value(value):
+    """Whether `value` is a template-mode value: a torch tensor, bare or as
+    a Quantity's magnitude."""
+    if isinstance(value, Quantity):
+        value = value.magnitude
+    return isinstance(value, torch.Tensor)
 
 
 class Param:
@@ -134,6 +149,8 @@ class Param:
     def validate_value(self, value):
         if self._range is None or value is None or isinstance(value, (bool, str)):
             return
+        if _is_tensor_value(value):
+            return  # template mode: the template keeps it inside the range
         lo, hi = self._range
         if isinstance(value, Quantity):
             v = value.m_as(lo.units)
@@ -239,9 +256,10 @@ class Param:
         hi = self._range[1].m_as(self._units)
         v = self._value.m_as(self._units)
         if self.scales_as_log:
+            log = torch.log if isinstance(v, torch.Tensor) else np.log
             if lo < 0:
                 lo, hi, v = -lo, -hi, -v
-            return (np.log(v) - np.log(lo)) / (np.log(hi) - np.log(lo))
+            return (log(v) - np.log(lo)) / (np.log(hi) - np.log(lo))
         return (v - lo) / (hi - lo)
 
     @_rescaled_value.setter
@@ -788,6 +806,10 @@ class ParamSet(MutableSequence):
     # -- identity / serialization --------------------------------------------
     @property
     def values_hash(self):
+        """Hash of the values, or None while any value is a template-mode
+        tensor (such values are never cached)."""
+        if any(_is_tensor_value(v) for v in self.values):
+            return None
         return hash_obj(
             [
                 v.magnitude if isinstance(v, Quantity) else v

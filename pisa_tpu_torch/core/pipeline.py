@@ -10,8 +10,9 @@ across stages into shared objects, and evaluates templates eagerly with
 
 The data lives on one explicit device: ``device="cuda"`` (the default) or
 ``device="cpu"``. A CUDA device without a card raises; nothing falls back to
-the CPU. The JAX package's ``compile()`` (CompiledTemplate) and
-per-selection ``VarBinning`` outputs are not ported yet.
+the CPU. ``compile()`` gives the pipeline as one differentiable function of
+its free parameters (:class:`pisa_tpu_torch.core.template.CompiledTemplate`).
+Per-selection ``VarBinning`` outputs are not ported yet.
 """
 
 from __future__ import annotations
@@ -194,8 +195,15 @@ class Pipeline:
         return self.data.get_mapset(key, error=error_key)
 
     def compile(self, output_binning=None, output_key=None):
-        raise NotImplementedError(
-            "the compiled template is ported with ROADMAP queue 1 item 6"
+        """The pipeline as a differentiable function of its rescaled free
+        parameters; see :class:`pisa_tpu_torch.core.template.
+        CompiledTemplate`."""
+        from pisa_tpu_torch.core.template import CompiledTemplate
+
+        return CompiledTemplate(
+            self,
+            output_binning=output_binning or self._output_binning,
+            output_key=output_key or self._output_key,
         )
 
     def __str__(self):

@@ -8,19 +8,36 @@ Kinds: uniform, gaussian, linterp, spline, jeffreys. ``llh(x)`` returns the
 log-prior (up to a constant), ``chi2(x) = -2*llh(x)``. Values may be passed as
 Quantities or bare numbers (interpreted in the prior's units).
 
-The JAX package's traceable ``llh_jax`` is left out here until the
-gradient port (ROADMAP queue 1, item 3).
+:meth:`Prior.llh_torch` is the counterpart of the JAX package's
+``llh_jax``: the penalty as a differentiable torch function of the parameter
+magnitude in the prior's units (the compiled template's objective).
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 from scipy.interpolate import splev
 
 from pisa_tpu_torch.units import Quantity
 from pisa_tpu_torch.utils.comparisons import interpret_quantity, recursiveEquality
 
 __all__ = ["Prior"]
+
+
+def _interp(x, xp, fp):
+    """Piecewise-linear interpolation of (xp, fp) (numpy, xp increasing)
+    at the tensor `x`, differentiable in `x`, constant beyond the ends (the
+    semantics of ``np.interp``; torch has no ``interp``)."""
+    xp = torch.as_tensor(xp, dtype=x.dtype, device=x.device)
+    fp = torch.as_tensor(fp, dtype=x.dtype, device=x.device)
+    flat = x.reshape(-1)
+    i = torch.searchsorted(xp, flat.detach(), right=True).clamp(1, len(xp) - 1)
+    x0, x1, f0, f1 = xp[i - 1], xp[i], fp[i - 1], fp[i]
+    inside = f0 + (flat - x0) * (f1 - f0) / (x1 - x0)
+    out = torch.where(flat < xp[0], fp[0],
+                      torch.where(flat > xp[-1], fp[-1], inside))
+    return out.reshape(x.shape)
 
 
 class Prior:
@@ -131,6 +148,33 @@ class Prior:
 
     def chi2(self, x):
         return -2.0 * self.llh(x)
+
+    def llh_torch(self, x_mag):
+        """llh of a magnitude in this prior's units (a tensor, or a number),
+        differentiable in it (``pisa_tpu/core/prior.py:134-158``); linterp
+        and spline priors interpolate linearly (the spline sampled on 2048
+        points once), holding the end values outside the knots as
+        ``jnp.interp`` does."""
+        x = torch.as_tensor(x_mag, dtype=torch.float64)
+        if self.kind == "uniform":
+            return 0.0 * x + self.llh_offset
+        if self.kind == "gaussian":
+            m = float(self.mean.magnitude)
+            s = float(self.stddev.magnitude)
+            return -torch.square(x - m) / (2 * s**2)
+        if self.kind == "linterp":
+            pv = np.asarray(self.param_vals.magnitude, dtype=float)
+            return _interp(x, pv, self.llh_vals)
+        if self.kind == "spline":
+            k = np.asarray(self.knots.magnitude, dtype=float)
+            xs = np.linspace(k[0], k[-1], 2048)
+            ys = np.asarray(splev(xs, (k, self.coeffs, self.deg)), dtype=float)
+            return _interp(x, xs, ys)
+        if self.kind == "jeffreys":
+            A = float(self.A.magnitude)
+            B = float(self.B.magnitude)
+            return -torch.log(x) + np.log(np.log(B) - np.log(A))
+        raise AssertionError(self.kind)
 
     def get_prior_bounds(self, entity="llh", metric="llh", stddev=1.0):
         """Parameter bounds enclosing `stddev` sigmas for this prior."""

@@ -6,10 +6,14 @@ A Stage is one step of a pipeline (a "service"): ``setup_function`` runs once
 (load events, precompute geometry), ``compute_function`` re-runs when params
 change (physics factors), ``apply_function`` runs every evaluation (weight
 multiplication). ``compute`` is cached on the params hash exactly like the
-reference (``stage.py:536-557``).
+reference (``stage.py:536-557``), except in template mode
+(``_template_mode``, set by ``core/template.py`` while it evaluates), where
+params hold tensors that carry the autograd graph and every compute runs.
 
-The JAX package's stacking and rate-deferral hooks serve its compiled
-template, which is not ported yet (ROADMAP queue 1, item 6).
+A stage whose params steer host-side precomputation lists them in
+``host_param_names``; a compiled template refuses them as free params. The
+JAX package's stacking and rate-deferral hooks are not ported (ROADMAP
+queue 1, item 6).
 """
 
 from __future__ import annotations
@@ -23,6 +27,10 @@ __all__ = ["Stage"]
 
 class Stage:
     """Base class for all services.
+
+    ``host_param_names``: params whose effects run through host-side
+    precomputation (geometry, files, seeds), which a compiled template
+    cannot differentiate.
 
     Parameters
     ----------
@@ -70,6 +78,9 @@ class Stage:
         self.expected_params = tuple(expected_params or ())
         self._check_params()
         self.param_hash = None
+        self._template_mode = False  # bypasses the compute cache
+
+    host_param_names = ()
 
     # -- params ---------------------------------------------------------------
     @property
@@ -137,14 +148,16 @@ class Stage:
     def compute(self):
         if len(self.params) == 0 and len(self.expected_container_keys) == 0:
             return
-        new_param_hash = self.params.values_hash
-        if new_param_hash == self.param_hash:
-            logging.trace("cached %s.compute", self.service_name)
-            return
+        if not self._template_mode:
+            new_param_hash = self.params.values_hash
+            if new_param_hash is not None and new_param_hash == self.param_hash:
+                logging.trace("cached %s.compute", self.service_name)
+                return
         if self.calc_mode is not None:
             self.data.representation = self.calc_mode
         self.compute_function()
-        self.param_hash = self.params.values_hash
+        if not self._template_mode:
+            self.param_hash = self.params.values_hash
 
     def compute_function(self):
         """Override: parameter-dependent computation."""

@@ -1,43 +1,69 @@
 // Earth-layer chain propagation of three-flavour neutrino oscillations, one
-// thread per point, for NVIDIA Hopper (sm_90a).
+// thread per point, for NVIDIA Hopper (sm_90a): the primal, its forward-mode
+// tangent along one direction of the parameter pack, and the primal with K
+// tangents in one pass.
 //
-// Replaces the TPU kernel pisa_tpu/ops/osc/pallas_chain.py:_chain_kernel
-// (math in _chain_block_math, _vacuum_picks, _init_carry, _layer_T,
-// _apply_T, _final_probs_flat). For each point: start from the nu_e and
-// nu_mu states rotated to the mass basis; for each of the point's layers
-// form the mass-basis Hamiltonian H = diag(0, dm21, dm31)/2E + a(rho) M_eff
-// + L_eff, solve its eigenvalues in closed form (ordered to match the vacuum
-// ones), build the Barger et al. eq. 10 amplitude from two spectral
-// projectors and apply it to both states; zero-length layers are the
-// identity. Finally rotate back with U and write |amplitude|^2 as the
+// Replaces the TPU kernels of pisa_tpu/ops/osc/pallas_chain.py:
+// - _chain_kernel (math in _chain_block_math, _vacuum_picks, _init_carry,
+//   _layer_T, _apply_T, _final_probs_flat) -> chain_kernel;
+// - _chain_tangent_kernel (an in-body jax.jvp of _chain_block_math)
+//   -> dual_kernel<S, 1> with no primal output;
+// - _chain_multitangent_kernel (_chain_block_math_multitangent: the primal
+//   plus K tangents, each layer step linearized once) -> dual_kernel<S, K>.
+//
+// The per-point math is one template, chain_point<T>. For each point: start
+// from the nu_e and nu_mu states rotated to the mass basis; for each of the
+// point's layers form the mass-basis Hamiltonian H = diag(0, dm21, dm31)/2E +
+// a(rho) M_eff + L_eff, solve its eigenvalues in closed form (ordered to
+// match the vacuum ones), build the Barger et al. eq. 10 amplitude from two
+// spectral projectors and apply it to both states; zero-length layers are
+// the identity. Finally rotate back with U and write |amplitude|^2 as the
 // (2, 3, N) nu_e / nu_mu initial-state rows.
 //
-// What bounds it on the card: it is latency- and transcendental-bound. A
-// layer step is ~400 dependent flops with two sqrt, an rsqrt, an atan2, a
-// division and three sincos; the flagship grid runs ~7 layer steps per point
-// on average (24 at most) over 40,000 points, so HBM traffic is small: about
-// 2 x 28 x 40,000 x sizeof(T) of layer slabs in (only the point's own layers
-// are read) and 6 x 40,000 x sizeof(T) out.
+// With T = float/double this is the primal. With T = Dual<S, K> (a value and
+// K tangent components, forward-mode automatic differentiation written out)
+// the same source gives the tangents: the pack is read as duals whose
+// tangent parts are the K directions, the geometry (energy, densities,
+// distances) stays plain S with zero tangent, comparisons (max/min, dx > 0)
+// decide on the value part, and the vacuum-matched eigenvalue picks are
+// computed from the values only, so they carry no tangent
+// (pallas_chain.py:199-203). One Dual<S, K> pass shares the primal work
+// across the K tangents, which is what the TPU kernel's per-layer
+// linearization buys.
+//
+// What bounds them on the card: latency and transcendentals, not memory. A
+// primal layer step is ~400 dependent flops with two sqrt, an rsqrt, an
+// atan2, a division and three sincos; a dual step adds ~2-3 flops per
+// tangent for each primal flop, but no further transcendentals. The
+// flagship grid runs ~7 layer steps per point on average (24 at most) over
+// 40,000 points, so HBM traffic is small: about 2 x 28 x 40,000 x sizeof(S)
+// of layer slabs in (only the point's own layers are read) and
+// 6 x (1 + K) x 40,000 x sizeof(S) out.
 //
 // What the design does about it:
-// - one thread per point keeps the whole recurrence (~40 live scalars) in
-//   registers; no shared-memory traffic beyond the 57-scalar pack;
+// - one thread per point keeps the whole recurrence in registers (~40 live
+//   scalars in the primal, ~40 x (1 + K) in a dual pass, which spills for
+//   the wider fp64 duals; the ptxas report is printed at build time); no
+//   shared-memory traffic beyond the 57 x (1 + K) pack scalars;
 // - points arrive sorted by chain length, so the threads of a warp share
 //   nearly one loop bound (nl[i]) and diverge little; this replaces the TPU
 //   kernel's per-block bound;
 // - the slabs are layer-major (L, N), so neighbouring threads read
 //   neighbouring addresses;
-// - the 57 parameters are read from a device pointer into shared memory at
-//   block start: no host sync, so a launch can later be captured in a CUDA
-//   graph;
+// - the pack and its tangent directions are read from device pointers into
+//   shared memory at block start: no host sync, so a launch can later be
+//   captured in a CUDA graph;
 // - real atan2/sincos/rsqrt; no fast-math, because the layer phases reach
 //   tens of radians, where __sinf/__cosf lose their range reduction.
 //
-// The TPU kernel's 8x128 blocking, BLOCK_ROWS/UNROLL knobs, atan polynomial
+// The TPU kernels' 8x128 blocking, BLOCK_ROWS/UNROLL knobs, atan polynomial
 // and planar output variants are TPU workarounds and are not carried over.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -o libosc_chain.so osc_chain.cu
+// Defining OSC_CHAIN_PRIMAL, OSC_CHAIN_TANGENT or OSC_CHAIN_MULTITANGENT
+// compiles only that kernel's entry points (the build compiles the three
+// parts in parallel); with none defined, all three are compiled.
 // Bound through ctypes (pisa_tpu_torch/ops/osc/chain.py); each entry point
 // returns cudaGetLastError() after its launch.
 
@@ -51,9 +77,18 @@
 #define OSC_HD inline
 #endif
 
+#if !defined(OSC_CHAIN_PRIMAL) && !defined(OSC_CHAIN_TANGENT) && \
+    !defined(OSC_CHAIN_MULTITANGENT)
+#define OSC_CHAIN_PRIMAL
+#define OSC_CHAIN_TANGENT
+#define OSC_CHAIN_MULTITANGENT
+#endif
+
 namespace osc_chain {
 
 constexpr int kPack = 57;
+constexpr int kMaxTangents = 6;  // multitangent K is dispatched to 1..6
+static_assert(kMaxTangents == 6, "launch_multi dispatches K = 1..6");
 constexpr double kTwoSqrt2GF = 1.52588e-4;  // 2 sqrt(2) G_F, eV^2 cm^3/(mol GeV)
 constexpr double kHbarC = 2.534;            // (1/2)/(hbar c), GeV/(eV^2 km)
 constexpr double kHalfSqrt3 = 0.8660254037844386;
@@ -95,11 +130,146 @@ OSC_HD void osc_sincos(double x, double* s, double* c) {
   *c = cos(x);
 #endif
 }
+OSC_HD float value(float x) { return x; }
+OSC_HD double value(double x) { return x; }
 template <typename T>
-OSC_HD T osc_max(T a, T b) { return a > b ? a : b; }
+OSC_HD T osc_max(T a, T b) { return value(a) > value(b) ? a : b; }
 template <typename T>
-OSC_HD T osc_min(T a, T b) { return a < b ? a : b; }
+OSC_HD T osc_min(T a, T b) { return value(a) < value(b) ? a : b; }
 
+// -- forward-mode dual numbers: value v and K tangent components d[k] --------
+template <typename S, int K>
+struct Dual {
+  S v;
+  S d[K];
+  OSC_HD Dual() {}
+  OSC_HD Dual(S x) : v(x) {
+    for (int k = 0; k < K; ++k) d[k] = S(0);
+  }
+};
+template <typename S, int K>
+OSC_HD S value(const Dual<S, K>& x) { return x.v; }
+
+template <typename S, int K>
+OSC_HD Dual<S, K> operator-(const Dual<S, K>& a) {
+  Dual<S, K> r;
+  r.v = -a.v;
+  for (int k = 0; k < K; ++k) r.d[k] = -a.d[k];
+  return r;
+}
+template <typename S, int K>
+OSC_HD Dual<S, K> operator+(const Dual<S, K>& a, const Dual<S, K>& b) {
+  Dual<S, K> r;
+  r.v = a.v + b.v;
+  for (int k = 0; k < K; ++k) r.d[k] = a.d[k] + b.d[k];
+  return r;
+}
+template <typename S, int K>
+OSC_HD Dual<S, K> operator+(const Dual<S, K>& a, S b) {
+  Dual<S, K> r = a;
+  r.v = a.v + b;
+  return r;
+}
+template <typename S, int K>
+OSC_HD Dual<S, K> operator+(S a, const Dual<S, K>& b) { return b + a; }
+template <typename S, int K>
+OSC_HD Dual<S, K> operator-(const Dual<S, K>& a, const Dual<S, K>& b) {
+  Dual<S, K> r;
+  r.v = a.v - b.v;
+  for (int k = 0; k < K; ++k) r.d[k] = a.d[k] - b.d[k];
+  return r;
+}
+template <typename S, int K>
+OSC_HD Dual<S, K> operator-(const Dual<S, K>& a, S b) {
+  Dual<S, K> r = a;
+  r.v = a.v - b;
+  return r;
+}
+template <typename S, int K>
+OSC_HD Dual<S, K> operator-(S a, const Dual<S, K>& b) {
+  Dual<S, K> r;
+  r.v = a - b.v;
+  for (int k = 0; k < K; ++k) r.d[k] = -b.d[k];
+  return r;
+}
+template <typename S, int K>
+OSC_HD Dual<S, K> operator*(const Dual<S, K>& a, const Dual<S, K>& b) {
+  Dual<S, K> r;
+  r.v = a.v * b.v;
+  for (int k = 0; k < K; ++k) r.d[k] = a.v * b.d[k] + a.d[k] * b.v;
+  return r;
+}
+template <typename S, int K>
+OSC_HD Dual<S, K> operator*(const Dual<S, K>& a, S b) {
+  Dual<S, K> r;
+  r.v = a.v * b;
+  for (int k = 0; k < K; ++k) r.d[k] = a.d[k] * b;
+  return r;
+}
+template <typename S, int K>
+OSC_HD Dual<S, K> operator*(S a, const Dual<S, K>& b) { return b * a; }
+template <typename S, int K>
+OSC_HD Dual<S, K> operator/(const Dual<S, K>& a, const Dual<S, K>& b) {
+  Dual<S, K> r;
+  const S inv = S(1) / b.v;
+  r.v = a.v * inv;
+  for (int k = 0; k < K; ++k) r.d[k] = (a.d[k] - r.v * b.d[k]) * inv;
+  return r;
+}
+template <typename S, int K>
+OSC_HD Dual<S, K> operator/(const Dual<S, K>& a, S b) {
+  Dual<S, K> r;
+  r.v = a.v / b;
+  for (int k = 0; k < K; ++k) r.d[k] = a.d[k] / b;
+  return r;
+}
+template <typename S, int K>
+OSC_HD Dual<S, K> operator/(S a, const Dual<S, K>& b) {
+  Dual<S, K> r;
+  const S inv = S(1) / b.v;
+  r.v = a * inv;
+  for (int k = 0; k < K; ++k) r.d[k] = -r.v * b.d[k] * inv;
+  return r;
+}
+// sqrt and rsqrt have an infinite derivative at 0, as in jax.jvp: the
+// clamped discriminants stay positive off exact eigenvalue degeneracies
+template <typename S, int K>
+OSC_HD Dual<S, K> osc_sqrt(const Dual<S, K>& x) {
+  Dual<S, K> r;
+  r.v = osc_sqrt(x.v);
+  const S g = S(0.5) / r.v;
+  for (int k = 0; k < K; ++k) r.d[k] = x.d[k] * g;
+  return r;
+}
+template <typename S, int K>
+OSC_HD Dual<S, K> osc_rsqrt(const Dual<S, K>& x) {
+  Dual<S, K> r;
+  r.v = osc_rsqrt(x.v);
+  const S g = S(-0.5) * r.v * r.v * r.v;
+  for (int k = 0; k < K; ++k) r.d[k] = x.d[k] * g;
+  return r;
+}
+template <typename S, int K>
+OSC_HD Dual<S, K> osc_atan2(const Dual<S, K>& y, const Dual<S, K>& x) {
+  Dual<S, K> r;
+  r.v = osc_atan2(y.v, x.v);
+  const S inv = S(1) / (x.v * x.v + y.v * y.v);
+  for (int k = 0; k < K; ++k) r.d[k] = (x.v * y.d[k] - y.v * x.d[k]) * inv;
+  return r;
+}
+template <typename S, int K>
+OSC_HD void osc_sincos(const Dual<S, K>& x, Dual<S, K>* s, Dual<S, K>* c) {
+  S sv, cv;
+  osc_sincos(x.v, &sv, &cv);
+  s->v = sv;
+  c->v = cv;
+  for (int k = 0; k < K; ++k) {
+    s->d[k] = cv * x.d[k];
+    c->d[k] = -sv * x.d[k];
+  }
+}
+
+// -- complex arithmetic over any scalar type T (plain or dual) ---------------
 template <typename T>
 struct Cx {
   T re, im;
@@ -112,8 +282,8 @@ template <typename T>
 OSC_HD Cx<T> operator*(Cx<T> a, Cx<T> b) {
   return cx(a.re * b.re - a.im * b.im, a.re * b.im + a.im * b.re);
 }
-template <typename T>
-OSC_HD Cx<T> scale(Cx<T> a, T s) { return cx(a.re * s, a.im * s); }
+template <typename T, typename U>
+OSC_HD Cx<T> scale(Cx<T> a, U s) { return cx<T>(a.re * s, a.im * s); }
 template <typename T>
 OSC_HD Cx<T> conj(Cx<T> a) { return cx(a.re, -a.im); }
 template <typename T>
@@ -129,18 +299,44 @@ struct Proj {
 
 // Packed parameter layout (pallas_chain.py:_unpack_params): U re/im at 0/9,
 // M_eff re/im at 18/27, L_eff re/im at 36/45, dm_vac[:, 0] at 54..56.
-template <typename T>
-OSC_HD Cx<T> pU(const T* p, int i, int j) { return cx(p[3 * i + j], p[9 + 3 * i + j]); }
-template <typename T>
-OSC_HD Cx<T> pM(const T* p, int i, int j) { return cx(p[18 + 3 * i + j], p[27 + 3 * i + j]); }
-template <typename T>
-OSC_HD Cx<T> pL(const T* p, int i, int j) { return cx(p[36 + 3 * i + j], p[45 + 3 * i + j]); }
+// A pack is read through p(k): PlainPack gives scalars, DualPack gives duals
+// whose tangent k is the k-th direction (K x 57, direction-major).
+template <typename S>
+struct PlainPack {
+  using type = S;
+  const S* p;
+  OSC_HD S operator()(int k) const { return p[k]; }
+};
+template <typename S, int K>
+struct DualPack {
+  using type = Dual<S, K>;
+  const S* p;
+  const S* dp;
+  OSC_HD Dual<S, K> operator()(int k) const {
+    Dual<S, K> r;
+    r.v = p[k];
+    for (int j = 0; j < K; ++j) r.d[j] = dp[j * kPack + k];
+    return r;
+  }
+};
+template <typename P>
+OSC_HD Cx<typename P::type> pU(const P& p, int i, int j) {
+  return cx(p(3 * i + j), p(9 + 3 * i + j));
+}
+template <typename P>
+OSC_HD Cx<typename P::type> pM(const P& p, int i, int j) {
+  return cx(p(18 + 3 * i + j), p(27 + 3 * i + j));
+}
+template <typename P>
+OSC_HD Cx<typename P::type> pL(const P& p, int i, int j) {
+  return cx(p(36 + 3 * i + j), p(45 + 3 * i + j));
+}
 
 // Closed-form eigenvalue angle: the three roots are
 // scale * (b cos(res + 2pi k/3) - c2/3) + dm00, with cos(res +- 2pi/3) by
 // angle addition (2 transcendentals, not 3).
-template <typename T>
-OSC_HD void roots3(T scale, T b, T res, T c2, T dm00, T two_e, T m[3]) {
+template <typename T, typename S>
+OSC_HD void roots3(T scale, T b, T res, T c2, T dm00, S two_e, T m[3]) {
   T sr, cr;
   osc_sincos(res, &sr, &cr);
   const T third = T(1.0 / 3.0);
@@ -148,6 +344,35 @@ OSC_HD void roots3(T scale, T b, T res, T c2, T dm00, T two_e, T m[3]) {
   m[0] = two_e * (scale * (b * (T(-0.5) * cr - h3 * sr) - c2 * third) + dm00);
   m[1] = two_e * (scale * (b * (T(-0.5) * cr + h3 * sr) - c2 * third) + dm00);
   m[2] = two_e * (scale * (b * cr - c2 * third) + dm00);
+}
+
+// Vacuum-matched ordering (layer-invariant; pallas_chain.py:_vacuum_picks),
+// from the values of the pack only: the picks carry no tangent.
+template <typename S>
+OSC_HD void vacuum_picks(S dm00, S dm10, S dm20, S one_over_two_e, S two_e,
+                         bool pick1[3], bool pick2[3]) {
+  const S third = S(1.0 / 3.0);
+  const S scale_v =
+      osc_max(osc_max(osc_fabs(dm10), osc_fabs(dm20)) * one_over_two_e,
+              S(1e-30));
+  const S x = dm10 * one_over_two_e / scale_v;
+  const S y = dm20 * one_over_two_e / scale_v;
+  const S c2_v = -(x + y);
+  const S p_v = x * x + y * y - x * y;
+  const S q_v = (x + y) * ((x + y) * (x + y) - S(4.5) * x * y);
+  const S tmp_v = osc_max(p_v * p_v * p_v - q_v * q_v, S(0));
+  const S res_v = osc_atan2(osc_sqrt(tmp_v), q_v) * third;
+  const S b_v = (S(2.0) * third) * osc_sqrt(p_v);
+  S m_v[3];
+  roots3(scale_v, b_v, res_v, c2_v, dm00, two_e, m_v);
+  const S targets[3] = {dm00, dm10, dm20};
+  for (int k = 0; k < 3; ++k) {
+    const S d0 = osc_fabs(targets[k] - m_v[0]);
+    const S d1 = osc_fabs(targets[k] - m_v[1]);
+    const S d2 = osc_fabs(targets[k] - m_v[2]);
+    pick1[k] = d1 < d0;
+    pick2[k] = d2 < osc_min(d0, d1);
+  }
 }
 
 template <typename T>
@@ -166,43 +391,24 @@ OSC_HD Proj<T> projector(T g00, T g11, T g22, Cx<T> g01, Cx<T> g02, Cx<T> g12,
   return pr;
 }
 
-// One point's full chain. `dens`/`dist` point at the point's slot of layer 0
-// in the (L, N) slabs; consecutive layers are `stride` = N apart. Writes
-// out[3a + b] = P(nu_a -> nu_b) for a in {e, mu}, b in {e, mu, tau}.
-template <typename T>
-OSC_HD void chain_point(const T* p, int nl, T e, const T* dens, const T* dist,
-                        size_t stride, T out[6]) {
+// One point's full chain. `p` reads the pack (T = P::type: plain or dual);
+// `e` and the layer slabs are plain S. `dens`/`dist` point at the point's
+// slot of layer 0 in the (L, N) slabs; consecutive layers are `stride` = N
+// apart. Writes out[3a + b] = P(nu_a -> nu_b) for a in {e, mu}, b in
+// {e, mu, tau}.
+template <typename P, typename S>
+OSC_HD void chain_point(const P& p, int nl, S e, const S* dens, const S* dist,
+                        size_t stride, typename P::type out[6]) {
+  using T = typename P::type;
   const T third = T(1.0 / 3.0);
-  const T dm00 = p[54], dm10 = p[55], dm20 = p[56];
-  const T one_over_two_e = T(0.5) / e;
-  const T two_e = T(2.0) * e;
-  const T phase_s = -(T(1.0) / e) * T(kHbarC);
-  const T tiny = T(1e-30);
+  const T dm00 = p(54), dm10 = p(55), dm20 = p(56);
+  const S one_over_two_e = S(0.5) / e;
+  const S two_e = S(2.0) * e;
+  const S phase_s = -(S(1.0) / e) * S(kHbarC);
 
-  // vacuum-matched ordering (layer-invariant; pallas_chain.py:_vacuum_picks)
   bool pick1[3], pick2[3];
-  {
-    const T scale_v =
-        osc_max(osc_max(osc_fabs(dm10), osc_fabs(dm20)) * one_over_two_e, tiny);
-    const T x = dm10 * one_over_two_e / scale_v;
-    const T y = dm20 * one_over_two_e / scale_v;
-    const T c2_v = -(x + y);
-    const T p_v = x * x + y * y - x * y;
-    const T q_v = (x + y) * ((x + y) * (x + y) - T(4.5) * x * y);
-    const T tmp_v = osc_max(p_v * p_v * p_v - q_v * q_v, T(0));
-    const T res_v = osc_atan2(osc_sqrt(tmp_v), q_v) * third;
-    const T b_v = (T(2.0) * third) * osc_sqrt(p_v);
-    T m_v[3];
-    roots3(scale_v, b_v, res_v, c2_v, dm00, two_e, m_v);
-    const T targets[3] = {dm00, dm10, dm20};
-    for (int k = 0; k < 3; ++k) {
-      const T d0 = osc_fabs(targets[k] - m_v[0]);
-      const T d1 = osc_fabs(targets[k] - m_v[1]);
-      const T d2 = osc_fabs(targets[k] - m_v[2]);
-      pick1[k] = d1 < d0;
-      pick2[k] = d2 < osc_min(d0, d1);
-    }
-  }
+  vacuum_picks(value(dm00), value(dm10), value(dm20), one_over_two_e, two_e,
+               pick1, pick2);
 
   // initial states: column a of U^dagger, v_a[i] = conj(U[a][i])
   Cx<T> v[2][3];
@@ -211,14 +417,14 @@ OSC_HD void chain_point(const T* p, int nl, T e, const T* dens, const T* dist,
 
   const Cx<T> me01 = pM(p, 0, 1), me02 = pM(p, 0, 2), me12 = pM(p, 1, 2);
   const Cx<T> le01 = pL(p, 0, 1), le02 = pL(p, 0, 2), le12 = pL(p, 1, 2);
-  const T me00 = p[18], me11 = p[22], me22 = p[26];
-  const T le00 = p[36], le11 = p[40], le22 = p[44];
+  const T me00 = p(18), me11 = p(22), me22 = p(26);
+  const T le00 = p(36), le11 = p(40), le22 = p(44);
 
   for (int l = 0; l < nl; ++l) {
-    const T dx = dist[l * stride];
-    if (!(dx > T(0))) continue;  // zero-length layer: identity
-    const T rho = dens[l * stride];
-    const T a = (T(0.5) * T(kTwoSqrt2GF)) * rho;
+    const S dx = dist[l * stride];
+    if (!(dx > S(0))) continue;  // zero-length layer: identity
+    const S rho = dens[l * stride];
+    const S a = (S(0.5) * S(kTwoSqrt2GF)) * rho;
 
     // mass-basis Hamiltonian, Hermitian triangle
     const Cx<T> h01 = scale(me01, a) + le01;
@@ -275,7 +481,7 @@ OSC_HD void chain_point(const T* p, int nl, T e, const T* dens, const T* dist,
     const T r = T(1.0) / (d01 * d02 * d12);
     const T inv1 = -d02 * r;
     const T inv2 = d01 * r;
-    const T s = phase_s * dx;
+    const S s = phase_s * dx;
     const T ar1 = -d01 * s;
     const T ar2 = -d02 * s;
     T s1, c1p, s2, c2p;
@@ -316,55 +522,159 @@ OSC_HD void chain_point(const T* p, int nl, T e, const T* dens, const T* dist,
 }
 
 #ifdef __CUDACC__
-template <typename T>
-__global__ void chain_kernel(const T* __restrict__ pvec,
+constexpr int kThreads = 256;
+
+inline int blocks_for(int n) { return (n + kThreads - 1) / kThreads; }
+
+#ifdef OSC_CHAIN_PRIMAL
+template <typename S>
+__global__ void chain_kernel(const S* __restrict__ pvec,
                              const int* __restrict__ nl,
-                             const T* __restrict__ energy,
-                             const T* __restrict__ dens,
-                             const T* __restrict__ dist, T* __restrict__ out,
+                             const S* __restrict__ energy,
+                             const S* __restrict__ dens,
+                             const S* __restrict__ dist, S* __restrict__ out,
                              int n) {
-  __shared__ T p[kPack];
+  __shared__ S p[kPack];
   for (int k = threadIdx.x; k < kPack; k += blockDim.x) p[k] = pvec[k];
   __syncthreads();
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  T res[6];
-  chain_point<T>(p, nl[i], energy[i], dens + i, dist + i,
-                 static_cast<size_t>(n), res);
+  S res[6];
+  chain_point(PlainPack<S>{p}, nl[i], energy[i], dens + i, dist + i,
+              static_cast<size_t>(n), res);
   for (int k = 0; k < 6; ++k) out[static_cast<size_t>(k) * n + i] = res[k];
 }
 
-constexpr int kThreads = 256;
-
-template <typename T>
-int launch(const T* pvec, const int* nl, const T* energy, const T* dens,
-           const T* dist, T* out, int n, void* stream) {
+template <typename S>
+int launch_primal(const S* pvec, const int* nl, const S* energy,
+                  const S* dens, const S* dist, S* out, int n, void* stream) {
   if (n <= 0) return 0;
-  const int blocks = (n + kThreads - 1) / kThreads;
-  chain_kernel<T><<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  chain_kernel<S><<<blocks_for(n), kThreads, 0,
+                    static_cast<cudaStream_t>(stream)>>>(
       pvec, nl, energy, dens, dist, out, n);
   return static_cast<int>(cudaGetLastError());
 }
+#endif  // OSC_CHAIN_PRIMAL
+
+#if defined(OSC_CHAIN_TANGENT) || defined(OSC_CHAIN_MULTITANGENT)
+// The primal (written to `out` unless it is null) and K tangents along the
+// directions dpvecs (K, 57), written to dout (K, 2, 3, N).
+template <typename S, int K>
+__global__ void dual_kernel(const S* __restrict__ pvec,
+                            const S* __restrict__ dpvecs,
+                            const int* __restrict__ nl,
+                            const S* __restrict__ energy,
+                            const S* __restrict__ dens,
+                            const S* __restrict__ dist, S* __restrict__ out,
+                            S* __restrict__ dout, int n) {
+  __shared__ S p[kPack * (1 + K)];
+  for (int k = threadIdx.x; k < kPack * (1 + K); k += blockDim.x)
+    p[k] = k < kPack ? pvec[k] : dpvecs[k - kPack];
+  __syncthreads();
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  Dual<S, K> res[6];
+  chain_point(DualPack<S, K>{p, p + kPack}, nl[i], energy[i], dens + i,
+              dist + i, static_cast<size_t>(n), res);
+  if (out != nullptr)
+    for (int k = 0; k < 6; ++k) out[static_cast<size_t>(k) * n + i] = res[k].v;
+  for (int j = 0; j < K; ++j)
+    for (int k = 0; k < 6; ++k)
+      dout[static_cast<size_t>(6 * j + k) * n + i] = res[k].d[j];
+}
+
+template <typename S, int K>
+int launch_dual(const S* pvec, const S* dpvecs, const int* nl,
+                const S* energy, const S* dens, const S* dist, S* out,
+                S* dout, int n, void* stream) {
+  if (n <= 0) return 0;
+  dual_kernel<S, K><<<blocks_for(n), kThreads, 0,
+                      static_cast<cudaStream_t>(stream)>>>(
+      pvec, dpvecs, nl, energy, dens, dist, out, dout, n);
+  return static_cast<int>(cudaGetLastError());
+}
+#endif
+
+#ifdef OSC_CHAIN_MULTITANGENT
+template <typename S>
+int launch_multi(const S* pvec, const S* dpvecs, int k, const int* nl,
+                 const S* energy, const S* dens, const S* dist, S* out,
+                 S* dout, int n, void* stream) {
+  switch (k) {
+    case 1: return launch_dual<S, 1>(pvec, dpvecs, nl, energy, dens, dist, out, dout, n, stream);
+    case 2: return launch_dual<S, 2>(pvec, dpvecs, nl, energy, dens, dist, out, dout, n, stream);
+    case 3: return launch_dual<S, 3>(pvec, dpvecs, nl, energy, dens, dist, out, dout, n, stream);
+    case 4: return launch_dual<S, 4>(pvec, dpvecs, nl, energy, dens, dist, out, dout, n, stream);
+    case 5: return launch_dual<S, 5>(pvec, dpvecs, nl, energy, dens, dist, out, dout, n, stream);
+    case 6: return launch_dual<S, 6>(pvec, dpvecs, nl, energy, dens, dist, out, dout, n, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+#endif  // OSC_CHAIN_MULTITANGENT
 #endif  // __CUDACC__
 
 }  // namespace osc_chain
 
 #ifdef __CUDACC__
-// pvec (57,), nl (N,) int32, energy (N,), dens/dist (L, N) layer-major,
-// out (2, 3, N); all device pointers, launched on `stream`. Returns the
-// cudaError_t of the launch (0 on success).
+// All pointers are device pointers, launched on `stream`: pvec (57,),
+// dpvec (57,), dpvecs (K, 57), nl (N,) int32, energy (N,), dens/dist (L, N)
+// layer-major, out (2, 3, N), dout (2, 3, N) or (K, 2, 3, N). Each returns
+// the cudaError_t of its launch (0 on success).
+#ifdef OSC_CHAIN_PRIMAL
 extern "C" int osc_chain_f32(const float* pvec, const int* nl,
                              const float* energy, const float* dens,
                              const float* dist, float* out, int n,
                              void* stream) {
-  return osc_chain::launch<float>(pvec, nl, energy, dens, dist, out, n, stream);
+  return osc_chain::launch_primal<float>(pvec, nl, energy, dens, dist, out, n,
+                                         stream);
 }
 
 extern "C" int osc_chain_f64(const double* pvec, const int* nl,
                              const double* energy, const double* dens,
                              const double* dist, double* out, int n,
                              void* stream) {
-  return osc_chain::launch<double>(pvec, nl, energy, dens, dist, out, n,
-                                   stream);
+  return osc_chain::launch_primal<double>(pvec, nl, energy, dens, dist, out,
+                                          n, stream);
 }
+#endif  // OSC_CHAIN_PRIMAL
+
+#ifdef OSC_CHAIN_TANGENT
+extern "C" int osc_chain_tangent_f32(const float* pvec, const float* dpvec,
+                                     const int* nl, const float* energy,
+                                     const float* dens, const float* dist,
+                                     float* dout, int n, void* stream) {
+  return osc_chain::launch_dual<float, 1>(pvec, dpvec, nl, energy, dens, dist,
+                                          nullptr, dout, n, stream);
+}
+
+extern "C" int osc_chain_tangent_f64(const double* pvec, const double* dpvec,
+                                     const int* nl, const double* energy,
+                                     const double* dens, const double* dist,
+                                     double* dout, int n, void* stream) {
+  return osc_chain::launch_dual<double, 1>(pvec, dpvec, nl, energy, dens,
+                                           dist, nullptr, dout, n, stream);
+}
+#endif  // OSC_CHAIN_TANGENT
+
+#ifdef OSC_CHAIN_MULTITANGENT
+extern "C" int osc_chain_multitangent_f32(const float* pvec,
+                                          const float* dpvecs, int k,
+                                          const int* nl, const float* energy,
+                                          const float* dens, const float* dist,
+                                          float* out, float* dout, int n,
+                                          void* stream) {
+  return osc_chain::launch_multi<float>(pvec, dpvecs, k, nl, energy, dens,
+                                        dist, out, dout, n, stream);
+}
+
+extern "C" int osc_chain_multitangent_f64(const double* pvec,
+                                          const double* dpvecs, int k,
+                                          const int* nl, const double* energy,
+                                          const double* dens,
+                                          const double* dist, double* out,
+                                          double* dout, int n, void* stream) {
+  return osc_chain::launch_multi<double>(pvec, dpvecs, k, nl, energy, dens,
+                                         dist, out, dout, n, stream);
+}
+#endif  // OSC_CHAIN_MULTITANGENT
 #endif  // __CUDACC__

@@ -3,8 +3,9 @@ Barr-2006 parameterized atmospheric-flux modifications as torch ops.
 
 Counterpart of ``pisa_tpu/ops/flux/barr.py`` (reference
 ``pisa/utils/barr_parameterization.py``). `flav` (0=e, 1=mu) and `nubar`
-are static python ints; the fit coefficients and systematics are python
-floats, the energies and coszens tensors.
+are static python ints; the fit coefficients are python floats; the
+systematics are floats or 0-d tensors (a compiled template differentiates
+through them); the energies and coszens are tensors.
 """
 
 from __future__ import annotations
@@ -101,7 +102,7 @@ def mod_ratio_uphor(flav, true_energy, true_coszen, uphor):
             _X2Z,
             cutoff_value=_NUE_CUTOFF,
         )
-        return 1.0 - 0.3 * float(np.sign(uphor)) * _norm_fcn(
+        return 1.0 - 0.3 * torch.sign(torch.as_tensor(uphor)) * _norm_fcn(
             true_coszen, a_shape, 0.35
         )
     if flav == 1:

@@ -1,27 +1,40 @@
 """
-Earth-layer chain propagation: the primal of the oscillation kernel.
+Earth-layer chain propagation: the oscillation kernels and their gradient.
 
-Counterpart of ``pisa_tpu/ops/osc/pallas_chain.py`` (primal only). The
-hand-written CUDA kernel ``pisa_tpu_torch/csrc/osc_chain.cu`` replaces the
-Pallas ``_chain_kernel``; :func:`chain_probs_reference` is the same
-algorithm as vectorized torch over the point axis. What carries over from
-the JAX package is the math and its interfaces:
+Counterpart of ``pisa_tpu/ops/osc/pallas_chain.py``. The hand-written CUDA
+source ``pisa_tpu_torch/csrc/osc_chain.cu`` replaces all three Pallas
+kernels:
+
+- ``_chain_kernel`` (the primal) -> :func:`chain_probs`, plain version
+  :func:`chain_probs_reference`;
+- ``_chain_tangent_kernel`` (d probs / dt along one direction of the pack)
+  -> :func:`chain_tangent`, plain version :func:`chain_tangent_reference`;
+- ``_chain_multitangent_kernel`` (the primal and K tangents in one pass)
+  -> :func:`chain_multitangent`, plain version
+  :func:`chain_multitangent_reference`.
+
+CPU tensors go through the plain versions (vectorized torch over the point
+axis; the tangents are ``torch.func.jvp`` of the primal); CUDA tensors
+launch the kernels or raise. What carries over from the JAX package is the
+math and its interfaces:
 
 - the 57-scalar parameter pack (:func:`theta_to_pvec`, same layout as
-  ``pallas_chain._unpack_params``);
+  ``pallas_chain._unpack_params``), differentiable in theta;
 - the sort by chain length (:func:`prepare_chain_geometry`), now with a
   per-point loop bound and the layer slabs laid out layer-major ``(L, N)``;
 - output of only the nu_e / nu_mu initial-state rows, ``(2, 3, N)``, with
-  the tau row from double stochasticity (:func:`tau_epilogue`).
-
-The TPU kernel's tangent and multitangent kernels (the analytic gradient)
-are not ported yet: ROADMAP queue 2, items 2-3.
+  the tau row from double stochasticity (:func:`tau_epilogue`);
+- the gradient boundary at the six oscillation scalars
+  (:func:`osc_probs`, the counterpart of ``_probs_pallas_fwdgrad_prep``):
+  its backward forms the pack's Jacobian once and runs one tangent launch
+  per active theta, or one multitangent launch for all of them.
 """
 
 from __future__ import annotations
 
 import ctypes
 import os
+import types
 
 import numpy as np
 import torch
@@ -39,20 +52,50 @@ __all__ = [
     "prepare_chain_geometry",
     "chain_probs",
     "chain_probs_reference",
+    "chain_tangent",
+    "chain_tangent_reference",
+    "chain_multitangent",
+    "chain_multitangent_reference",
     "tau_epilogue",
     "osc_probs_prepared",
+    "osc_probs",
+    "OscProbs",
     "kernel_library",
     "launch_count",
+    "tangent_launch_count",
+    "multitangent_launch_count",
+    "MAX_TANGENTS",
+    "chain_operations",
 ]
 
 N_PACK = 57
+MAX_TANGENTS = 6  # multitangent K, dispatched to template instances 1..6
 TWO_SQRT2_GF = 1.52588e-4  # 2*sqrt(2)*G_F in (eV^2 cm^3)/(mole GeV)
 HBAR_C_FACTOR = 2.534  # (1/2)/(hbar c) in GeV/(eV^2 km)
 _HALF_SQRT3 = 0.8660254037844386
 
-#: Number of CUDA kernel launches made by :func:`chain_probs` in this
-#: process (incremented where the kernel is launched, and nowhere else).
+
+def chain_operations(k=0):
+    """Floating-point operations of one point's chain in ``csrc/osc_chain.cu``
+    as ``(per point, per real layer step)``, for the primal (``k=0``) or a
+    pass with k tangents. Each add, subtract, multiply and divide counts
+    one, and so does each sqrt, rsqrt, atan2 and sincos call; max, min,
+    selects and negations count nothing. Counted by running ``chain_point``
+    with an operation-counting scalar type (tests/test_torch_chain_source.py
+    checks these numbers), so a launch does ``N * per_point + steps *
+    per_step`` operations, with ``steps`` the points' layers of nonzero
+    length."""
+    if k == 0:
+        return 217, 473
+    return 217 + 318 * k, 483 + 946 * k
+
+
+#: Numbers of CUDA kernel launches made in this process by
+#: :func:`chain_probs`, :func:`chain_tangent` and :func:`chain_multitangent`
+#: (each incremented where its kernel is launched, and nowhere else).
 launch_count = 0
+tangent_launch_count = 0
+multitangent_launch_count = 0
 
 _CSRC = os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
@@ -82,15 +125,27 @@ def pack_from_physics(dm_vac, U, mat_pot, lri_pot, nubar):
     return torch.cat([x.reshape(-1) for x in parts])
 
 
+def _theta_tensor(theta):
+    """theta as a (6,) float64 tensor, keeping the autograd graph of any
+    tensor entries."""
+    if isinstance(theta, torch.Tensor):
+        return theta.to(torch.float64)
+    return torch.stack([torch.as_tensor(t, dtype=torch.float64) for t in theta])
+
+
 def theta_to_pvec(theta, nubar, reparam=False, nlo_factor=1.0):
     """(theta12, theta13, theta23, deltacp [rad], dm21, dm31 [eV^2]) ->
     packed (57,) float64 vector for the standard matter path
-    (``pallas_chain._build_standard`` :1114 + ``_theta_to_pvec`` :1238)."""
-    theta = torch.as_tensor(theta, dtype=torch.float64)
-    t12, t13, t23, dcp, dm21, dm31 = theta.unbind()
+    (``pallas_chain._build_standard`` :1114 + ``_theta_to_pvec`` :1238).
+
+    `theta` is a (6,) tensor or a sequence of numbers and 0-d tensors; the
+    pack is differentiable in every tensor entry."""
+    t12, t13, t23, dcp, dm21, dm31 = _theta_tensor(theta).unbind()
     fn = pmns_matrix_reparam if reparam else pmns_matrix
     mix = fn(torch.sin(t12), torch.sin(t13), torch.sin(t23), dcp)
-    U = mix if nubar > 0 else mix.conj()
+    # the conjugate built explicitly: a lazily conjugated view has no vmap
+    # rule for .imag, which the backward's torch.func.jacfwd needs
+    U = mix if nubar > 0 else torch.complex(mix.real, -mix.imag)
     dm_vac = dm_matrix(dm21, dm31)
     mat_pot = torch.diag(
         torch.tensor([float(nlo_factor), 0.0, 0.0], dtype=torch.float64)
@@ -284,20 +339,70 @@ def chain_probs_reference(pvec, e, dens, dist, nl):
     return abs2(F)
 
 
-# -- the kernel -------------------------------------------------------------------
+def chain_tangent_reference(pvec, dpvec, e, dens, dist, nl):
+    """d(probs)/dt along the pack direction `dpvec`: the forward-mode
+    derivative (``torch.func.jvp``) of :func:`chain_probs_reference` in its
+    pack. Same inputs as the primal plus `dpvec` (57,); returns (2, 3, N)."""
+    return torch.func.jvp(
+        lambda p: chain_probs_reference(p, e, dens, dist, nl),
+        (pvec,),
+        (dpvec.to(pvec.dtype),),
+    )[1]
+
+
+def chain_multitangent_reference(pvec, dpvecs, e, dens, dist, nl):
+    """The primal (2, 3, N) and its tangents along the K pack directions
+    `dpvecs` (K, 57), stacked (K, 2, 3, N): the forward-mode derivative of
+    :func:`chain_probs_reference`, batched over the directions
+    (``torch.func.vmap``)."""
+    primals, tangents = torch.func.vmap(
+        lambda d: torch.func.jvp(
+            lambda p: chain_probs_reference(p, e, dens, dist, nl),
+            (pvec,),
+            (d,),
+        )
+    )(dpvecs.to(pvec.dtype))
+    return primals[0], tangents
+
+
+# -- the kernels -----------------------------------------------------------------
+# One library per kernel, each compiled from osc_chain.cu with one part
+# selected, so that the three build in parallel.
+_PARTS = {
+    "osc_chain": "-DOSC_CHAIN_PRIMAL",
+    "osc_chain_tangent": "-DOSC_CHAIN_TANGENT",
+    "osc_chain_multitangent": "-DOSC_CHAIN_MULTITANGENT",
+}
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_ARGTYPES = {
+    # pvec, nl, e, dens, dist, out, n, stream
+    "osc_chain": [_P] * 6 + [_I, _P],
+    # pvec, dpvec, nl, e, dens, dist, dout, n, stream
+    "osc_chain_tangent": [_P] * 7 + [_I, _P],
+    # pvec, dpvecs, k, nl, e, dens, dist, out, dout, n, stream
+    "osc_chain_multitangent": [_P, _P, _I] + [_P] * 6 + [_I, _P],
+}
+
+
 def kernel_library():
-    """The kernel's shared library (ctypes), built from
-    ``csrc/osc_chain.cu`` at first use (``utils/cuda_build.py``)."""
+    """The kernels' entry points (ctypes functions ``osc_chain_f32``,
+    ``osc_chain_tangent_f64``, ...), built from ``csrc/osc_chain.cu`` at
+    first use (``utils/cuda_build.py``)."""
     global _LIB
     if _LIB is None:
-        from pisa_tpu_torch.utils.cuda_build import build_library
+        from pisa_tpu_torch.utils.cuda_build import build_libraries
 
-        lib = build_library("osc_chain", [_CSRC])
-        for name in ("osc_chain_f32", "osc_chain_f64"):
-            fn = getattr(lib, name)
-            fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-        _LIB = lib
+        libs = build_libraries(
+            {name: ([_CSRC], [flag]) for name, flag in _PARTS.items()}
+        )
+        fns = {}
+        for name, lib in libs.items():
+            for suffix in ("f32", "f64"):
+                fn = getattr(lib, f"{name}_{suffix}")
+                fn.argtypes = _ARGTYPES[name]
+                fn.restype = ctypes.c_int
+                fns[f"{name}_{suffix}"] = fn
+        _LIB = types.SimpleNamespace(**fns)
     return _LIB
 
 
@@ -322,6 +427,37 @@ def _check_inputs(pvec, e, dens, dist, nl):
         raise ValueError(f"inputs on several devices: {sorted(map(str, devices))}")
 
 
+def _check_directions(name, d, shape, e):
+    if d.shape != shape or d.dtype != e.dtype or d.device != e.device:
+        raise ValueError(f"{name} must be {shape} {e.dtype} on {e.device};"
+                         f" got {d.dtype} {tuple(d.shape)} on {d.device}")
+
+
+def _on_card(name, e, tensors):
+    """False for CPU tensors (the plain version runs); True for contiguous
+    CUDA tensors (the kernel launches); raises otherwise."""
+    if e.device.type == "cpu":
+        return False
+    if e.device.type != "cuda":
+        raise ValueError(f"unsupported device {e.device}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{name} needs contiguous tensors")
+    return True
+
+
+def _launch(name, e, *args):
+    """Launch entry point `name` (float32/float64 by `e`) on the current
+    stream of `e`'s card; tensors are passed as their data pointers."""
+    suffix = "f64" if e.dtype == torch.float64 else "f32"
+    fn = getattr(kernel_library(), f"{name}_{suffix}")
+    args = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
+    with torch.cuda.device(e.device):
+        stream = torch.cuda.current_stream(e.device).cuda_stream
+        rc = fn(*args, stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
+
+
 def chain_probs(pvec, e, dens, dist, nl):
     """P(nu_a -> nu_b) through each point's layer chain, (2, 3, N) for
     a in {e, mu}, b in {e, mu, tau}.
@@ -332,27 +468,54 @@ def chain_probs(pvec, e, dens, dist, nl):
     the CUDA kernel or raise."""
     global launch_count
     _check_inputs(pvec, e, dens, dist, nl)
-    if e.device.type == "cpu":
+    if not _on_card("chain_probs", e, (pvec, e, dens, dist, nl)):
         return chain_probs_reference(pvec, e, dens, dist, nl)
-    if e.device.type != "cuda":
-        raise ValueError(f"unsupported device {e.device}")
-    tensors = (pvec, e, dens, dist, nl)
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("chain_probs needs contiguous tensors")
     n = e.shape[0]
-    lib = kernel_library()
-    fn = lib.osc_chain_f64 if e.dtype == torch.float64 else lib.osc_chain_f32
     out = torch.empty((2, 3, n), dtype=e.dtype, device=e.device)
-    with torch.cuda.device(e.device):
-        stream = torch.cuda.current_stream(e.device).cuda_stream
-        rc = fn(
-            pvec.data_ptr(), nl.data_ptr(), e.data_ptr(), dens.data_ptr(),
-            dist.data_ptr(), out.data_ptr(), n, stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"osc_chain kernel launch failed: CUDA error {rc}")
+    _launch("osc_chain", e, pvec, nl, e, dens, dist, out, n)
     launch_count += 1
     return out
+
+
+def chain_tangent(pvec, dpvec, e, dens, dist, nl):
+    """d P(nu_a -> nu_b) / dt along the pack direction `dpvec` (57,),
+    (2, 3, N); the other inputs as for :func:`chain_probs`. CPU tensors go
+    through :func:`chain_tangent_reference`; CUDA tensors launch the CUDA
+    tangent kernel or raise."""
+    global tangent_launch_count
+    _check_inputs(pvec, e, dens, dist, nl)
+    _check_directions("dpvec", dpvec, (N_PACK,), e)
+    if not _on_card("chain_tangent", e, (pvec, dpvec, e, dens, dist, nl)):
+        return chain_tangent_reference(pvec, dpvec, e, dens, dist, nl)
+    n = e.shape[0]
+    dout = torch.empty((2, 3, n), dtype=e.dtype, device=e.device)
+    _launch("osc_chain_tangent", e, pvec, dpvec, nl, e, dens, dist, dout, n)
+    tangent_launch_count += 1
+    return dout
+
+
+def chain_multitangent(pvec, dpvecs, e, dens, dist, nl):
+    """The primal (2, 3, N) and its tangents along the K pack directions
+    `dpvecs` (K, 57), 1 <= K <= 6, as (K, 2, 3, N), in one pass; the other
+    inputs as for :func:`chain_probs`. CPU tensors go through
+    :func:`chain_multitangent_reference`; CUDA tensors launch the CUDA
+    multitangent kernel or raise."""
+    global multitangent_launch_count
+    _check_inputs(pvec, e, dens, dist, nl)
+    k = dpvecs.shape[0] if dpvecs.dim() == 2 else 0
+    if not 1 <= k <= MAX_TANGENTS:
+        raise ValueError(f"dpvecs must hold 1..{MAX_TANGENTS} directions;"
+                         f" got shape {tuple(dpvecs.shape)}")
+    _check_directions("dpvecs", dpvecs, (k, N_PACK), e)
+    if not _on_card("chain_multitangent", e, (pvec, dpvecs, e, dens, dist, nl)):
+        return chain_multitangent_reference(pvec, dpvecs, e, dens, dist, nl)
+    n = e.shape[0]
+    out = torch.empty((2, 3, n), dtype=e.dtype, device=e.device)
+    dout = torch.empty((k, 2, 3, n), dtype=e.dtype, device=e.device)
+    _launch("osc_chain_multitangent", e, pvec, dpvecs, k, nl, e, dens, dist,
+            out, dout, n)
+    multitangent_launch_count += 1
+    return out, dout
 
 
 def tau_epilogue(p2):
@@ -362,9 +525,96 @@ def tau_epilogue(p2):
     return torch.cat([p2, tau[None]], dim=0).permute(2, 0, 1)
 
 
+def _tau_row_tangent(p2, dp2):
+    """Tangent of :func:`tau_epilogue`'s tau row for raw tangents
+    dp2 (..., 2, 3, N): (..., 3, N). As ``jnp.maximum``'s jvp, an exact tie
+    at the clamp takes half the tangent."""
+    tau = 1.0 - p2[0] - p2[1]
+    d = -dp2[..., 0, :, :] - dp2[..., 1, :, :]
+    return torch.where(tau > 0, d, torch.where(tau == 0, 0.5 * d, torch.zeros_like(d)))
+
+
 def osc_probs_prepared(pvec, geom):
     """One propagation over :func:`prepare_chain_geometry` output: (N, 3, 3)
     probabilities ``probs[i, a, b] = P(nu_a -> nu_b)`` in the original point
     order (the counterpart of ``chain_probs_pallas_prepared`` :803)."""
     p2 = chain_probs(pvec, geom["e"], geom["dens"], geom["dist"], geom["nl"])
     return tau_epilogue(p2)[geom["inv"]]
+
+
+# -- the gradient boundary ------------------------------------------------------------
+class OscProbs(torch.autograd.Function):
+    """theta (6,) -> (N, 3, 3) probabilities over prepared geometry, with the
+    forward-mode gradient of ``pallas_chain._probs_pallas_fwdgrad_prep``
+    (:1227-1324).
+
+    forward: the pack from theta (host, float64), one primal launch, the tau
+    row and the unsort. backward: the pack's 57x6 Jacobian once
+    (``torch.func.jacfwd``), then one tangent launch per active theta
+    component, or one multitangent launch for all of them; each tangent goes
+    through the tau row's derivative and is contracted with the cotangent
+    in sorted order. Inactive components get zero gradient. The geometry
+    gets none."""
+
+    @staticmethod
+    def forward(ctx, theta, geom, nubar, reparam, nlo_factor, active,
+                multitangent):
+        e = geom["e"]
+        pvec = theta_to_pvec(theta, nubar, reparam, nlo_factor).to(
+            device=e.device, dtype=e.dtype
+        )
+        p2 = chain_probs(pvec, e, geom["dens"], geom["dist"], geom["nl"])
+        ctx.save_for_backward(theta, p2, pvec)
+        ctx.geom = geom
+        ctx.pack_args = (nubar, reparam, nlo_factor)
+        ctx.active = active
+        ctx.multitangent = multitangent
+        return tau_epilogue(p2)[geom["inv"]]
+
+    @staticmethod
+    def backward(ctx, g):
+        theta, p2, pvec = ctx.saved_tensors
+        geom = ctx.geom
+        ks = list(ctx.active)
+        dtheta = torch.zeros_like(theta)
+        if ks:
+            nubar, reparam, nlo_factor = ctx.pack_args
+            jac = torch.func.jacfwd(
+                lambda th: theta_to_pvec(th, nubar, reparam, nlo_factor)
+            )(theta.detach())  # (57, 6)
+            dpvecs = jac[:, ks].T.contiguous().to(
+                device=pvec.device, dtype=pvec.dtype
+            )
+            args = (geom["e"], geom["dens"], geom["dist"], geom["nl"])
+            if ctx.multitangent:
+                _, dp2s = chain_multitangent(pvec, dpvecs, *args)
+            else:
+                dp2s = torch.stack(
+                    [chain_tangent(pvec, d, *args) for d in dpvecs]
+                )
+            # probs = probs_sorted[inv]  =>  the sorted cotangent is g[order]
+            g_s = g[geom["order"]].permute(1, 2, 0)  # (3, 3, N)
+            grads = (g_s[:2] * dp2s).sum(dim=(1, 2, 3)) + (
+                g_s[2] * _tau_row_tangent(p2, dp2s)
+            ).sum(dim=(1, 2))
+            dtheta[ks] = grads.to(device=theta.device, dtype=theta.dtype)
+        return dtheta, None, None, None, None, None, None
+
+
+def osc_probs(theta, nubar, geom, reparam=False, nlo_factor=1.0,
+              active=None, multitangent=False):
+    """Standard-path propagation over :func:`prepare_chain_geometry` output,
+    differentiable in ``theta`` = (theta12, theta13, theta23, deltacp [rad],
+    dm21, dm31 [eV^2]): (N, 3, 3) probabilities in the original point order
+    (the counterpart of ``osc_probs_layers_pallas_fwdgrad_prepared``
+    :1431).
+
+    `theta` is a (6,) tensor or a sequence of numbers and 0-d tensors (the
+    host-side parameter magnitudes). `active` (indices into theta, default
+    all) selects the components whose tangents the backward computes; the
+    others get zero gradient. `multitangent` computes them in one
+    multitangent launch instead of one tangent launch each."""
+    theta = _theta_tensor(theta)
+    active = tuple(range(6)) if active is None else tuple(int(i) for i in active)
+    return OscProbs.apply(theta, geom, int(nubar), bool(reparam),
+                          float(nlo_factor), active, bool(multitangent))

@@ -7,20 +7,23 @@ Earth-layer chains and applies ``weights *= flux_e * P_e + flux_mu * P_mu``.
 Only the standard three-flavour path on a binned calc grid is ported: the
 kernel geometry (chain-length sort, per-point bounds, layer-major slabs) is
 prepared once at setup, and each compute makes two launches of the CUDA
-chain kernel (``ops/osc/chain.py``), one per nubar sign. NSI, neutrino
-decay, LRI, Earth tomography, layer dedup and per-event calc mode are not
-ported yet (ROADMAP queue 1, item 11).
+chain kernel, one per nubar sign, through ``ops/osc/chain.py:osc_probs``.
+That function is differentiable in the six oscillation parameters: when a
+compiled template takes the gradient, its backward runs the tangent kernel
+once per free oscillation parameter and sign (the flagship frees theta13,
+theta23 and deltam31: 6 launches), or, with ``multitangent=True``, the
+multitangent kernel once per sign. NSI, neutrino decay, LRI, Earth
+tomography, layer dedup and per-event calc mode are not ported yet (ROADMAP
+queue 1, item 11).
 """
 
 from __future__ import annotations
 
+import torch
+
 from pisa_tpu_torch import TORCH_FTYPE, ureg
 from pisa_tpu_torch.core.stage import Stage
-from pisa_tpu_torch.ops.osc.chain import (
-    osc_probs_prepared,
-    prepare_chain_geometry,
-    theta_to_pvec,
-)
+from pisa_tpu_torch.ops.osc.chain import osc_probs, prepare_chain_geometry
 from pisa_tpu_torch.ops.osc.layers import Layers
 
 __all__ = ["prob3"]
@@ -38,7 +41,19 @@ _NOT_PORTED = "is not ported yet (ROADMAP queue 1, item 11)"
 
 class prob3(Stage):  # noqa: N801
     """See module docstring; parameters as in the reference
-    (``prob3.py:124-161``)."""
+    (``prob3.py:124-161``), plus `multitangent` (the gradient's tangents in
+    one multitangent launch per sign instead of one tangent launch per free
+    oscillation parameter and sign; settable on the instance)."""
+
+    # the Earth model and electron fractions shape the layer geometry, which
+    # is prepared on the host
+    host_param_names = (
+        "earth_model", "detector_depth", "prop_height", "YeI", "YeO", "YeM",
+    )
+    _THETA_NAMES = (
+        "theta12", "theta13", "theta23", "deltacp", "deltam21", "deltam31",
+    )
+    _THETA_UNITS = ("rad", "rad", "rad", "rad", "eV**2", "eV**2")
 
     def __init__(
         self,
@@ -49,6 +64,7 @@ class prob3(Stage):  # noqa: N801
         tomography_type=None,
         lri_type=None,
         layer_dedup=False,
+        multitangent=False,
         **std_kwargs,
     ):
         for option, value in (
@@ -62,6 +78,7 @@ class prob3(Stage):  # noqa: N801
                 raise NotImplementedError(f"prob3 {option}={value!r} {_NOT_PORTED}")
         self.include_nlo = include_nlo
         self.reparam_mix_matrix = reparam_mix_matrix
+        self.multitangent = bool(multitangent)
         super().__init__(
             expected_params=(
                 "detector_depth", "earth_model", "prop_height", "YeI", "YeO",
@@ -132,25 +149,26 @@ class prob3(Stage):  # noqa: N801
         ):
             if angle.value.units == ureg.dimensionless:
                 raise ValueError(f"{angle.name} is dimensionless; give rad or deg")
-        theta = [
-            self.params.theta12.m_as("rad"),
-            self.params.theta13.m_as("rad"),
-            self.params.theta23.m_as("rad"),
-            self.params.deltacp.m_as("rad"),
-            self.params.deltam21.m_as("eV**2"),
-            self.params.deltam31.m_as("eV**2"),
-        ]
+        # the parameter magnitudes may be 0-d tensors that carry the autograd
+        # graph (compiled template): stacked, not converted
+        prms = [self.params[name] for name in self._THETA_NAMES]
+        theta = torch.stack([
+            torch.as_tensor(p.m_as(u), dtype=torch.float64)
+            for p, u in zip(prms, self._THETA_UNITS)
+        ])
+        # tangents only for the free oscillation parameters (prob3.py:604-617
+        # of the JAX package); the flagship frees 3 of the 6
+        active = tuple(i for i, p in enumerate(prms) if not p.is_fixed)
         nlo_factor = 1.020 if self.include_nlo else 1.0
 
         self.data.link_containers("nu", _NU_FLAVS)
         self.data.link_containers("nubar", _NUBAR_FLAVS)
         for container in self.data:
-            nubar = int(container["nubar"])
-            pvec = theta_to_pvec(
-                theta, nubar, reparam=self.reparam_mix_matrix,
-                nlo_factor=nlo_factor,
-            ).to(device=self.data.device, dtype=TORCH_FTYPE)
-            container["probability"] = osc_probs_prepared(pvec, self.geom)
+            container["probability"] = osc_probs(
+                theta, int(container["nubar"]), self.geom,
+                reparam=self.reparam_mix_matrix, nlo_factor=nlo_factor,
+                active=active, multitangent=self.multitangent,
+            )
         self.data.unlink_containers()
 
         # per-flavour projections: P(e -> flav), P(mu -> flav)

@@ -5,8 +5,9 @@ interface, loaded through ``ctypes``.
 Each library is compiled at first use, from the ``.cu`` sources in the
 checkout only, into ``build/pisa_tpu_torch/`` beside the package. The file
 name carries a hash of the sources and flags, so an edited source forces a
-rebuild. The compiler's ``-Xptxas -v`` report (registers, spills, shared
-memory per kernel) is printed once, when a library is built.
+rebuild. Libraries asked for together are compiled in parallel, one ``nvcc``
+each. The compiler's ``-Xptxas -v`` report (registers, spills, shared memory
+per kernel) is printed once, when a library is built.
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ import subprocess
 import sys
 import tempfile
 
-__all__ = ["build_library", "BUILD_DIR", "NVCC_FLAGS"]
+__all__ = ["build_libraries", "BUILD_DIR", "NVCC_FLAGS"]
 
 BUILD_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
@@ -49,27 +50,51 @@ def _nvcc():
     )
 
 
-def build_library(name, sources):
-    """Compile `sources` (paths of .cu files) into ``lib<name>-<hash>.so``
-    under :data:`BUILD_DIR` unless it already exists, and load it."""
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def _library_path(name, sources, flags):
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS + tuple(flags)).encode())
     for src in sources:
         with open(src, "rb") as f:
             digest.update(f.read())
-    path = os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")
-    if not os.path.exists(path):
+    return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")
+
+
+def build_libraries(specs):
+    """Compile and load shared libraries.
+
+    `specs` maps a library name to ``(sources, flags)``: the paths of its
+    .cu files and extra nvcc flags (e.g. ``-D`` defines). Each library is
+    built into ``lib<name>-<hash>.so`` under :data:`BUILD_DIR` unless it
+    already exists; the missing ones are compiled concurrently. Returns
+    ``{name: ctypes.CDLL}``."""
+    paths = {
+        name: _library_path(name, sources, flags)
+        for name, (sources, flags) in specs.items()
+    }
+    jobs = {}
+    for name, (sources, flags) in specs.items():
+        if os.path.exists(paths[name]):
+            continue
         os.makedirs(BUILD_DIR, exist_ok=True)
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        cmd = [_nvcc(), *NVCC_FLAGS, *flags, "-o", tmp, *sources]
+        proc = subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+        )
+        jobs[name] = (cmd, tmp, proc)
+    failures = []
+    for name, (cmd, tmp, proc) in jobs.items():
+        log, _ = proc.communicate()
         if proc.returncode != 0:
             os.unlink(tmp)
-            raise RuntimeError(
+            failures.append(
                 f"nvcc failed ({proc.returncode}) building {name}:\n"
-                f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
+                f"{' '.join(cmd)}\n{log}"
             )
-        print(f"[cuda_build] built {path}", file=sys.stderr)
-        print(proc.stdout + proc.stderr, file=sys.stderr, end="")
-        os.replace(tmp, path)
-    return ctypes.CDLL(path)
+            continue
+        print(f"[cuda_build] built {paths[name]}", file=sys.stderr)
+        print(log, file=sys.stderr, end="")
+        os.replace(tmp, paths[name])
+    if failures:
+        raise RuntimeError("\n".join(failures))
+    return {name: ctypes.CDLL(path) for name, path in paths.items()}

@@ -8,7 +8,11 @@ imports ``jax`` or ``pisa_tpu``: callers pass the JAX package's values in.
 - :func:`chain_inputs_from_jax` turns the JAX package's ``(1, 57)`` pack and
   its ``(L, rows, 128)``-blocked kernel geometry
   (``pisa_tpu/ops/osc/pallas_chain.py:prepare_chain_geometry``) into the
-  port's ``(57,)`` pack and ``(L, N)`` layer-major slabs.
+  port's ``(57,)`` pack and ``(L, N)`` layer-major slabs;
+- :func:`template_inputs_from_jax` puts the JAX template's rescaled vector
+  and bounds (ordered by its ``free_names``) into the order of the port's
+  ``CompiledTemplate``, and :func:`to_template_order` does so for any
+  per-free-param vector (e.g. a gradient).
 """
 
 from __future__ import annotations
@@ -18,7 +22,12 @@ import torch
 
 from pisa_tpu_torch.units import Quantity
 
-__all__ = ["set_param_values", "chain_inputs_from_jax"]
+__all__ = [
+    "set_param_values",
+    "chain_inputs_from_jax",
+    "template_inputs_from_jax",
+    "to_template_order",
+]
 
 
 def set_param_values(pipeline, values):
@@ -74,3 +83,26 @@ def chain_inputs_from_jax(pvec, geom, n, *, device="cpu"):
     else:
         out["inv"] = put(np.arange(n), torch.int64)
     return put(np.asarray(pvec).reshape(-1), dtype), out
+
+
+def to_template_order(template, free_names, values):
+    """`values` (one per name of `free_names`, the JAX template's order) as
+    a float64 numpy vector in the order of ``template.free_names`` (a port
+    ``CompiledTemplate``); the two must free the same params."""
+    if sorted(free_names) != sorted(template.free_names):
+        raise ValueError(
+            f"free params differ: {sorted(free_names)} vs"
+            f" {sorted(template.free_names)}"
+        )
+    values = np.asarray(values, dtype=np.float64)
+    index = {name: i for i, name in enumerate(free_names)}
+    return np.asarray([values[index[n]] for n in template.free_names])
+
+
+def template_inputs_from_jax(template, free_names, rescaled, los, his):
+    """The JAX template's ``free_names``, rescaled vector and bounds (from
+    its ``_current_bounds()``) -> ``(vec, los, his)`` as float64 numpy in
+    the port template's order."""
+    return tuple(
+        to_template_order(template, free_names, v) for v in (rescaled, los, his)
+    )

@@ -1,0 +1,241 @@
+"""
+The per-point math of ``pisa_tpu_torch/csrc/osc_chain.cu`` compiled for the
+host with the C++ compiler (the source's ``chain_point`` template is
+``__host__ __device__``): the primal and the dual-number tangents against the
+port's plain versions, and the operation counts behind the kernels' bounds
+(``chain.chain_operations``). This checks the CUDA source's arithmetic
+without a card; the kernels themselves run only on one (``chip_smoke.py``,
+the ``cuda`` tests). Skipped where no C++ compiler is installed.
+"""
+
+import ctypes
+import os
+import shutil
+import subprocess
+
+import numpy as np
+import pytest
+import torch
+
+from pisa_tpu_torch.ops.osc import chain
+from pisa_tpu_torch.ops.osc.layers import Layers
+
+THETA = [0.5903, 0.1503, 0.8587, 3.4, 7.39e-5, 2.528e-3]
+ACTIVE = [1, 2, 5]  # theta13, theta23, dm31: the flagship's free ones
+
+# Loops over points for the plain and dual instances, and the same chain
+# run with an operation-counting scalar type.
+_HARNESS = r"""
+#include "osc_chain.cu"
+using namespace osc_chain;
+
+template <typename S>
+void primal(const S* p, const int* nl, const S* e, const S* dens,
+            const S* dist, S* out, int n) {
+  for (int i = 0; i < n; ++i) {
+    S r[6];
+    chain_point(PlainPack<S>{p}, nl[i], e[i], dens + i, dist + i,
+                (size_t)n, r);
+    for (int k = 0; k < 6; ++k) out[(size_t)k * n + i] = r[k];
+  }
+}
+
+template <typename S, int K>
+void dual(const S* p, const S* dp, const int* nl, const S* e, const S* dens,
+          const S* dist, S* out, S* dout, int n) {
+  for (int i = 0; i < n; ++i) {
+    Dual<S, K> r[6];
+    chain_point(DualPack<S, K>{p, dp}, nl[i], e[i], dens + i, dist + i,
+                (size_t)n, r);
+    for (int k = 0; k < 6; ++k) {
+      out[(size_t)k * n + i] = r[k].v;
+      for (int j = 0; j < K; ++j) dout[(size_t)(6 * j + k) * n + i] = r[k].d[j];
+    }
+  }
+}
+
+static long long g_ops = 0;
+struct Cnt {
+  double v;
+  Cnt() {}
+  Cnt(double x) : v(x) {}
+};
+inline Cnt operator+(Cnt a, Cnt b) { ++g_ops; return Cnt(a.v + b.v); }
+inline Cnt operator-(Cnt a, Cnt b) { ++g_ops; return Cnt(a.v - b.v); }
+inline Cnt operator*(Cnt a, Cnt b) { ++g_ops; return Cnt(a.v * b.v); }
+inline Cnt operator/(Cnt a, Cnt b) { ++g_ops; return Cnt(a.v / b.v); }
+inline Cnt operator-(Cnt a) { return Cnt(-a.v); }
+inline bool operator<(Cnt a, Cnt b) { return a.v < b.v; }
+inline bool operator>(Cnt a, Cnt b) { return a.v > b.v; }
+inline Cnt value(Cnt x) { return x; }
+inline Cnt osc_sqrt(Cnt x) { ++g_ops; return Cnt(std::sqrt(x.v)); }
+inline Cnt osc_rsqrt(Cnt x) { ++g_ops; return Cnt(1.0 / std::sqrt(x.v)); }
+inline Cnt osc_atan2(Cnt y, Cnt x) { ++g_ops; return Cnt(std::atan2(y.v, x.v)); }
+inline Cnt osc_fabs(Cnt x) { return Cnt(std::fabs(x.v)); }
+inline void osc_sincos(Cnt x, Cnt* s, Cnt* c) {
+  ++g_ops;
+  s->v = std::sin(x.v);
+  c->v = std::cos(x.v);
+}
+
+template <int K>
+long long count(const double* p, int nl, double e, const double* dens,
+                const double* dist) {
+  Cnt pc[kPack * (1 + kMaxTangents)];
+  for (int k = 0; k < kPack * (1 + K); ++k) pc[k] = Cnt(k < kPack ? p[k] : 0.5);
+  Cnt dn[64], dx[64];
+  for (int l = 0; l < nl; ++l) {
+    dn[l] = Cnt(dens[l]);
+    dx[l] = Cnt(dist[l]);
+  }
+  g_ops = 0;
+  if (K == 0) {
+    Cnt r[6];
+    chain_point(PlainPack<Cnt>{pc}, nl, Cnt(e), dn, dx, 1, r);
+  } else {
+    constexpr int KD = K == 0 ? 1 : K;
+    Dual<Cnt, KD> r[6];
+    chain_point(DualPack<Cnt, KD>{pc, pc + kPack}, nl, Cnt(e), dn, dx, 1, r);
+  }
+  return g_ops;
+}
+
+extern "C" {
+void primal_f64(const double* p, const int* nl, const double* e,
+                const double* dens, const double* dist, double* out, int n) {
+  primal<double>(p, nl, e, dens, dist, out, n);
+}
+void dual1_f64(const double* p, const double* dp, const int* nl,
+               const double* e, const double* dens, const double* dist,
+               double* out, double* dout, int n) {
+  dual<double, 1>(p, dp, nl, e, dens, dist, out, dout, n);
+}
+void dual3_f64(const double* p, const double* dp, const int* nl,
+               const double* e, const double* dens, const double* dist,
+               double* out, double* dout, int n) {
+  dual<double, 3>(p, dp, nl, e, dens, dist, out, dout, n);
+}
+long long count_ops(int k, const double* p, int nl, double e,
+                    const double* dens, const double* dist) {
+  switch (k) {
+    case 0: return count<0>(p, nl, e, dens, dist);
+    case 1: return count<1>(p, nl, e, dens, dist);
+    case 2: return count<2>(p, nl, e, dens, dist);
+    case 3: return count<3>(p, nl, e, dens, dist);
+    case 4: return count<4>(p, nl, e, dens, dist);
+    case 5: return count<5>(p, nl, e, dens, dist);
+    case 6: return count<6>(p, nl, e, dens, dist);
+  }
+  return -1;
+}
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def host_lib(tmp_path_factory):
+    cxx = shutil.which("c++") or shutil.which("g++")
+    if cxx is None:
+        pytest.skip("needs a C++ compiler to build the kernel source for the"
+                    " host")
+    d = tmp_path_factory.mktemp("osc_chain_host")
+    src = d / "harness.cpp"
+    src.write_text(_HARNESS)
+    lib_path = d / "libharness.so"
+    csrc = os.path.dirname(chain._CSRC)
+    subprocess.run(
+        [cxx, "-std=c++17", "-O1", "-shared", "-fPIC", "-I", csrc, "-o",
+         str(lib_path), str(src)],
+        check=True, capture_output=True, text=True,
+    )
+    lib = ctypes.CDLL(str(lib_path))
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.primal_f64.argtypes = [p] * 6 + [i]
+    lib.dual1_f64.argtypes = [p] * 8 + [i]
+    lib.dual3_f64.argtypes = [p] * 8 + [i]
+    lib.count_ops.argtypes = [i, p, i, ctypes.c_double, p, p]
+    lib.count_ops.restype = ctypes.c_longlong
+    return lib
+
+
+def _prem_geometry(n, seed=3):
+    """PREM-12 chains (the flagship's Earth model) at random energies and
+    zenith angles."""
+    rng = np.random.RandomState(seed)
+    layers = Layers("osc/PREM_12layer.dat", 2.0, 20.0)
+    layers.setElecFrac(0.4656, 0.4656, 0.4957)
+    layers.calcLayers(rng.uniform(-1, 1, n))
+    shape = (n, layers.max_layers)
+    return chain.prepare_chain_geometry(
+        10 ** rng.uniform(0, 3, n), layers.density.reshape(shape),
+        layers.distance.reshape(shape), dtype=torch.float64, device="cpu",
+    )
+
+
+def _pack(nubar):
+    theta = torch.tensor(THETA, dtype=torch.float64)
+    jac = torch.func.jacfwd(lambda t: chain.theta_to_pvec(t, nubar))(theta)
+    return chain.theta_to_pvec(theta, nubar), jac.T.contiguous()
+
+
+def _ptrs(*tensors):
+    return [t.data_ptr() for t in tensors]
+
+
+@pytest.mark.parametrize("nubar", [1, -1])
+def test_source_primal_matches_reference(host_lib, nubar):
+    """The host build of the kernel's math against the plain version (fp64:
+    both are the same algorithm; only operation order differs)."""
+    geom = _prem_geometry(500)
+    pvec, _ = _pack(nubar)
+    args = (geom["e"], geom["dens"], geom["dist"], geom["nl"])
+    n = geom["e"].shape[0]
+    out = torch.empty((2, 3, n), dtype=torch.float64)
+    host_lib.primal_f64(*_ptrs(pvec, geom["nl"], geom["e"], geom["dens"],
+                               geom["dist"], out), n)
+    want = chain.chain_probs_reference(pvec, *args)
+    np.testing.assert_allclose(out.numpy(), want.numpy(), rtol=0, atol=1e-12)
+
+
+@pytest.mark.parametrize("nubar", [1, -1])
+def test_source_dual_matches_jvp(host_lib, nubar):
+    """Dual<double, 1> and Dual<double, 3> against the forward-mode
+    derivative of the plain version, along the flagship's active pack
+    directions; relative to each direction's largest tangent (fp64)."""
+    geom = _prem_geometry(500, seed=4)
+    pvec, dirs = _pack(nubar)
+    args = (geom["e"], geom["dens"], geom["dist"], geom["nl"])
+    n = geom["e"].shape[0]
+    dpvecs = dirs[ACTIVE].contiguous()
+    want_p, want_t = chain.chain_multitangent_reference(pvec, dpvecs, *args)
+    out = torch.empty((2, 3, n), dtype=torch.float64)
+    dout = torch.empty((3, 2, 3, n), dtype=torch.float64)
+    host_lib.dual3_f64(*_ptrs(pvec, dpvecs, geom["nl"], geom["e"],
+                              geom["dens"], geom["dist"], out, dout), n)
+    np.testing.assert_allclose(out.numpy(), want_p.numpy(), rtol=0,
+                               atol=1e-12)
+    scale = want_t.abs().amax(dim=(1, 2, 3), keepdim=True)
+    assert float(((dout - want_t).abs() / scale).max()) < 1e-10
+    one = torch.empty((2, 3, n), dtype=torch.float64)
+    for j in range(3):
+        host_lib.dual1_f64(*_ptrs(pvec, dpvecs[j].contiguous(), geom["nl"],
+                                  geom["e"], geom["dens"], geom["dist"], out,
+                                  one), n)
+        assert torch.equal(one, dout[j])
+
+
+@pytest.mark.parametrize("k", range(chain.MAX_TANGENTS + 1))
+def test_operation_counts(host_lib, k):
+    """chain_operations(k) is what chain_point does: per point with no
+    layer, and per layer of nonzero length."""
+    pvec, _ = _pack(1)
+    dens = np.full(4, 3.0)
+    dist = np.full(4, 500.0)
+    counts = [
+        host_lib.count_ops(k, pvec.data_ptr(), nl, 10.0, dens.ctypes.data,
+                           dist.ctypes.data)
+        for nl in (0, 1, 3)
+    ]
+    per_point, per_step = chain.chain_operations(k)
+    assert counts == [per_point, per_point + per_step,
+                      per_point + 3 * per_step]

@@ -129,8 +129,9 @@ def test_cuda_device_without_card_raises():
 
 
 def test_import_leaves_out_jax_pandas_h5py():
-    """Importing the port, its pipeline and every stage of the slice pulls in
-    neither jax nor pandas nor h5py."""
+    """Importing the port, its pipeline, every stage of the slice, the
+    compiled template, the metrics and the fit pulls in neither jax nor
+    pandas nor h5py."""
     code = (
         "import sys, importlib\n"
         "import pisa_tpu_torch\n"
@@ -140,6 +141,8 @@ def test_import_leaves_out_jax_pandas_h5py():
         " 'discr_sys.hypersurfaces']:\n"
         "    importlib.import_module('pisa_tpu_torch.stages.' + m)\n"
         "import pisa_tpu_torch.utils.interop\n"
+        "import pisa_tpu_torch.core.template, pisa_tpu_torch.utils.stats\n"
+        "import pisa_tpu_torch.analysis.device_fit\n"
         "bad = [m for m in ('jax', 'pisa_tpu', 'pandas', 'h5py')"
         " if m in sys.modules]\n"
         "print(bad)\n"
