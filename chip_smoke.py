@@ -22,9 +22,13 @@ oscillation grid, 15 free parameters) on the card through its two paths:
   against the multitangent; float32 against float64), and the bounded
   L-BFGS Asimov fit (``analysis/device_fit.minimize_on_device``) in float32.
 
-It times the kernels, the gradient and the fit. It exits non-zero on any
-failed check; the last line of a passing run is
-``{"ok": true, "device": {...}}``.
+It times the kernels (device-only, from a CUDA graph of 200 launches, and
+host-inclusive, from back-to-back launches between CUDA events; the
+tangent against the earlier one-thread-per-point design in turns), prints
+their registers and occupancy, and times the gradient and the fit. It exits
+non-zero on any failed check; the last line of a passing run is
+``{"ok": true, "device": {...}}``. With ``--kernels-only`` it stops after
+the kernel checks and timings (and prints no status line).
 
 The float64 runs (CPU reference and card) happen in a child process, since
 the float type is chosen once per process (``PISA_TPU_FTYPE``); the main
@@ -431,8 +435,8 @@ def kernel_bound(chain, geom, k, with_primal):
 def kernel_vs_plain(chain):
     """Primal kernel vs plain version on the card: flagship geometry, nu and
     nubar, nominal NuFIT and 3 seeded random theta, in float64 and float32.
-    Then CUDA-event times of both at that shape. Returns the summary per
-    dtype."""
+    Then the kernel's device-only and host-inclusive times, the plain
+    version's, and the kernel's resources. Returns the summary per dtype."""
     import torch
 
     summary = {}
@@ -442,11 +446,12 @@ def kernel_vs_plain(chain):
         geom, params = flagship_geometry(dtype)
         thetas = flagship_thetas(params)
         args = (geom["e"], geom["dens"], geom["dist"], geom["nl"])
+        tiles = geom["tiles"]
         worst = vs_exact = 0.0
         for i, theta in enumerate(thetas):
             for nubar in (1, -1):
                 pvec = chain.theta_to_pvec(theta, nubar).to("cuda", dtype)
-                got = chain.chain_probs(pvec, *args)
+                got = chain.chain_probs(pvec, *args, tiles)
                 ref = chain.chain_probs_reference(pvec, *args)
                 torch.cuda.synchronize()
                 check(bool(torch.isfinite(got).all()),
@@ -470,16 +475,21 @@ def kernel_vs_plain(chain):
                   " (the float32 algorithm's own error)")
 
         pvec = chain.theta_to_pvec(thetas[0], 1).to("cuda", dtype)
-        ms = cuda_time(lambda: chain.chain_probs(pvec, *args), 200)
+        run = lambda: chain.chain_probs(pvec, *args, tiles)  # noqa: E731
+        device_ms = graph_time(run)
+        host_ms = cuda_time(run, 200)
         plain_ms = cuda_time(lambda: chain.chain_probs_reference(pvec, *args),
                              10)
         bound = kernel_bound(chain, geom, 0, True)
-        print(f"time, osc_chain {dname}, N={n}: kernel {ms:.4f} ms,"
-              f" plain PyTorch {plain_ms:.4f} ms (CUDA events); bound"
-              f" {bound['bound_ms']:.5f} ms by {bound['bound_by']}"
-              f" ({bound['ops']} operations, {bound['bytes']} bytes)")
-        summary[dname] = {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
-                          **bound}
+        print(f"time, osc_chain {dname}, N={n}, {tile_line(tiles)}: kernel"
+              f" {device_ms:.5f} ms device-only (CUDA graph), {host_ms:.5f} ms"
+              f" with the host's enqueue (CUDA events), plain PyTorch"
+              f" {plain_ms:.4f} ms; bound {bound['bound_ms']:.5f} ms by"
+              f" {bound['bound_by']} ({bound['ops']} operations,"
+              f" {bound['bytes']} bytes)")
+        summary[dname] = {"max_abs_err": worst, "ms": device_ms,
+                          "host_ms": host_ms, "plain_ms": plain_ms, **bound,
+                          **resources(chain, "osc_chain", dtype)}
     return summary
 
 
@@ -488,7 +498,8 @@ def tangent_vs_plain(chain):
     primal) on the card: flagship geometry, nu and nubar, nominal and 3
     seeded theta, all 6 pack-Jacobian directions, float64 and float32. The
     error of a direction is max|kernel - plain| over its (2, 3, N) output
-    relative to that output's max|plain|. Then CUDA-event times."""
+    relative to that output's max|plain|. Then times: the kernel against
+    the earlier per-point design in turns, and the plain version."""
     import torch
 
     summary = {}
@@ -497,12 +508,13 @@ def tangent_vs_plain(chain):
         geom, params = flagship_geometry(dtype)
         thetas = flagship_thetas(params)
         args = (geom["e"], geom["dens"], geom["dist"], geom["nl"])
+        tiles = geom["tiles"]
         worst_rel = worst_abs = 0.0
         for theta in thetas:
             for nubar in (1, -1):
                 pvec, dirs = pack_and_directions(chain, theta, nubar, dtype)
                 for d in dirs:
-                    got = chain.chain_tangent(pvec, d, *args)
+                    got = chain.chain_tangent(pvec, d, *args, tiles)
                     ref = chain.chain_tangent_reference(pvec, d, *args)
                     torch.cuda.synchronize()
                     check(bool(torch.isfinite(got).all()),
@@ -518,16 +530,41 @@ def tangent_vs_plain(chain):
               f"{dname}: tangent kernel disagrees with plain by {worst_rel}")
         pvec, dirs = pack_and_directions(chain, thetas[0], 1, dtype)
         d = dirs[2].contiguous()  # theta23
-        ms = cuda_time(lambda: chain.chain_tangent(pvec, d, *args), 200)
+        d1 = d[None]
+        # the tile kernel against the earlier one-thread-per-point design,
+        # which is the K = 1 multitangent launch (it also writes the
+        # primal), in turns: earlier, tile, tile, earlier
+        designs = {
+            "tile": lambda: chain.chain_tangent(pvec, d, *args, tiles),
+            "per-point": lambda: chain.chain_multitangent(pvec, d1, *args),
+        }
+        turns = {"tile": {"device": [], "host": []},
+                 "per-point": {"device": [], "host": []}}
+        for label in ("per-point", "tile", "tile", "per-point"):
+            turns[label]["device"].append(graph_time(designs[label]))
+            turns[label]["host"].append(cuda_time(designs[label], 200))
+        for label, t in turns.items():
+            print(f"time, tangent {dname}, {label} design, in turns: device"
+                  f" {' / '.join(f'{x:.5f}' for x in t['device'])} ms, with"
+                  f" enqueue {' / '.join(f'{x:.5f}' for x in t['host'])} ms")
+        device_ms = min(turns["tile"]["device"])
+        host_ms = min(turns["tile"]["host"])
         plain_ms = cuda_time(
             lambda: chain.chain_tangent_reference(pvec, d, *args), 5)
         bound = kernel_bound(chain, geom, 1, False)
-        print(f"time, osc_chain_tangent {dname}: kernel {ms:.4f} ms, plain"
-              f" PyTorch {plain_ms:.4f} ms (CUDA events); bound"
+        print(f"time, osc_chain_tangent {dname}, {tile_line(tiles)}: kernel"
+              f" {device_ms:.5f} ms device-only, {host_ms:.5f} ms with"
+              f" enqueue (the better turn of each), earlier design"
+              f" {min(turns['per-point']['device']):.5f} ms device-only;"
+              f" plain PyTorch {plain_ms:.4f} ms; bound"
               f" {bound['bound_ms']:.5f} ms by {bound['bound_by']}"
               f" ({bound['ops']} operations, {bound['bytes']} bytes)")
-        summary[dname] = {"max_abs_err": worst_abs, "max_rel_err": worst_rel,
-                          "ms": ms, "plain_ms": plain_ms, **bound}
+        summary[dname] = {
+            "max_abs_err": worst_abs, "max_rel_err": worst_rel,
+            "ms": device_ms, "host_ms": host_ms, "plain_ms": plain_ms,
+            "per_point_ms": min(turns["per-point"]["device"]), **bound,
+            **resources(chain, "osc_chain_tangent", dtype)}
+        resources(chain, "osc_chain_multitangent", dtype, 1)
     return summary
 
 
@@ -535,7 +572,8 @@ def multitangent_vs_plain(chain):
     """Multitangent kernel (K = 3: the flagship's free theta13, theta23,
     dm31) on the card against its plain version and against the primal and
     tangent kernels: flagship geometry, nu and nubar, nominal and 3 seeded
-    theta, float64 and float32. Then CUDA-event times."""
+    theta, float64 and float32. Then device-only and host-inclusive
+    times."""
     import torch
 
     summary = {}
@@ -553,9 +591,10 @@ def multitangent_vs_plain(chain):
                 out, dout = chain.chain_multitangent(pvec, dpvecs, *args)
                 ref_p, ref_t = chain.chain_multitangent_reference(
                     pvec, dpvecs, *args)
-                kern_p = chain.chain_probs(pvec, *args)
+                kern_p = chain.chain_probs(pvec, *args, geom["tiles"])
                 kern_t = torch.stack(
-                    [chain.chain_tangent(pvec, d, *args) for d in dpvecs])
+                    [chain.chain_tangent(pvec, d, *args, geom["tiles"])
+                     for d in dpvecs])
                 torch.cuda.synchronize()
                 check(bool(torch.isfinite(out).all())
                       and bool(torch.isfinite(dout).all()),
@@ -582,23 +621,82 @@ def multitangent_vs_plain(chain):
               f"{dname}: multitangent tangents off by {errs}")
         pvec, dirs = pack_and_directions(chain, thetas[0], 1, dtype)
         dpvecs = dirs[list(FREE_THETA)].contiguous()
-        ms = cuda_time(lambda: chain.chain_multitangent(pvec, dpvecs, *args),
-                       200)
+        run = lambda: chain.chain_multitangent(pvec, dpvecs, *args)  # noqa: E731
+        device_ms = graph_time(run)
+        host_ms = cuda_time(run, 200)
         plain_ms = cuda_time(
             lambda: chain.chain_multitangent_reference(pvec, dpvecs, *args), 3)
         bound = kernel_bound(chain, geom, len(FREE_THETA), True)
-        print(f"time, osc_chain_multitangent {dname} (K=3): kernel {ms:.4f}"
-              f" ms, plain PyTorch {plain_ms:.4f} ms (CUDA events); bound"
+        print(f"time, osc_chain_multitangent {dname} (K=3): kernel"
+              f" {device_ms:.5f} ms device-only (CUDA graph), {host_ms:.5f} ms"
+              f" with enqueue, plain PyTorch {plain_ms:.4f} ms; bound"
               f" {bound['bound_ms']:.5f} ms by {bound['bound_by']}"
               f" ({bound['ops']} operations, {bound['bytes']} bytes)")
         summary[dname] = {"max_abs_err": max(errs["plain_p"],
                                              errs["plain_t_abs"]),
-                          "max_rel_err": errs["plain_t"], "ms": ms,
-                          "plain_ms": plain_ms, **bound}
+                          "max_rel_err": errs["plain_t"], "ms": device_ms,
+                          "host_ms": host_ms, "plain_ms": plain_ms, **bound,
+                          **resources(chain, "osc_chain_multitangent", dtype,
+                                      len(FREE_THETA))}
     return summary
 
 
+def tile_line(tiles):
+    t = tiles["tile"]
+    return (f"{t.shape[0]} tiles of <= {int(t[:, 3].max())} steps"
+            f" ({tiles['rho'].shape[0]} steps)")
+
+
+def resources(chain, name, dtype, k=1):
+    """Print and return a kernel's registers, spills, shared memory, block
+    size and resident blocks per SM (CUDA's occupancy calculator)."""
+    a = chain.kernel_attributes(name, dtype, k)
+    dname = str(dtype).split(".")[-1]
+    tag = f" K={k}" if name == "osc_chain_multitangent" else ""
+    print(f"resources, {name} {dname}{tag}: {a['registers']} registers,"
+          f" {a['local_bytes']} B local memory (stack frame and spills) per"
+          f" thread,"
+          f" {a['shared_bytes']} B static shared per block, {a['threads']}"
+          f" threads per block, {a['blocks_per_sm']} resident blocks per SM"
+          f" ({a['blocks_per_sm'] * a['threads'] // 32} of 64 warps)")
+    return a
+
+
+def graph_time(fn, launches=200, replays=5):
+    """Device-only time of one fn() call: `launches` calls captured in one
+    CUDA graph, replayed `replays` times between CUDA events, so the host's
+    enqueue is outside the timed region."""
+    import torch
+
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(stream)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    stop.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(stop) / (launches * replays)
+    del graph
+    return ms
+
+
 def cuda_time(fn, reps):
+    """Time of one fn() call over `reps` back-to-back calls between CUDA
+    events: the device's time, or the host's enqueue where that is
+    slower."""
     import torch
 
     for _ in range(3):
@@ -852,7 +950,18 @@ def gradient_and_fit_fp32(pipeline, chain, ref, smi):
     return main_path, times
 
 
-def main():
+def print_kernel_times(kernels, smi):
+    for name, k in kernels.items():
+        for dname, t in k.items():
+            print(f"kernel {name} {dname}: {t['ms']:.5f} ms device-only,"
+                  f" {t['host_ms']:.5f} ms with enqueue, plain"
+                  f" {t['plain_ms']:.4f} ms, bound {t['bound_ms']:.5f} ms by"
+                  f" {t['bound_by']}; {t['registers']} registers,"
+                  f" {t['blocks_per_sm']} blocks of {t['threads']} per SM"
+                  f" [{smi}]")
+
+
+def main(kernels_only=False):
     if not os.path.isdir(os.path.join(ROOT, "pisa_tpu_torch")):
         print("chip_smoke.py must run from a checkout of the repository"
               " (pisa_tpu_torch/ not found beside it)", file=sys.stderr)
@@ -879,6 +988,9 @@ def main():
         "osc_chain_tangent": tangent_vs_plain(chain),
         "osc_chain_multitangent": multitangent_vs_plain(chain),
     }
+    print_kernel_times(kernels, smi)
+    if kernels_only:
+        return 0
 
     # float64: CPU reference and card run, in a child process
     with tempfile.TemporaryDirectory() as tmp:
@@ -953,11 +1065,7 @@ def main():
     # float32, the gradient and fit path on the card (the slice's main path)
     main_path, _ = gradient_and_fit_fp32(pipeline, chain, ref, smi)
 
-    for name, k in kernels.items():
-        for dname, t in k.items():
-            print(f"kernel {name} {dname}: {t['ms']:.4f} ms, plain"
-                  f" {t['plain_ms']:.4f} ms, bound {t['bound_ms']:.5f} ms by"
-                  f" {t['bound_by']} [{smi}]")
+    print_kernel_times(kernels, smi)
     lines = []
     for (name, replaces), launches in zip(KERNELS.items(), main_path):
         k = kernels[name]["float32"]
@@ -975,6 +1083,11 @@ def main():
             "library_ms": None,
             "dtype": "float32",
             "max_rel_err": k.get("max_rel_err"),
+            "host_ms": k["host_ms"],
+            "registers": k["registers"],
+            "local_bytes": k["local_bytes"],
+            "threads": k["threads"],
+            "blocks_per_sm": k["blocks_per_sm"],
         })
     print(json.dumps({"kernels": lines}))
     print(smi)
@@ -992,4 +1105,4 @@ if __name__ == "__main__":
         os.chdir(ROOT)
         reference_worker(sys.argv[2])
         sys.exit(0)
-    sys.exit(main())
+    sys.exit(main(kernels_only=sys.argv[1:] == ["--kernels-only"]))

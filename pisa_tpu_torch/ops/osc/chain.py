@@ -13,6 +13,11 @@ kernels:
   -> :func:`chain_multitangent`, plain version
   :func:`chain_multitangent_reference`.
 
+The primal and tangent kernels are layer-parallel: they build every real
+layer step's amplitude at once and then walk each chain through the stored
+amplitudes, over the static tile table of :func:`tile_table`. The
+multitangent kernel runs one thread per point over the layer slabs.
+
 CPU tensors go through the plain versions (vectorized torch over the point
 axis; the tangents are ``torch.func.jvp`` of the primal); CUDA tensors
 launch the kernels or raise. What carries over from the JAX package is the
@@ -21,7 +26,8 @@ math and its interfaces:
 - the 57-scalar parameter pack (:func:`theta_to_pvec`, same layout as
   ``pallas_chain._unpack_params``), differentiable in theta;
 - the sort by chain length (:func:`prepare_chain_geometry`), now with a
-  per-point loop bound and the layer slabs laid out layer-major ``(L, N)``;
+  per-point loop bound, the layer slabs laid out layer-major ``(L, N)`` and
+  the tile table;
 - output of only the nu_e / nu_mu initial-state rows, ``(2, 3, N)``, with
   the tau row from double stochasticity (:func:`tau_epilogue`);
 - the gradient boundary at the six oscillation scalars
@@ -50,6 +56,9 @@ __all__ = [
     "theta_to_pvec",
     "pack_from_physics",
     "prepare_chain_geometry",
+    "tile_table",
+    "TILE_STEPS",
+    "TILE_POINTS",
     "chain_probs",
     "chain_probs_reference",
     "chain_tangent",
@@ -66,6 +75,7 @@ __all__ = [
     "multitangent_launch_count",
     "MAX_TANGENTS",
     "chain_operations",
+    "kernel_attributes",
 ]
 
 N_PACK = 57
@@ -73,6 +83,11 @@ MAX_TANGENTS = 6  # multitangent K, dispatched to template instances 1..6
 TWO_SQRT2_GF = 1.52588e-4  # 2*sqrt(2)*G_F in (eV^2 cm^3)/(mole GeV)
 HBAR_C_FACTOR = 2.534  # (1/2)/(hbar c) in GeV/(eV^2 km)
 _HALF_SQRT3 = 0.8660254037844386
+#: Tile shape of the primal and tangent kernels: at most TILE_STEPS real
+#: layer steps and TILE_POINTS points per tile (``csrc/osc_chain.cu``
+#: kTileSteps, kTilePoints).
+TILE_STEPS = 128
+TILE_POINTS = 64
 
 
 def chain_operations(k=0):
@@ -168,7 +183,9 @@ def prepare_chain_geometry(energy, densities, distances, *, dtype, device):
     densities, distances : (N, L) arrays (zero-length slots are identity)
 
     Returns a dict of tensors on `device`: ``e`` (N,), ``dens``/``dist``
-    (L, N) in `dtype`, ``nl`` (N,) int32, ``order``/``inv`` (N,) int64.
+    (L, N) in `dtype`, ``nl`` (N,) int32, ``order``/``inv`` (N,) int64,
+    and ``tiles``, the primal and tangent kernels' :func:`tile_table` of the
+    sorted points.
     """
     energy = np.asarray(energy, dtype=np.float64)
     densities = np.asarray(densities, dtype=np.float64)
@@ -190,6 +207,66 @@ def prepare_chain_geometry(energy, densities, distances, *, dtype, device):
         "nl": put(nl[order], torch.int32),
         "order": put(order, torch.int64),
         "inv": put(np.argsort(order), torch.int64),
+        "tiles": tile_table(densities[order], distances[order], dtype=dtype,
+                            device=device),
+    }
+
+
+def tile_table(densities, distances, *, dtype, device):
+    """The layer-parallel kernels' static input: the points, in the given
+    order, cut into tiles of at most :data:`TILE_STEPS` real layer steps
+    (``distance > 0``) and :data:`TILE_POINTS` points, never splitting a
+    point; each point's real steps compacted, in chain order, into flat
+    arrays. A point with no real step keeps its place in a tile (it gets
+    the vacuum result).
+
+    Parameters
+    ----------
+    densities, distances : (N, L) arrays, in the kernel's point order
+
+    Returns a dict of tensors on `device`: ``tile`` (n_tiles, 4) int32 rows
+    (first point, number of points, first step, number of steps);
+    ``point_step`` (N + 1,) int32, point i's steps being
+    ``point_step[i]:point_step[i + 1]``; per step, ``step_point`` int32 (its
+    point's index within its tile) and ``rho``/``dx`` in `dtype`.
+    """
+    densities = np.asarray(densities, dtype=np.float64)
+    distances = np.asarray(distances, dtype=np.float64)
+    real = distances > 0.0
+    counts = np.count_nonzero(real, axis=1)
+    if counts.size and counts.max() > TILE_STEPS:
+        raise ValueError(f"a chain of {counts.max()} layers exceeds the"
+                         f" {TILE_STEPS} steps of a tile")
+    n = counts.size
+    point_step = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum(counts, out=point_step[1:])
+    first = []
+    start = steps = 0
+    for i, c in enumerate(counts):
+        if i - start == TILE_POINTS or steps + c > TILE_STEPS:
+            first.append(start)
+            start, steps = i, 0
+        steps += c
+    if n:
+        first.append(start)
+    first = np.asarray(first, dtype=np.int64)
+    n_points = np.diff(np.append(first, n))
+    first_step = point_step[first]
+    n_steps = point_step[first + n_points] - first_step
+    tile_of_point = np.repeat(np.arange(first.size), n_points)
+    point_of_step = np.repeat(np.arange(n), counts)
+    step_point = point_of_step - first[tile_of_point[point_of_step]]
+
+    def put(x, dt):
+        return torch.as_tensor(np.ascontiguousarray(x), dtype=dt, device=device)
+
+    return {
+        "tile": put(np.stack([first, n_points, first_step, n_steps], axis=1)
+                    .reshape(-1, 4), torch.int32),
+        "point_step": put(point_step, torch.int32),
+        "step_point": put(step_point, torch.int32),
+        "rho": put(densities[real], dtype),
+        "dx": put(distances[real], dtype),
     }
 
 
@@ -375,10 +452,11 @@ _PARTS = {
 }
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {
-    # pvec, nl, e, dens, dist, out, n, stream
-    "osc_chain": [_P] * 6 + [_I, _P],
-    # pvec, dpvec, nl, e, dens, dist, dout, n, stream
-    "osc_chain_tangent": [_P] * 7 + [_I, _P],
+    # pvec, tile, point_step, step_point, rho, dx, e, out, n_tiles, n, stream
+    "osc_chain": [_P] * 8 + [_I, _I, _P],
+    # pvec, dpvec, tile, point_step, step_point, rho, dx, e, dout, n_tiles,
+    # n, stream
+    "osc_chain_tangent": [_P] * 9 + [_I, _I, _P],
     # pvec, dpvecs, k, nl, e, dens, dist, out, dout, n, stream
     "osc_chain_multitangent": [_P, _P, _I] + [_P] * 6 + [_I, _P],
 }
@@ -386,8 +464,9 @@ _ARGTYPES = {
 
 def kernel_library():
     """The kernels' entry points (ctypes functions ``osc_chain_f32``,
-    ``osc_chain_tangent_f64``, ...), built from ``csrc/osc_chain.cu`` at
-    first use (``utils/cuda_build.py``)."""
+    ``osc_chain_tangent_f64``, ..., and ``osc_chain_attributes_f32``, ...),
+    built from ``csrc/osc_chain.cu`` at first use
+    (``utils/cuda_build.py``)."""
     global _LIB
     if _LIB is None:
         from pisa_tpu_torch.utils.cuda_build import build_libraries
@@ -402,8 +481,30 @@ def kernel_library():
                 fn.argtypes = _ARGTYPES[name]
                 fn.restype = ctypes.c_int
                 fns[f"{name}_{suffix}"] = fn
+                attrs = getattr(lib, f"{name}_attributes_{suffix}")
+                attrs.argtypes = [_I, _P]
+                attrs.restype = ctypes.c_int
+                fns[f"{name}_attributes_{suffix}"] = attrs
         _LIB = types.SimpleNamespace(**fns)
     return _LIB
+
+
+def kernel_attributes(name, dtype, k=1):
+    """Resources of kernel `name` (``osc_chain``, ``osc_chain_tangent``,
+    ``osc_chain_multitangent`` with `k` tangents) in `dtype` on the current
+    card: registers per thread, local-memory bytes per thread (stack frame
+    and spills), static shared bytes per block, threads per block and
+    resident blocks per SM
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+    suffix = "f64" if dtype == torch.float64 else "f32"
+    fn = getattr(kernel_library(), f"{name}_attributes_{suffix}")
+    info = (ctypes.c_int * 5)()
+    rc = fn(int(k), ctypes.addressof(info))
+    if rc != 0:
+        raise RuntimeError(f"{name} attributes: CUDA error {rc}")
+    keys = ("registers", "local_bytes", "shared_bytes", "threads",
+            "blocks_per_sm")
+    return dict(zip(keys, info))
 
 
 def _check_inputs(pvec, e, dens, dist, nl):
@@ -433,6 +534,32 @@ def _check_directions(name, d, shape, e):
                          f" got {d.dtype} {tuple(d.shape)} on {d.device}")
 
 
+_TILE_KEYS = ("tile", "point_step", "step_point", "rho", "dx")
+
+
+def _tile_args(name, tiles, e):
+    """The tile table's tensors in launch order, checked against `e`; a
+    launch needs the table that :func:`prepare_chain_geometry` built."""
+    if tiles is None:
+        raise ValueError(f"{name} on {e.device} needs the tile table of"
+                         " prepare_chain_geometry (geom['tiles'])")
+    t = [tiles[k] for k in _TILE_KEYS]
+    n = e.shape[0]
+    steps = t[2].shape[0]
+    ok = (
+        t[0].dim() == 2 and t[0].shape[1] == 4
+        and t[1].shape == (n + 1,)
+        and all(x.dtype == torch.int32 for x in t[:3])
+        and t[3].shape == t[4].shape == (steps,)
+        and t[3].dtype == t[4].dtype == e.dtype
+        and all(x.device == e.device and x.is_contiguous() for x in t)
+    )
+    if not ok:
+        raise ValueError(f"{name}: tile table does not fit {n} points of"
+                         f" {e.dtype} on {e.device}")
+    return t
+
+
 def _on_card(name, e, tensors):
     """False for CPU tensors (the plain version runs); True for contiguous
     CUDA tensors (the kernel launches); raises otherwise."""
@@ -458,38 +585,42 @@ def _launch(name, e, *args):
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
 
 
-def chain_probs(pvec, e, dens, dist, nl):
+def chain_probs(pvec, e, dens, dist, nl, tiles=None):
     """P(nu_a -> nu_b) through each point's layer chain, (2, 3, N) for
     a in {e, mu}, b in {e, mu, tau}.
 
     pvec (57,), e (N,), dens/dist (L, N) layer-major, all of one float
-    dtype; nl (N,) int32 per-point loop bounds (``nl[i] <= L``). CPU
-    tensors go through :func:`chain_probs_reference`; CUDA tensors launch
-    the CUDA kernel or raise."""
+    dtype; nl (N,) int32 per-point loop bounds (``nl[i] <= L``); `tiles`
+    the same points' :func:`tile_table`. CPU tensors go through
+    :func:`chain_probs_reference` (which needs no tile table); CUDA tensors
+    launch the CUDA kernel over the tile table or raise."""
     global launch_count
     _check_inputs(pvec, e, dens, dist, nl)
     if not _on_card("chain_probs", e, (pvec, e, dens, dist, nl)):
         return chain_probs_reference(pvec, e, dens, dist, nl)
+    t = _tile_args("chain_probs", tiles, e)
     n = e.shape[0]
     out = torch.empty((2, 3, n), dtype=e.dtype, device=e.device)
-    _launch("osc_chain", e, pvec, nl, e, dens, dist, out, n)
+    _launch("osc_chain", e, pvec, *t, e, out, t[0].shape[0], n)
     launch_count += 1
     return out
 
 
-def chain_tangent(pvec, dpvec, e, dens, dist, nl):
+def chain_tangent(pvec, dpvec, e, dens, dist, nl, tiles=None):
     """d P(nu_a -> nu_b) / dt along the pack direction `dpvec` (57,),
     (2, 3, N); the other inputs as for :func:`chain_probs`. CPU tensors go
     through :func:`chain_tangent_reference`; CUDA tensors launch the CUDA
-    tangent kernel or raise."""
+    tangent kernel over the tile table or raise."""
     global tangent_launch_count
     _check_inputs(pvec, e, dens, dist, nl)
     _check_directions("dpvec", dpvec, (N_PACK,), e)
     if not _on_card("chain_tangent", e, (pvec, dpvec, e, dens, dist, nl)):
         return chain_tangent_reference(pvec, dpvec, e, dens, dist, nl)
+    t = _tile_args("chain_tangent", tiles, e)
     n = e.shape[0]
     dout = torch.empty((2, 3, n), dtype=e.dtype, device=e.device)
-    _launch("osc_chain_tangent", e, pvec, dpvec, nl, e, dens, dist, dout, n)
+    _launch("osc_chain_tangent", e, pvec, dpvec, *t, e, dout, t[0].shape[0],
+            n)
     tangent_launch_count += 1
     return dout
 
@@ -538,7 +669,8 @@ def osc_probs_prepared(pvec, geom):
     """One propagation over :func:`prepare_chain_geometry` output: (N, 3, 3)
     probabilities ``probs[i, a, b] = P(nu_a -> nu_b)`` in the original point
     order (the counterpart of ``chain_probs_pallas_prepared`` :803)."""
-    p2 = chain_probs(pvec, geom["e"], geom["dens"], geom["dist"], geom["nl"])
+    p2 = chain_probs(pvec, geom["e"], geom["dens"], geom["dist"], geom["nl"],
+                     geom["tiles"])
     return tau_epilogue(p2)[geom["inv"]]
 
 
@@ -563,7 +695,8 @@ class OscProbs(torch.autograd.Function):
         pvec = theta_to_pvec(theta, nubar, reparam, nlo_factor).to(
             device=e.device, dtype=e.dtype
         )
-        p2 = chain_probs(pvec, e, geom["dens"], geom["dist"], geom["nl"])
+        p2 = chain_probs(pvec, e, geom["dens"], geom["dist"], geom["nl"],
+                         geom["tiles"])
         ctx.save_for_backward(theta, p2, pvec)
         ctx.geom = geom
         ctx.pack_args = (nubar, reparam, nlo_factor)
@@ -590,7 +723,8 @@ class OscProbs(torch.autograd.Function):
                 _, dp2s = chain_multitangent(pvec, dpvecs, *args)
             else:
                 dp2s = torch.stack(
-                    [chain_tangent(pvec, d, *args) for d in dpvecs]
+                    [chain_tangent(pvec, d, *args, geom["tiles"])
+                     for d in dpvecs]
                 )
             # probs = probs_sorted[inv]  =>  the sorted cotangent is g[order]
             g_s = g[geom["order"]].permute(1, 2, 0)  # (3, 3, N)

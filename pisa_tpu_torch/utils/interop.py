@@ -20,6 +20,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from pisa_tpu_torch.ops.osc.chain import tile_table
 from pisa_tpu_torch.units import Quantity
 
 __all__ = [
@@ -54,8 +55,9 @@ def chain_inputs_from_jax(pvec, geom, n, *, device="cpu"):
         the original (pre-padding) point count
 
     The blocking and padding are undone; the per-point loop bound ``nl`` is
-    1 + the index of each point's last nonzero-length layer. Tensors take
-    the dtype of `geom['e2']`.
+    1 + the index of each point's last nonzero-length layer, and ``tiles``
+    is the port's tile table of the points in that order. Tensors take the
+    dtype of `geom['e2']`.
     """
     e2 = np.asarray(geom["e2"])
     dtype = torch.float64 if e2.dtype == np.float64 else torch.float32
@@ -76,6 +78,7 @@ def chain_inputs_from_jax(pvec, geom, n, *, device="cpu"):
         "dens": put(dens, dtype),
         "dist": put(dist, dtype),
         "nl": put(nl, torch.int32),
+        "tiles": tile_table(dens.T, dist.T, dtype=dtype, device=device),
     }
     if "order" in geom:
         out["order"] = put(np.asarray(geom["order"]), torch.int64)

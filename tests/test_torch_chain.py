@@ -105,6 +105,55 @@ def test_interop_geometry_matches_prepare():
     )
     for key in ("e", "dens", "dist", "nl", "order", "inv"):
         assert torch.equal(own[key], from_jax[key]), key
+    for key, value in own["tiles"].items():
+        assert torch.equal(value, from_jax["tiles"][key]), key
+
+
+def test_tile_table():
+    """The layer-parallel kernels' tile table: tiles cover the sorted points
+    in order; every real step (distance > 0) appears exactly once, in chain
+    order, with its point's tile-local index; no point is split across
+    tiles; no tile exceeds TILE_STEPS steps or TILE_POINTS points; points
+    with no real step keep their slot (here enough of them to fill tiles by
+    the point cap)."""
+    rng = np.random.RandomState(23)
+    e, dens, dist = _geometry(900, seed=13)
+    dist[rng.uniform(size=dist.shape) < 0.2] = 0.0  # zero-length gaps
+    dist[:150] = 0.0  # points with no real step
+    geom = chain.prepare_chain_geometry(
+        e, dens, dist, dtype=torch.float64, device="cpu"
+    )
+    t = {k: v.numpy() for k, v in geom["tiles"].items()}
+    order = geom["order"].numpy()
+    d_sorted, r_sorted = dist[order], dens[order]
+    n = e.size
+    first, n_points, first_step, n_steps = t["tile"].T
+    point_step = t["point_step"]
+
+    assert first[0] == 0 and first[-1] + n_points[-1] == n
+    np.testing.assert_array_equal(first[1:], first[:-1] + n_points[:-1])
+    np.testing.assert_array_equal(first_step, point_step[first])
+    np.testing.assert_array_equal(first_step + n_steps,
+                                  point_step[first + n_points])
+    assert np.all(n_points >= 1) and n_points.max() == chain.TILE_POINTS
+    assert n_steps.max() <= chain.TILE_STEPS
+    assert point_step[-1] == t["rho"].size == np.count_nonzero(dist > 0)
+    for k in range(first.size):
+        for j in range(n_points[k]):
+            i = first[k] + j
+            real = d_sorted[i] > 0
+            steps = slice(point_step[i], point_step[i + 1])
+            np.testing.assert_array_equal(t["dx"][steps], d_sorted[i][real])
+            np.testing.assert_array_equal(t["rho"][steps], r_sorted[i][real])
+            assert np.all(t["step_point"][steps] == j)
+    empty = np.diff(point_step) == 0
+    assert empty.sum() == np.count_nonzero(~(dist > 0).any(axis=1)) >= 150
+
+
+def test_tile_table_rejects_long_chain():
+    dens = np.ones((3, chain.TILE_STEPS + 1))
+    with pytest.raises(ValueError, match="exceeds"):
+        chain.tile_table(dens, dens, dtype=torch.float64, device="cpu")
 
 
 @pytest.mark.parametrize("nubar", [1, -1])
@@ -186,9 +235,9 @@ def test_chain_probs_rejects_bad_inputs():
 @pytest.mark.parametrize("dtype,atol", [(torch.float64, 1e-10),
                                         (torch.float32, 1e-4)])
 def test_kernel_matches_reference_on_card(cuda_device, dtype, atol):
-    """The CUDA kernel against the plain version on the same card, on
-    PREM-12 chains (the flagship's Earth model), and the launch count rising
-    by one per launch. float32 differs by rounding (FMA contraction in the
+    """The CUDA (tile) kernel against the plain version on the same card, on
+    PREM-12 chains (the flagship's Earth model), the launch count rising by
+    one per launch, and a launch without the tile table refused. float32 differs by rounding (FMA contraction in the
     kernel), amplified at high energy where the char-poly eigenvalues of
     the matter-dominated Hamiltonian lose precision."""
     from pisa_tpu_torch.ops.osc.layers import Layers
@@ -210,8 +259,11 @@ def test_kernel_matches_reference_on_card(cuda_device, dtype, atol):
     for nubar in (1, -1):
         pvec = chain.theta_to_pvec(THETA, nubar).to(cuda_device, dtype)
         before = chain.launch_count
-        got = chain.chain_probs(pvec, *args)
+        got = chain.chain_probs(pvec, *args, geom["tiles"])
         assert chain.launch_count == before + 1
         want = chain.chain_probs_reference(pvec, *args)
         torch.cuda.synchronize()
         assert float((got - want).abs().max()) <= atol
+    with pytest.raises(ValueError, match="tile table"):
+        chain.chain_probs(pvec, *args)
+    assert chain.launch_count == before + 1

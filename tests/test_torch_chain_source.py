@@ -1,8 +1,10 @@
 """
-The per-point math of ``pisa_tpu_torch/csrc/osc_chain.cu`` compiled for the
-host with the C++ compiler (the source's ``chain_point`` template is
-``__host__ __device__``): the primal and the dual-number tangents against the
-port's plain versions, and the operation counts behind the kernels' bounds
+The math of ``pisa_tpu_torch/csrc/osc_chain.cu`` compiled for the host with
+the C++ compiler (its per-point ``chain_point`` and the three phases of the
+layer-parallel tile pass are ``__host__ __device__``): the primal and the
+dual-number tangents against the port's plain versions, the tile pass,
+driven by a host loop over tiles and over the threads of each phase,
+against both, and the operation counts behind the kernels' bounds
 (``chain.chain_operations``). This checks the CUDA source's arithmetic
 without a card; the kernels themselves run only on one (``chip_smoke.py``,
 the ``cuda`` tests). Skipped where no C++ compiler is installed.
@@ -54,6 +56,31 @@ void dual(const S* p, const S* dp, const int* nl, const S* e, const S* dens,
   }
 }
 
+// The tile kernel's block, one tile after another: each phase's threads in
+// turn, with the shared memory poisoned (NaN) before each tile so that a
+// read of another tile's data shows.
+template <typename S, int K>
+void tile_pass(const S* pvec, const S* dpvec, const int* tiles, int n_tiles,
+               const int* point_step, const int* step_point, const S* rho,
+               const S* dx, const S* e, S* out, S* dout, int n) {
+  TileShared<S, K>* sh = new TileShared<S, K>;
+  for (int b = 0; b < n_tiles; ++b) {
+    for (auto& x : sh->t) x = std::nan("");
+    for (auto& x : sh->e) x = std::nan("");
+    for (int k = 0; k < kPack * (1 + K); ++k)
+      sh->pack[k] = k < kPack ? pvec[k] : dpvec[k - kPack];
+    const Tile tile = tile_at(tiles, b);
+    for (int tid = 0; tid < kTileThreads; ++tid)
+      if (tid < tile.n_points) tile_phase0(tile, tid, e, sh);
+    for (int tid = 0; tid < kTileThreads; ++tid)
+      if (tid < tile.n_steps) tile_phase1(tile, tid, step_point, rho, dx, sh);
+    for (int tid = 0; tid < kTileThreads; ++tid)
+      if (tid < 2 * tile.n_points)
+        tile_phase2(tile, tid, point_step, sh, out, dout, n);
+  }
+  delete sh;
+}
+
 static long long g_ops = 0;
 struct Cnt {
   double v;
@@ -101,6 +128,26 @@ long long count(const double* p, int nl, double e, const double* dens,
 }
 
 extern "C" {
+void tile_shape(int* out) {
+  out[0] = kTileSteps;
+  out[1] = kTilePoints;
+  out[2] = kTileThreads;
+}
+void tiles_primal_f64(const double* p, const int* tiles, int n_tiles,
+                      const int* point_step, const int* step_point,
+                      const double* rho, const double* dx, const double* e,
+                      double* out, int n) {
+  tile_pass<double, 0>(p, nullptr, tiles, n_tiles, point_step, step_point,
+                       rho, dx, e, out, nullptr, n);
+}
+void tiles_tangent_f64(const double* p, const double* dp, const int* tiles,
+                       int n_tiles, const int* point_step,
+                       const int* step_point, const double* rho,
+                       const double* dx, const double* e, double* dout,
+                       int n) {
+  tile_pass<double, 1>(p, dp, tiles, n_tiles, point_step, step_point, rho,
+                       dx, e, nullptr, dout, n);
+}
 void primal_f64(const double* p, const int* nl, const double* e,
                 const double* dens, const double* dist, double* out, int n) {
   primal<double>(p, nl, e, dens, dist, out, n);
@@ -154,6 +201,9 @@ def host_lib(tmp_path_factory):
     lib.dual1_f64.argtypes = [p] * 8 + [i]
     lib.dual3_f64.argtypes = [p] * 8 + [i]
     lib.count_ops.argtypes = [i, p, i, ctypes.c_double, p, p]
+    lib.tile_shape.argtypes = [p]
+    lib.tiles_primal_f64.argtypes = [p, p, i] + [p] * 6 + [i]
+    lib.tiles_tangent_f64.argtypes = [p, p, p, i] + [p] * 6 + [i]
     lib.count_ops.restype = ctypes.c_longlong
     return lib
 
@@ -170,6 +220,45 @@ def _prem_geometry(n, seed=3):
         10 ** rng.uniform(0, 3, n), layers.density.reshape(shape),
         layers.distance.reshape(shape), dtype=torch.float64, device="cpu",
     )
+
+
+def _grid_geometry(kind):
+    """The flagship's Earth model on a 20x20 (energy, coszen) grid of bin
+    centres (1-1000 GeV log, coszen -1..1), or random chains of 0..8 layers
+    with zero-length gaps, some with no real layer."""
+    if kind == "prem20x20":
+        e_edges = np.logspace(0, 3, 21)
+        z_edges = np.linspace(-1, 1, 21)
+        e_c = np.sqrt(e_edges[:-1] * e_edges[1:])
+        z_c = 0.5 * (z_edges[:-1] + z_edges[1:])
+        energy, coszen = (x.ravel() for x in np.meshgrid(e_c, z_c,
+                                                         indexing="ij"))
+        layers = Layers("osc/PREM_12layer.dat", 2.0, 20.0)
+        layers.setElecFrac(0.4656, 0.4656, 0.4957)
+        layers.calcLayers(coszen)
+        shape = (energy.size, layers.max_layers)
+        dens = layers.density.reshape(shape)
+        dist = layers.distance.reshape(shape)
+    else:
+        rng = np.random.RandomState(17)
+        n = 300
+        energy = 10 ** rng.uniform(0, 3, n)
+        dens = rng.uniform(1, 12, (n, 8))
+        dist = rng.uniform(50, 1000, (n, 8))
+        dist[rng.uniform(size=(n, 8)) < 0.3] = 0.0  # gaps
+        dist[:40] = 0.0  # points with no real layer
+    return chain.prepare_chain_geometry(energy, dens, dist,
+                                        dtype=torch.float64, device="cpu")
+
+
+def _tile_args(geom):
+    t = geom["tiles"]
+    return (t["tile"], t["tile"].shape[0], t["point_step"], t["step_point"],
+            t["rho"], t["dx"], geom["e"])
+
+
+def _ptrs_and_ints(*args):
+    return [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
 
 
 def _pack(nubar):
@@ -239,3 +328,63 @@ def test_operation_counts(host_lib, k):
     per_point, per_step = chain.chain_operations(k)
     assert counts == [per_point, per_point + per_step,
                       per_point + 3 * per_step]
+
+
+def test_tile_shape_matches_source(host_lib):
+    """The tile shape the host cuts (chain.TILE_STEPS, TILE_POINTS) is the
+    kernel's (kTileSteps, kTilePoints), with a thread per step and two per
+    point."""
+    shape = (ctypes.c_int * 3)()
+    host_lib.tile_shape(ctypes.addressof(shape))
+    steps, points, threads = shape
+    assert (steps, points) == (chain.TILE_STEPS, chain.TILE_POINTS)
+    assert threads >= steps and threads >= 2 * points
+
+
+@pytest.mark.parametrize("kind", ["prem20x20", "gaps"])
+@pytest.mark.parametrize("nubar", [1, -1])
+def test_source_tile_pass_primal(host_lib, kind, nubar):
+    """The tile pass (phases 0-2 over the tile table) against the plain
+    version to 1e-12 and against the serial chain_point to 1e-14 (fp64)."""
+    geom = _grid_geometry(kind)
+    pvec, _ = _pack(nubar)
+    n = geom["e"].shape[0]
+    got = torch.full((2, 3, n), np.nan, dtype=torch.float64)
+    host_lib.tiles_primal_f64(*_ptrs_and_ints(pvec, *_tile_args(geom), got,
+                                              n))
+    args = (geom["e"], geom["dens"], geom["dist"], geom["nl"])
+    want = chain.chain_probs_reference(pvec, *args)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0, atol=1e-12)
+    serial = torch.empty((2, 3, n), dtype=torch.float64)
+    host_lib.primal_f64(*_ptrs(pvec, geom["nl"], geom["e"], geom["dens"],
+                               geom["dist"], serial), n)
+    np.testing.assert_allclose(got.numpy(), serial.numpy(), rtol=0,
+                               atol=1e-14)
+
+
+@pytest.mark.parametrize("kind", ["prem20x20", "gaps"])
+@pytest.mark.parametrize("nubar", [1, -1])
+def test_source_tile_pass_tangent(host_lib, kind, nubar):
+    """The dual tile pass along each of the flagship's active pack
+    directions against the forward-mode derivative of the plain version to
+    1e-12 of the direction's largest tangent, and against the serial
+    Dual<double, 1> chain_point to 1e-14 of it (fp64)."""
+    geom = _grid_geometry(kind)
+    pvec, dirs = _pack(nubar)
+    n = geom["e"].shape[0]
+    args = (geom["e"], geom["dens"], geom["dist"], geom["nl"])
+    primal = torch.empty((2, 3, n), dtype=torch.float64)
+    serial = torch.empty((2, 3, n), dtype=torch.float64)
+    for k in ACTIVE:
+        d = dirs[k].contiguous()
+        got = torch.full((2, 3, n), np.nan, dtype=torch.float64)
+        host_lib.tiles_tangent_f64(*_ptrs_and_ints(pvec, d, *_tile_args(geom),
+                                                   got, n))
+        want = chain.chain_tangent_reference(pvec, d, *args)
+        scale = float(want.abs().max())
+        assert scale > 0
+        assert float((got - want).abs().max()) <= 1e-12 * scale
+        host_lib.dual1_f64(*_ptrs(pvec, d, geom["nl"], geom["e"],
+                                  geom["dens"], geom["dist"], primal, serial),
+                           n)
+        assert float((got - serial).abs().max()) <= 1e-14 * scale

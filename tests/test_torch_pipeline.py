@@ -24,6 +24,7 @@ from pisa_tpu_torch import ureg as torch_ureg
 from pisa_tpu_torch.config.parser import parse_pipeline_config as torch_parse
 from pisa_tpu_torch.core import binning as torch_binning
 from pisa_tpu_torch.core.pipeline import Pipeline as TorchPipeline
+from pisa_tpu_torch.ops.osc import chain
 from pisa_tpu_torch.utils.interop import set_param_values
 
 CFG = "settings/pipeline/IceCube_3y_neutrinos.cfg"
@@ -118,6 +119,37 @@ def test_port_matches_jax_pipeline(pipelines, point):
         assert m.hist.shape == (8, 8, 2)
         assert np.all(np.isfinite(m.hist)) and np.all(m.hist >= 0)
     _assert_close(want, got)
+
+
+def test_tile_table_built_at_setup(pipelines, monkeypatch):
+    """prob3 builds the kernels' tile table once, at set-up: it sits in the
+    stage's geometry, equals the table of its sorted layer chains, and a
+    template with new oscillation parameters builds none."""
+    _, torch_p, _ = pipelines
+    stage = torch_p["osc.prob3"]
+    tiles = stage.geom["tiles"]
+    order = stage.geom["order"].numpy()
+    shape = (order.size, stage.layers.max_layers)
+    want = chain.tile_table(
+        stage.layers.density.reshape(shape)[order],
+        stage.layers.distance.reshape(shape)[order],
+        dtype=stage.geom["e"].dtype, device="cpu",
+    )
+    assert tiles.keys() == want.keys()
+    for key, value in want.items():
+        assert torch.equal(tiles[key], value), key
+
+    def rebuilt(*args, **kwargs):
+        raise AssertionError("tile table built after set-up")
+
+    monkeypatch.setattr(chain, "tile_table", rebuilt)
+    theta23 = torch_p.params["theta23"].value
+    try:
+        torch_p.params["theta23"].value = 43.0 * torch_ureg.degree
+        torch_p.get_outputs()
+    finally:
+        torch_p.params["theta23"].value = theta23
+    assert stage.geom["tiles"] is tiles
 
 
 def test_cuda_device_without_card_raises():

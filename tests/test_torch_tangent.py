@@ -269,7 +269,7 @@ def test_tangent_wrappers_reject_bad_inputs():
                                              (torch.float32, 1e-3, 1e-4)])
 def test_tangent_kernels_match_reference_on_card(cuda_device, dtype, rtol,
                                                  atol):
-    """The CUDA tangent and multitangent kernels against their plain
+    """The CUDA tangent (tile) and multitangent kernels against their plain
     versions on one card, on PREM-12 chains, with the launch counts rising
     by one per launch. Tangents relative to each direction's largest
     (float32: rounding, as in the primal's 1e-4 on probabilities <= 1)."""
@@ -291,7 +291,8 @@ def test_tangent_kernels_match_reference_on_card(cuda_device, dtype, rtol,
         pvec = pvec.to(cuda_device, dtype)
         dirs = jac.T.contiguous().to(cuda_device, dtype)
         before = chain.tangent_launch_count
-        got = torch.stack([chain.chain_tangent(pvec, d, *args) for d in dirs])
+        got = torch.stack([chain.chain_tangent(pvec, d, *args, geom["tiles"])
+                           for d in dirs])
         assert chain.tangent_launch_count == before + 6
         want = torch.stack(
             [chain.chain_tangent_reference(pvec, d, *args) for d in dirs])
