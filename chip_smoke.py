@@ -24,8 +24,10 @@ oscillation grid, 15 free parameters) on the card through its two paths:
 
 It times the kernels (device-only, from a CUDA graph of 200 launches, and
 host-inclusive, from back-to-back launches between CUDA events; the
-tangent against the earlier one-thread-per-point design in turns), prints
-their registers and occupancy, and times the gradient and the fit. It exits
+multitangent at K = 3 and K = 6 beside K launches of the tangent), prints
+their registers and occupancy, times the gradient by both of its routes
+(wall and device time) and the fit, and lists where one gradient waits for
+the card. It exits
 non-zero on any failed check; the last line of a passing run is
 ``{"ok": true, "device": {...}}``. With ``--kernels-only`` it stops after
 the kernel checks and timings (and prints no status line).
@@ -204,7 +206,8 @@ def value_and_grad_counted(pipeline, chain, vg, v, multitangent):
     the value, the gradient (numpy) and the kernel launches it made."""
     import torch
 
-    pipeline["osc.prob3"].multitangent = multitangent
+    stage = pipeline["osc.prob3"]
+    default, stage.multitangent = stage.multitangent, multitangent
     try:
         before = launch_counts(chain)
         value, grad = vg(v)
@@ -212,7 +215,7 @@ def value_and_grad_counted(pipeline, chain, vg, v, multitangent):
             torch.cuda.synchronize()
         after = launch_counts(chain)
     finally:
-        pipeline["osc.prob3"].multitangent = False
+        stage.multitangent = default
     return (float(value), grad.cpu().numpy(),
             tuple(a - b for a, b in zip(after, before)))
 
@@ -498,8 +501,8 @@ def tangent_vs_plain(chain):
     primal) on the card: flagship geometry, nu and nubar, nominal and 3
     seeded theta, all 6 pack-Jacobian directions, float64 and float32. The
     error of a direction is max|kernel - plain| over its (2, 3, N) output
-    relative to that output's max|plain|. Then times: the kernel against
-    the earlier per-point design in turns, and the plain version."""
+    relative to that output's max|plain|. Then the kernel's times and the
+    plain version's."""
     import torch
 
     summary = {}
@@ -530,50 +533,32 @@ def tangent_vs_plain(chain):
               f"{dname}: tangent kernel disagrees with plain by {worst_rel}")
         pvec, dirs = pack_and_directions(chain, thetas[0], 1, dtype)
         d = dirs[2].contiguous()  # theta23
-        d1 = d[None]
-        # the tile kernel against the earlier one-thread-per-point design,
-        # which is the K = 1 multitangent launch (it also writes the
-        # primal), in turns: earlier, tile, tile, earlier
-        designs = {
-            "tile": lambda: chain.chain_tangent(pvec, d, *args, tiles),
-            "per-point": lambda: chain.chain_multitangent(pvec, d1, *args),
-        }
-        turns = {"tile": {"device": [], "host": []},
-                 "per-point": {"device": [], "host": []}}
-        for label in ("per-point", "tile", "tile", "per-point"):
-            turns[label]["device"].append(graph_time(designs[label]))
-            turns[label]["host"].append(cuda_time(designs[label], 200))
-        for label, t in turns.items():
-            print(f"time, tangent {dname}, {label} design, in turns: device"
-                  f" {' / '.join(f'{x:.5f}' for x in t['device'])} ms, with"
-                  f" enqueue {' / '.join(f'{x:.5f}' for x in t['host'])} ms")
-        device_ms = min(turns["tile"]["device"])
-        host_ms = min(turns["tile"]["host"])
+        run = lambda: chain.chain_tangent(pvec, d, *args, tiles)  # noqa: E731
+        device_ms = graph_time(run)
+        host_ms = cuda_time(run, 200)
         plain_ms = cuda_time(
             lambda: chain.chain_tangent_reference(pvec, d, *args), 5)
         bound = kernel_bound(chain, geom, 1, False)
         print(f"time, osc_chain_tangent {dname}, {tile_line(tiles)}: kernel"
-              f" {device_ms:.5f} ms device-only, {host_ms:.5f} ms with"
-              f" enqueue (the better turn of each), earlier design"
-              f" {min(turns['per-point']['device']):.5f} ms device-only;"
-              f" plain PyTorch {plain_ms:.4f} ms; bound"
+              f" {device_ms:.5f} ms device-only (CUDA graph), {host_ms:.5f}"
+              f" ms with enqueue; plain PyTorch {plain_ms:.4f} ms; bound"
               f" {bound['bound_ms']:.5f} ms by {bound['bound_by']}"
               f" ({bound['ops']} operations, {bound['bytes']} bytes)")
         summary[dname] = {
             "max_abs_err": worst_abs, "max_rel_err": worst_rel,
             "ms": device_ms, "host_ms": host_ms, "plain_ms": plain_ms,
-            "per_point_ms": min(turns["per-point"]["device"]), **bound,
-            **resources(chain, "osc_chain_tangent", dtype)}
-        resources(chain, "osc_chain_multitangent", dtype, 1)
+            **bound, **resources(chain, "osc_chain_tangent", dtype)}
     return summary
 
 
 def multitangent_vs_plain(chain):
-    """Multitangent kernel (K = 3: the flagship's free theta13, theta23,
-    dm31) on the card against its plain version and against the primal and
-    tangent kernels: flagship geometry, nu and nubar, nominal and 3 seeded
-    theta, float64 and float32. Then device-only and host-inclusive
-    times."""
+    """Multitangent kernel at K = 3 (the flagship's free theta13, theta23,
+    dm31), K = 1 and K = 6 on the card against its plain version and
+    against the primal kernel and K launches of the tangent kernel:
+    flagship geometry, nu and nubar, nominal and seeded theta (4 at K = 3, 2
+    at K = 1 and 6), float64 and float32. Then, at K = 3 and K = 6, its
+    device-only and host-inclusive times beside K tangent launches', and
+    every instance's resources. Returns the K = 3 summary per dtype."""
     import torch
 
     summary = {}
@@ -582,62 +567,89 @@ def multitangent_vs_plain(chain):
         geom, params = flagship_geometry(dtype)
         thetas = flagship_thetas(params)
         args = (geom["e"], geom["dens"], geom["dist"], geom["nl"])
-        errs = {"plain_p": 0.0, "plain_t": 0.0, "plain_t_abs": 0.0,
-                "kern_p": 0.0, "kern_t": 0.0}
-        for theta in thetas:
-            for nubar in (1, -1):
-                pvec, dirs = pack_and_directions(chain, theta, nubar, dtype)
-                dpvecs = dirs[list(FREE_THETA)].contiguous()
-                out, dout = chain.chain_multitangent(pvec, dpvecs, *args)
-                ref_p, ref_t = chain.chain_multitangent_reference(
-                    pvec, dpvecs, *args)
-                kern_p = chain.chain_probs(pvec, *args, geom["tiles"])
-                kern_t = torch.stack(
-                    [chain.chain_tangent(pvec, d, *args, geom["tiles"])
-                     for d in dpvecs])
-                torch.cuda.synchronize()
-                check(bool(torch.isfinite(out).all())
-                      and bool(torch.isfinite(dout).all()),
-                      f"{dname}: multitangent kernel output not finite")
-                scale = ref_t.abs().amax(dim=(1, 2, 3), keepdim=True)
-                errs["plain_p"] = max(errs["plain_p"],
-                                      float((out - ref_p).abs().max()))
-                errs["plain_t"] = max(errs["plain_t"], float(
-                    ((dout - ref_t).abs() / scale).max()))
-                errs["plain_t_abs"] = max(errs["plain_t_abs"], float(
-                    (dout - ref_t).abs().max()))
-                errs["kern_p"] = max(errs["kern_p"],
-                                     float((out - kern_p).abs().max()))
-                errs["kern_t"] = max(errs["kern_t"], float(
-                    ((dout - kern_t).abs() / scale).max()))
-        print(f"multitangent kernel (K=3), {dname}: primal vs plain"
-              f" {errs['plain_p']:.3e}, vs primal kernel {errs['kern_p']:.3e}"
-              f" (bound {MULTI_PRIMAL_ATOL[dname]:g} abs); tangents vs plain"
-              f" {errs['plain_t']:.3e}, vs tangent kernel {errs['kern_t']:.3e}"
-              f" (bound {TANGENT_RTOL[dname]:g} rel); 4 theta x 2 signs")
-        check(max(errs["plain_p"], errs["kern_p"]) <= MULTI_PRIMAL_ATOL[dname],
-              f"{dname}: multitangent primal off by {errs}")
-        check(max(errs["plain_t"], errs["kern_t"]) <= TANGENT_RTOL[dname],
-              f"{dname}: multitangent tangents off by {errs}")
-        pvec, dirs = pack_and_directions(chain, thetas[0], 1, dtype)
-        dpvecs = dirs[list(FREE_THETA)].contiguous()
-        run = lambda: chain.chain_multitangent(pvec, dpvecs, *args)  # noqa: E731
-        device_ms = graph_time(run)
-        host_ms = cuda_time(run, 200)
-        plain_ms = cuda_time(
-            lambda: chain.chain_multitangent_reference(pvec, dpvecs, *args), 3)
-        bound = kernel_bound(chain, geom, len(FREE_THETA), True)
-        print(f"time, osc_chain_multitangent {dname} (K=3): kernel"
-              f" {device_ms:.5f} ms device-only (CUDA graph), {host_ms:.5f} ms"
-              f" with enqueue, plain PyTorch {plain_ms:.4f} ms; bound"
-              f" {bound['bound_ms']:.5f} ms by {bound['bound_by']}"
-              f" ({bound['ops']} operations, {bound['bytes']} bytes)")
-        summary[dname] = {"max_abs_err": max(errs["plain_p"],
-                                             errs["plain_t_abs"]),
-                          "max_rel_err": errs["plain_t"], "ms": device_ms,
-                          "host_ms": host_ms, "plain_ms": plain_ms, **bound,
-                          **resources(chain, "osc_chain_multitangent", dtype,
-                                      len(FREE_THETA))}
+        tiles = geom["tiles"]
+        for k in (3, 1, 6):
+            pick = list(FREE_THETA) if k == 3 else list(range(k))
+            errs = {"plain_p": 0.0, "plain_t": 0.0, "plain_t_abs": 0.0,
+                    "kern_p": 0.0, "kern_t": 0.0}
+            for theta in thetas if k == 3 else thetas[:2]:
+                for nubar in (1, -1):
+                    pvec, dirs = pack_and_directions(chain, theta, nubar,
+                                                     dtype)
+                    dpvecs = dirs[pick].contiguous()
+                    out, dout = chain.chain_multitangent(pvec, dpvecs, *args,
+                                                         tiles)
+                    ref_p, ref_t = chain.chain_multitangent_reference(
+                        pvec, dpvecs, *args)
+                    kern_p = chain.chain_probs(pvec, *args, tiles)
+                    kern_t = torch.stack(
+                        [chain.chain_tangent(pvec, d, *args, tiles)
+                         for d in dpvecs])
+                    torch.cuda.synchronize()
+                    check(bool(torch.isfinite(out).all())
+                          and bool(torch.isfinite(dout).all()),
+                          f"{dname}: multitangent kernel output not finite")
+                    scale = ref_t.abs().amax(dim=(1, 2, 3), keepdim=True)
+                    for key, value in (
+                        ("plain_p", (out - ref_p).abs().max()),
+                        ("plain_t", ((dout - ref_t).abs() / scale).max()),
+                        ("plain_t_abs", (dout - ref_t).abs().max()),
+                        ("kern_p", (out - kern_p).abs().max()),
+                        ("kern_t", ((dout - kern_t).abs() / scale).max()),
+                    ):
+                        errs[key] = max(errs[key], float(value))
+            print(f"multitangent kernel (K={k}), {dname}: primal vs plain"
+                  f" {errs['plain_p']:.3e}, vs primal kernel"
+                  f" {errs['kern_p']:.3e} (bound {MULTI_PRIMAL_ATOL[dname]:g}"
+                  f" abs); tangents vs plain {errs['plain_t']:.3e}, vs"
+                  f" tangent kernel {errs['kern_t']:.3e} (bound"
+                  f" {TANGENT_RTOL[dname]:g} rel);"
+                  f" {4 if k == 3 else 2} theta x 2 signs")
+            check(max(errs["plain_p"], errs["kern_p"])
+                  <= MULTI_PRIMAL_ATOL[dname],
+                  f"{dname}: K={k} multitangent primal off by {errs}")
+            check(max(errs["plain_t"], errs["kern_t"]) <= TANGENT_RTOL[dname],
+                  f"{dname}: K={k} multitangent tangents off by {errs}")
+            if k == 1:
+                continue
+            pvec, dirs = pack_and_directions(chain, thetas[0], 1, dtype)
+            dpvecs = dirs[pick].contiguous()
+            run = lambda: chain.chain_multitangent(  # noqa: E731
+                pvec, dpvecs, *args, tiles)
+            separate = lambda: [  # noqa: E731
+                chain.chain_tangent(pvec, d, *args, tiles) for d in dpvecs]
+            # in turns: K tangents, multitangent, multitangent, K tangents
+            turns = {"multi": [], "separate": []}
+            for label in ("separate", "multi", "multi", "separate"):
+                fn = run if label == "multi" else separate
+                turns[label].append((graph_time(fn), cuda_time(fn, 200)))
+            device_ms, host_ms = (min(t[i] for t in turns["multi"])
+                                  for i in (0, 1))
+            sep_ms, sep_host_ms = (min(t[i] for t in turns["separate"])
+                                   for i in (0, 1))
+            plain_ms = cuda_time(
+                lambda: chain.chain_multitangent_reference(pvec, dpvecs,
+                                                           *args), 3)
+            bound = kernel_bound(chain, geom, k, True)
+            print(f"time, osc_chain_multitangent {dname} (K={k}),"
+                  f" {tile_line(tiles)}: kernel {device_ms:.5f} ms"
+                  f" device-only (CUDA graph), {host_ms:.5f} ms with enqueue;"
+                  f" {k} tangent launches {sep_ms:.5f} ms device-only,"
+                  f" {sep_host_ms:.5f} ms with enqueue (the better of two"
+                  f" turns each); plain PyTorch {plain_ms:.4f} ms; bound"
+                  f" {bound['bound_ms']:.5f} ms by {bound['bound_by']}"
+                  f" ({bound['ops']} operations, {bound['bytes']} bytes):"
+                  f" {100 * bound['bound_ms'] / device_ms:.1f}% of it")
+            if k == 3:
+                summary[dname] = {
+                    "max_abs_err": max(errs["plain_p"], errs["plain_t_abs"]),
+                    "max_rel_err": errs["plain_t"], "ms": device_ms,
+                    "host_ms": host_ms, "plain_ms": plain_ms,
+                    "tangents_ms": sep_ms, **bound}
+        for k in range(1, chain.MAX_TANGENTS + 1):
+            a = resources(chain, "osc_chain_multitangent", dtype, k)
+            if k == 3:
+                summary[dname].update(a)
     return summary
 
 
@@ -648,15 +660,19 @@ def tile_line(tiles):
 
 
 def resources(chain, name, dtype, k=1):
-    """Print and return a kernel's registers, spills, shared memory, block
-    size and resident blocks per SM (CUDA's occupancy calculator)."""
-    a = chain.kernel_attributes(name, dtype, k)
+    """Print and return a kernel's registers, local memory, shared memory,
+    block size and resident blocks per SM (CUDA's occupancy calculator); the
+    multitangent's for K = k, with the directions a thread holds in its
+    phases 1 and 2."""
     dname = str(dtype).split(".")[-1]
-    tag = f" K={k}" if name == "osc_chain_multitangent" else ""
+    a = chain.kernel_attributes(name, dtype, k)
+    tag = ""
+    if name == "osc_chain_multitangent":
+        tag = f" K={k} (c1={a['c1']}, c2={a['c2']})"
     print(f"resources, {name} {dname}{tag}: {a['registers']} registers,"
           f" {a['local_bytes']} B local memory (stack frame and spills) per"
           f" thread,"
-          f" {a['shared_bytes']} B static shared per block, {a['threads']}"
+          f" {a['shared_bytes']} B shared per block, {a['threads']}"
           f" threads per block, {a['blocks_per_sm']} resident blocks per SM"
           f" ({a['blocks_per_sm'] * a['threads'] // 32} of 64 warps)")
     return a
@@ -781,10 +797,13 @@ def median_wall(fn, reps):
     return float(np.median(walls)), float(min(walls))
 
 
-def count_host_syncs(fn):
+def count_host_syncs(fn, sources=None):
     """fn() with torch's CUDA sync debug mode warning at every operation
     that waits for the card (a value read back, a copy to the host); returns
-    the number of such waits and fn's result."""
+    the number of such waits and fn's result. With `sources` (a dict), also
+    counts the waits there by the source line Python gives each warning
+    ("file:line"; a wait inside the backward pass is reported at the line
+    that started it)."""
     import warnings
 
     import torch
@@ -796,7 +815,52 @@ def count_host_syncs(fn):
             result = fn()
         finally:
             torch.cuda.set_sync_debug_mode("default")
-    return sum("synchroniz" in str(w.message) for w in caught), result
+    syncs = [w for w in caught if "synchroniz" in str(w.message)]
+    if sources is not None:
+        for w in syncs:
+            where = f"{os.path.relpath(w.filename, ROOT)}:{w.lineno}"
+            sources[where] = sources.get(where, 0) + 1
+    return len(syncs), result
+
+
+def print_host_sync_sources(label, fn):
+    """One fn() under the sync debug mode: its waits for the card, grouped
+    by source line, most frequent first."""
+    import linecache
+
+    sources = {}
+    syncs, _ = count_host_syncs(fn, sources)
+    print(f"host syncs of one {label}: {syncs}, by source line:")
+    for where, count in sorted(sources.items(), key=lambda x: -x[1]):
+        path, line = where.rsplit(":", 1)
+        text = linecache.getline(os.path.join(ROOT, path), int(line)).strip()
+        print(f"  {count:4d}x  {where}  {text[:80]}")
+
+
+# profiler entries that copy to the host or wait for the card
+_SYNC_KEYS = ("Memcpy DtoH", "cudaStreamSynchronize", "cudaDeviceSynchronize",
+              "cudaEventSynchronize", "cudaMemcpyAsync",
+              "aten::_local_scalar_dense", "aten::item", "aten::_to_copy",
+              "ToCopyBackward")
+
+
+def print_host_copy_ops(label, fn):
+    """One fn() under torch.profiler: the calls of the operators, autograd
+    nodes and runtime functions that copy to the host or wait for the card
+    (the sync debug mode reports every wait inside the backward pass at the
+    one line that started it; this names the nodes)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    print(f"copies to the host and waits in one {label} (torch.profiler):")
+    for e in sorted(prof.key_averages(), key=lambda e: -e.count):
+        if any(k in e.key for k in _SYNC_KEYS):
+            print(f"  {e.count:4d}x  {e.key[:90]}")
 
 
 def profile_device_busy(fn):
@@ -920,24 +984,43 @@ def gradient_and_fit_fp32(pipeline, chain, ref, smi):
     print(f"host syncs of the fit (torch.cuda sync debug mode, a second run):"
           f" {syncs} over {again['nit']} iterations and {again['nfev']}"
           f" evaluations ({syncs / max(again['nit'], 1):.1f} per iteration)")
-    for label, multi in (("value_and_grad", False),
-                         ("value_and_grad multitangent", True)):
-        pipeline["osc.prob3"].multitangent = multi
+    print_host_sync_sources("float32 value (forward only)",
+                            lambda: value_fn(v))
+    print_host_sync_sources("float32 value_and_grad", lambda: vg(v))
+    print_host_copy_ops("float32 value_and_grad", lambda: vg(v))
+    stage = pipeline["osc.prob3"]
+    default = stage.multitangent
+    routes = (("value_and_grad separate tangents", False),
+              ("value_and_grad multitangent", True))
+    device_ms = {label: [] for label, _ in routes}
+    for label, multi in routes:
+        stage.multitangent = multi
         vg(v)
         times[label] = median_wall(lambda: vg(v), 10)
-        pipeline["osc.prob3"].multitangent = False
+    # one profiled call per turn: separate, multitangent, multitangent,
+    # separate
+    for label, multi in routes + routes[::-1]:
+        stage.multitangent = multi
+        device_ms[label].append(profile_device_busy(lambda: vg(v))[1])
+    stage.multitangent = default
     value_fn(v)
     times["value"] = median_wall(lambda: value_fn(v), 10)
-    for label in ("value", "value_and_grad", "value_and_grad multitangent"):
+    for label in ("value", *device_ms):
         med, low = times[label]
         print(f"float32 {label} wall (10 calls): median {med * 1e3:.2f} ms,"
               f" min {low * 1e3:.2f} ms [{smi}]")
-    wall, device_ms, top, top_host = profile_device_busy(lambda: vg(v))
-    times["busy"] = device_ms / (wall * 1e3)
-    print(f"torch.profiler, one float32 value_and_grad: wall {wall * 1e3:.2f}"
-          f" ms, device time {device_ms:.3f} ms, device busy"
+    for label, ms in device_ms.items():
+        print(f"float32 {label}: device time (torch.profiler, one call a"
+              f" turn) {' / '.join(f'{x:.4f}' for x in ms)} ms [{smi}]")
+    default_label = routes[1 if default else 0][0]
+    print(f"prob3's default route: {default_label}")
+    wall, busy_ms, top, top_host = profile_device_busy(lambda: vg(v))
+    times["busy"] = busy_ms / (wall * 1e3)
+    print(f"torch.profiler, one float32 value_and_grad (the default route):"
+          f" wall {wall * 1e3:.2f}"
+          f" ms, device time {busy_ms:.3f} ms, device busy"
           f" {100 * times['busy']:.1f}% (of the unprofiled median:"
-          f" {100 * device_ms / (times['value_and_grad'][0] * 1e3):.1f}%)"
+          f" {100 * busy_ms / (times[default_label][0] * 1e3):.1f}%)"
           f" [{smi}]")
     print("  most device time:")
     for key, ms, count in top:

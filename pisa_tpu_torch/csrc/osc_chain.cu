@@ -9,7 +9,8 @@
 // - _chain_tangent_kernel (an in-body jax.jvp of _chain_block_math)
 //   -> tile_kernel<S, 1>, with no primal output;
 // - _chain_multitangent_kernel (_chain_block_math_multitangent: the primal
-//   plus K tangents, each layer step linearized once) -> dual_kernel<S, K>.
+//   plus K tangents, each layer step linearized once)
+//   -> tile_multi_kernel<S, K>, K = 1..6.
 //
 // The math. For each point: start from the nu_e and nu_mu states rotated to
 // the mass basis (initial_state); for each of the point's layers of nonzero
@@ -37,14 +38,14 @@
 // most. HBM traffic is small: the steps' (rho, dx) in, 6 x (1 + K) x N
 // results out, a few MB that stay in L2.
 //
-// The primal and tangent kernels (tile_kernel): layer-parallel tiles.
-// A layer step's T depends on the pack, the point's energy and the layer's
-// (rho, dx), never on the state, so the chain dependence is only the cheap
-// v <- T v. One thread per point, as before, ran each chain serially: the
-// kernel took as long as its longest chains (24 steps of ~470 / ~1,430
-// dependent operations), while most threads finished after ~7 steps, and
-// the 157 blocks left the card nearly empty (the fp32 tangent, at 168
-// registers, ran 1 block per SM in two waves). The tile design:
+// All three kernels are layer-parallel tiles. A layer step's T depends on
+// the pack, the point's energy and the layer's (rho, dx), never on the
+// state, so the chain dependence is only the cheap v <- T v. One thread per
+// point, the first design, ran each chain serially: the kernel took as long
+// as its longest chains (24 steps of ~470 / ~1,430 dependent operations),
+// while most threads finished after ~7 steps, and the 157 blocks left the
+// card nearly empty (the fp32 tangent, at 168 registers, ran 1 block per SM
+// in two waves). The tile design (tile_kernel: the primal and the tangent):
 // - the host cuts the points, in the chain-length sort, into tiles of at
 //   most kTileSteps real steps and kTilePoints points, never splitting a
 //   point, and compacts each point's real steps in chain order into flat
@@ -62,13 +63,30 @@
 //   36 KB) under the 48 KB of static shared memory and leaves blocks small,
 //   so that several resident blocks interleave their phases on an SM.
 //
-// The multitangent (dual_kernel<S, K>) keeps one thread per point: it runs
-// chain_point, the whole chain in registers, over Dual<S, K>. Its registers
-// grow with K (the fp64 K >= 3 instances spill); it is off on the main path.
-// chain_point also serves the host tests of the arithmetic
-// (tests/test_torch_chain_source.py), which hold the tile pass against it.
+// The multitangent (tile_multi_kernel<S, K>) is the same three phases with
+// K directions. Each step is linearized once: phase 1 stores T and its K
+// tangents dT_k, and phase 2 applies them to v and its tangents
+// (dv_k <- dT_k v + T dv_k). What grows with K, and what the design does:
+// - shared memory: T and K dT of a tile are 128 x 18 x (1 + K) scalars, up
+//   to 129 KB (fp64, K = 6), so the block's memory is dynamic (above 48 KB
+//   it is opted into once per kernel) and carved by hand (TileMem);
+// - registers in phase 1: layer_T over a dual of K directions holds every
+//   intermediate 1 + K times, so the directions are cut into chunks of at
+//   most 3, a thread per (step, chunk); a later chunk computes the primal
+//   part again. With 3 the fp64 instances stay within 255 registers and
+//   spill nothing; the block has a thread per step and chunk (128 for
+//   K <= 3, 256 above);
+// - the chain walk: a thread per (point, initial flavour, direction), each
+//   walking v with one tangent: short threads, K times as many, instead of
+//   one thread carrying 6 (1 + K) complex registers along 24 steps.
+// Each phase is a loop of the block's threads over its work items. The
+// per-direction arithmetic is the tangent kernel's, bit for bit.
 //
-// Both designs read the pack and its tangent directions from device
+// chain_point, a point's whole chain in one thread over any scalar type, is
+// the arithmetic reference: the host tests
+// (tests/test_torch_chain_source.py) hold the tile passes against it.
+//
+// The kernels read the pack and its tangent directions from device
 // pointers into shared memory at block start: no host sync, so a launch can
 // be captured in a CUDA graph. Real atan2/sincos/rsqrt, no fast-math: the
 // layer phases reach tens of radians, where __sinf/__cosf lose their range
@@ -105,7 +123,7 @@ namespace osc_chain {
 
 constexpr int kPack = 57;
 constexpr int kMaxTangents = 6;  // multitangent K is dispatched to 1..6
-static_assert(kMaxTangents == 6, "launch_multi dispatches K = 1..6");
+static_assert(kMaxTangents == 6, "with_multi dispatches K = 1..6");
 constexpr double kTwoSqrt2GF = 1.52588e-4;  // 2 sqrt(2) G_F, eV^2 cm^3/(mol GeV)
 constexpr double kHbarC = 2.534;            // (1/2)/(hbar c), GeV/(eV^2 km)
 constexpr double kHalfSqrt3 = 0.8660254037844386;
@@ -294,29 +312,33 @@ OSC_HD void osc_sincos(const Dual<S, K>& x, Dual<S, K>* s, Dual<S, K>* c) {
   }
 }
 
-// A scalar's components in memory: the value, then its K tangents, each
-// `stride` apart (tile_kernel's shared-memory T and its outputs).
-template <typename T>
-struct Parts {
-  static constexpr int n = 1;
-};
-template <typename S, int K>
-struct Parts<Dual<S, K>> {
-  static constexpr int n = 1 + K;
-};
+// A scalar's components in memory (the tile kernels' shared-memory t and
+// their outputs): the value, then the tangents of all k_all directions, each
+// `stride` apart. A Dual<S, C> holds the C directions from `first` on, a
+// chunk of the k_all: its value is stored by the chunk with first == 0,
+// and the directions past k_all (the last chunk's padding) are skipped on a
+// store and read as zero.
 template <typename S>
-OSC_HD void put_parts(S* dst, int stride, S x) { dst[0] = x; }
-template <typename S, int K>
-OSC_HD void put_parts(S* dst, int stride, const Dual<S, K>& x) {
-  dst[0] = x.v;
-  for (int k = 0; k < K; ++k) dst[(1 + k) * stride] = x.d[k];
+OSC_HD void put_parts(S* dst, int stride, S x, int first, int k_all) {
+  dst[0] = x;
+}
+template <typename S, int C>
+OSC_HD void put_parts(S* dst, int stride, const Dual<S, C>& x, int first,
+                      int k_all) {
+  if (first == 0) dst[0] = x.v;
+  for (int d = 0; d < C; ++d)
+    if (first + d < k_all) dst[(1 + first + d) * stride] = x.d[d];
 }
 template <typename S>
-OSC_HD void get_parts(const S* src, int stride, S* x) { *x = src[0]; }
-template <typename S, int K>
-OSC_HD void get_parts(const S* src, int stride, Dual<S, K>* x) {
+OSC_HD void get_parts(const S* src, int stride, S* x, int first, int k_all) {
+  *x = src[0];
+}
+template <typename S, int C>
+OSC_HD void get_parts(const S* src, int stride, Dual<S, C>* x, int first,
+                      int k_all) {
   x->v = src[0];
-  for (int k = 0; k < K; ++k) x->d[k] = src[(1 + k) * stride];
+  for (int d = 0; d < C; ++d)
+    x->d[d] = first + d < k_all ? src[(1 + first + d) * stride] : S(0);
 }
 
 // -- complex arithmetic over any scalar type T (plain or dual) ---------------
@@ -369,17 +391,17 @@ struct DualPack {
     return r;
   }
 };
-// The pack type of a pass with K tangents (0: the primal) over the pack and
-// its directions, stored back to back.
+// The pack type of a pass with K tangents (0: the primal) over the pack p
+// and the directions dp (K x 57).
 template <typename S, int K>
 struct PackOf {
   using type = DualPack<S, K>;
-  static OSC_HD type over(const S* p) { return type{p, p + kPack}; }
+  static OSC_HD type over(const S* p, const S* dp) { return type{p, dp}; }
 };
 template <typename S>
 struct PackOf<S, 0> {
   using type = PlainPack<S>;
-  static OSC_HD type over(const S* p) { return type{p}; }
+  static OSC_HD type over(const S* p, const S* dp) { return type{p}; }
 };
 template <typename P>
 OSC_HD Cx<typename P::type> pU(const P& p, int i, int j) {
@@ -575,8 +597,7 @@ OSC_HD void flavour_probs(const P& p, const Cx<typename P::type> v[3],
   }
 }
 
-// One point's full chain, serially (the multitangent kernel and the host
-// tests). `p` reads the pack (T = P::type: plain or dual); `e` and the
+// One point's full chain, serially (the reference of the host tests). `p` reads the pack (T = P::type: plain or dual); `e` and the
 // layer slabs are plain S. `dens`/`dist` point at the point's slot of layer
 // 0 in the (L, N) slabs; consecutive layers are `stride` = N apart. Writes
 // out[3a + b] = P(nu_a -> nu_b) for a in {e, mu}, b in {e, mu, tau}.
@@ -607,7 +628,7 @@ OSC_HD void chain_point(const P& p, int nl, S e, const S* dens, const S* dist,
   for (int a = 0; a < 2; ++a) flavour_probs(p, v[a], out + 3 * a);
 }
 
-// -- the layer-parallel tile pass (tile_kernel), one function per phase ------
+// -- the layer-parallel tile pass, one function per phase --------------------
 // A tile: its first point and number of points (in the sorted point order),
 // its first real step and number of steps (in the compacted step arrays);
 // one row of the (n_tiles, 4) int32 table of ops/osc/chain.py:tile_table.
@@ -619,98 +640,112 @@ OSC_HD Tile tile_at(const int* tiles, int k) {
   return Tile{r[0], r[1], r[2], r[3]};
 }
 
-// scalars of one step's t in shared memory: 9 complex entries x Parts
-template <typename T>
-constexpr int kStepScalars = 18 * Parts<T>::n;
+// Shared memory of one tile block: the pack and its K directions (zero
+// directions after them where a chunk of directions reaches past K), each
+// point's energy and packed vacuum picks, and the tile's steps' t with its
+// K tangents, structure-of-arrays: scalar c of step s at t[c * steps + s],
+// c = (2 (3 i + k) + im) (1 + K) + part for entry (i, k).
+template <typename S>
+struct TileMem {
+  S* pack;
+  S* e;
+  unsigned char* picks;
+  S* t;
+  int steps;  // the most steps of a tile: the stride of t
+};
 
-// Shared memory of one tile block: the pack (and its K directions), each
-// point's energy and packed vacuum picks, and the tile's steps' t,
-// structure-of-arrays: component c of step s at t[c * kTileSteps + s].
+// TileMem as one static struct: the primal's and the tangent's.
 template <typename S, int K>
 struct TileShared {
-  using T = typename PackOf<S, K>::type::type;
   S pack[kPack * (1 + K)];
   S e[kTilePoints];
   unsigned char picks[kTilePoints];
-  S t[kTileSteps * kStepScalars<T>];
+  S t[kTileSteps * 18 * (1 + K)];
+  OSC_HD TileMem<S> mem() { return TileMem<S>{pack, e, picks, t, kTileSteps}; }
 };
 
-// Phase 0, thread j < n_points: point j's energy and vacuum picks (bits
+// Phase 0, once per point j < n_points: its energy and vacuum picks (bits
 // 0-2: pick1, bits 3-5: pick2), from the pack's values.
-template <typename S, int K>
+template <typename S>
 OSC_HD void tile_phase0(const Tile& tile, int j, const S* energy,
-                        TileShared<S, K>* sh) {
-  const auto p = PackOf<S, K>::over(sh->pack);
+                        const TileMem<S>& m) {
   const S e = energy[tile.first_point + j];
   bool pick1[3], pick2[3];
-  vacuum_picks(value(p(54)), value(p(55)), value(p(56)), S(0.5) / e,
-               S(2.0) * e, pick1, pick2);
+  vacuum_picks(m.pack[54], m.pack[55], m.pack[56], S(0.5) / e, S(2.0) * e,
+               pick1, pick2);
   unsigned char bits = 0;
   for (int k = 0; k < 3; ++k)
     bits |= (pick1[k] ? 1u : 0u) << k | (pick2[k] ? 1u : 0u) << (3 + k);
-  sh->e[j] = e;
-  sh->picks[j] = bits;
+  m.e[j] = e;
+  m.picks[j] = bits;
 }
 
-// Phase 1, thread s < n_steps: step s's t (a dual t for K > 0).
-template <typename S, int K>
-OSC_HD void tile_phase1(const Tile& tile, int s, const int* step_point,
-                        const S* rho, const S* dx, TileShared<S, K>* sh) {
-  using T = typename TileShared<S, K>::T;
-  const auto p = PackOf<S, K>::over(sh->pack);
+// Phase 1, once per step s < n_steps and chunk of C of the K directions
+// (from direction `first` on; C = K: all of them at once): step s's t as a
+// Dual<S, C>, its tangents stored among the K and its value by the first
+// chunk. A later chunk computes the value again: layer_T over a wide dual
+// holds too many registers (see MultiShape).
+template <typename S, int K, int C>
+OSC_HD void tile_phase1(const Tile& tile, int s, int first,
+                        const int* step_point, const S* rho, const S* dx,
+                        const TileMem<S>& m) {
+  using T = typename PackOf<S, C>::type::type;
+  const auto p = PackOf<S, C>::over(m.pack, m.pack + kPack * (1 + first));
   const int g = tile.first_step + s;
   const int j = step_point[g];
-  const S e = sh->e[j];
+  const S e = m.e[j];
   bool pick1[3], pick2[3];
   for (int k = 0; k < 3; ++k) {
-    pick1[k] = (sh->picks[j] >> k) & 1u;
-    pick2[k] = (sh->picks[j] >> (3 + k)) & 1u;
+    pick1[k] = (m.picks[j] >> k) & 1u;
+    pick2[k] = (m.picks[j] >> (3 + k)) & 1u;
   }
   Cx<T> t[3][3];
   layer_T(p, pick1, pick2, S(0.5) / e, S(2.0) * e, -(S(1.0) / e) * S(kHbarC),
           rho[g], dx[g], t);
-  constexpr int parts = Parts<T>::n;
   for (int i = 0; i < 3; ++i)
     for (int k = 0; k < 3; ++k) {
-      S* dst = sh->t + (2 * (3 * i + k) * parts) * kTileSteps + s;
-      put_parts(dst, kTileSteps, t[i][k].re);
-      put_parts(dst + parts * kTileSteps, kTileSteps, t[i][k].im);
+      S* dst = m.t + (2 * (3 * i + k) * (1 + K)) * m.steps + s;
+      put_parts(dst, m.steps, t[i][k].re, first, K);
+      put_parts(dst + (1 + K) * m.steps, m.steps, t[i][k].im, first, K);
     }
 }
 
 template <typename S>
-OSC_HD void put_result(S* out, S* dout, size_t at, size_t n6, S x) {
+OSC_HD void put_result(S* out, S* dout, size_t at, size_t n6, S x, int first,
+                       int k_all) {
   out[at] = x;
 }
-template <typename S, int K>
+template <typename S, int C>
 OSC_HD void put_result(S* out, S* dout, size_t at, size_t n6,
-                       const Dual<S, K>& x) {
-  if (out != nullptr) out[at] = x.v;
-  for (int j = 0; j < K; ++j) dout[j * n6 + at] = x.d[j];
+                       const Dual<S, C>& x, int first, int k_all) {
+  if (first == 0 && out != nullptr) out[at] = x.v;
+  for (int d = 0; d < C; ++d)
+    if (first + d < k_all) dout[(first + d) * n6 + at] = x.d[d];
 }
 
-// Phase 2, thread q < 2 n_points: point q / 2 from initial flavour a = q % 2
-// through its steps' t in order, then out[3a + b][i] (and dout) for the
+// Phase 2, once per q < 2 n_points and chunk of C of the K directions: point
+// q / 2 from initial flavour a = q % 2 through its steps' t in order,
+// v <- t v with the chunk's tangents (dv <- dt v + t dv, as dual
+// arithmetic), then out[3a + b][i] (by the first chunk) and dout for the
 // point's sorted index i, as chain_point computes them.
-template <typename S, int K>
-OSC_HD void tile_phase2(const Tile& tile, int q, const int* point_step,
-                        const TileShared<S, K>* sh, S* out, S* dout,
-                        int n) {
-  using T = typename TileShared<S, K>::T;
-  const auto p = PackOf<S, K>::over(sh->pack);
+template <typename S, int K, int C>
+OSC_HD void tile_phase2(const Tile& tile, int q, int first,
+                        const int* point_step, const TileMem<S>& m, S* out,
+                        S* dout, int n) {
+  using T = typename PackOf<S, C>::type::type;
+  const auto p = PackOf<S, C>::over(m.pack, m.pack + kPack * (1 + first));
   const int i = tile.first_point + q / 2;
   const int a = q % 2;
   Cx<T> v[3];
   initial_state(p, a, v);
-  constexpr int parts = Parts<T>::n;
   const int end = point_step[i + 1] - tile.first_step;
   for (int s = point_step[i] - tile.first_step; s < end; ++s) {
     Cx<T> t[3][3];
     for (int r = 0; r < 3; ++r)
       for (int k = 0; k < 3; ++k) {
-        const S* src = sh->t + (2 * (3 * r + k) * parts) * kTileSteps + s;
-        get_parts(src, kTileSteps, &t[r][k].re);
-        get_parts(src + parts * kTileSteps, kTileSteps, &t[r][k].im);
+        const S* src = m.t + (2 * (3 * r + k) * (1 + K)) * m.steps + s;
+        get_parts(src, m.steps, &t[r][k].re, first, K);
+        get_parts(src + (1 + K) * m.steps, m.steps, &t[r][k].im, first, K);
       }
     apply_T(t, v);
   }
@@ -718,8 +753,48 @@ OSC_HD void tile_phase2(const Tile& tile, int q, const int* point_step,
   flavour_probs(p, v, res);
   for (int b = 0; b < 3; ++b)
     put_result(out, dout, static_cast<size_t>(3 * a + b) * n + i,
-               static_cast<size_t>(6) * n, res[b]);
+               static_cast<size_t>(6) * n, res[b], first, K);
 }
+
+// -- the multitangent's shape -------------------------------------------------
+// The directions that chunks of c reach when they cover k of them.
+OSC_HD constexpr int padded(int k, int c) { return (k + c - 1) / c * c; }
+
+// Per K: c1 directions per phase-1 thread, c2 per phase-2 thread, and the
+// block's threads, from the card's measurements
+// (scripts/tune_chain_multitangent.py; PERF.md has the figures). Phase 1
+// holds at most 3 directions a thread, in the fewest equal chunks: a wider
+// dual takes the fp64 instances past 255 registers, a narrower one computes
+// the primal part more often. Phase 2 holds one: its threads are short, and
+// more of them hide the chain walk's latency. A thread per step and chunk
+// (tiles of kTileSteps steps). OSC_MT_C1, OSC_MT_C2 and OSC_MT_THREADS
+// override them for every instance (the tuning script's builds).
+template <typename S, int K>
+struct MultiShape {
+#ifdef OSC_MT_C1
+  static constexpr int c1 = OSC_MT_C1 < K ? OSC_MT_C1 : K;
+#else
+  static constexpr int c1 = padded(K, (K + 2) / 3) / ((K + 2) / 3);
+#endif
+#ifdef OSC_MT_C2
+  static constexpr int c2 = OSC_MT_C2 < K ? OSC_MT_C2 : K;
+#else
+  static constexpr int c2 = 1;
+#endif
+#ifdef OSC_MT_THREADS
+  static constexpr int threads = OSC_MT_THREADS;
+#else
+  static constexpr int threads = kTileSteps * (padded(K, c1) / c1);
+#endif
+  // directions held by the pack in shared memory, zero past K
+  static constexpr int k_pack =
+      padded(K, c1) > padded(K, c2) ? padded(K, c1) : padded(K, c2);
+  static constexpr size_t shared_bytes(int tile_steps) {
+    return sizeof(S) * (static_cast<size_t>(tile_steps) * 18 * (1 + K) +
+                        kPack * (1 + k_pack) + kTilePoints) +
+           kTilePoints;
+  }
+};
 
 #ifdef __CUDACC__
 #if defined(OSC_CHAIN_PRIMAL) || defined(OSC_CHAIN_TANGENT)
@@ -737,15 +812,17 @@ __global__ void __launch_bounds__(kTileThreads)
   __shared__ TileShared<S, K> sh;
   for (int k = threadIdx.x; k < kPack * (1 + K); k += blockDim.x)
     sh.pack[k] = k < kPack ? pvec[k] : dpvec[k - kPack];
+  const TileMem<S> m = sh.mem();
   const Tile tile = tile_at(tiles, blockIdx.x);
   __syncthreads();
   const int tid = threadIdx.x;
-  if (tid < tile.n_points) tile_phase0(tile, tid, energy, &sh);
+  if (tid < tile.n_points) tile_phase0(tile, tid, energy, m);
   __syncthreads();
-  if (tid < tile.n_steps) tile_phase1(tile, tid, step_point, rho, dx, &sh);
+  if (tid < tile.n_steps)
+    tile_phase1<S, K, K>(tile, tid, 0, step_point, rho, dx, m);
   __syncthreads();
   if (tid < 2 * tile.n_points)
-    tile_phase2(tile, tid, point_step, &sh, out, dout, n);
+    tile_phase2<S, K, K>(tile, tid, 0, point_step, m, out, dout, n);
 }
 
 template <typename S, int K>
@@ -762,94 +839,149 @@ int launch_tiles(const S* pvec, const S* dpvec, const int* tiles,
 }
 #endif
 
-#ifdef OSC_CHAIN_MULTITANGENT
-constexpr int kThreads = 256;
-
-// The primal (written to `out` unless it is null) and K tangents along the
-// directions dpvecs (K, 57), written to dout (K, 2, 3, N); one thread per
-// point.
-template <typename S, int K>
-__global__ void dual_kernel(const S* __restrict__ pvec,
-                            const S* __restrict__ dpvecs,
-                            const int* __restrict__ nl,
-                            const S* __restrict__ energy,
-                            const S* __restrict__ dens,
-                            const S* __restrict__ dist, S* __restrict__ out,
-                            S* __restrict__ dout, int n) {
-  __shared__ S p[kPack * (1 + K)];
-  for (int k = threadIdx.x; k < kPack * (1 + K); k += blockDim.x)
-    p[k] = k < kPack ? pvec[k] : dpvecs[k - kPack];
-  __syncthreads();
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  Dual<S, K> res[6];
-  chain_point(DualPack<S, K>{p, p + kPack}, nl[i], energy[i], dens + i,
-              dist + i, static_cast<size_t>(n), res);
-  if (out != nullptr)
-    for (int k = 0; k < 6; ++k) out[static_cast<size_t>(k) * n + i] = res[k].v;
-  for (int j = 0; j < K; ++j)
-    for (int k = 0; k < 6; ++k)
-      dout[static_cast<size_t>(6 * j + k) * n + i] = res[k].d[j];
-}
-
-template <typename S, int K>
-int launch_dual(const S* pvec, const S* dpvecs, const int* nl,
-                const S* energy, const S* dens, const S* dist, S* out,
-                S* dout, int n, void* stream) {
-  if (n <= 0) return 0;
-  dual_kernel<S, K><<<(n + kThreads - 1) / kThreads, kThreads, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
-      pvec, dpvecs, nl, energy, dens, dist, out, dout, n);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <typename S>
-int launch_multi(const S* pvec, const S* dpvecs, int k, const int* nl,
-                 const S* energy, const S* dens, const S* dist, S* out,
-                 S* dout, int n, void* stream) {
-  switch (k) {
-    case 1: return launch_dual<S, 1>(pvec, dpvecs, nl, energy, dens, dist, out, dout, n, stream);
-    case 2: return launch_dual<S, 2>(pvec, dpvecs, nl, energy, dens, dist, out, dout, n, stream);
-    case 3: return launch_dual<S, 3>(pvec, dpvecs, nl, energy, dens, dist, out, dout, n, stream);
-    case 4: return launch_dual<S, 4>(pvec, dpvecs, nl, energy, dens, dist, out, dout, n, stream);
-    case 5: return launch_dual<S, 5>(pvec, dpvecs, nl, energy, dens, dist, out, dout, n, stream);
-    case 6: return launch_dual<S, 6>(pvec, dpvecs, nl, energy, dens, dist, out, dout, n, stream);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-}
-#endif  // OSC_CHAIN_MULTITANGENT
-
-// A kernel's resources: info = {registers per thread, local (spill) bytes
-// per thread, static shared bytes per block, threads per block, resident
-// blocks per SM}; returns the first CUDA error.
+// A kernel's resources at `shared` bytes of dynamic shared memory: info =
+// {registers per thread, local (spill) bytes per thread, shared bytes per
+// block (static and dynamic), threads per block, resident blocks per SM};
+// returns the first CUDA error.
 template <typename F>
-int kernel_attributes(F* kernel, int threads, int* info) {
+int kernel_attributes(F* kernel, int threads, size_t shared, int* info) {
   cudaFuncAttributes a;
   cudaError_t rc = cudaFuncGetAttributes(&a, kernel);
   if (rc != cudaSuccess) return static_cast<int>(rc);
   int blocks = 0;
   rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, threads,
-                                                     0);
+                                                     shared);
   info[0] = a.numRegs;
   info[1] = static_cast<int>(a.localSizeBytes);
-  info[2] = static_cast<int>(a.sharedSizeBytes);
+  info[2] = static_cast<int>(a.sharedSizeBytes + shared);
   info[3] = threads;
   info[4] = blocks;
   return static_cast<int>(rc);
 }
 
 #ifdef OSC_CHAIN_MULTITANGENT
-template <typename S>
-int multi_attributes(int k, int* info) {
+// The most dynamic shared memory a block may ask for on sm_90
+constexpr size_t kMaxDynamicShared = 232448;
+
+// One block per tile of at most tile_steps steps: the primal into `out`
+// (unless it is null) and the K tangents along dpvecs (K, 57) into dout
+// (K, 2, 3, N). Each phase is a loop of the block's threads over its work:
+// points; (step, chunk of C1 directions); (point, initial flavour, chunk of
+// C2 directions), a chunk's threads being neighbours so that a warp's
+// shared-memory accesses stay consecutive (phase 1) or pairwise equal
+// (phase 2).
+template <typename S, int K>
+__global__ void __launch_bounds__(MultiShape<S, K>::threads)
+    tile_multi_kernel(const S* __restrict__ pvec,
+                      const S* __restrict__ dpvecs,
+                      const int* __restrict__ tiles,
+                      const int* __restrict__ point_step,
+                      const int* __restrict__ step_point,
+                      const S* __restrict__ rho, const S* __restrict__ dx,
+                      const S* __restrict__ energy, S* __restrict__ out,
+                      S* __restrict__ dout, int n, int tile_steps) {
+  using Shape = MultiShape<S, K>;
+  constexpr int c1 = Shape::c1, c2 = Shape::c2;
+  extern __shared__ __align__(16) unsigned char tile_memory[];
+  TileMem<S> m;
+  m.t = reinterpret_cast<S*>(tile_memory);
+  m.pack = m.t + static_cast<size_t>(tile_steps) * 18 * (1 + K);
+  m.e = m.pack + kPack * (1 + Shape::k_pack);
+  m.picks = reinterpret_cast<unsigned char*>(m.e + kTilePoints);
+  m.steps = tile_steps;
+  const int tid = threadIdx.x;
+  for (int k = tid; k < kPack * (1 + Shape::k_pack); k += Shape::threads)
+    m.pack[k] = k < kPack ? pvec[k]
+                          : (k < kPack * (1 + K) ? dpvecs[k - kPack] : S(0));
+  const Tile tile = tile_at(tiles, blockIdx.x);
+  constexpr int chunks1 = padded(K, c1) / c1, chunks2 = padded(K, c2) / c2;
+  __syncthreads();
+  for (int j = tid; j < tile.n_points; j += Shape::threads)
+    tile_phase0(tile, j, energy, m);
+  __syncthreads();
+  for (int w = tid; w < tile.n_steps * chunks1; w += Shape::threads)
+    tile_phase1<S, K, c1>(tile, w % tile.n_steps, w / tile.n_steps * c1,
+                          step_point, rho, dx, m);
+  __syncthreads();
+  const int walks = 2 * tile.n_points;
+  for (int w = tid; w < walks * chunks2; w += Shape::threads)
+    tile_phase2<S, K, c2>(tile, w % walks, w / walks * c2, point_step, m, out,
+                          dout, n);
+}
+
+// In an unnamed namespace: the static of allow_shared is this library's own
+// (as a template's static it would be one for the whole process, shared
+// with any other build of this source loaded beside it).
+namespace {
+template <typename S, int K>
+struct Multi {
+  // above 48 KB a block's shared memory has to be allowed, once a kernel
+  static cudaError_t allow_shared() {
+    static const cudaError_t rc = cudaFuncSetAttribute(
+        tile_multi_kernel<S, K>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(kMaxDynamicShared));
+    return rc;
+  }
+  static int launch(const S* pvec, const S* dpvecs, const int* tiles,
+                    const int* point_step, const int* step_point,
+                    const S* rho, const S* dx, const S* energy, S* out,
+                    S* dout, int n_tiles, int n, int tile_steps,
+                    void* stream) {
+    using Shape = MultiShape<S, K>;
+    if (n_tiles <= 0) return 0;
+    if (tile_steps < 1 || Shape::shared_bytes(tile_steps) > kMaxDynamicShared)
+      return static_cast<int>(cudaErrorInvalidValue);
+    if (allow_shared() != cudaSuccess) return static_cast<int>(allow_shared());
+    tile_multi_kernel<S, K><<<n_tiles, Shape::threads,
+                              Shape::shared_bytes(tile_steps),
+                              static_cast<cudaStream_t>(stream)>>>(
+        pvec, dpvecs, tiles, point_step, step_point, rho, dx, energy, out,
+        dout, n, tile_steps);
+    return static_cast<int>(cudaGetLastError());
+  }
+  // info[5], info[6]: the shape's c1 and c2
+  static int attributes(int tile_steps, int* info) {
+    using Shape = MultiShape<S, K>;
+    info[5] = Shape::c1;
+    info[6] = Shape::c2;
+    if (tile_steps < 1 || Shape::shared_bytes(tile_steps) > kMaxDynamicShared)
+      return static_cast<int>(cudaErrorInvalidValue);
+    if (allow_shared() != cudaSuccess) return static_cast<int>(allow_shared());
+    return kernel_attributes(tile_multi_kernel<S, K>, Shape::threads,
+                             Shape::shared_bytes(tile_steps), info);
+  }
+};
+}  // namespace
+
+// f(Multi<S, K>{}) for the runtime k in 1..kMaxTangents
+template <typename S, typename F>
+int with_multi(int k, F f) {
   switch (k) {
-    case 1: return kernel_attributes(dual_kernel<S, 1>, kThreads, info);
-    case 2: return kernel_attributes(dual_kernel<S, 2>, kThreads, info);
-    case 3: return kernel_attributes(dual_kernel<S, 3>, kThreads, info);
-    case 4: return kernel_attributes(dual_kernel<S, 4>, kThreads, info);
-    case 5: return kernel_attributes(dual_kernel<S, 5>, kThreads, info);
-    case 6: return kernel_attributes(dual_kernel<S, 6>, kThreads, info);
+    case 1: return f(Multi<S, 1>{});
+    case 2: return f(Multi<S, 2>{});
+    case 3: return f(Multi<S, 3>{});
+    case 4: return f(Multi<S, 4>{});
+    case 5: return f(Multi<S, 5>{});
+    case 6: return f(Multi<S, 6>{});
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+template <typename S>
+int launch_multi(const S* pvec, const S* dpvecs, int k, const int* tiles,
+                 const int* point_step, const int* step_point, const S* rho,
+                 const S* dx, const S* energy, S* out, S* dout, int n_tiles,
+                 int n, int tile_steps, void* stream) {
+  return with_multi<S>(k, [&](auto multi) {
+    return multi.launch(pvec, dpvecs, tiles, point_step, step_point, rho, dx,
+                        energy, out, dout, n_tiles, n, tile_steps, stream);
+  });
+}
+
+template <typename S>
+int multi_attributes(int k, int tile_steps, int* info) {
+  return with_multi<S>(
+      k, [&](auto multi) { return multi.attributes(tile_steps, info); });
 }
 #endif  // OSC_CHAIN_MULTITANGENT
 #endif  // __CUDACC__
@@ -860,11 +992,12 @@ int multi_attributes(int k, int* info) {
 // All pointers are device pointers, launched on `stream`: pvec (57,),
 // dpvec (57,), dpvecs (K, 57); the tile table of ops/osc/chain.py:tile_table
 // (tiles (n_tiles, 4) int32, point_step (N + 1,) int32, step_point,
-// rho and dx (steps,)); nl (N,) int32, energy (N,), dens/dist (L, N)
-// layer-major; out (2, 3, N), dout (2, 3, N) or (K, 2, 3, N). Each launch
-// returns the cudaError_t of its launch (0 on success); each *_attributes
-// fills info as osc_chain::kernel_attributes does (k: the multitangent's K,
-// ignored by the others).
+// rho and dx (steps,)), cut to kTileSteps steps a tile for the primal and
+// the tangent and to tile_steps for the multitangent; energy (N,);
+// out (2, 3, N), dout (2, 3, N) or (K, 2, 3, N). Each launch returns the
+// cudaError_t of its launch (0 on success); each *_attributes fills info
+// (7 ints) as osc_chain::kernel_attributes and Multi::attributes do (k and
+// tile_steps: the multitangent's, ignored by the others).
 #ifdef OSC_CHAIN_PRIMAL
 extern "C" int osc_chain_f32(const float* pvec, const int* tiles,
                              const int* point_step, const int* step_point,
@@ -886,14 +1019,14 @@ extern "C" int osc_chain_f64(const double* pvec, const int* tiles,
                                             nullptr, n_tiles, n, stream);
 }
 
-extern "C" int osc_chain_attributes_f32(int k, int* info) {
+extern "C" int osc_chain_attributes_f32(int k, int tile_steps, int* info) {
   return osc_chain::kernel_attributes(osc_chain::tile_kernel<float, 0>,
-                                      osc_chain::kTileThreads, info);
+                                      osc_chain::kTileThreads, 0, info);
 }
 
-extern "C" int osc_chain_attributes_f64(int k, int* info) {
+extern "C" int osc_chain_attributes_f64(int k, int tile_steps, int* info) {
   return osc_chain::kernel_attributes(osc_chain::tile_kernel<double, 0>,
-                                      osc_chain::kTileThreads, info);
+                                      osc_chain::kTileThreads, 0, info);
 }
 #endif  // OSC_CHAIN_PRIMAL
 
@@ -920,44 +1053,48 @@ extern "C" int osc_chain_tangent_f64(const double* pvec, const double* dpvec,
                                             nullptr, dout, n_tiles, n, stream);
 }
 
-extern "C" int osc_chain_tangent_attributes_f32(int k, int* info) {
+extern "C" int osc_chain_tangent_attributes_f32(int k, int tile_steps,
+                                                int* info) {
   return osc_chain::kernel_attributes(osc_chain::tile_kernel<float, 1>,
-                                      osc_chain::kTileThreads, info);
+                                      osc_chain::kTileThreads, 0, info);
 }
 
-extern "C" int osc_chain_tangent_attributes_f64(int k, int* info) {
+extern "C" int osc_chain_tangent_attributes_f64(int k, int tile_steps,
+                                                int* info) {
   return osc_chain::kernel_attributes(osc_chain::tile_kernel<double, 1>,
-                                      osc_chain::kTileThreads, info);
+                                      osc_chain::kTileThreads, 0, info);
 }
 #endif  // OSC_CHAIN_TANGENT
 
 #ifdef OSC_CHAIN_MULTITANGENT
-extern "C" int osc_chain_multitangent_f32(const float* pvec,
-                                          const float* dpvecs, int k,
-                                          const int* nl, const float* energy,
-                                          const float* dens, const float* dist,
-                                          float* out, float* dout, int n,
-                                          void* stream) {
-  return osc_chain::launch_multi<float>(pvec, dpvecs, k, nl, energy, dens,
-                                        dist, out, dout, n, stream);
+extern "C" int osc_chain_multitangent_f32(
+    const float* pvec, const float* dpvecs, int k, const int* tiles,
+    const int* point_step, const int* step_point, const float* rho,
+    const float* dx, const float* energy, float* out, float* dout,
+    int n_tiles, int n, int tile_steps, void* stream) {
+  return osc_chain::launch_multi<float>(pvec, dpvecs, k, tiles, point_step,
+                                        step_point, rho, dx, energy, out, dout,
+                                        n_tiles, n, tile_steps, stream);
 }
 
-extern "C" int osc_chain_multitangent_f64(const double* pvec,
-                                          const double* dpvecs, int k,
-                                          const int* nl, const double* energy,
-                                          const double* dens,
-                                          const double* dist, double* out,
-                                          double* dout, int n, void* stream) {
-  return osc_chain::launch_multi<double>(pvec, dpvecs, k, nl, energy, dens,
-                                         dist, out, dout, n, stream);
+extern "C" int osc_chain_multitangent_f64(
+    const double* pvec, const double* dpvecs, int k, const int* tiles,
+    const int* point_step, const int* step_point, const double* rho,
+    const double* dx, const double* energy, double* out, double* dout,
+    int n_tiles, int n, int tile_steps, void* stream) {
+  return osc_chain::launch_multi<double>(pvec, dpvecs, k, tiles, point_step,
+                                         step_point, rho, dx, energy, out,
+                                         dout, n_tiles, n, tile_steps, stream);
 }
 
-extern "C" int osc_chain_multitangent_attributes_f32(int k, int* info) {
-  return osc_chain::multi_attributes<float>(k, info);
+extern "C" int osc_chain_multitangent_attributes_f32(int k, int tile_steps,
+                                                     int* info) {
+  return osc_chain::multi_attributes<float>(k, tile_steps, info);
 }
 
-extern "C" int osc_chain_multitangent_attributes_f64(int k, int* info) {
-  return osc_chain::multi_attributes<double>(k, info);
+extern "C" int osc_chain_multitangent_attributes_f64(int k, int tile_steps,
+                                                     int* info) {
+  return osc_chain::multi_attributes<double>(k, tile_steps, info);
 }
 #endif  // OSC_CHAIN_MULTITANGENT
 #endif  // __CUDACC__

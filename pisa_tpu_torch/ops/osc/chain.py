@@ -13,10 +13,11 @@ kernels:
   -> :func:`chain_multitangent`, plain version
   :func:`chain_multitangent_reference`.
 
-The primal and tangent kernels are layer-parallel: they build every real
-layer step's amplitude at once and then walk each chain through the stored
-amplitudes, over the static tile table of :func:`tile_table`. The
-multitangent kernel runs one thread per point over the layer slabs.
+All three kernels are layer-parallel: over the static tile table of
+:func:`tile_table` they build every real layer step's amplitude at once
+(the tangent and the multitangent also its derivatives along their
+directions) and then walk each chain through the stored amplitudes. The
+multitangent splits its K directions into chunks over more threads.
 
 CPU tensors go through the plain versions (vectorized torch over the point
 axis; the tangents are ``torch.func.jvp`` of the primal); CUDA tensors
@@ -83,9 +84,9 @@ MAX_TANGENTS = 6  # multitangent K, dispatched to template instances 1..6
 TWO_SQRT2_GF = 1.52588e-4  # 2*sqrt(2)*G_F in (eV^2 cm^3)/(mole GeV)
 HBAR_C_FACTOR = 2.534  # (1/2)/(hbar c) in GeV/(eV^2 km)
 _HALF_SQRT3 = 0.8660254037844386
-#: Tile shape of the primal and tangent kernels: at most TILE_STEPS real
-#: layer steps and TILE_POINTS points per tile (``csrc/osc_chain.cu``
-#: kTileSteps, kTilePoints).
+#: Tile shape of the kernels: at most TILE_STEPS real layer steps and
+#: TILE_POINTS points per tile (``csrc/osc_chain.cu`` kTileSteps,
+#: kTilePoints).
 TILE_STEPS = 128
 TILE_POINTS = 64
 
@@ -184,8 +185,7 @@ def prepare_chain_geometry(energy, densities, distances, *, dtype, device):
 
     Returns a dict of tensors on `device`: ``e`` (N,), ``dens``/``dist``
     (L, N) in `dtype`, ``nl`` (N,) int32, ``order``/``inv`` (N,) int64,
-    and ``tiles``, the primal and tangent kernels' :func:`tile_table` of the
-    sorted points.
+    and ``tiles``, the kernels' :func:`tile_table` of the sorted points.
     """
     energy = np.asarray(energy, dtype=np.float64)
     densities = np.asarray(densities, dtype=np.float64)
@@ -212,9 +212,9 @@ def prepare_chain_geometry(energy, densities, distances, *, dtype, device):
     }
 
 
-def tile_table(densities, distances, *, dtype, device):
+def tile_table(densities, distances, *, dtype, device, steps=TILE_STEPS):
     """The layer-parallel kernels' static input: the points, in the given
-    order, cut into tiles of at most :data:`TILE_STEPS` real layer steps
+    order, cut into tiles of at most `steps` real layer steps
     (``distance > 0``) and :data:`TILE_POINTS` points, never splitting a
     point; each point's real steps compacted, in chain order, into flat
     arrays. A point with no real step keeps its place in a tile (it gets
@@ -223,30 +223,34 @@ def tile_table(densities, distances, *, dtype, device):
     Parameters
     ----------
     densities, distances : (N, L) arrays, in the kernel's point order
+    steps : the most steps of a tile (the wrappers take tables of
+        :data:`TILE_STEPS` only, which the card's measurements favour; the
+        multitangent kernel's entry point takes any, for those measurements)
 
     Returns a dict of tensors on `device`: ``tile`` (n_tiles, 4) int32 rows
     (first point, number of points, first step, number of steps);
     ``point_step`` (N + 1,) int32, point i's steps being
     ``point_step[i]:point_step[i + 1]``; per step, ``step_point`` int32 (its
-    point's index within its tile) and ``rho``/``dx`` in `dtype`.
+    point's index within its tile) and ``rho``/``dx`` in `dtype`; and, on
+    the host, ``steps``, the int32 scalar `steps` the table was cut to.
     """
     densities = np.asarray(densities, dtype=np.float64)
     distances = np.asarray(distances, dtype=np.float64)
     real = distances > 0.0
     counts = np.count_nonzero(real, axis=1)
-    if counts.size and counts.max() > TILE_STEPS:
+    if counts.size and counts.max() > steps:
         raise ValueError(f"a chain of {counts.max()} layers exceeds the"
-                         f" {TILE_STEPS} steps of a tile")
+                         f" {steps} steps of a tile")
     n = counts.size
     point_step = np.zeros(n + 1, dtype=np.int64)
     np.cumsum(counts, out=point_step[1:])
     first = []
-    start = steps = 0
+    start = filled = 0
     for i, c in enumerate(counts):
-        if i - start == TILE_POINTS or steps + c > TILE_STEPS:
+        if i - start == TILE_POINTS or filled + c > steps:
             first.append(start)
-            start, steps = i, 0
-        steps += c
+            start, filled = i, 0
+        filled += c
     if n:
         first.append(start)
     first = np.asarray(first, dtype=np.int64)
@@ -267,6 +271,7 @@ def tile_table(densities, distances, *, dtype, device):
         "step_point": put(step_point, torch.int32),
         "rho": put(densities[real], dtype),
         "dx": put(distances[real], dtype),
+        "steps": torch.tensor(steps, dtype=torch.int32),
     }
 
 
@@ -457,8 +462,9 @@ _ARGTYPES = {
     # pvec, dpvec, tile, point_step, step_point, rho, dx, e, dout, n_tiles,
     # n, stream
     "osc_chain_tangent": [_P] * 9 + [_I, _I, _P],
-    # pvec, dpvecs, k, nl, e, dens, dist, out, dout, n, stream
-    "osc_chain_multitangent": [_P, _P, _I] + [_P] * 6 + [_I, _P],
+    # pvec, dpvecs, k, tile, point_step, step_point, rho, dx, e, out, dout,
+    # n_tiles, n, tile_steps, stream
+    "osc_chain_multitangent": [_P, _P, _I] + [_P] * 8 + [_I, _I, _I, _P],
 }
 
 
@@ -482,7 +488,7 @@ def kernel_library():
                 fn.restype = ctypes.c_int
                 fns[f"{name}_{suffix}"] = fn
                 attrs = getattr(lib, f"{name}_attributes_{suffix}")
-                attrs.argtypes = [_I, _P]
+                attrs.argtypes = [_I, _I, _P]
                 attrs.restype = ctypes.c_int
                 fns[f"{name}_attributes_{suffix}"] = attrs
         _LIB = types.SimpleNamespace(**fns)
@@ -493,18 +499,20 @@ def kernel_attributes(name, dtype, k=1):
     """Resources of kernel `name` (``osc_chain``, ``osc_chain_tangent``,
     ``osc_chain_multitangent`` with `k` tangents) in `dtype` on the current
     card: registers per thread, local-memory bytes per thread (stack frame
-    and spills), static shared bytes per block, threads per block and
-    resident blocks per SM
-    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+    and spills), shared bytes per block, threads per block and resident
+    blocks per SM (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``); for
+    the multitangent also ``c1`` and ``c2``, the directions per thread of
+    its phases 1 and 2."""
     suffix = "f64" if dtype == torch.float64 else "f32"
     fn = getattr(kernel_library(), f"{name}_attributes_{suffix}")
-    info = (ctypes.c_int * 5)()
-    rc = fn(int(k), ctypes.addressof(info))
+    info = (ctypes.c_int * 7)()
+    rc = fn(int(k), TILE_STEPS, ctypes.addressof(info))
     if rc != 0:
         raise RuntimeError(f"{name} attributes: CUDA error {rc}")
     keys = ("registers", "local_bytes", "shared_bytes", "threads",
-            "blocks_per_sm")
-    return dict(zip(keys, info))
+            "blocks_per_sm", "c1", "c2")
+    n_keys = 7 if name == "osc_chain_multitangent" else 5
+    return dict(zip(keys[:n_keys], info))
 
 
 def _check_inputs(pvec, e, dens, dist, nl):
@@ -557,6 +565,9 @@ def _tile_args(name, tiles, e):
     if not ok:
         raise ValueError(f"{name}: tile table does not fit {n} points of"
                          f" {e.dtype} on {e.device}")
+    if int(tiles["steps"]) != TILE_STEPS:
+        raise ValueError(f"{name}: tile table cut to {int(tiles['steps'])}"
+                         f" steps a tile, not {TILE_STEPS}")
     return t
 
 
@@ -625,12 +636,12 @@ def chain_tangent(pvec, dpvec, e, dens, dist, nl, tiles=None):
     return dout
 
 
-def chain_multitangent(pvec, dpvecs, e, dens, dist, nl):
+def chain_multitangent(pvec, dpvecs, e, dens, dist, nl, tiles=None):
     """The primal (2, 3, N) and its tangents along the K pack directions
     `dpvecs` (K, 57), 1 <= K <= 6, as (K, 2, 3, N), in one pass; the other
     inputs as for :func:`chain_probs`. CPU tensors go through
     :func:`chain_multitangent_reference`; CUDA tensors launch the CUDA
-    multitangent kernel or raise."""
+    multitangent kernel over the tile table or raise."""
     global multitangent_launch_count
     _check_inputs(pvec, e, dens, dist, nl)
     k = dpvecs.shape[0] if dpvecs.dim() == 2 else 0
@@ -640,11 +651,12 @@ def chain_multitangent(pvec, dpvecs, e, dens, dist, nl):
     _check_directions("dpvecs", dpvecs, (k, N_PACK), e)
     if not _on_card("chain_multitangent", e, (pvec, dpvecs, e, dens, dist, nl)):
         return chain_multitangent_reference(pvec, dpvecs, e, dens, dist, nl)
+    t = _tile_args("chain_multitangent", tiles, e)
     n = e.shape[0]
     out = torch.empty((2, 3, n), dtype=e.dtype, device=e.device)
     dout = torch.empty((k, 2, 3, n), dtype=e.dtype, device=e.device)
-    _launch("osc_chain_multitangent", e, pvec, dpvecs, k, nl, e, dens, dist,
-            out, dout, n)
+    _launch("osc_chain_multitangent", e, pvec, dpvecs, k, *t, e, out, dout,
+            t[0].shape[0], n, TILE_STEPS)
     multitangent_launch_count += 1
     return out, dout
 
@@ -720,7 +732,8 @@ class OscProbs(torch.autograd.Function):
             )
             args = (geom["e"], geom["dens"], geom["dist"], geom["nl"])
             if ctx.multitangent:
-                _, dp2s = chain_multitangent(pvec, dpvecs, *args)
+                _, dp2s = chain_multitangent(pvec, dpvecs, *args,
+                                             geom["tiles"])
             else:
                 dp2s = torch.stack(
                     [chain_tangent(pvec, d, *args, geom["tiles"])

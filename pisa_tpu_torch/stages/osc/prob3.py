@@ -9,10 +9,11 @@ kernel geometry (chain-length sort, per-point bounds, layer-major slabs) is
 prepared once at setup, and each compute makes two launches of the CUDA
 chain kernel, one per nubar sign, through ``ops/osc/chain.py:osc_probs``.
 That function is differentiable in the six oscillation parameters: when a
-compiled template takes the gradient, its backward runs the tangent kernel
-once per free oscillation parameter and sign (the flagship frees theta13,
-theta23 and deltam31: 6 launches), or, with ``multitangent=True``, the
-multitangent kernel once per sign. NSI, neutrino decay, LRI, Earth
+compiled template takes the gradient, its backward runs the multitangent
+kernel once per sign (the flagship frees theta13, theta23 and deltam31: 3
+tangents a launch), or, with ``multitangent=False``, the tangent kernel
+once per free oscillation parameter and sign (6 launches); the
+multitangent route takes less device time on the card (``PERF.md``). NSI, neutrino decay, LRI, Earth
 tomography, layer dedup and per-event calc mode are not ported yet (ROADMAP
 queue 1, item 11).
 """
@@ -42,8 +43,8 @@ _NOT_PORTED = "is not ported yet (ROADMAP queue 1, item 11)"
 class prob3(Stage):  # noqa: N801
     """See module docstring; parameters as in the reference
     (``prob3.py:124-161``), plus `multitangent` (the gradient's tangents in
-    one multitangent launch per sign instead of one tangent launch per free
-    oscillation parameter and sign; settable on the instance)."""
+    one multitangent launch per sign, the default, or in one tangent launch
+    per free oscillation parameter and sign; settable on the instance)."""
 
     # the Earth model and electron fractions shape the layer geometry, which
     # is prepared on the host
@@ -64,7 +65,7 @@ class prob3(Stage):  # noqa: N801
         tomography_type=None,
         lri_type=None,
         layer_dedup=False,
-        multitangent=False,
+        multitangent=True,
         **std_kwargs,
     ):
         for option, value in (

@@ -109,13 +109,13 @@ def test_interop_geometry_matches_prepare():
         assert torch.equal(value, from_jax["tiles"][key]), key
 
 
-def test_tile_table():
-    """The layer-parallel kernels' tile table: tiles cover the sorted points
+def _check_tile_table(steps):
+    """A tile table cut to `steps` steps a tile: tiles cover the sorted points
     in order; every real step (distance > 0) appears exactly once, in chain
     order, with its point's tile-local index; no point is split across
-    tiles; no tile exceeds TILE_STEPS steps or TILE_POINTS points; points
-    with no real step keep their slot (here enough of them to fill tiles by
-    the point cap)."""
+    tiles; no tile exceeds `steps` steps or TILE_POINTS points; points with no
+    real step keep their slot (here enough of them to fill tiles by the
+    point cap)."""
     rng = np.random.RandomState(23)
     e, dens, dist = _geometry(900, seed=13)
     dist[rng.uniform(size=dist.shape) < 0.2] = 0.0  # zero-length gaps
@@ -123,31 +123,52 @@ def test_tile_table():
     geom = chain.prepare_chain_geometry(
         e, dens, dist, dtype=torch.float64, device="cpu"
     )
-    t = {k: v.numpy() for k, v in geom["tiles"].items()}
     order = geom["order"].numpy()
     d_sorted, r_sorted = dist[order], dens[order]
+    if steps == chain.TILE_STEPS:
+        tiles = geom["tiles"]
+    else:
+        tiles = chain.tile_table(r_sorted, d_sorted, dtype=torch.float64,
+                                 device="cpu", steps=steps)
+    t = {k: v.numpy() for k, v in tiles.items()}
     n = e.size
     first, n_points, first_step, n_steps = t["tile"].T
     point_step = t["point_step"]
 
+    assert t["steps"] == steps
     assert first[0] == 0 and first[-1] + n_points[-1] == n
     np.testing.assert_array_equal(first[1:], first[:-1] + n_points[:-1])
     np.testing.assert_array_equal(first_step, point_step[first])
     np.testing.assert_array_equal(first_step + n_steps,
                                   point_step[first + n_points])
     assert np.all(n_points >= 1) and n_points.max() == chain.TILE_POINTS
-    assert n_steps.max() <= chain.TILE_STEPS
+    assert n_steps.max() <= steps
     assert point_step[-1] == t["rho"].size == np.count_nonzero(dist > 0)
     for k in range(first.size):
         for j in range(n_points[k]):
             i = first[k] + j
             real = d_sorted[i] > 0
-            steps = slice(point_step[i], point_step[i + 1])
-            np.testing.assert_array_equal(t["dx"][steps], d_sorted[i][real])
-            np.testing.assert_array_equal(t["rho"][steps], r_sorted[i][real])
-            assert np.all(t["step_point"][steps] == j)
+            at = slice(point_step[i], point_step[i + 1])
+            np.testing.assert_array_equal(t["dx"][at], d_sorted[i][real])
+            np.testing.assert_array_equal(t["rho"][at], r_sorted[i][real])
+            assert np.all(t["step_point"][at] == j)
     empty = np.diff(point_step) == 0
     assert empty.sum() == np.count_nonzero(~(dist > 0).any(axis=1)) >= 150
+
+
+def test_tile_table():
+    """The tile table of the primal and tangent kernels, as
+    prepare_chain_geometry builds it (TILE_STEPS steps, TILE_POINTS points a
+    tile)."""
+    _check_tile_table(chain.TILE_STEPS)
+
+
+@pytest.mark.parametrize("steps", [64, 24, 96])
+def test_tile_table_at_shape(steps):
+    """Tile tables cut to fewer steps a tile, as the multitangent kernel
+    also takes them: no point split, every real step once, zero-step points
+    kept."""
+    _check_tile_table(steps)
 
 
 def test_tile_table_rejects_long_chain():

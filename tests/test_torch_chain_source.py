@@ -28,6 +28,8 @@ ACTIVE = [1, 2, 5]  # theta13, theta23, dm31: the flagship's free ones
 # Loops over points for the plain and dual instances, and the same chain
 # run with an operation-counting scalar type.
 _HARNESS = r"""
+#include <vector>
+
 #include "osc_chain.cu"
 using namespace osc_chain;
 
@@ -56,29 +58,67 @@ void dual(const S* p, const S* dp, const int* nl, const S* e, const S* dens,
   }
 }
 
-// The tile kernel's block, one tile after another: each phase's threads in
-// turn, with the shared memory poisoned (NaN) before each tile so that a
-// read of another tile's data shows.
-template <typename S, int K>
+// A tile kernel's block, one tile after another: each phase's work items in
+// turn (phase 1 by chunks of C1 of the K directions, phase 2 by chunks of
+// C2), with the shared memory poisoned (NaN) before each tile so that a
+// read of another tile's data shows. The table is cut to `steps` steps a
+// tile.
+constexpr int chunks(int k, int c) { return c == 0 ? 1 : (k + c - 1) / c; }
+
+template <typename S, int K, int C1, int C2>
 void tile_pass(const S* pvec, const S* dpvec, const int* tiles, int n_tiles,
                const int* point_step, const int* step_point, const S* rho,
-               const S* dx, const S* e, S* out, S* dout, int n) {
-  TileShared<S, K>* sh = new TileShared<S, K>;
+               const S* dx, const S* e, S* out, S* dout, int n, int steps) {
+  constexpr int n1 = chunks(K, C1), n2 = chunks(K, C2);
+  constexpr int k_pack = n1 * C1 > n2 * C2 ? n1 * C1 : n2 * C2;
+  std::vector<S> t((size_t)steps * 18 * (1 + K)), pack(kPack * (1 + k_pack)),
+      energy(kTilePoints);
+  std::vector<unsigned char> picks(kTilePoints);
+  const TileMem<S> m{pack.data(), energy.data(), picks.data(), t.data(),
+                     steps};
+  for (int k = 0; k < kPack * (1 + k_pack); ++k)
+    pack[k] = k < kPack ? pvec[k]
+                        : (k < kPack * (1 + K) ? dpvec[k - kPack] : S(0));
   for (int b = 0; b < n_tiles; ++b) {
-    for (auto& x : sh->t) x = std::nan("");
-    for (auto& x : sh->e) x = std::nan("");
-    for (int k = 0; k < kPack * (1 + K); ++k)
-      sh->pack[k] = k < kPack ? pvec[k] : dpvec[k - kPack];
+    for (auto& x : t) x = std::nan("");
+    for (auto& x : energy) x = std::nan("");
     const Tile tile = tile_at(tiles, b);
-    for (int tid = 0; tid < kTileThreads; ++tid)
-      if (tid < tile.n_points) tile_phase0(tile, tid, e, sh);
-    for (int tid = 0; tid < kTileThreads; ++tid)
-      if (tid < tile.n_steps) tile_phase1(tile, tid, step_point, rho, dx, sh);
-    for (int tid = 0; tid < kTileThreads; ++tid)
-      if (tid < 2 * tile.n_points)
-        tile_phase2(tile, tid, point_step, sh, out, dout, n);
+    for (int j = 0; j < tile.n_points; ++j) tile_phase0(tile, j, e, m);
+    for (int w = 0; w < tile.n_steps * n1; ++w)
+      tile_phase1<S, K, C1>(tile, w % tile.n_steps, w / tile.n_steps * C1,
+                            step_point, rho, dx, m);
+    const int walks = 2 * tile.n_points;
+    for (int w = 0; w < walks * n2; ++w)
+      tile_phase2<S, K, C2>(tile, w % walks, w / walks * C2, point_step, m,
+                            out, dout, n);
   }
-  delete sh;
+}
+
+// The multitangent pass over double with K directions in chunks of (C1, C2),
+// or in the chunks the kernel ships with where c1 is 0.
+template <int K>
+int multi_pass(int c1, int c2, const double* p, const double* dp,
+               const int* tiles, int n_tiles, const int* point_step,
+               const int* step_point, const double* rho, const double* dx,
+               const double* e, double* out, double* dout, int n, int steps) {
+  using Shape = MultiShape<double, K>;
+#define OSC_PASS(C1, C2)                                                     \
+  if (c1 == (C1) && c2 == (C2)) {                                            \
+    tile_pass<double, K, ((C1) < K ? (C1) : K), ((C2) < K ? (C2) : K)>(      \
+        p, dp, tiles, n_tiles, point_step, step_point, rho, dx, e, out,      \
+        dout, n, steps);                                                     \
+    return 0;                                                                \
+  }
+  if (c1 == 0) {
+    tile_pass<double, K, Shape::c1, Shape::c2>(p, dp, tiles, n_tiles,
+                                               point_step, step_point, rho,
+                                               dx, e, out, dout, n, steps);
+    return 0;
+  }
+  OSC_PASS(1, 1) OSC_PASS(1, 6) OSC_PASS(2, 1) OSC_PASS(2, 2) OSC_PASS(3, 1)
+  OSC_PASS(3, 3) OSC_PASS(4, 4) OSC_PASS(6, 1) OSC_PASS(6, 6)
+#undef OSC_PASS
+  return 1;
 }
 
 static long long g_ops = 0;
@@ -137,16 +177,55 @@ void tiles_primal_f64(const double* p, const int* tiles, int n_tiles,
                       const int* point_step, const int* step_point,
                       const double* rho, const double* dx, const double* e,
                       double* out, int n) {
-  tile_pass<double, 0>(p, nullptr, tiles, n_tiles, point_step, step_point,
-                       rho, dx, e, out, nullptr, n);
+  tile_pass<double, 0, 0, 0>(p, nullptr, tiles, n_tiles, point_step,
+                             step_point, rho, dx, e, out, nullptr, n,
+                             kTileSteps);
 }
 void tiles_tangent_f64(const double* p, const double* dp, const int* tiles,
                        int n_tiles, const int* point_step,
                        const int* step_point, const double* rho,
                        const double* dx, const double* e, double* dout,
                        int n) {
-  tile_pass<double, 1>(p, dp, tiles, n_tiles, point_step, step_point, rho,
-                       dx, e, nullptr, dout, n);
+  tile_pass<double, 1, 1, 1>(p, dp, tiles, n_tiles, point_step, step_point,
+                             rho, dx, e, nullptr, dout, n, kTileSteps);
+}
+// returns 1 for a (k, c1, c2) that is not instantiated
+int tiles_multi_f64(int k, int c1, int c2, const double* p, const double* dp,
+                    const int* tiles, int n_tiles, const int* point_step,
+                    const int* step_point, const double* rho,
+                    const double* dx, const double* e, double* out,
+                    double* dout, int n, int steps) {
+  switch (k) {
+#define OSC_K(K)                                                            \
+  case K:                                                                   \
+    return multi_pass<K>(c1, c2, p, dp, tiles, n_tiles, point_step,         \
+                         step_point, rho, dx, e, out, dout, n, steps);
+    OSC_K(1) OSC_K(2) OSC_K(3) OSC_K(4) OSC_K(5) OSC_K(6)
+#undef OSC_K
+  }
+  return 1;
+}
+// (c1, c2, threads) the multitangent kernel ships with, and its shared bytes
+// at tiles of `steps` steps
+void multi_shape(int f64, int k, int steps, long long* out) {
+  switch (2 * k + (f64 ? 1 : 0)) {
+#define OSC_SHAPE(K)                                                        \
+  case 2 * K: {                                                             \
+    using Sh = MultiShape<float, K>;                                        \
+    out[0] = Sh::c1; out[1] = Sh::c2; out[2] = Sh::threads;                 \
+    out[3] = (long long)Sh::shared_bytes(steps);                            \
+    break;                                                                  \
+  }                                                                         \
+  case 2 * K + 1: {                                                         \
+    using Sh = MultiShape<double, K>;                                       \
+    out[0] = Sh::c1; out[1] = Sh::c2; out[2] = Sh::threads;                 \
+    out[3] = (long long)Sh::shared_bytes(steps);                            \
+    break;                                                                  \
+  }
+    OSC_SHAPE(1) OSC_SHAPE(2) OSC_SHAPE(3) OSC_SHAPE(4) OSC_SHAPE(5)
+    OSC_SHAPE(6)
+#undef OSC_SHAPE
+  }
 }
 void primal_f64(const double* p, const int* nl, const double* e,
                 const double* dens, const double* dist, double* out, int n) {
@@ -161,6 +240,11 @@ void dual3_f64(const double* p, const double* dp, const int* nl,
                const double* e, const double* dens, const double* dist,
                double* out, double* dout, int n) {
   dual<double, 3>(p, dp, nl, e, dens, dist, out, dout, n);
+}
+void dual6_f64(const double* p, const double* dp, const int* nl,
+               const double* e, const double* dens, const double* dist,
+               double* out, double* dout, int n) {
+  dual<double, 6>(p, dp, nl, e, dens, dist, out, dout, n);
 }
 long long count_ops(int k, const double* p, int nl, double e,
                     const double* dens, const double* dist) {
@@ -200,6 +284,9 @@ def host_lib(tmp_path_factory):
     lib.primal_f64.argtypes = [p] * 6 + [i]
     lib.dual1_f64.argtypes = [p] * 8 + [i]
     lib.dual3_f64.argtypes = [p] * 8 + [i]
+    lib.dual6_f64.argtypes = [p] * 8 + [i]
+    lib.tiles_multi_f64.argtypes = [i, i, i, p, p, p, i] + [p] * 7 + [i, i]
+    lib.multi_shape.argtypes = [i, i, i, p]
     lib.count_ops.argtypes = [i, p, i, ctypes.c_double, p, p]
     lib.tile_shape.argtypes = [p]
     lib.tiles_primal_f64.argtypes = [p, p, i] + [p] * 6 + [i]
@@ -271,6 +358,18 @@ def _ptrs(*tensors):
     return [t.data_ptr() for t in tensors]
 
 
+def _serial_dual(host_lib, geom, pvec, dpvecs):
+    """chain_point over Dual<double, K> for K = 3 or 6 directions, point by
+    point: the primal (2, 3, N) and the tangents (K, 2, 3, N)."""
+    k, n = dpvecs.shape[0], geom["e"].shape[0]
+    out = torch.empty((2, 3, n), dtype=torch.float64)
+    dout = torch.empty((k, 2, 3, n), dtype=torch.float64)
+    fn = {3: host_lib.dual3_f64, 6: host_lib.dual6_f64}[k]
+    fn(*_ptrs(pvec, dpvecs, geom["nl"], geom["e"], geom["dens"], geom["dist"],
+              out, dout), n)
+    return out, dout
+
+
 @pytest.mark.parametrize("nubar", [1, -1])
 def test_source_primal_matches_reference(host_lib, nubar):
     """The host build of the kernel's math against the plain version (fp64:
@@ -284,6 +383,27 @@ def test_source_primal_matches_reference(host_lib, nubar):
                                geom["dist"], out), n)
     want = chain.chain_probs_reference(pvec, *args)
     np.testing.assert_allclose(out.numpy(), want.numpy(), rtol=0, atol=1e-12)
+
+
+@pytest.mark.parametrize("nubar", [1, -1])
+def test_source_dual6_matches_jvp(host_lib, nubar):
+    """Dual<double, 6> along all six pack-Jacobian directions against the
+    forward-mode derivative of the plain version, relative to each
+    direction's largest tangent; its directions equal Dual<double, 3>'s bit
+    for bit (fp64)."""
+    geom = _prem_geometry(200, seed=5)
+    pvec, dirs = _pack(nubar)
+    args = (geom["e"], geom["dens"], geom["dist"], geom["nl"])
+    n = geom["e"].shape[0]
+    want_p, want_t = chain.chain_multitangent_reference(pvec, dirs, *args)
+    out, dout = _serial_dual(host_lib, geom, pvec, dirs)
+    np.testing.assert_allclose(out.numpy(), want_p.numpy(), rtol=0,
+                               atol=1e-12)
+    scale = want_t.abs().amax(dim=(1, 2, 3), keepdim=True)
+    assert float(((dout - want_t).abs() / scale).max()) < 1e-10
+    out3, dout3 = _serial_dual(host_lib, geom, pvec, dirs[ACTIVE].contiguous())
+    assert torch.equal(out3, out)
+    assert torch.equal(dout3, dout[ACTIVE])
 
 
 @pytest.mark.parametrize("nubar", [1, -1])
@@ -333,12 +453,24 @@ def test_operation_counts(host_lib, k):
 def test_tile_shape_matches_source(host_lib):
     """The tile shape the host cuts (chain.TILE_STEPS, TILE_POINTS) is the
     kernel's (kTileSteps, kTilePoints), with a thread per step and two per
-    point."""
+    point. The multitangent's tiles of the same shape fit a block's 227 KB
+    of shared memory for every K in both float types; its chunks of
+    directions are within 1..K, and it has a thread per step and chunk."""
     shape = (ctypes.c_int * 3)()
     host_lib.tile_shape(ctypes.addressof(shape))
     steps, points, threads = shape
     assert (steps, points) == (chain.TILE_STEPS, chain.TILE_POINTS)
     assert threads >= steps and threads >= 2 * points
+    for dtype in (torch.float32, torch.float64):
+        size = torch.empty((), dtype=dtype).element_size()
+        for k in range(1, chain.MAX_TANGENTS + 1):
+            got = (ctypes.c_longlong * 4)()
+            host_lib.multi_shape(int(dtype == torch.float64), k, steps,
+                                 ctypes.addressof(got))
+            c1, c2, multi_threads, nbytes = got
+            assert 1 <= c1 <= k and 1 <= c2 <= k
+            assert multi_threads == steps * -(-k // c1) <= 1024
+            assert size * steps * 18 * (1 + k) < nbytes <= 232448
 
 
 @pytest.mark.parametrize("kind", ["prem20x20", "gaps"])
@@ -388,3 +520,53 @@ def test_source_tile_pass_tangent(host_lib, kind, nubar):
                                   geom["dens"], geom["dist"], primal, serial),
                            n)
         assert float((got - serial).abs().max()) <= 1e-14 * scale
+
+
+# (K, c1, c2, steps a tile): K directions in chunks of c1 (phase 1) and c2
+# (phase 2), c1 = 0 for the chunks the kernel ships with; tables cut to the
+# kernel's own tile size or to a smaller one
+_MULTI_SHAPES = [
+    (3, 0, 0, None), (6, 0, 0, None), (1, 0, 0, 40), (2, 0, 0, 40),
+    (4, 0, 0, 40), (5, 0, 0, 40),
+    (3, 3, 3, 128), (3, 1, 1, 64), (3, 2, 2, 128), (3, 1, 6, 24),
+    (6, 6, 6, 128), (6, 2, 1, 64), (6, 3, 3, 24), (6, 4, 4, 128),
+    (6, 1, 6, 64), (6, 6, 1, 64), (5, 2, 2, 64), (5, 3, 1, 128),
+]
+
+
+@pytest.mark.parametrize("kind", ["prem20x20", "gaps"])
+@pytest.mark.parametrize("k,c1,c2,steps", _MULTI_SHAPES)
+def test_source_tile_pass_multitangent(host_lib, kind, k, c1, c2, steps):
+    """The multitangent tile pass (the tile phases with K directions split
+    into chunks) against the plain version: primal to 1e-12, each tangent to
+    1e-12 of its direction's largest; and, for K = 3 and K = 6, against the
+    serial chain_point over Dual<double, K> to 1e-14 (fp64)."""
+    geom = _grid_geometry(kind)
+    pvec, dirs = _pack(1 if (k + c1) % 2 else -1)
+    dpvecs = dirs[ACTIVE if k == 3 else list(range(k))].contiguous()
+    n = geom["e"].shape[0]
+    args = (geom["e"], geom["dens"], geom["dist"], geom["nl"])
+    if steps is None:
+        steps = chain.TILE_STEPS
+    tiles = chain.tile_table(
+        geom["dens"].numpy().T, geom["dist"].numpy().T, dtype=torch.float64,
+        device="cpu", steps=steps)
+    assert int(tiles["tile"][:, 3].max()) <= steps
+    got_p = torch.full((2, 3, n), np.nan, dtype=torch.float64)
+    got_t = torch.full((k, 2, 3, n), np.nan, dtype=torch.float64)
+    rc = host_lib.tiles_multi_f64(k, c1, c2, *_ptrs_and_ints(
+        pvec, dpvecs, tiles["tile"], tiles["tile"].shape[0],
+        tiles["point_step"], tiles["step_point"], tiles["rho"], tiles["dx"],
+        geom["e"], got_p, got_t, n, steps))
+    assert rc == 0
+    want_p, want_t = chain.chain_multitangent_reference(pvec, dpvecs, *args)
+    np.testing.assert_allclose(got_p.numpy(), want_p.numpy(), rtol=0,
+                               atol=1e-12)
+    scale = want_t.abs().amax(dim=(1, 2, 3), keepdim=True)
+    assert float(scale.min()) > 0
+    assert float(((got_t - want_t).abs() / scale).max()) <= 1e-12
+    if k in (3, 6):
+        serial_p, serial_t = _serial_dual(host_lib, geom, pvec, dpvecs)
+        np.testing.assert_allclose(got_p.numpy(), serial_p.numpy(), rtol=0,
+                                   atol=1e-14)
+        assert float(((got_t - serial_t).abs() / scale).max()) <= 1e-14

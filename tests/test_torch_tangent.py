@@ -301,7 +301,8 @@ def test_tangent_kernels_match_reference_on_card(cuda_device, dtype, rtol,
 
         dpvecs = dirs[list(FREE)].contiguous()
         before = chain.multitangent_launch_count
-        p2, dp2 = chain.chain_multitangent(pvec, dpvecs, *args)
+        p2, dp2 = chain.chain_multitangent(pvec, dpvecs, *args,
+                                           geom["tiles"])
         assert chain.multitangent_launch_count == before + 1
         want_p, want_t = chain.chain_multitangent_reference(pvec, dpvecs,
                                                             *args)

@@ -137,6 +137,7 @@ def test_value_and_grad_matches_jax(templates, jax_objectives, priors,
     jax_ct, pipeline, ct, data, _ = templates
     _, jax_vg = jax_objectives[priors]
     value_fn, vg = ct.build_objective(_as_arrays(data), "mod_chi2", priors=priors)
+    default = pipeline["osc.prob3"].multitangent
     pipeline["osc.prob3"].multitangent = multitangent
     los, his = jax_ct._current_bounds()
     try:
@@ -166,13 +167,14 @@ def test_value_and_grad_matches_jax(templates, jax_objectives, priors,
         for g in nominal:
             assert np.abs(g).max() < 1e-8 * perturbed_scale
     finally:
-        pipeline["osc.prob3"].multitangent = False
+        pipeline["osc.prob3"].multitangent = default
 
 
 def test_gradient_launches_on_the_path(templates):
-    """The backward asks for one tangent per free oscillation parameter and
-    sign, or one multitangent pass per sign (on the CPU the wrappers take
-    the plain versions, so this counts their calls)."""
+    """The backward asks for one multitangent pass per sign (prob3's
+    default), or, with ``multitangent = False``, for one tangent per free
+    oscillation parameter and sign (on the CPU the wrappers take the plain
+    versions, so this counts their calls)."""
     jax_ct, pipeline, ct, data, _ = templates
     _, vg = ct.build_objective(_as_arrays(data), "mod_chi2")
     v = to_template_order(ct, jax_ct.free_names,
@@ -188,15 +190,16 @@ def test_gradient_launches_on_the_path(templates):
 
     chain.chain_tangent = count("tangent", tangent)
     chain.chain_multitangent = count("multitangent", multitangent)
+    assert pipeline["osc.prob3"].multitangent is True
     try:
         vg(v)
-        assert calls == {"tangent": 6, "multitangent": 0}
-        pipeline["osc.prob3"].multitangent = True
+        assert calls == {"tangent": 0, "multitangent": 2}
+        pipeline["osc.prob3"].multitangent = False
         vg(v)
         assert calls == {"tangent": 6, "multitangent": 2}
     finally:
         chain.chain_tangent, chain.chain_multitangent = tangent, multitangent
-        pipeline["osc.prob3"].multitangent = False
+        pipeline["osc.prob3"].multitangent = True
 
 
 @pytest.mark.parametrize("metric", ["chi2", "llh", "poisson_llh"])
