@@ -17,17 +17,25 @@ oscillation grid, 15 free parameters) on the card through its two paths:
   float32 and float64, each template compared with the same pipeline run on
   the CPU in float64;
 - the fit, ``Pipeline(...).compile().build_objective(data, "mod_chi2")``:
-  the analytic ``value_and_grad`` (float64 on the card against the CPU in
-  float64, against central finite differences, and with separate tangents
-  against the multitangent; float32 against float64), and the bounded
-  L-BFGS Asimov fit (``analysis/device_fit.minimize_on_device``) in float32.
+  by default the twelve categories stacked into one container and the whole
+  ``value_and_grad`` captured in one CUDA graph. In float64 the stacked and
+  captured template, value and gradient are held against the CPU's
+  per-container run, with rate deferral on and off, and a replay against a
+  fresh eager run (at two points and after a range change); the
+  per-container eager ``value_and_grad`` stays checked against the CPU,
+  against central finite differences, and with separate tangents against
+  the multitangent. In float32: the same against float64, and the bounded
+  L-BFGS Asimov fit (``analysis/device_fit.minimize_on_device``) on the
+  captured objective.
 
 It times the kernels (device-only, from a CUDA graph of 200 launches, and
 host-inclusive, from back-to-back launches between CUDA events; the
 multitangent at K = 3 and K = 6 beside K launches of the tangent), prints
-their registers and occupancy, times the gradient by both of its routes
-(wall and device time) and the fit, and lists where one gradient waits for
-the card. It exits
+their registers and occupancy, and times ``value`` and ``value_and_grad`` by
+every route (per container, stacked, stacked and captured; deferral on and
+off; host clock and device time) with each route's launches, waits for the
+card and copies from the host, and the fit. A ``value_and_grad`` that waits
+for the card anywhere but at the read of its result fails the run. It exits
 non-zero on any failed check; the last line of a passing run is
 ``{"ok": true, "device": {...}}``. With ``--kernels-only`` it stops after
 the kernel checks and timings (and prints no status line).
@@ -97,6 +105,24 @@ VG_FP32 = {"value": 1e-4, "grad_rtol": 1e-2, "grad_atol": 1e-4}
 # the Asimov fit recovers theta23 to this, in rescaled units
 # (tests/test_device_fit.py:140)
 FIT_TOL = 5e-3
+# a replay of the captured value_and_grad vs a fresh eager run of the same
+# stacked template on the card (float64): the same kernels in the same
+# order, sums by atomics in any order; value relative, gradient in
+# max |difference| / max |gradient|
+REPLAY_FP64 = 1e-12
+# float32 stacked (either route) vs float32 per container on the card: the
+# same arithmetic summed in another order; gradient in max |difference| /
+# max |gradient|
+STACKED_FP32 = {"value": 1e-5, "grad": 1e-4}
+
+# the routes of one value_and_grad: label, compile options, captured
+ROUTES = (
+    ("per-container eager", {"stack": False}, False),
+    ("stacked eager, gather", {"rate_defer": False}, False),
+    ("stacked eager, deferral", {"rate_defer": True}, False),
+    ("stacked captured, gather", {"rate_defer": False}, True),
+    ("stacked captured, deferral", {"rate_defer": True}, True),
+)
 
 
 def check(cond, msg):
@@ -189,7 +215,7 @@ def expected_vg_launches(multitangent):
     return (2, 2 * len(FREE_THETA), 0)
 
 
-def gradient_point(ct):
+def gradient_point(ct, seed=5):
     """The value_and_grad point: the nominal rescaled values clipped to
     [0.15, 0.85] (tests/test_rate_defer.py:79-94) plus a seeded offset in
     [-0.1, 0.1], clipped again (test_rate_defer.py:97-116), so that the
@@ -197,8 +223,38 @@ def gradient_point(ct):
     import numpy as np
 
     v0 = np.clip(ct.current_rescaled_values(), 0.15, 0.85)
-    rng = np.random.RandomState(5)
+    rng = np.random.RandomState(seed)
     return np.clip(v0 + rng.uniform(-0.1, 0.1, v0.size), 0.15, 0.85)
+
+
+def captured_launches(template_module):
+    """(primal, tangent, multitangent) launches that build_objective makes
+    when it captures: the launch counts advance where the wrappers launch,
+    at the warm-up runs and the capture, and not at a replay. Each run of
+    value_and_grad makes 2 primal + 2 multitangent (prob3's default route),
+    each run of the value 2 primal."""
+    runs = template_module.CAPTURE_WARMUP + 1
+    return (2 * runs + 2 * runs, 0, 2 * runs)
+
+
+def deferred_calls(fn):
+    """How often the histogram stage took the factorized (rate-deferred)
+    route in fn()."""
+    from pisa_tpu_torch.stages.utils.hist import hist
+
+    calls = []
+    original = hist._apply_stacked_deferred
+
+    def counted(self, container, dr):
+        calls.append(container)
+        return original(self, container, dr)
+
+    hist._apply_stacked_deferred = counted
+    try:
+        fn()
+    finally:
+        hist._apply_stacked_deferred = original
+    return len(calls)
 
 
 def value_and_grad_counted(pipeline, chain, vg, v, multitangent):
@@ -240,13 +296,16 @@ def grad_mismatch(got, want, rtol, atol_fraction):
 
 def gradient_worker(cpu_pipeline, gpu_pipeline, chain):
     """float64 value_and_grad of mod_chi2 at full width: the CPU and the
-    card, the card's central finite differences, and separate tangents
-    against the multitangent. Returns arrays for the npz."""
+    card per container (eager), the card's central finite differences,
+    separate tangents against the multitangent; then the stacked and
+    captured program on the card (stacked_captured_fp64). Returns arrays for
+    the npz."""
     import numpy as np
 
     for pipeline in (cpu_pipeline, gpu_pipeline):
         pipeline.params.reset_all()
-    cpu_ct = cpu_pipeline.compile()
+    # the reference: per container on the CPU, no part of it stacked
+    cpu_ct = cpu_pipeline.compile(stack=False)
     data = cpu_ct.get_outputs()  # Asimov data at nominal
     v = gradient_point(cpu_ct)
     _, cpu_vg = cpu_ct.build_objective(data, "mod_chi2")
@@ -256,10 +315,11 @@ def gradient_worker(cpu_pipeline, gpu_pipeline, chain):
     cpu_value, cpu_grad, _ = value_and_grad_counted(
         cpu_pipeline, chain, cpu_vg, v, True)
     cpu_seconds = time.perf_counter() - t0
+    cpu_template = cpu_ct.get_outputs(v)
 
-    ct = gpu_pipeline.compile()
+    ct = gpu_pipeline.compile(stack=False)
     check(ct.free_names == cpu_ct.free_names, "free params differ")
-    value_fn, vg = ct.build_objective(data, "mod_chi2")
+    value_fn, vg = ct.build_objective(data, "mod_chi2", capture=False)
     value, grad, launches = value_and_grad_counted(gpu_pipeline, chain, vg,
                                                    v, False)
     value_m, grad_m, launches_m = value_and_grad_counted(gpu_pipeline, chain,
@@ -270,6 +330,8 @@ def gradient_worker(cpu_pipeline, gpu_pipeline, chain):
         step[i] = FD_STEP
         fd[i] = (float(value_fn(v + step)) - float(value_fn(v - step))) / (
             2 * FD_STEP)
+    stacked_captured_fp64(gpu_pipeline, chain, data, v, cpu_value, cpu_grad,
+                          cpu_template)
     out = {
         "vg|free_names": np.asarray(ct.free_names),
         "vg|v": v,
@@ -287,6 +349,90 @@ def gradient_worker(cpu_pipeline, gpu_pipeline, chain):
     for m in data:
         out[f"data|{m.name}"] = np.asarray(m.hist)
     return out
+
+
+def stacked_captured_fp64(pipeline, chain, data, v, cpu_value, cpu_grad,
+                          cpu_template):
+    """float64 on the card, the categories stacked, value_and_grad captured,
+    with rate deferral on and off: the template at `v` against the CPU's
+    per bin, the captured value and gradient against the CPU's; a replay
+    against a fresh eager run of the same template at `v`, at a second
+    point and after a change of theta23's range. Prints and checks here (in
+    the float64 child)."""
+    import torch
+
+    from pisa_tpu_torch.core import template as template_module
+
+    for defer in (True, False):
+        tag = f"float64 stacked, {'deferral' if defer else 'gather'}"
+        ct = pipeline.compile(rate_defer=defer)
+        check(ct.stacked and ct.rate_deferred is defer,
+              f"{tag}: the template reports stacked={ct.stacked},"
+              f" rate_deferred={ct.rate_deferred}")
+        maps = []
+        took_deferred = deferred_calls(lambda: maps.append(ct.get_outputs(v)))
+        check(took_deferred == (1 if defer else 0),
+              f"{tag}: {took_deferred} factorized histograms in one template")
+        worst_w = max(max_rel(m.hist, maps[0][m.name].hist)
+                      for m in cpu_template)
+        worst_e = max(max_rel(m.error_hist, maps[0][m.name].error_hist)
+                      for m in cpu_template)
+        print(f"{tag}: template at the gradient point vs CPU float64"
+              f" (per container), all bins: max rel weights {worst_w:.3e},"
+              f" errors {worst_e:.3e} (bound {TEMPLATE_RTOL['float64']:g})")
+        check(max(worst_w, worst_e) <= TEMPLATE_RTOL["float64"],
+              f"{tag}: template off the CPU reference")
+
+        _, eager_vg = ct.build_objective(data, "mod_chi2", capture=False)
+        before = launch_counts(chain)
+        t0 = time.perf_counter()
+        _, vg = ct.build_objective(data, "mod_chi2")
+        torch.cuda.synchronize()
+        capture_s = time.perf_counter() - t0
+        made = tuple(a - b for a, b in zip(launch_counts(chain), before))
+        check(made == captured_launches(template_module),
+              f"{tag}: launches at capture {made}")
+        value, grad = vg(v)
+        value, grad = float(value), grad.cpu().numpy()
+        check(launch_counts(chain) == tuple(
+            b + m for b, m in zip(before, made)),
+            f"{tag}: a replay advanced the launch counts")
+        value_err = abs(value - cpu_value) / abs(cpu_value)
+        grad_err = grad_mismatch(grad, cpu_grad, VG_FP64["grad_rtol"],
+                                 VG_FP64["grad_atol"])
+        print(f"{tag}, captured (capture {capture_s:.2f} s, launches at"
+              f" capture {made}): value {value!r} vs CPU {cpu_value!r} (rel"
+              f" {value_err:.3e}, bound {VG_FP64['value']:g}); gradient"
+              f" {rel_max(grad, cpu_grad):.3e} of max|g|, worst entry at"
+              f" {grad_err:.3e} of its bound")
+        check(value_err <= VG_FP64["value"], f"{tag}: value off the CPU's")
+        check(grad_err <= 1.0, f"{tag}: gradient off the CPU's")
+
+        def replay_vs_eager(label, point):
+            want_v, want_g = eager_vg(torch.as_tensor(point, device="cuda"))
+            got_v, got_g = vg(point)
+            v_err = abs(float(got_v) - float(want_v)) / abs(float(want_v))
+            g_err = rel_max(got_g.cpu().numpy(), want_g.cpu().numpy())
+            print(f"  replay vs fresh eager run, {label}: value"
+                  f" {float(got_v)!r}, rel {v_err:.3e}; gradient {g_err:.3e}"
+                  f" of max|g| (bound {REPLAY_FP64:g})")
+            check(v_err <= REPLAY_FP64 and g_err <= REPLAY_FP64,
+                  f"{tag}: replay off the eager run ({label})")
+            return float(got_v)
+
+        first = replay_vs_eager("the gradient point", v)
+        second = replay_vs_eager("another point", gradient_point(ct, seed=6))
+        theta23 = pipeline.params["theta23"]
+        saved = theta23.range
+        lo, hi = saved
+        theta23.range = (lo + 0.1 * (hi - lo), hi - 0.1 * (hi - lo))
+        try:
+            narrowed = replay_vs_eager("theta23's range narrowed", v)
+        finally:
+            theta23.range = saved
+        check(len({first, second, narrowed}) == 3,
+              f"{tag}: the replays did not follow their inputs")
+        del vg
 
 
 # -- the float64 child ---------------------------------------------------------
@@ -825,7 +971,7 @@ def count_host_syncs(fn, sources=None):
 
 def print_host_sync_sources(label, fn):
     """One fn() under the sync debug mode: its waits for the card, grouped
-    by source line, most frequent first."""
+    by source line, most frequent first; returns their number."""
     import linecache
 
     sources = {}
@@ -835,10 +981,12 @@ def print_host_sync_sources(label, fn):
         path, line = where.rsplit(":", 1)
         text = linecache.getline(os.path.join(ROOT, path), int(line)).strip()
         print(f"  {count:4d}x  {where}  {text[:80]}")
+    return syncs
 
 
 # profiler entries that copy to the host or wait for the card
-_SYNC_KEYS = ("Memcpy DtoH", "cudaStreamSynchronize", "cudaDeviceSynchronize",
+_SYNC_KEYS = ("Memcpy DtoH", "Memcpy HtoD", "cudaStreamSynchronize",
+              "cudaDeviceSynchronize",
               "cudaEventSynchronize", "cudaMemcpyAsync",
               "aten::_local_scalar_dense", "aten::item", "aten::_to_copy",
               "ToCopyBackward")
@@ -848,7 +996,9 @@ def print_host_copy_ops(label, fn):
     """One fn() under torch.profiler: the calls of the operators, autograd
     nodes and runtime functions that copy to the host or wait for the card
     (the sync debug mode reports every wait inside the backward pass at the
-    one line that started it; this names the nodes)."""
+    one line that started it; this names the nodes). Returns the numbers of
+    copies between host and card that the device saw: (host to card, card to
+    host)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -857,15 +1007,23 @@ def print_host_copy_ops(label, fn):
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    print(f"copies to the host and waits in one {label} (torch.profiler):")
+    print(f"copies between host and card, and waits, in one {label}"
+          " (torch.profiler):")
+    h2d = d2h = 0
     for e in sorted(prof.key_averages(), key=lambda e: -e.count):
         if any(k in e.key for k in _SYNC_KEYS):
             print(f"  {e.count:4d}x  {e.key[:90]}")
+        if "Memcpy HtoD" in e.key:
+            h2d += e.count
+        if "Memcpy DtoH" in e.key:
+            d2h += e.count
+    return h2d, d2h
 
 
 def profile_device_busy(fn):
     """torch.profiler over one call: its wall, the device time of the
-    kernels it ran, and the ops with the most device and host time."""
+    kernels and copies it ran and their number, and the ops with the most
+    device and host time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -883,8 +1041,13 @@ def profile_device_busy(fn):
                 return float(getattr(event, attr))
         return 0.0
 
+    def on_device(event):
+        return getattr(event, "device_type", None) is not None and str(
+            event.device_type).endswith("CUDA")
+
     events = prof.key_averages()
     total_us = sum(device_us(e) for e in events)
+    launches = sum(e.count for e in events if on_device(e))
     top = sorted(events, key=device_us, reverse=True)[:8]
     top_host = sorted(events, key=lambda e: e.self_cpu_time_total,
                       reverse=True)[:8]
@@ -892,18 +1055,49 @@ def profile_device_busy(fn):
             [(e.key, device_us(e) / 1e3, e.count)
              for e in top if device_us(e) > 0],
             [(e.key, e.self_cpu_time_total / 1e3, e.count)
-             for e in top_host])
+             for e in top_host], launches)
+
+
+def replay_time(fn, reps=20):
+    """Device time of one fn() over `reps` back-to-back calls between CUDA
+    events, for an fn that only enqueues (a graph replay): the card never
+    waits for the host."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def read_back(result):
+    """A (value, gradient) pair on the host in one copy: the one wait that a
+    value_and_grad costs its caller."""
+    import torch
+
+    value, grad = result
+    return torch.cat([value.reshape(1), grad]).cpu().numpy()
 
 
 def gradient_and_fit_fp32(pipeline, chain, ref, smi):
-    """The slice's main path in float32 on the card: compile, value_and_grad
-    (separate tangents, then the multitangent), the Asimov fit; checks
-    against the float64 card run; then times. Returns the launch counts of
-    the main path and the timings."""
+    """The slice's main path in float32 on the card: the per-container eager
+    value_and_grad (separate tangents, then the multitangent), then
+    ``compile()``'s default route (the categories stacked, value_and_grad
+    captured in a CUDA graph) with its value_and_grad and the Asimov fit on
+    the captured objective; checks against the float64 card run; then the
+    route table, waits and times. Returns the launch counts of the main
+    path and the timings."""
     import numpy as np
     import torch
 
     from pisa_tpu_torch.analysis.device_fit import minimize_on_device
+    from pisa_tpu_torch.core import template as template_module
 
     pipeline.params.reset_all()
     free_names = [str(n) for n in ref["vg|free_names"]]
@@ -915,14 +1109,28 @@ def gradient_and_fit_fp32(pipeline, chain, ref, smi):
     # -- the main path: counts from 0 to here ...
     reset_launch_counts(chain)
     t0 = time.perf_counter()
+    eager_ct = pipeline.compile(stack=False)
+    eager_compile_s = time.perf_counter() - t0
+    check(eager_ct.free_names == free_names, "float32 free params differ")
+    _, eager_vg = eager_ct.build_objective(data, "mod_chi2", capture=False)
+    value, grad, launches = value_and_grad_counted(pipeline, chain, eager_vg,
+                                                   v, False)
+    value_m, grad_m, launches_m = value_and_grad_counted(
+        pipeline, chain, eager_vg, v, True)
+
+    t0 = time.perf_counter()
     ct = pipeline.compile()
+    torch.cuda.synchronize()
     compile_s = time.perf_counter() - t0
-    check(ct.free_names == free_names, "float32 free params differ")
-    value_fn, vg = ct.build_objective(data, "mod_chi2")
-    value, grad, launches = value_and_grad_counted(pipeline, chain, vg, v,
-                                                   False)
-    value_m, grad_m, launches_m = value_and_grad_counted(pipeline, chain, vg,
-                                                         v, True)
+    check(ct.stacked, "compile()'s default route did not stack the flagship")
+    before = launch_counts(chain)
+    t0 = time.perf_counter()
+    _, vg = ct.build_objective(data, "mod_chi2")
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    launches_c = tuple(a - b for a, b in zip(launch_counts(chain), before))
+    captured = read_back(vg(v))
+    value_c, grad_c = float(captured[0]), captured[1:]
     v0 = ct.current_rescaled_values()
     asimov = ct.get_outputs(v0)
     fit_value_fn, _ = ct.build_objective(asimov, "mod_chi2")
@@ -942,7 +1150,8 @@ def gradient_and_fit_fp32(pipeline, chain, ref, smi):
     grad_err = grad_mismatch(grad, grad64, VG_FP32["grad_rtol"],
                              VG_FP32["grad_atol"])
     multi_err = rel_max(grad_m, grad)
-    print(f"value_and_grad, float32 card vs float64 card: value {value!r} vs"
+    print(f"value_and_grad, float32 card (per container, eager) vs float64"
+          f" card: value {value!r} vs"
           f" {value64!r} (rel {value_err:.3e}, bound {VG_FP32['value']:g});"
           f" gradient {rel_max(grad, grad64):.3e} of max|g|, worst entry at"
           f" {grad_err:.3e} of its bound (rtol {VG_FP32['grad_rtol']:g}, atol"
@@ -963,8 +1172,31 @@ def gradient_and_fit_fp32(pipeline, chain, ref, smi):
     check(launches_m == expected_vg_launches(True),
           f"float32 multitangent value_and_grad launches {launches_m}")
 
+    route = (f"stacked, {'deferral' if ct.rate_deferred else 'gather'},"
+             " captured")
+    value_err = abs(value_c - value64) / abs(value64)
+    grad_err = grad_mismatch(grad_c, grad64, VG_FP32["grad_rtol"],
+                             VG_FP32["grad_atol"])
+    print(f"value_and_grad, float32 card, compile()'s default route ({route};"
+          f" compile {compile_s:.3f} s, capture {capture_s:.3f} s, launches"
+          f" at capture {launches_c}) vs float64 card: value {value_c!r} (rel"
+          f" {value_err:.3e}); gradient {rel_max(grad_c, grad64):.3e} of"
+          f" max|g|, worst entry at {grad_err:.3e} of its bound; vs float32"
+          f" per container: value rel {abs(value_c - value_m) / abs(value_m):.3e}"
+          f" (bound {STACKED_FP32['value']:g}), gradient"
+          f" {rel_max(grad_c, grad_m):.3e} of max|g| (bound"
+          f" {STACKED_FP32['grad']:g})")
+    check(value_err <= VG_FP32["value"] and grad_err <= 1.0,
+          "float32 captured value_and_grad off float64")
+    check(abs(value_c - value_m) / abs(value_m) <= STACKED_FP32["value"]
+          and rel_max(grad_c, grad_m) <= STACKED_FP32["grad"],
+          "float32 stacked value_and_grad off the per-container one")
+    check(launches_c == captured_launches(template_module),
+          f"float32 launches at capture {launches_c}")
+
     moved = float(fit["x"][i23] - v0[i23])
-    print(f"Asimov fit, float32 on the card, from theta23 +0.10 rescaled:"
+    print(f"Asimov fit, float32 on the card, on the captured objective"
+          f" ({route}), from theta23 +0.10 rescaled:"
           f" nit {fit['nit']}, nfev {fit['nfev']}, fun {fit['fun']!r},"
           f" theta23 off by {moved:.3e}"
           f" rescaled (bound {FIT_TOL:g}), largest param offset"
@@ -972,65 +1204,155 @@ def gradient_and_fit_fp32(pipeline, chain, ref, smi):
           f" [{smi}]")
     check(np.isfinite(fit["fun"]) and abs(moved) <= FIT_TOL,
           "the Asimov fit did not recover theta23")
-    print(f"main path (compile, 2 value_and_grad, fit) launches: primal"
+    print(f"main path (2 eager value_and_grad per container, compile,"
+          f" capture, value_and_grad, fit) launches: primal"
           f" {main_path[0]}, tangent {main_path[1]}, multitangent"
-          f" {main_path[2]}; compile {compile_s:.3f} s")
+          f" {main_path[2]}; eager compile {eager_compile_s:.3f} s")
     check(all(n > 0 for n in main_path), "a kernel of the path never ran")
 
-    # -- timings and host syncs, not counted
-    times = {"compile_s": compile_s, "fit_s": fit_s, "fit_nit": fit["nit"]}
+    # -- the fit's waits, and the fit as it ran before (per container, eager)
+    times = {"compile_s": compile_s, "capture_s": capture_s, "fit_s": fit_s,
+             "fit_nit": fit["nit"]}
     syncs, again = count_host_syncs(
         lambda: minimize_on_device(fit_value_fn.raw, x0, los, his))
-    print(f"host syncs of the fit (torch.cuda sync debug mode, a second run):"
+    print(f"host syncs of the fit on the captured objective (torch.cuda sync"
+          f" debug mode, a second run):"
           f" {syncs} over {again['nit']} iterations and {again['nfev']}"
-          f" evaluations ({syncs / max(again['nit'], 1):.1f} per iteration)")
-    print_host_sync_sources("float32 value (forward only)",
-                            lambda: value_fn(v))
-    print_host_sync_sources("float32 value_and_grad", lambda: vg(v))
-    print_host_copy_ops("float32 value_and_grad", lambda: vg(v))
+          f" evaluations ({syncs / max(again['nfev'], 1):.1f} per evaluation:"
+          f" torch.optim.LBFGS's own reads)")
+    eager_fit_fn, _ = eager_ct.build_objective(asimov, "mod_chi2",
+                                               capture=False)
+    t0 = time.perf_counter()
+    eager_fit = minimize_on_device(eager_fit_fn.raw, x0, los, his)
+    torch.cuda.synchronize()
+    print(f"Asimov fit, float32, per container and eager (one run): nit"
+          f" {eager_fit['nit']}, nfev {eager_fit['nfev']}, theta23 off by"
+          f" {float(eager_fit['x'][i23] - v0[i23]):.3e}; wall"
+          f" {time.perf_counter() - t0:.3f} s [{smi}]")
+    check(abs(float(eager_fit["x"][i23] - v0[i23])) <= FIT_TOL,
+          "the eager Asimov fit did not recover theta23")
+    print(f"torch.cuda.max_memory_allocated (float32: both templates, the"
+          f" captured objectives, the fits):"
+          f" {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB [{smi}]")
+    del vg, fit_value_fn
+    times.update(route_table(pipeline, chain, data, v, value_m, grad_m, smi))
+    return main_path, times
+
+
+def route_table(pipeline, chain, data, v, value_ref, grad_ref, smi):
+    """value and value_and_grad by every route (ROUTES), float32 at full
+    size: each route's result against the per-container one, its waits for
+    the card (which must be the read of the result and nothing else), its
+    copies from the host, its launches, device time, host-clock time and
+    peak memory; the per-container route with fewer repetitions. Then the
+    separate-tangents route beside the multitangent, per container and
+    eager, as before."""
+    import torch
+
+    from pisa_tpu_torch.core import template as template_module
+
+    rows = {}
+    v_card = torch.as_tensor(v, device="cuda")
+    for label, options, capture in ROUTES:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        ct = pipeline.compile(**options)
+        stacked = options.get("stack", True)
+        check(ct.stacked is stacked
+              and ct.rate_deferred is options.get("rate_defer", False),
+              f"{label}: stacked={ct.stacked},"
+              f" rate_deferred={ct.rate_deferred}")
+        took = deferred_calls(ct.get_outputs)
+        check(took == (1 if ct.rate_deferred else 0),
+              f"{label}: {took} factorized histograms in one template")
+        value_fn, vg = ct.build_objective(data, "mod_chi2", capture=capture)
+        # the eager routes take the vector where it lies (on the card); the
+        # captured one brings an array over through its pinned buffer
+        vin = v if capture else v_card
+        got = read_back(vg(vin))
+        v_err = abs(float(got[0]) - value_ref) / abs(value_ref)
+        g_err = rel_max(got[1:], grad_ref)
+        check(v_err <= STACKED_FP32["value"] and g_err <= STACKED_FP32["grad"],
+              f"{label}: off the per-container value_and_grad by {v_err},"
+              f" {g_err}")
+        waits = print_host_sync_sources(
+            f"float32 value_and_grad and its read, {label}",
+            lambda: read_back(vg(vin)))
+        value_waits = print_host_sync_sources(
+            f"float32 value and its read, {label}",
+            lambda: value_fn(vin).cpu())
+        h2d, d2h = print_host_copy_ops(f"float32 value_and_grad, {label}",
+                                       lambda: vg(vin))
+        check(waits == 1 and value_waits == 1,
+              f"{label}: {waits} waits for the card in a value_and_grad and"
+              f" {value_waits} in a value; only the read of the result may"
+              " wait")
+        check(d2h == 0 and h2d == (1 if capture else 0),
+              f"{label}: {h2d} copies from the host and {d2h} to it inside"
+              " one value_and_grad")
+        reps = 5 if not stacked else 10
+        vg(vin)
+        wall_vg = median_wall(lambda: vg(vin), reps)
+        wall_value = median_wall(lambda: value_fn(vin), reps)
+        profiled = [profile_device_busy(lambda: vg(vin)) for _ in range(2)]
+        wall, busy_ms, top, top_host, launches = profiled[-1]
+        row = {"vg_ms": wall_vg[0] * 1e3, "value_ms": wall_value[0] * 1e3,
+               "device_ms": min(p[1] for p in profiled),
+               "launches": launches, "waits": waits,
+               "busy": busy_ms / (wall_vg[0] * 1e3),
+               "peak_mib": (torch.cuda.max_memory_allocated() - base) / 2**20}
+        line = (f"route {label}: value_and_grad wall median"
+                f" {row['vg_ms']:.3f} ms (min {wall_vg[1] * 1e3:.3f}), value"
+                f" {row['value_ms']:.3f} ms (min {wall_value[1] * 1e3:.3f}),"
+                f" {reps} calls each; device time (torch.profiler, the lower"
+                f" of two calls) {row['device_ms']:.3f} ms, busy"
+                f" {100 * row['busy']:.1f}% of the median wall; {launches}"
+                f" kernels and copies on the device, {waits} wait (the"
+                f" read), {h2d} copy from the host")
+        if capture:
+            row["replay_ms"] = replay_time(lambda: vg(vin))
+            row["value_replay_ms"] = replay_time(lambda: value_fn(vin))
+            line += (f"; 20 replays back to back (CUDA events):"
+                     f" {row['replay_ms']:.3f} ms per value_and_grad,"
+                     f" {row['value_replay_ms']:.3f} ms per value")
+        print(f"{line}; peak memory above what was resident"
+              f" {row['peak_mib']:.1f} MiB [{smi}]")
+        print("  most device time:")
+        for key, ms, count in top:
+            print(f"  {ms:9.3f} ms  {count:5d}x  {key[:90]}")
+        print("  most host time (self, under the profiler):")
+        for key, ms, count in top_host[:5]:
+            print(f"  {ms:9.3f} ms  {count:5d}x  {key[:90]}")
+        rows[label] = row
+        del vg, value_fn, ct
+
+    on, off = (rows[f"stacked captured, {r}"]["replay_ms"]
+               for r in ("deferral", "gather"))
+    default = "deferral" if template_module.RATE_DEFER_DEFAULT else "gather"
+    print(f"captured value_and_grad, device only: deferral {on:.3f} ms,"
+          f" gather {off:.3f} ms; compile()'s default: {default} [{smi}]")
+
+    # separate tangents beside the multitangent: per container, eager
+    ct = pipeline.compile(stack=False)
+    _, vg = ct.build_objective(data, "mod_chi2", capture=False)
     stage = pipeline["osc.prob3"]
     default = stage.multitangent
-    routes = (("value_and_grad separate tangents", False),
-              ("value_and_grad multitangent", True))
+    routes = (("separate tangents", False), ("multitangent", True))
     device_ms = {label: [] for label, _ in routes}
-    for label, multi in routes:
-        stage.multitangent = multi
-        vg(v)
-        times[label] = median_wall(lambda: vg(v), 10)
     # one profiled call per turn: separate, multitangent, multitangent,
     # separate
     for label, multi in routes + routes[::-1]:
         stage.multitangent = multi
-        device_ms[label].append(profile_device_busy(lambda: vg(v))[1])
+        vg(v_card)
+        device_ms[label].append(profile_device_busy(lambda: vg(v_card))[1])
     stage.multitangent = default
-    value_fn(v)
-    times["value"] = median_wall(lambda: value_fn(v), 10)
-    for label in ("value", *device_ms):
-        med, low = times[label]
-        print(f"float32 {label} wall (10 calls): median {med * 1e3:.2f} ms,"
-              f" min {low * 1e3:.2f} ms [{smi}]")
     for label, ms in device_ms.items():
-        print(f"float32 {label}: device time (torch.profiler, one call a"
-              f" turn) {' / '.join(f'{x:.4f}' for x in ms)} ms [{smi}]")
-    default_label = routes[1 if default else 0][0]
-    print(f"prob3's default route: {default_label}")
-    wall, busy_ms, top, top_host = profile_device_busy(lambda: vg(v))
-    times["busy"] = busy_ms / (wall * 1e3)
-    print(f"torch.profiler, one float32 value_and_grad (the default route):"
-          f" wall {wall * 1e3:.2f}"
-          f" ms, device time {busy_ms:.3f} ms, device busy"
-          f" {100 * times['busy']:.1f}% (of the unprofiled median:"
-          f" {100 * busy_ms / (times[default_label][0] * 1e3):.1f}%)"
-          f" [{smi}]")
-    print("  most device time:")
-    for key, ms, count in top:
-        print(f"  {ms:9.3f} ms  {count:5d}x  {key[:90]}")
-    print("  most host time (self, under the profiler):")
-    for key, ms, count in top_host:
-        print(f"  {ms:9.3f} ms  {count:5d}x  {key[:90]}")
-    print(f"torch.cuda.max_memory_allocated (float32 compile, gradient, fit):"
-          f" {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB [{smi}]")
-    return main_path, times
+        print(f"float32 per-container eager value_and_grad, {label}: device"
+              f" time (torch.profiler, one call a turn)"
+              f" {' / '.join(f'{x:.4f}' for x in ms)} ms [{smi}]")
+    print(f"prob3's default route: {routes[1 if default else 0][0]}")
+    return {"routes": rows}
 
 
 def print_kernel_times(kernels, smi):

@@ -7,9 +7,13 @@ optimizing an unconstrained vector z with x = sigmoid(z), so the objective
 never sees out-of-box corners; boundary optima are approached
 asymptotically. The optimizer is L-BFGS with a strong-Wolfe line search
 (``torch.optim.LBFGS``); its state (z, the curvature history, the gradient)
-lives on the objective's device. Unlike the JAX package's single-dispatch
-``lax.while_loop``, ``torch.optim.LBFGS`` reads each objective value back to
-the host (one synchronization per evaluation).
+and the bounds live on the device the caller names (``"cuda"`` by default,
+as every entry point of the port), which must be the objective's: nothing
+falls back to the CPU. The objective may be a captured one
+(``core/template.py:CapturedObjective``): its value carries the captured
+gradient into ``backward()``. Unlike the JAX package's single-dispatch
+``lax.while_loop``, ``torch.optim.LBFGS`` reads each objective value and
+its own convergence tests back to the host (several waits per evaluation).
 
 The vmapped ``fit_batch_on_device`` and ``fit_pseudo_ensemble`` are not
 ported yet (ROADMAP queue 1, item 8).
@@ -21,6 +25,7 @@ import numpy as np
 import torch
 
 from pisa_tpu_torch import FTYPE
+from pisa_tpu_torch.core.container import resolve_device
 
 __all__ = ["minimize_on_device", "DEFAULT_GTOL"]
 
@@ -45,25 +50,29 @@ def _guard(value):
                        torch.full_like(value, 1e30))
 
 
-def minimize_on_device(raw_objective, x0, los, his, max_steps=200, gtol=None):
+def minimize_on_device(raw_objective, x0, los, his, max_steps=200, gtol=None,
+                       device="cuda"):
     """One complete bounded fit.
 
     Parameters
     ----------
     raw_objective : callable
         ``(vec, los, his) -> scalar tensor`` (always minimized), e.g.
-        ``value_fn.raw`` from :meth:`CompiledTemplate.build_objective`. Its
-        ``device`` attribute, where present, is where the fit state lives
-        (the CPU otherwise).
+        ``value_fn.raw`` from :meth:`CompiledTemplate.build_objective`.
     x0 : array (n_free,)
         Start point in the [0, 1] rescaled space.
     los, his : arrays (n_free,)
-        The current physical bounds, passed through to the objective.
+        The current physical bounds, passed through to the objective as
+        float64 tensors on `device`.
     max_steps : int
         Most L-BFGS iterations (and at most 3 objective evaluations per
         iteration on average, counting the line searches).
     gtol : float
         Stop when the largest gradient component (in z) is below it.
+    device : torch.device or str
+        Where the fit state lives and the objective is evaluated. A CUDA
+        device without a card raises, and so does an objective whose
+        ``device`` attribute names another device.
 
     Returns
     -------
@@ -72,7 +81,14 @@ def minimize_on_device(raw_objective, x0, los, his, max_steps=200, gtol=None):
     """
     if gtol is None:
         gtol = DEFAULT_GTOL
-    device = getattr(raw_objective, "device", "cpu")
+    device = resolve_device(device)
+    objective_device = getattr(raw_objective, "device", None)
+    if objective_device is not None and (
+            resolve_device(objective_device) != device):
+        raise ValueError(f"the objective lives on {objective_device}, the fit"
+                         f" was asked for on {device}")
+    los, his = (torch.as_tensor(np.asarray(b, dtype=np.float64), device=device)
+                for b in (los, his))
     z = _to_z(x0, device).requires_grad_(True)
     opt = torch.optim.LBFGS(
         [z], lr=1.0, max_iter=int(max_steps), max_eval=3 * int(max_steps),

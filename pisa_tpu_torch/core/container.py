@@ -443,6 +443,9 @@ class VirtualContainer:
         return self.containers[0][key]
 
     def __setitem__(self, key, value):
+        # uploaded once: the linked containers share one tensor, which is
+        # how core/stacking.py recognises a value they have in common
+        value = self.containers[0]._to_device(value)
         for c in self.containers:
             c[key] = value
 
@@ -459,12 +462,14 @@ class ContainerSet:
     """Collection of containers (one per event category) shared by all
     stages of a pipeline, on one device (reference ``container.py:199``)."""
 
-    def __init__(self, name, device="cuda"):
+    def __init__(self, name, device="cuda", containers=()):
         self.name = name
         self.device = resolve_device(device)
         self.linked_containers = []
         self.containers = []
         self._glob_aux = {}
+        for container in containers:
+            self.add_container(container)
 
     def add_container(self, container):
         if container.name in self.names:

@@ -194,16 +194,19 @@ class Pipeline:
         self.data.representation = output_binning
         return self.data.get_mapset(key, error=error_key)
 
-    def compile(self, output_binning=None, output_key=None):
+    def compile(self, output_binning=None, output_key=None, **options):
         """The pipeline as a differentiable function of its rescaled free
-        parameters; see :class:`pisa_tpu_torch.core.template.
-        CompiledTemplate`."""
+        parameters; `options` are ``stack``, ``rate_defer`` and ``hoist``
+        of :class:`pisa_tpu_torch.core.template.CompiledTemplate` (by
+        default the categories are stacked where every traced stage can
+        run stacked)."""
         from pisa_tpu_torch.core.template import CompiledTemplate
 
         return CompiledTemplate(
             self,
             output_binning=output_binning or self._output_binning,
             output_key=output_key or self._output_key,
+            **options,
         )
 
     def __str__(self):

@@ -26,11 +26,10 @@ __all__ = ["Prior"]
 
 
 def _interp(x, xp, fp):
-    """Piecewise-linear interpolation of (xp, fp) (numpy, xp increasing)
-    at the tensor `x`, differentiable in `x`, constant beyond the ends (the
-    semantics of ``np.interp``; torch has no ``interp``)."""
-    xp = torch.as_tensor(xp, dtype=x.dtype, device=x.device)
-    fp = torch.as_tensor(fp, dtype=x.dtype, device=x.device)
+    """Piecewise-linear interpolation of the tensors (xp, fp) (xp
+    increasing, on `x`'s device) at the tensor `x`, differentiable in `x`,
+    constant beyond the ends (the semantics of ``np.interp``; torch has no
+    ``interp``)."""
     flat = x.reshape(-1)
     i = torch.searchsorted(xp, flat.detach(), right=True).clamp(1, len(xp) - 1)
     x0, x1, f0, f1 = xp[i - 1], xp[i], fp[i - 1], fp[i]
@@ -112,6 +111,7 @@ class Prior:
             raise TypeError(
                 f"Unused kwargs for Prior(kind={self.kind!r}): {list(kwargs)}"
             )
+        self._torch_tables = {}  # device -> llh_torch's interpolation table
 
     # -- evaluation ---------------------------------------------------------
     def _strip(self, x):
@@ -149,11 +149,32 @@ class Prior:
     def chi2(self, x):
         return -2.0 * self.llh(x)
 
+    def _interp_table(self, device):
+        """The (x, llh) table of a linterp or spline prior (the spline
+        sampled on 2048 points) as float64 tensors on `device`, built and
+        uploaded once per device."""
+        tables = self._torch_tables
+        if device not in tables:
+            if self.kind == "linterp":
+                xs = np.asarray(self.param_vals.magnitude, dtype=float)
+                ys = np.asarray(self.llh_vals, dtype=float)
+            else:
+                k = np.asarray(self.knots.magnitude, dtype=float)
+                xs = np.linspace(k[0], k[-1], 2048)
+                ys = np.asarray(splev(xs, (k, self.coeffs, self.deg)),
+                                dtype=float)
+            tables[device] = tuple(
+                torch.as_tensor(a, dtype=torch.float64, device=device)
+                for a in (xs, ys)
+            )
+        return tables[device]
+
     def llh_torch(self, x_mag):
-        """llh of a magnitude in this prior's units (a tensor, or a number),
-        differentiable in it (``pisa_tpu/core/prior.py:134-158``); linterp
-        and spline priors interpolate linearly (the spline sampled on 2048
-        points once), holding the end values outside the knots as
+        """llh of a magnitude in this prior's units (a tensor on any device,
+        or a number), differentiable in it and computed where it lies,
+        without reading it back (``pisa_tpu/core/prior.py:134-158``);
+        linterp and spline priors interpolate linearly (the spline sampled
+        on 2048 points once), holding the end values outside the knots as
         ``jnp.interp`` does."""
         x = torch.as_tensor(x_mag, dtype=torch.float64)
         if self.kind == "uniform":
@@ -162,14 +183,8 @@ class Prior:
             m = float(self.mean.magnitude)
             s = float(self.stddev.magnitude)
             return -torch.square(x - m) / (2 * s**2)
-        if self.kind == "linterp":
-            pv = np.asarray(self.param_vals.magnitude, dtype=float)
-            return _interp(x, pv, self.llh_vals)
-        if self.kind == "spline":
-            k = np.asarray(self.knots.magnitude, dtype=float)
-            xs = np.linspace(k[0], k[-1], 2048)
-            ys = np.asarray(splev(xs, (k, self.coeffs, self.deg)), dtype=float)
-            return _interp(x, xs, ys)
+        if self.kind in ("linterp", "spline"):
+            return _interp(x, *self._interp_table(x.device))
         if self.kind == "jeffreys":
             A = float(self.A.magnitude)
             B = float(self.B.magnitude)

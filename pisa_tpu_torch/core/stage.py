@@ -11,9 +11,12 @@ reference (``stage.py:536-557``), except in template mode
 params hold tensors that carry the autograd graph and every compute runs.
 
 A stage whose params steer host-side precomputation lists them in
-``host_param_names``; a compiled template refuses them as free params. The
-JAX package's stacking and rate-deferral hooks are not ported (ROADMAP
-queue 1, item 6).
+``host_param_names``; a compiled template refuses them as free params. A
+stage that can run on a category-stacked container
+(``core/stacking.py``) says so through ``supports_stacked``/``stacked_ok``,
+and through the rate-deferral hooks whether it keeps the contract under
+which the oscillation stage may hand its grid rate to the histogram
+(``core/template.py:_setup_rate_deferral``).
 """
 
 from __future__ import annotations
@@ -81,6 +84,46 @@ class Stage:
         self._template_mode = False  # bypasses the compute cache
 
     host_param_names = ()
+
+    #: the service's compute/apply functions handle a StackedContainer
+    #: (``core/stacking.py``); a compiled template stacks the categories
+    #: only when every traced stage says so
+    supports_stacked = False
+
+    def stacked_ok(self):
+        """Whether this instance, with its modes, can run on a stacked
+        ContainerSet; override where that depends on the modes."""
+        return self.supports_stacked
+
+    def prepare_stacked(self, data):
+        """Hook: one-time precomputation on the freshly stacked ContainerSet
+        `data` (cached one-hot matrices, parameter-free fields), called by
+        the compiled template before its first evaluation."""
+
+    def stacking_exclude_keys(self):
+        """Container keys to leave out of the stacked copy: per-container
+        helper arrays whose leading axis is not the event axis, which cannot
+        be padded and stacked and which the stacked path does not read."""
+        return ()
+
+    #: Rate-deferral contract: True says that the stage may run in a
+    #: template whose oscillation stage hands the flux x probability rate to
+    #: the histogram stage as a grid-level factor: it never touches the
+    #: events representation's 'weights', or applies at a binned
+    #: representation only, or multiplies the event weights by (a static
+    #: per-event field) x (a scalar per category). Any traced stage that
+    #: does not declare it disables deferral.
+    stacked_rate_defer_safe = False
+
+    #: container keys of the static per-event factors this stage multiplies
+    #: into 'weights' (aeff's 'weighted_aeff'); they are folded into the
+    #: factorized histogram's matrices at set-up
+    stacked_static_weight_keys = ()
+
+    def stacked_rate_defer_ok(self):
+        """Whether this instance, with its modes, keeps the rate-deferral
+        contract; override where that depends on the modes."""
+        return self.stacked_rate_defer_safe
 
     # -- params ---------------------------------------------------------------
     @property

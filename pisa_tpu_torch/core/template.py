@@ -11,19 +11,33 @@ oscillation stage's gradient running the CUDA tangent kernels
 (``ops/osc/chain.py:osc_probs``). It replaces the reference's
 finite-difference gradients (~2n templates per step, ``analysis.py:1561``).
 
-Mechanics, as in the JAX package: the free params' magnitudes are set on the
-shared Param objects as 0-d float64 tensors on the host that carry the
-autograd graph (wrapped in unit-tagged Quantities, so stage code is
-unchanged); the stages' compute caches are bypassed (template mode); the
-leading stages with no free parameter run once here, and every evaluation
-starts from the container state they left, then restores the state it found,
-so the eager ``get_outputs()`` path is unaffected.
+Mechanics, as in the JAX package:
 
-There is no ``jit``: the stages run eagerly in torch. The JAX package's
-category stacking, rate deferral (``core/stacking.py``,
-``template.py:185-282``), sharding and ``scan_totals`` are not ported
-(ROADMAP queue 1, item 6); the template runs per container, as the JAX one
-does with ``PISA_TPU_STACK=0``.
+- the free params' magnitudes are set on the shared Param objects as 0-d
+  float64 tensors **on the pipeline's device** that carry the autograd graph
+  (wrapped in unit-tagged Quantities, so stage code is unchanged): from the
+  rescaled vector to the value and the gradient nothing is computed on the
+  host and nothing waits for the card;
+- the stages' compute caches are bypassed (template mode); the leading
+  stages with no free parameter run once here (``hoist``), and every
+  evaluation starts from the container state they left, then restores the
+  state it found, so the eager ``get_outputs()`` path is unaffected;
+- the categories are stacked into one container (``core/stacking.py``,
+  ``stack``) when every traced stage can run on it; otherwise the template
+  runs per container and says so (:attr:`CompiledTemplate.stacked`);
+- the oscillation stage's grid rate may be handed to the histogram stage
+  (``rate_defer``, :meth:`CompiledTemplate._setup_rate_deferral`), which is
+  reported too (:attr:`CompiledTemplate.rate_deferred`). The state of that
+  hand-off lives on this template's own stacked container, so two templates
+  over one pipeline do not interfere.
+
+Where the JAX package has ``jax.jit``, :meth:`build_objective` on a CUDA
+device captures the whole ``value_and_grad`` (magnitudes, pack, stages,
+metric, priors and the backward with its kernel launches) in one CUDA
+graph, and the value alone in another (:class:`CapturedObjective`); an
+evaluation copies its inputs into the graphs' static tensors and replays.
+On the CPU the same code runs eagerly. ``shard`` is not ported (ROADMAP
+queue 1, item 12).
 """
 
 from __future__ import annotations
@@ -32,10 +46,13 @@ import numpy as np
 import torch
 
 from pisa_tpu_torch import TORCH_FTYPE
+from pisa_tpu_torch.core import stacking
 from pisa_tpu_torch.core.map import Map, MapSet
 from pisa_tpu_torch.units import Quantity
+from pisa_tpu_torch.utils.log import logging
 
-__all__ = ["CompiledTemplate", "HOST_PARAM_NAMES"]
+__all__ = ["CompiledTemplate", "CapturedObjective", "HOST_PARAM_NAMES",
+           "RATE_DEFER_DEFAULT", "CAPTURE_WARMUP"]
 
 #: params that steer host-side precomputation and hence cannot be
 #: differentiated (``pisa_tpu/core/template.py:42-56``); stages add theirs
@@ -56,6 +73,17 @@ HOST_PARAM_NAMES = {
     "random",
 }
 
+#: Whether ``Pipeline.compile()`` sets up rate deferral where the stages
+#: allow it: the route with the lower captured ``value_and_grad`` at the
+#: flagship on one H100 (``PERF.md`` has the measurement). Both routes give
+#: the same values.
+RATE_DEFER_DEFAULT = True
+
+#: eager evaluations on a side stream before a capture (they build every
+#: lazily cached tensor outside the graph's memory pool, and let the kernels
+#: opt into their shared memory)
+CAPTURE_WARMUP = 3
+
 
 class CompiledTemplate:
     """``rescaled free params -> histograms`` for a Pipeline.
@@ -65,13 +93,24 @@ class CompiledTemplate:
     pipeline : Pipeline
     output_binning : MultiDimBinning
     output_key : str or (key, error_key)
+    stack : bool
+        Stack the categories into one container where every traced stage
+        can run on it (``PISA_TPU_STACK`` in the JAX package).
+    rate_defer : bool
+        On a stacked template, hand the oscillation stage's grid rate to
+        the histogram stage where the stage lineup allows it
+        (``PISA_TPU_RATE_DEFER``).
+    hoist : bool
+        Run the leading stages without free parameters once, here
+        (``PISA_TPU_HOIST``).
 
     The vector is in the *rescaled* [0, 1] space of minimizers (reference
     ``param.py:358``); the conversion to physical magnitudes happens inside,
     so gradients are with respect to the rescaled values.
     """
 
-    def __init__(self, pipeline, output_binning, output_key):
+    def __init__(self, pipeline, output_binning, output_key, stack=True,
+                 rate_defer=RATE_DEFER_DEFAULT, hoist=True):
         self.pipeline = pipeline
         self.output_binning = output_binning
         if isinstance(output_key, (tuple, list)):
@@ -97,17 +136,42 @@ class CompiledTemplate:
 
         # The leading stages with no free parameter run once, here; every
         # evaluation starts from the container state they leave.
-        self._hoisted_stages, self._traced_stages = self._split_stages()
+        self._hoisted_stages, self._traced_stages = self._split_stages(hoist)
         for stage in self._hoisted_stages:
             stage.run()
-        self._base_state = pipeline.data.state()
 
-    def _split_stages(self):
+        #: the ContainerSet the traced stages run on: the pipeline's own, or
+        #: its stacked copy
+        self._trace_data = pipeline.data
+        if stack:
+            self._build_stacked(rate_defer)
+        self._base_state = self._trace_data.state()
+        self._bounds_cache = None
+
+    # -- what the template runs on --------------------------------------------
+    @property
+    def stacked(self):
+        """Whether the traced stages run on one category-stacked
+        container."""
+        return self._trace_data is not self.pipeline.data
+
+    @property
+    def rate_deferred(self):
+        """Whether the oscillation stage hands its grid rate to the
+        histogram stage (only on a stacked template)."""
+        return self.stacked and all(
+            c.rate_defer is not None for c in self._trace_data.containers
+        )
+
+    def _split_stages(self, hoist=True):
         """(hoisted, traced): the longest leading run of stages none of
         whose params is free, directly or through a DerivedParam dependency
         (``pisa_tpu/core/template.py:140``). Only a prefix is safe: a stage
         without free params downstream of a traced one (e.g. utils.hist)
         consumes per-template values."""
+        stages = list(self.pipeline.stages)
+        if not hoist:
+            return [], stages
 
         def expand(p):
             yield p
@@ -115,13 +179,87 @@ class CompiledTemplate:
                 yield from expand(dep)
 
         free_ids = {id(p) for p in self._free_params}
-        stages = list(self.pipeline.stages)
         n_hoisted = 0
         for stage in stages:
             if any(id(q) in free_ids for p in stage.params for q in expand(p)):
                 break
             n_hoisted += 1
         return stages[:n_hoisted], stages[n_hoisted:]
+
+    def _coord_keys(self):
+        """Event keys that are binning coordinates (NaN-padded when
+        stacking): any dimension of any binning the template touches."""
+        coord_keys = set(self.output_binning.names)
+        for stage in self.pipeline.stages:
+            for mode in (stage.calc_mode, stage.apply_mode):
+                if hasattr(mode, "names"):
+                    coord_keys.update(mode.names)
+        return coord_keys
+
+    def _build_stacked(self, rate_defer):
+        """Stack the pipeline's containers for the traced stages where they
+        all can run stacked; otherwise ``self._trace_data`` stays the
+        pipeline's own set, and the reason is logged."""
+        if len(self.pipeline.data.containers) < 2:
+            logging.info("stacking off: fewer than 2 containers")
+            return
+        unsupported = [str(s) for s in self._traced_stages
+                       if not s.stacked_ok()]
+        if unsupported:
+            logging.warning("stacking off: stages that cannot run stacked:"
+                            " %s", unsupported)
+            return
+        exclude = set()
+        for s in self._traced_stages:
+            exclude.update(s.stacking_exclude_keys())
+        try:
+            self._trace_data = stacking.build_stacked_set(
+                self.pipeline.data, coord_keys=self._coord_keys(),
+                exclude_keys=exclude,
+            )
+        except stacking.StackingError as exc:
+            logging.warning("stacking off: %s", exc)
+            return
+        for stage in self._traced_stages:
+            stage.prepare_stacked(self._trace_data)
+        logging.debug(
+            "stacked %d containers (n_pad=%d)",
+            len(self.pipeline.data.containers),
+            self._trace_data.containers[0].n_pad,
+        )
+        if rate_defer:
+            self._setup_rate_deferral()
+
+    def _setup_rate_deferral(self):
+        """Set up the factorized histogram where the stage lineup allows
+        it: one grid-calc oscillation stage, one events -> binned histogram
+        stage after it, and every other traced stage keeping the
+        category-scalar weight contract (``stacked_rate_defer_ok``,
+        core/stage.py). The oscillation stage then hands its (6, ngrid)
+        flux x probability rate to the histogram stage
+        (``prob3._apply_stacked``), which contracts it with static (grid x
+        bins) matrices (``hist.prepare_rate_defer``) in place of the grid ->
+        events gather and its reverse-pass scatter. The matrices and the
+        hand-off live on this template's stacked container
+        (``container.rate_defer``, ``container.deferred_rate``)."""
+        from pisa_tpu_torch.stages.osc.prob3 import prob3
+        from pisa_tpu_torch.stages.utils.hist import hist
+
+        stages = self._traced_stages
+        oscs = [s for s in stages if isinstance(s, prob3)]
+        hists = [s for s in stages if isinstance(s, hist)]
+        if len(oscs) != 1 or len(hists) != 1:
+            return
+        osc, hs = oscs[0], hists[0]
+        if not osc.is_map or stages.index(hs) < stages.index(osc):
+            return
+        others = [s for s in stages if s is not osc and s is not hs]
+        if not all(s.stacked_rate_defer_ok() for s in others):
+            return
+        static_keys = [k for s in others for k in s.stacked_static_weight_keys]
+        if hs.prepare_rate_defer(self._trace_data, osc.calc_mode, static_keys):
+            logging.info("rate deferral on: factorized histogram (static"
+                         " keys %s)", static_keys)
 
     # -- parameters ------------------------------------------------------------
     def _current_bounds(self):
@@ -131,21 +269,42 @@ class CompiledTemplate:
         his = [float(p.range[1].m_as(p.units)) for p in self._free_params]
         return np.asarray(los), np.asarray(his)
 
+    def _device_bounds(self):
+        """:meth:`_current_bounds` as tensors on the pipeline's device,
+        uploaded again only when a range has changed."""
+        los, his = self._current_bounds()
+        cached = self._bounds_cache
+        if cached is None or not (np.array_equal(los, cached[0])
+                                  and np.array_equal(his, cached[1])):
+            cached = self._bounds_cache = (
+                los, his, self._on_device(los), self._on_device(his))
+        return cached[2:]
+
+    def _on_device(self, x):
+        """`x` (array or tensor) as a float64 tensor on the pipeline's
+        device; a tensor that lies elsewhere is refused, not moved."""
+        device = self.pipeline.device
+        if isinstance(x, torch.Tensor):
+            if x.device != device:
+                raise ValueError(f"the template lives on {device}; got a"
+                                 f" tensor on {x.device}")
+            return x.to(torch.float64)
+        return torch.as_tensor(np.asarray(x, dtype=np.float64), device=device)
+
     def _magnitudes_from_rescaled(self, vec, los=None, his=None):
-        """Physical magnitudes (0-d float64 host tensors, differentiable in
-        `vec`) of the rescaled vector, log-aware as ``Param._rescaled_value``
-        (``pisa_tpu/core/template.py:364``)."""
+        """Physical magnitudes (0-d float64 tensors on the pipeline's
+        device, differentiable in `vec`) of the rescaled vector, log-aware
+        as ``Param._rescaled_value`` (``pisa_tpu/core/template.py:364``).
+        Tensor arguments must lie on that device; arrays are uploaded."""
         if los is None or his is None:
-            los, his = self._current_bounds()
-        vec = torch.as_tensor(vec).to(device="cpu", dtype=torch.float64)
-        mags = []
+            los, his = self._device_bounds()
+        vec, los, his = (self._on_device(x) for x in (vec, los, his))
+        mags = list((los + (his - los) * vec).unbind())
         for i, log_scale in enumerate(self._log_scaled):
-            lo, hi = float(los[i]), float(his[i])
             if log_scale:
-                mags.append(torch.exp(
-                    vec[i] * (np.log(abs(hi)) - np.log(abs(lo)))) * lo)
-            else:
-                mags.append(lo + (hi - lo) * vec[i])
+                lo, hi = los[i], his[i]
+                mags[i] = torch.exp(
+                    vec[i] * (torch.log(hi.abs()) - torch.log(lo.abs()))) * lo
         return mags
 
     def current_rescaled_values(self):
@@ -155,17 +314,21 @@ class CompiledTemplate:
         )
 
     # -- evaluation ---------------------------------------------------------------
-    def _evaluate(self, vec, los=None, his=None):
-        """Run the traced stages at `vec` from the hoisted state; returns
-        ``{"hist": {name: flat tensor}}`` (and ``"error"``) on the pipeline's
-        device, with the autograd graph back to `vec`."""
+    def _evaluate(self, mags):
+        """Run the traced stages with the free params at `mags` from the
+        hoisted state; returns ``{"hist": {name: flat tensor}}`` (and
+        ``"error"``) on the pipeline's device, with the autograd graph back
+        to `mags`; on a stacked template also ``"hist_stacked"``, the (C,
+        size) tensor the per-name entries are rows of (in the order of
+        ``self.names``)."""
         pipeline = self.pipeline
-        data = pipeline.data
-        mags = self._magnitudes_from_rescaled(vec, los, his)
+        data = self._trace_data
         saved_state = data.state()
         saved_values = [p._value for p in self._free_params]
         for stage in pipeline.stages:
             stage._template_mode = True
+        for stage in self._traced_stages:
+            stage.data = data
         try:
             data.set_state(self._base_state)
             for p, mag in zip(self._free_params, mags):
@@ -173,24 +336,55 @@ class CompiledTemplate:
             for stage in self._traced_stages:
                 stage.run()
             data.representation = self.output_binning
-            out = {"hist": {c.name: c[self.output_key].reshape(-1)
-                            for c in data.containers}}
+            out = {}
+            keys = [("hist", self.output_key)]
             if self.error_key is not None:
-                out["error"] = {c.name: c[self.error_key].reshape(-1)
-                                for c in data.containers}
+                keys.append(("error", self.error_key))
+            for label, key in keys:
+                out[label] = {}
+                for c in data.containers:
+                    if getattr(c, "is_stacked", False):
+                        # unstack: one flat (size,) view per category
+                        values = c.expanded(key)
+                        if c.rows[(key, hash(self.output_binning))] is None:
+                            values = values.expand(c.n_cats, *values.shape)
+                        values = values.reshape(c.n_cats, -1)
+                        out[label + "_stacked"] = values
+                        out[label].update(zip(c.cat_names, values.unbind()))
+                    else:
+                        out[label][c.name] = c[key].reshape(-1)
             return out
         finally:
             for p, value in zip(self._free_params, saved_values):
                 p._value = value
             for stage in pipeline.stages:
                 stage._template_mode = False
+            for stage in self._traced_stages:
+                stage.data = pipeline.data
             data.set_state(saved_state)
 
     def __call__(self, rescaled_vector):
         """Raw evaluation: dict with 'hist' (and 'error') name -> flat
         tensor on the pipeline's device."""
-        los, his = self._current_bounds()
-        return self._evaluate(rescaled_vector, los, his)
+        return self._evaluate(self._magnitudes_from_rescaled(rescaled_vector))
+
+    def scan_totals(self, vecs):
+        """The summed template's total for each row of `vecs` (n, n_free),
+        evaluated back to back with no wait for the card in between
+        (``pisa_tpu/core/template.py:566``): an (n,) tensor on the
+        pipeline's device."""
+        vecs = self._on_device(vecs)
+        los, his = self._device_bounds()
+        totals = []
+        with torch.no_grad():
+            for vec in vecs:
+                out = self._evaluate(
+                    self._magnitudes_from_rescaled(vec, los, his))
+                if "hist_stacked" in out:
+                    totals.append(out["hist_stacked"].sum())
+                else:
+                    totals.append(sum(h.sum() for h in out["hist"].values()))
+        return torch.stack(totals)
 
     def get_outputs(self, rescaled_vector=None) -> MapSet:
         """Host-side MapSet in the pipeline's container order (mirrors
@@ -211,18 +405,24 @@ class CompiledTemplate:
         return MapSet(maps, name=self.pipeline.name)
 
     # -- objectives ---------------------------------------------------------------
-    def build_objective(self, data_dist, metric, priors=True):
+    def build_objective(self, data_dist, metric, priors=True, capture=None):
         """Functions ``value_only(vec)`` and ``value_and_grad(vec) ->
         (value, grad)`` of the rescaled vector for fitting `data_dist`
         (MapSet, Map, or dict name -> array) under `metric`
-        (``pisa_tpu/core/template.py:630-751``).
+        (``pisa_tpu/core/template.py:630-751``); value and gradient are
+        tensors on the pipeline's device.
 
         As in the reference's minimizer convention (``analysis.py:2493``):
         the metric summed over maps plus the prior penalties, sign-flipped
         for llh-family metrics so that it is always minimized.
-        ``value_only.raw`` is the objective ``(vec, los, his) -> value`` with
-        the bounds as arguments, for :func:`pisa_tpu_torch.analysis.
-        device_fit.minimize_on_device`."""
+
+        `capture` (by default: on a CUDA device) captures the two functions
+        in CUDA graphs, once, here (:class:`CapturedObjective`); a capture
+        that fails raises. ``capture=False`` keeps the eager route on the
+        card. ``value_only.raw`` is the objective ``(vec, los, his) ->
+        value`` with the bounds as arguments, differentiable in `vec` on
+        either route, for :func:`pisa_tpu_torch.analysis.device_fit.
+        minimize_on_device`."""
         from pisa_tpu_torch.utils import stats
 
         maximize = stats.is_metric_to_maximize(metric)
@@ -238,6 +438,10 @@ class CompiledTemplate:
             )
 
         device = self.pipeline.device
+        if capture is None:
+            capture = device.type == "cuda"
+        elif capture and device.type != "cuda":
+            raise ValueError(f"capture=True needs a CUDA device, not {device}")
         if isinstance(data_dist, MapSet):
             items = [(m.name, m.hist) for m in data_dist]
         elif isinstance(data_dist, Map):
@@ -249,14 +453,22 @@ class CompiledTemplate:
                                   dtype=TORCH_FTYPE, device=device)
             for name, h in items
         }
+        # on a stacked template whose categories the data covers in order,
+        # the metric is taken over the (C, size) stack in one go
+        data_stacked = None
+        if self.stacked and list(data) == self.names:
+            data_stacked = torch.stack(list(data.values()))
         sign = 1.0 if maximize else -2.0  # llh, or chi2 = -2 llh
 
         def objective(vec, los=None, his=None):
-            hists = self._evaluate(vec, los, his)["hist"]
-            total = sum(metric_fn(d, hists[name]).sum()
-                        for name, d in data.items())
+            mags = self._magnitudes_from_rescaled(vec, los, his)
+            out = self._evaluate(mags)
+            if data_stacked is not None:
+                total = metric_fn(data_stacked, out["hist_stacked"]).sum()
+            else:
+                total = sum(metric_fn(d, out["hist"][name]).sum()
+                            for name, d in data.items())
             if priors:
-                mags = self._magnitudes_from_rescaled(vec, los, his)
                 for p, mag in zip(self._free_params, mags):
                     if p.prior is None:
                         continue
@@ -265,20 +477,144 @@ class CompiledTemplate:
                     total = total + sign * p.prior.llh_torch(mag)
             return -total if maximize else total
 
-        objective.device = device
+        if capture:
+            program = CapturedObjective(
+                objective, self.current_rescaled_values(),
+                *self._device_bounds(), device=device)
+            vg = program.value_and_grad
+
+            def raw(vec, los, his):
+                return program.differentiable(vec, los, his)
+        else:
+            raw = objective
+
+            def vg(vec, los, his):
+                vec = self._on_device(vec).detach().clone().requires_grad_(True)
+                value = objective(vec, los, his)
+                (grad,) = torch.autograd.grad(value, vec)
+                return value.detach(), grad
 
         def value_only(vec):
-            los, his = self._current_bounds()
             with torch.no_grad():
-                return objective(vec, los, his)
+                return raw(vec, *self._device_bounds())
 
         def value_and_grad(vec):
-            los, his = self._current_bounds()
-            vec = torch.as_tensor(vec, dtype=torch.float64)
-            vec = vec.detach().clone().requires_grad_(True)
-            value = objective(vec, los, his)
+            return vg(vec, *self._device_bounds())
+
+        raw.device = device
+        value_only.raw = raw
+        return value_only, value_and_grad
+
+
+class _Replay(torch.autograd.Function):
+    """A :class:`CapturedObjective`'s value as a node of an autograd graph:
+    the forward replays the captured ``value_and_grad``, the backward
+    returns the captured gradient times the cotangent."""
+
+    @staticmethod
+    def forward(ctx, vec, program, los, his):
+        value, grad = program.value_and_grad(vec, los, his)
+        ctx.save_for_backward(grad)
+        return value
+
+    @staticmethod
+    def backward(ctx, g):
+        (grad,) = ctx.saved_tensors
+        return g * grad, None, None, None
+
+
+class CapturedObjective:
+    """``objective(vec, los, his) -> value`` and its gradient in `vec` as
+    two CUDA graphs over static input tensors (the port's counterpart of
+    ``jax.jit`` of the objective, ``pisa_tpu/core/template.py:730``).
+
+    The constructor runs ``value_and_grad`` and the value eagerly
+    :data:`CAPTURE_WARMUP` times each on a side stream at `vec0`, `los`,
+    `his`, then captures each once; a capture that fails raises. An
+    evaluation copies its inputs into the static tensors (arrays through
+    one pinned staging buffer, without waiting) and replays; it returns
+    copies of the static outputs, so the next replay does not change what
+    the caller holds. Nothing inside waits for the card: the caller's read
+    of the value is the one wait.
+    """
+
+    def __init__(self, objective, vec0, los, his, device):
+        n = len(vec0)
+        self.device = device
+        # the graphs read the tensors that `objective` closes over (the
+        # data) where they lay at capture: they must live as long as this
+        self._objective = objective
+        self._static = torch.zeros((3, n), dtype=torch.float64, device=device)
+        self._pinned = torch.zeros((3, n), dtype=torch.float64).pin_memory()
+        self._uploaded = torch.cuda.Event()
+        self._load(vec0, los, his)
+        vec_s, los_s, his_s = self._static.unbind()
+
+        def value_and_grad():
+            vec = vec_s.detach().requires_grad_(True)
+            value = objective(vec, los_s, his_s)
             (grad,) = torch.autograd.grad(value, vec)
             return value.detach(), grad
 
-        value_only.raw = objective
-        return value_only, value_and_grad
+        def value_only():
+            with torch.no_grad():
+                return (objective(vec_s, los_s, his_s),)
+
+        self._vg_graph, (self._value, self._grad) = self._capture(
+            value_and_grad)
+        self._value_graph, (self._value_only,) = self._capture(value_only)
+
+    def _capture(self, fn):
+        stream = torch.cuda.Stream(self.device)
+        stream.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(stream):
+            for _ in range(CAPTURE_WARMUP):
+                fn()
+        torch.cuda.current_stream(self.device).wait_stream(stream)
+        torch.cuda.synchronize(self.device)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            outputs = fn()
+        return graph, outputs
+
+    @torch.no_grad()
+    def _load(self, vec, los, his):
+        """The inputs into the static tensors: a tensor (on the device) by
+        a copy there, an array through the pinned buffer by a copy that the
+        host does not wait for."""
+        arrays = {}
+        for i, x in enumerate((vec, los, his)):
+            if isinstance(x, torch.Tensor):
+                if x.device != self._static.device:
+                    raise ValueError(f"the program lives on {self.device};"
+                                     f" got a tensor on {x.device}")
+                self._static[i].copy_(x)
+            else:
+                arrays[i] = np.asarray(x, dtype=np.float64)
+        if not arrays:
+            return
+        # the last upload has left the pinned buffer before it is rewritten
+        self._uploaded.synchronize()
+        for i, x in arrays.items():
+            self._pinned[i].copy_(torch.from_numpy(x))
+            self._static[i].copy_(self._pinned[i], non_blocking=True)
+        self._uploaded.record()
+
+    def value(self, vec, los, his):
+        self._load(vec, los, his)
+        self._value_graph.replay()
+        return self._value_only.clone()
+
+    def value_and_grad(self, vec, los, his):
+        self._load(vec, los, his)
+        self._vg_graph.replay()
+        return self._value.clone(), self._grad.clone()
+
+    def differentiable(self, vec, los, his):
+        """The value as a tensor that autograd can differentiate in `vec`
+        (``value.backward()`` gives the captured gradient), or, where no
+        gradient is asked for, the value-only graph's."""
+        if torch.is_grad_enabled() and isinstance(vec, torch.Tensor) \
+                and vec.requires_grad:
+            return _Replay.apply(vec, self, los, his)
+        return self.value(vec, los, his)

@@ -10,10 +10,15 @@ Counterpart of ``pisa_tpu/core/translation.py`` (reference
   multi-channel weights (N, ch) and an 'averaged' mode (divide by counts);
 - ``histogram_matmul``: the histogram as ``weights @ one_hot`` (the JAX
   package's MXU path), a plain ``torch.matmul``;
+- ``histogram_matmul_stacked``: the same for category-stacked weights
+  ``(C, N[, ch])`` against the stacked ``(C, N, size)`` one-hot, one einsum;
 - ``lookup``: gather of binned values at event positions;
 - ``resample``: the reference's hybrid histogram/lookup rebinning.
 
-Out-of-range events land in a dropped overflow bucket at ``size``.
+Out-of-range events land in a dropped overflow bucket at ``size``. The
+coordinate tensors may have any shape: a stacked container's ``(C, n_pad)``
+coordinates, NaN in the padded slots, give ``(C, n_pad)`` indices with the
+padding at the out-of-range sentinel ``size``.
 """
 
 from __future__ import annotations
@@ -29,6 +34,7 @@ __all__ = [
     "sanitized_flat_indices",
     "histogram",
     "histogram_matmul",
+    "histogram_matmul_stacked",
     "lookup",
     "resample",
 ]
@@ -129,6 +135,16 @@ def histogram_matmul(weights, matrix):
     if weights.dim() == 1:
         return weights @ matrix
     return (weights.transpose(0, 1) @ matrix).transpose(0, 1)
+
+
+def histogram_matmul_stacked(weights, matrix):
+    """Per-category histograms as one batched product with the stacked
+    ``(C, N, size)`` one-hot matrix (all-zero rows mark padded and
+    out-of-range events). ``weights`` is (C, N) or (C, N, ch); returns
+    (C, size) or (C, size, ch), as C calls of :func:`histogram_matmul`."""
+    if weights.dim() == 2:
+        return torch.einsum("cn,cnb->cb", weights, matrix)
+    return torch.einsum("cnk,cnb->cbk", weights, matrix)
 
 
 def lookup(sample, flat_hist, binning_or_spec, idx=None):

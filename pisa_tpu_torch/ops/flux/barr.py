@@ -20,6 +20,11 @@ __all__ = [
     "mod_ratio_uphor",
     "mod_ratio_nubar",
     "spectral_index_scale",
+    "nubar_mod_field",
+    "mod_ratio_nubar_from_field",
+    "uphor_mod_field",
+    "mod_ratio_uphor_from_field",
+    "spectral_index_scale_from_log",
 ]
 
 
@@ -102,9 +107,10 @@ def mod_ratio_uphor(flav, true_energy, true_coszen, uphor):
             _X2Z,
             cutoff_value=_NUE_CUTOFF,
         )
-        return 1.0 - 0.3 * torch.sign(torch.as_tensor(uphor)) * _norm_fcn(
-            true_coszen, a_shape, 0.35
-        )
+        # float64: as a float32 0-d tensor the product 0.3 * sign would be
+        # rounded to float32 before it meets float64 coordinates
+        sign = torch.sign(torch.as_tensor(uphor, dtype=torch.float64))
+        return 1.0 - 0.3 * sign * _norm_fcn(true_coszen, a_shape, 0.35)
     if flav == 1:
         return torch.ones_like(true_energy)
     raise ValueError(f"flav must be 0 or 1; got {flav}")
@@ -121,6 +127,66 @@ def mod_ratio_nubar(nubar, flav, true_energy, true_coszen, nubar_sys):
     return torch.clamp(1.0 + 0.5 * modfactor, min=0.0)
 
 
+# -- factored forms --------------------------------------------------------------
+#
+# The Barr modifications are transcendental fields of (E, coszen) whose
+# parameters enter only linearly or as outer factors:
+#
+# - ``mod_ratio_nubar`` calls ``mod_flux`` with unit coefficients, so its
+#   field M_flav(E, cz) is parameter-free: mod = max(0, 1 +- 0.5 sys M);
+# - ``mod_ratio_uphor`` (flav 0): ``_norm_fcn(x, A, s)`` is linear in its
+#   amplitude A = |uphor| L(E), so
+#   mod = 1 - 0.3 sign(u) _norm_fcn(cz, |u| L, .35) = 1 - 0.3 u L(E) N(cz).
+#
+# On fixed coordinates (a calc grid) the fields are evaluated once, and a
+# template does a few rational ops on them: no log10/pow/exp and none of
+# their reverse-pass twins. The factored forms are the same expressions
+# reassociated, equal to the direct ones up to one rounding.
+
+
+def nubar_mod_field(flav, true_energy, true_coszen):
+    """Parameter-free field M_flav of :func:`mod_ratio_nubar`."""
+    return mod_flux(
+        flav, true_energy, true_coszen, 1.0, 1.0, 1.0, 1.0, 1.0, 1.0, 1.0, 1.0
+    )
+
+
+def mod_ratio_nubar_from_field(nubar, field, nubar_sys):
+    """:func:`mod_ratio_nubar` from its :func:`nubar_mod_field`."""
+    modfactor = nubar_sys * field
+    if nubar < 0:
+        return torch.clamp(1.0 / (1.0 + 0.5 * modfactor), min=0.0)
+    return torch.clamp(1.0 + 0.5 * modfactor, min=0.0)
+
+
+def uphor_mod_field(flav, true_energy, true_coszen):
+    """Parameter-free field P_flav with
+    ``mod_ratio_uphor == 1 - 0.3 * uphor * P`` (P = 0 for flav 1)."""
+    if flav == 1:
+        return torch.zeros_like(true_energy)
+    if flav != 0:
+        raise ValueError(f"flav must be 0 or 1; got {flav}")
+    amp = _log_log_param(
+        true_energy,
+        _Z1MAX_E + _Z1MAX_MU,
+        _Z2MAX_E + _Z2MAX_MU,
+        _X1Z,
+        _X2Z,
+        cutoff_value=_NUE_CUTOFF,
+    )
+    return amp * _norm_fcn(true_coszen, 1.0, 0.35)
+
+
+def mod_ratio_uphor_from_field(field, uphor):
+    """:func:`mod_ratio_uphor` from its :func:`uphor_mod_field`."""
+    return 1.0 - 0.3 * uphor * field
+
+
 def spectral_index_scale(true_energy, egy_pivot, delta_index):
     """(E / E_pivot)^delta_index."""
     return torch.pow(true_energy / egy_pivot, delta_index)
+
+
+def spectral_index_scale_from_log(log_e_over_pivot, delta_index):
+    """:func:`spectral_index_scale` from ``log(E / E_pivot)``."""
+    return torch.exp(delta_index * log_e_over_pivot)

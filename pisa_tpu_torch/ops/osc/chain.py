@@ -54,6 +54,7 @@ from pisa_tpu_torch.ops.osc.pmns import (
 
 __all__ = [
     "N_PACK",
+    "theta_tensor",
     "theta_to_pvec",
     "pack_from_physics",
     "prepare_chain_geometry",
@@ -141,32 +142,43 @@ def pack_from_physics(dm_vac, U, mat_pot, lri_pot, nubar):
     return torch.cat([x.reshape(-1) for x in parts])
 
 
-def _theta_tensor(theta):
-    """theta as a (6,) float64 tensor, keeping the autograd graph of any
-    tensor entries."""
+def theta_tensor(theta, device=None):
+    """theta as a (6,) float64 tensor on `device` (by default that of its
+    first tensor entry, else the CPU), keeping the autograd graph of any
+    tensor entries. Numbers are filled in on the device (a fill, not a copy
+    from the host, so nothing waits and a stream capture takes it)."""
     if isinstance(theta, torch.Tensor):
         return theta.to(torch.float64)
-    return torch.stack([torch.as_tensor(t, dtype=torch.float64) for t in theta])
+    if device is None:
+        device = next((t.device for t in theta
+                       if isinstance(t, torch.Tensor)), "cpu")
+    return torch.stack([
+        t.to(torch.float64) if isinstance(t, torch.Tensor)
+        else torch.full((), float(t), dtype=torch.float64, device=device)
+        for t in theta
+    ])
 
 
 def theta_to_pvec(theta, nubar, reparam=False, nlo_factor=1.0):
     """(theta12, theta13, theta23, deltacp [rad], dm21, dm31 [eV^2]) ->
     packed (57,) float64 vector for the standard matter path
-    (``pallas_chain._build_standard`` :1114 + ``_theta_to_pvec`` :1238).
+    (``pallas_chain._build_standard`` :1114 + ``_theta_to_pvec`` :1238), on
+    the device of `theta`.
 
     `theta` is a (6,) tensor or a sequence of numbers and 0-d tensors; the
     pack is differentiable in every tensor entry."""
-    t12, t13, t23, dcp, dm21, dm31 = _theta_tensor(theta).unbind()
+    theta = theta_tensor(theta)
+    t12, t13, t23, dcp, dm21, dm31 = theta.unbind()
     fn = pmns_matrix_reparam if reparam else pmns_matrix
     mix = fn(torch.sin(t12), torch.sin(t13), torch.sin(t23), dcp)
     # the conjugate built explicitly: a lazily conjugated view has no vmap
-    # rule for .imag, which the backward's torch.func.jacfwd needs
+    # rule for .imag, which torch.func.jacfwd of this function needs
     U = mix if nubar > 0 else torch.complex(mix.real, -mix.imag)
     dm_vac = dm_matrix(dm21, dm31)
-    mat_pot = torch.diag(
-        torch.tensor([float(nlo_factor), 0.0, 0.0], dtype=torch.float64)
-    ).to(torch.complex128)
-    lri_pot = torch.zeros((3, 3), dtype=torch.float64)
+    # the constants are filled in on theta's device, not copied to it
+    mat_pot = torch.zeros((3, 3), dtype=torch.complex128, device=theta.device)
+    mat_pot[0, 0].fill_(float(nlo_factor))
+    lri_pot = torch.zeros((3, 3), dtype=torch.float64, device=theta.device)
     return pack_from_physics(dm_vac, U, mat_pot, lri_pot, nubar)
 
 
@@ -690,23 +702,26 @@ def osc_probs_prepared(pvec, geom):
 class OscProbs(torch.autograd.Function):
     """theta (6,) -> (N, 3, 3) probabilities over prepared geometry, with the
     forward-mode gradient of ``pallas_chain._probs_pallas_fwdgrad_prep``
-    (:1227-1324).
+    (:1227-1324). Everything happens on the geometry's device, where
+    `theta` must lie: nothing is copied from or to the host, so neither
+    pass waits for the card and both can be captured in a CUDA graph.
 
-    forward: the pack from theta (host, float64), one primal launch, the tau
-    row and the unsort. backward: the pack's 57x6 Jacobian once
-    (``torch.func.jacfwd``), then one tangent launch per active theta
-    component, or one multitangent launch for all of them; each tangent goes
-    through the tau row's derivative and is contracted with the cotangent
-    in sorted order. Inactive components get zero gradient. The geometry
-    gets none."""
+    forward: the pack from theta (float64, cast to the geometry's type), one
+    primal launch, the tau row and the unsort. backward: the pack's 57x6
+    Jacobian (``torch.func.jacfwd``, there and then), one tangent launch per
+    active theta component or one multitangent launch for all of them; each
+    tangent goes through the tau row's derivative and is contracted with
+    the cotangent in sorted order. Inactive components get zero gradient.
+    The geometry gets none."""
 
     @staticmethod
     def forward(ctx, theta, geom, nubar, reparam, nlo_factor, active,
                 multitangent):
         e = geom["e"]
-        pvec = theta_to_pvec(theta, nubar, reparam, nlo_factor).to(
-            device=e.device, dtype=e.dtype
-        )
+        if theta.device != e.device:
+            raise ValueError(f"theta lies on {theta.device}, the geometry on"
+                             f" {e.device}")
+        pvec = theta_to_pvec(theta, nubar, reparam, nlo_factor).to(e.dtype)
         p2 = chain_probs(pvec, e, geom["dens"], geom["dist"], geom["nl"],
                          geom["tiles"])
         ctx.save_for_backward(theta, p2, pvec)
@@ -720,32 +735,32 @@ class OscProbs(torch.autograd.Function):
     def backward(ctx, g):
         theta, p2, pvec = ctx.saved_tensors
         geom = ctx.geom
-        ks = list(ctx.active)
-        dtheta = torch.zeros_like(theta)
-        if ks:
-            nubar, reparam, nlo_factor = ctx.pack_args
-            jac = torch.func.jacfwd(
-                lambda th: theta_to_pvec(th, nubar, reparam, nlo_factor)
-            )(theta.detach())  # (57, 6)
-            dpvecs = jac[:, ks].T.contiguous().to(
-                device=pvec.device, dtype=pvec.dtype
+        ks = ctx.active
+        if not ks:
+            return (torch.zeros_like(theta),) + (None,) * 6
+        nubar, reparam, nlo_factor = ctx.pack_args
+        jac = torch.func.jacfwd(
+            lambda th: theta_to_pvec(th, nubar, reparam, nlo_factor)
+        )(theta.detach())  # (57, 6)
+        # the active columns, picked by Python ints: views, no index tensor
+        dpvecs = torch.stack([jac[:, k] for k in ks]).to(pvec.dtype)
+        args = (geom["e"], geom["dens"], geom["dist"], geom["nl"])
+        if ctx.multitangent:
+            _, dp2s = chain_multitangent(pvec, dpvecs, *args, geom["tiles"])
+        else:
+            dp2s = torch.stack(
+                [chain_tangent(pvec, d, *args, geom["tiles"]) for d in dpvecs]
             )
-            args = (geom["e"], geom["dens"], geom["dist"], geom["nl"])
-            if ctx.multitangent:
-                _, dp2s = chain_multitangent(pvec, dpvecs, *args,
-                                             geom["tiles"])
-            else:
-                dp2s = torch.stack(
-                    [chain_tangent(pvec, d, *args, geom["tiles"])
-                     for d in dpvecs]
-                )
-            # probs = probs_sorted[inv]  =>  the sorted cotangent is g[order]
-            g_s = g[geom["order"]].permute(1, 2, 0)  # (3, 3, N)
-            grads = (g_s[:2] * dp2s).sum(dim=(1, 2, 3)) + (
-                g_s[2] * _tau_row_tangent(p2, dp2s)
-            ).sum(dim=(1, 2))
-            dtheta[ks] = grads.to(device=theta.device, dtype=theta.dtype)
-        return dtheta, None, None, None, None, None, None
+        # probs = probs_sorted[inv]  =>  the sorted cotangent is g[order]
+        g_s = g[geom["order"]].permute(1, 2, 0)  # (3, 3, N)
+        grads = ((g_s[:2] * dp2s).sum(dim=(1, 2, 3)) + (
+            g_s[2] * _tau_row_tangent(p2, dp2s)
+        ).sum(dim=(1, 2))).to(theta.dtype)
+        zero = torch.zeros((), dtype=theta.dtype, device=theta.device)
+        dtheta = torch.stack([
+            grads[ks.index(i)] if i in ks else zero for i in range(6)
+        ])
+        return (dtheta,) + (None,) * 6
 
 
 def osc_probs(theta, nubar, geom, reparam=False, nlo_factor=1.0,
@@ -757,11 +772,11 @@ def osc_probs(theta, nubar, geom, reparam=False, nlo_factor=1.0,
     :1431).
 
     `theta` is a (6,) tensor or a sequence of numbers and 0-d tensors (the
-    host-side parameter magnitudes). `active` (indices into theta, default
-    all) selects the components whose tangents the backward computes; the
-    others get zero gradient. `multitangent` computes them in one
-    multitangent launch instead of one tangent launch each."""
-    theta = _theta_tensor(theta)
+    parameter magnitudes), on the geometry's device. `active` (indices into
+    theta, default all) selects the components whose tangents the backward
+    computes; the others get zero gradient. `multitangent` computes them in
+    one multitangent launch instead of one tangent launch each."""
+    theta = theta_tensor(theta, device=geom["e"].device)
     active = tuple(range(6)) if active is None else tuple(int(i) for i in active)
     return OscProbs.apply(theta, geom, int(nubar), bool(reparam),
                           float(nlo_factor), active, bool(multitangent))

@@ -4,11 +4,14 @@ Barr-style flux-systematics stage (counterpart of
 ``pisa/stages/flux/barr_simple.py``): applies the nue/numu ratio, nu/nubar
 ratio, spectral-index tilt, and Barr up/hor + nu/nubar parameterized
 modifications to the nominal (nue, numu) flux pair per point, as one set of
-torch ops per (linked) container.
+torch ops per (linked) container, or, on a category-stacked container
+(``core/stacking.py``) in grid calc mode, as one chain that gives the
+(2, ngrid, 2) nu/nubar flux pair from fields precomputed on the grid.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from pisa_tpu_torch.core.stage import Stage
@@ -63,6 +66,86 @@ class barr_simple(Stage):  # noqa: N801
             **std_kwargs,
         )
 
+    # writes nu_flux only; never touches the event weights
+    stacked_rate_defer_safe = True
+
+    def stacked_ok(self):
+        """Grid calc mode only: there the grid is shared across categories
+        and the modified flux depends only on the nubar sign, so one
+        two-row chain serves all categories. (The JAX package also stacks
+        the per-event calc mode, ``barr_simple.py:195``; a pipeline with
+        that mode runs per container here.)"""
+        return self.is_map
+
+    def prepare_stacked(self, data):
+        """The parameter-free Barr fields on the calc grid, once, so that a
+        template does only rational ops on them (the factored forms of
+        ``ops/flux/barr.py``)."""
+        for container in data.containers:
+            prev = container.representation
+            container.representation = self.calc_mode
+            try:
+                energy = container["true_energy"]
+                coszen = container["true_coszen"]
+                container["barr_nubar_field_e"] = barr.nubar_mod_field(
+                    0, energy, coszen
+                )
+                container["barr_nubar_field_mu"] = barr.nubar_mod_field(
+                    1, energy, coszen
+                )
+                container["barr_uphor_field_e"] = barr.uphor_mod_field(
+                    0, energy, coszen
+                )
+                container["barr_log_e_pivot"] = torch.log(energy / _EGY_PIVOT)
+            finally:
+                container.representation = prev
+
+    def _compute_stacked(self, container, params):
+        """One chain giving the (2, ngrid, 2) nu/nubar flux pair, with rows
+        mapping each category to its sign; the per-sign intermediates are
+        shared where the linked path computes them once per group."""
+        nue_numu_ratio, nu_nubar_ratio, delta_index, uphor, barr_nubar = params
+        nu_flux = container["nu_flux_nominal"]
+        nubar_flux = container["nubar_flux_nominal"]
+        if nu_flux.dim() != 2:
+            raise ValueError(
+                "stacked barr_simple expects a shared nominal flux on the"
+                f" calc grid; got shape {tuple(nu_flux.shape)}"
+            )
+        nu_e, nu_mu = _apply_ratio_scale_sum_constant(
+            nue_numu_ratio, nu_flux[:, 0], nu_flux[:, 1]
+        )
+        nub_e, nub_mu = _apply_ratio_scale_sum_constant(
+            nue_numu_ratio, nubar_flux[:, 0], nubar_flux[:, 1]
+        )
+        idx_scale = barr.spectral_index_scale_from_log(
+            container["barr_log_e_pivot"], delta_index
+        )
+        nu_e, nu_mu = nu_e * idx_scale, nu_mu * idx_scale
+        nub_e, nub_mu = nub_e * idx_scale, nub_mu * idx_scale
+        e_nu, e_nub = _apply_ratio_scale_sum_constant(
+            nu_nubar_ratio, nu_e, nub_e
+        )
+        mu_nu, mu_nub = _apply_ratio_scale_sum_constant(
+            nu_nubar_ratio, nu_mu, nub_mu
+        )
+        field_e = container["barr_nubar_field_e"]
+        field_mu = container["barr_nubar_field_mu"]
+        uphor_e = barr.mod_ratio_uphor_from_field(
+            container["barr_uphor_field_e"], uphor
+        )
+        out_rows = []
+        for nubar, out_e, out_mu in ((1, e_nu, mu_nu), (-1, e_nub, mu_nub)):
+            oe = out_e * barr.mod_ratio_nubar_from_field(
+                nubar, field_e, barr_nubar
+            )
+            om = out_mu * barr.mod_ratio_nubar_from_field(
+                nubar, field_mu, barr_nubar
+            )
+            out_rows.append(torch.stack([oe * uphor_e, om], dim=1))
+        rows = (np.asarray(container.cat_aux("nubar")) < 0).astype(np.int32)
+        container.set_stacked("nu_flux", torch.stack(out_rows), rows=rows)
+
     def compute_function(self):
         p = self.params
         nue_numu_ratio = p.nue_numu_ratio.m_as("dimensionless")
@@ -70,6 +153,15 @@ class barr_simple(Stage):  # noqa: N801
         delta_index = p.delta_index.m_as("dimensionless")
         uphor = p.Barr_uphor_ratio.m_as("dimensionless")
         barr_nubar = p.Barr_nu_nubar_ratio.m_as("dimensionless")
+
+        if any(getattr(c, "is_stacked", False) for c in self.data.containers):
+            for container in self.data:
+                self._compute_stacked(
+                    container,
+                    (nue_numu_ratio, nu_nubar_ratio, delta_index, uphor,
+                     barr_nubar),
+                )
+            return
 
         # grid mode: the modified flux depends only on the shared grid, the
         # flavour-independent nominal flux pair and the nubar sign, so the

@@ -44,6 +44,18 @@ class honda_ip(Stage):  # noqa: N801
         )
         self.flux_table = None
 
+    # the flux table path steers host-side table loading
+    host_param_names = ("flux_table",)
+
+    # fills the nominal flux fields only; never touches the event weights
+    stacked_rate_defer_safe = True
+
+    def stacked_ok(self):
+        """Grid calc mode only: the nominal flux on the shared calc grid is
+        the same for every category, one shared tensor of the stacked
+        container."""
+        return self.is_map
+
     def setup_function(self):
         self.flux_table = load_2d_table(str(self.params.flux_table.value))
 

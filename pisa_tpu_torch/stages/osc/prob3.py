@@ -13,18 +13,35 @@ compiled template takes the gradient, its backward runs the multitangent
 kernel once per sign (the flagship frees theta13, theta23 and deltam31: 3
 tangents a launch), or, with ``multitangent=False``, the tangent kernel
 once per free oscillation parameter and sign (6 launches); the
-multitangent route takes less device time on the card (``PERF.md``). NSI, neutrino decay, LRI, Earth
-tomography, layer dedup and per-event calc mode are not ported yet (ROADMAP
-queue 1, item 11).
+multitangent route takes less device time on the card (``PERF.md``).
+
+On a category-stacked container (``core/stacking.py``) the compute is the
+same two launches; the probabilities become 6 rows (nubar group x final
+flavour) that a rows map spreads over the categories, and the apply forms
+one (6, ngrid) flux x probability rate on the grid. That rate is gathered to
+the stacked events in one op, or, when the template that owns the container
+set up rate deferral (``container.rate_defer``), handed to the histogram
+stage as a grid-level factor (``container.deferred_rate``).
+
+NSI, neutrino decay, LRI, Earth tomography, layer dedup and per-event calc
+mode (with it the JAX package's stacked events-calc route, which needs the
+XLA formulation ``ops/osc/kernels.py``) are not ported yet (ROADMAP queue 1,
+items 2 and 11).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from pisa_tpu_torch import TORCH_FTYPE, ureg
+from pisa_tpu_torch.core.binning import MultiDimBinning
 from pisa_tpu_torch.core.stage import Stage
-from pisa_tpu_torch.ops.osc.chain import osc_probs, prepare_chain_geometry
+from pisa_tpu_torch.ops.osc.chain import (
+    osc_probs,
+    prepare_chain_geometry,
+    theta_tensor,
+)
 from pisa_tpu_torch.ops.osc.layers import Layers
 
 __all__ = ["prob3"]
@@ -150,17 +167,44 @@ class prob3(Stage):  # noqa: N801
         ):
             if angle.value.units == ureg.dimensionless:
                 raise ValueError(f"{angle.name} is dimensionless; give rad or deg")
-        # the parameter magnitudes may be 0-d tensors that carry the autograd
-        # graph (compiled template): stacked, not converted
+        # the parameter magnitudes may be 0-d tensors on the device that
+        # carry the autograd graph (compiled template): stacked, not
+        # converted; the numbers among them are filled in on the device
         prms = [self.params[name] for name in self._THETA_NAMES]
-        theta = torch.stack([
-            torch.as_tensor(p.m_as(u), dtype=torch.float64)
-            for p, u in zip(prms, self._THETA_UNITS)
-        ])
+        theta = theta_tensor(
+            [p.m_as(u) for p, u in zip(prms, self._THETA_UNITS)],
+            device=self.data.device,
+        )
         # tangents only for the free oscillation parameters (prob3.py:604-617
         # of the JAX package); the flagship frees 3 of the 6
         active = tuple(i for i, p in enumerate(prms) if not p.is_fixed)
         nlo_factor = 1.020 if self.include_nlo else 1.0
+
+        if any(getattr(c, "is_stacked", False) for c in self.data.containers):
+            # one propagation per nubar sign, as on the linked path, stacked
+            # into 2 rows; the per-flavour projections become 6 rows (nubar
+            # group x final flavour) that a rows map spreads over the
+            # categories
+            for container in self.data:
+                grp = (np.asarray(container.cat_aux("nubar")) < 0).astype(
+                    np.int32)
+                flav = np.asarray(container.cat_aux("flav"), dtype=np.int32)
+                probability = torch.stack([
+                    osc_probs(
+                        theta, sign, self.geom,
+                        reparam=self.reparam_mix_matrix,
+                        nlo_factor=nlo_factor, active=active,
+                        multitangent=self.multitangent,
+                    )
+                    for sign in (1, -1)
+                ])  # (2, n, 3, 3)
+                container.set_stacked("probability", probability, rows=grp)
+                # rows = group * 3 + final flavour: P(e -> f), P(mu -> f)
+                pe = probability[:, :, 0, :].permute(0, 2, 1).reshape(6, -1)
+                pm = probability[:, :, 1, :].permute(0, 2, 1).reshape(6, -1)
+                container.set_stacked("prob_e", pe, rows=grp * 3 + flav)
+                container.set_stacked("prob_mu", pm, rows=grp * 3 + flav)
+            return
 
         self.data.link_containers("nu", _NU_FLAVS)
         self.data.link_containers("nubar", _NUBAR_FLAVS)
@@ -179,9 +223,66 @@ class prob3(Stage):  # noqa: N801
             container["prob_e"] = probs[:, 0, flav]
             container["prob_mu"] = probs[:, 1, flav]
 
+    def stacked_ok(self):
+        return not isinstance(self.apply_mode, MultiDimBinning)
+
+    def _apply_stacked(self, container):
+        """The (6, ngrid) rate (nubar group x final flavour; the flux does
+        not depend on the flavour, so each of its 2 rows serves 3 rate
+        rows) formed on the grid, then gathered to the stacked events in one
+        op or deferred to the histogram stage. With a per-event flux the
+        grid identity does not hold: the probabilities are gathered and the
+        product taken per event, as on the unstacked unfused branch."""
+        rep = container.representation
+        calc_h = hash(self.calc_mode)
+        if isinstance(rep, str) and container.validity.get(
+                "nu_flux", {}).get(hash(rep), False):
+            nu_flux = container["nu_flux"]  # (C, n_pad, 2) per event
+            container["weights"] = container["weights"] * (
+                nu_flux[..., 0] * container["prob_e"]
+                + nu_flux[..., 1] * container["prob_mu"]
+            )
+            return
+        container.representation = self.calc_mode
+        nu_flux = container["nu_flux"]  # (2, n, 2), rows = nubar group
+        rows_flux = container.rows[("nu_flux", calc_h)]
+        pe = container["prob_e"]  # (6, n), rows = group * 3 + flavour
+        pm = container["prob_mu"]
+        rows_pf = container.rows[("prob_e", calc_h)]
+        if nu_flux.dim() == 2:
+            nf6 = nu_flux[None]  # one flux shared by all categories
+        elif (
+            nu_flux.shape[0] == 2
+            and isinstance(rows_flux, np.ndarray)
+            and np.array_equal(rows_flux, np.asarray(rows_pf) // 3)
+        ):
+            # each flux group row for its 3 flavour rows
+            nf6 = nu_flux.repeat_interleave(3, dim=0)
+        else:
+            raise NotImplementedError(
+                "stacked prob3 expects a shared or nubar-grouped nu_flux on"
+                f" the calc grid (got shape {tuple(nu_flux.shape)}, rows"
+                f" {rows_flux!r})"
+            )
+        rate = nf6[..., 0] * pe + nf6[..., 1] * pm
+        if container.rate_defer is not None:
+            # the histogram stage contracts the grid rate with its static
+            # (grid x bins) matrices (stages/utils/hist.py)
+            container.deferred_rate = {"rate": rate, "rows": rows_pf}
+            container.representation = rep
+            return
+        container.set_stacked("osc_flux_rate", rate, rows=rows_pf)
+        container.representation = rep
+        container["weights"] = (
+            container["weights"] * container["osc_flux_rate"]
+        )
+
     def apply_function(self):
         calc_h = hash(self.calc_mode)
         for container in self.data:
+            if getattr(container, "is_stacked", False):
+                self._apply_stacked(container)
+                continue
             # When flux and probabilities are valid on the calc grid and the
             # apply representation is events, form the rate on the grid and
             # translate the one channel: the 'average' lookup gathers the

@@ -7,15 +7,27 @@ The histogram is one product of the weight channels with each container's
 cached one-hot bin-membership matrix (``translation.histogram_matmul``), as
 the JAX package computes it with ``Precision.HIGHEST``: TF32 is switched off
 for CUDA matmuls at setup, so float32 products keep full float32 precision.
-A container whose matrix would exceed the size budget is scatter-added.
+A container whose matrix would exceed the size budget is scatter-added. A
+category-stacked container (``core/stacking.py``) is histogrammed in one
+batched op.
+
+Rate deferral (:meth:`hist.prepare_rate_defer`): when the oscillation stage
+hands over its flux x probability rate on the calc grid instead of gathering
+it to the events, the histogram is the contraction of that rate with static
+(category x grid x bins) matrices S and S2, built once per template and kept
+on that template's stacked container (``container.rate_defer``), never on
+this stage: two templates over one pipeline each have their own.
+
 Binned calc mode, unweighted and uncertainty-weighted histograms are not
 ported yet (ROADMAP queue 1, item 11).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
+from pisa_tpu_torch import FTYPE, TORCH_FTYPE
 from pisa_tpu_torch.core import translation
 from pisa_tpu_torch.core.binning import MultiDimBinning
 from pisa_tpu_torch.core.stage import Stage
@@ -53,8 +65,183 @@ class hist(Stage):  # noqa: N801
         for container in self.data:
             container.cached_hist_matrix(self.apply_mode)
 
+    supports_stacked = True
+
+    def prepare_stacked(self, data):
+        """The stacked one-hot membership matrix, once (where it fits the
+        size budget), so that a template's histogram is one batched
+        product."""
+        if self.apply_mode is None:
+            self.apply_mode = data["output_binning"]
+        for container in data.containers:
+            prev = container.representation
+            container.representation = "events"
+            try:
+                container.cached_hist_matrix(self.apply_mode)
+            finally:
+                container.representation = prev
+
+    def prepare_rate_defer(self, data, calc_binning, static_keys):
+        """One-time set-up of the factorized histogram on the stacked set
+        `data`: per category c the static
+
+            S_c[g, b]  = sum of A0_e over the events e of c in calc cell g
+                         and output bin b
+            S2_c[g, b] = the same with A0_e^2 (the sumw2 channel)
+
+        where A0 is the static per-event weight base (the initial weights
+        times the static factors `static_keys`, e.g. ``weighted_aeff``). A
+        template's histogram is then ``H[c] = s_c * rate[row_c] @ S_c``: one
+        contraction in place of the grid -> events gather. The per-category
+        scalar s_c (all parameter dependence of the non-rate weight
+        factors, a scalar by the stages' ``stacked_rate_defer_safe``
+        contract) is read off one reference event per category at every
+        evaluation. Exact, because every event of a calc cell shares the
+        cell's rate (the 'average' lookup, reference
+        ``pisa/core/translation.py:228``), and through S2 for sumw2 because
+        the rate enters each event's weight linearly.
+
+        The matrices are computed on the host in float64 and cast, as in
+        the JAX package (``hist.py:103-203``), and put on each stacked
+        container as ``container.rate_defer``. Returns True when that was
+        done for every container; on False no container keeps any of it."""
+        if self.apply_mode is None:
+            self.apply_mode = data["output_binning"]
+        prepared = self._rate_defer_inputs(data, calc_binning, static_keys)
+        for sc in data.containers:
+            if getattr(sc, "is_stacked", False):
+                sc.rate_defer = prepared[id(sc)] if prepared else None
+        return prepared is not None
+
+    def _rate_defer_inputs(self, data, calc_binning, static_keys):
+        """{id(container): rate_defer dict} for every container of `data`,
+        or None when one of them cannot take the factorized histogram."""
+        B = self.apply_mode.size
+        G = calc_binning.size
+        prepared = {}
+        for sc in data.containers:
+            if not getattr(sc, "is_stacked", False):
+                return None
+            if "astro_weights" in sc:
+                return None
+            C = sc.n_cats
+            if C * G * B * np.dtype("float32").itemsize * 2 > 4_000_000_000:
+                return None
+            prev = sc.representation
+            sc.representation = "events"
+            try:
+                gidx = sc.cached_flat_indices(calc_binning).cpu().numpy()
+                bidx = sc.cached_flat_indices(self.apply_mode).cpu().numpy()
+                # the loader resets weights = initial_weights at the start of
+                # every evaluation, so the static base is initial_weights x
+                # the static factors, not 'weights' as some run left it
+                base = "initial_weights" if "initial_weights" in sc else "weights"
+                A0 = sc[base].double().cpu().numpy()
+                for k in static_keys:
+                    A0 = A0 * sc[k].double().cpu().numpy()
+            finally:
+                sc.representation = prev
+            A0 = np.where(np.isfinite(A0), A0, 0.0)
+            valid = (gidx < G) & (bidx < B)
+            comb = gidx.astype(np.int64) * B + bidx.astype(np.int64)
+            S = np.zeros((C, G, B), dtype=FTYPE)
+            S2 = np.zeros((C, G, B), dtype=FTYPE)
+            # one reference event per category for the scalar ratio
+            e0 = np.zeros(C, dtype=np.int64)
+            a0 = np.ones(C, dtype=np.float64)
+            for c in range(C):
+                v = valid[c]
+                S[c] = np.bincount(
+                    comb[c][v], weights=A0[c][v], minlength=G * B
+                ).reshape(G, B)
+                S2[c] = np.bincount(
+                    comb[c][v], weights=A0[c][v] ** 2, minlength=G * B
+                ).reshape(G, B)
+                vv = np.flatnonzero(v & (np.abs(A0[c]) > 0))
+                if vv.size:
+                    e0[c] = vv[np.argmax(np.abs(A0[c][vv]))]
+                    a0[c] = A0[c][e0[c]]
+
+            def put(x, dtype=TORCH_FTYPE):
+                return torch.as_tensor(x, dtype=dtype, device=sc.device)
+
+            prepared[id(sc)] = {
+                "S": put(S),
+                "S2": put(S2),
+                # the reference events' places in the flattened (C * n_pad)
+                # weights, and 1 / A0 there (0 where A0 is 0: s_c = 1)
+                "e0": put(np.arange(C) * sc.n_pad + e0, torch.int64),
+                "inv_a0": put(np.where(a0 != 0, 1.0 / a0, 0.0)),
+                "a0_nonzero": put(a0 != 0, torch.bool),
+            }
+        return prepared or None
+
+    def _apply_stacked_deferred(self, container, dr):
+        """The factorized histogram of a container whose oscillation stage
+        deferred its rate in this evaluation."""
+        defer = container.rate_defer
+        rate = dr["rate"]  # (R, G)
+        container.representation = "events"
+        A = container["weights"]  # (C, n_pad) weights before the rate
+        s = torch.where(
+            defer["a0_nonzero"],
+            A.reshape(-1).index_select(0, defer["e0"]) * defer["inv_a0"],
+            1.0,
+        )
+        rate_c = rate.index_select(0, container.row_tensor(dr["rows"]))
+        hist_w = (
+            torch.einsum("cg,cgb->cb", rate_c, defer["S"]) * s[:, None]
+        )
+        if self.error_method == "sumw2":
+            sumw2 = (
+                torch.einsum("cg,cgb->cb", torch.square(rate_c), defer["S2"])
+                * torch.square(s)[:, None]
+            )
+        container.representation = self.apply_mode
+        container["weights"] = hist_w
+        # under deferral the events-representation weights lack the rate:
+        # invalid, so that a later reader there re-translates instead of
+        # taking them
+        container.validity["weights"][hash("events")] = False
+        if self.error_method == "sumw2":
+            container["errors"] = torch.sqrt(sumw2)
+            container["bin_unc2"] = hist_w
+
+    def _apply_stacked(self, container):
+        """All categories in one batched op: (C, n) weights with the (C, n,
+        size) one-hot -> (C, size), the sumw2 channel in the same product."""
+        dr = container.deferred_rate
+        if dr is not None:
+            container.deferred_rate = None
+            if container.rate_defer is None:
+                raise RuntimeError(
+                    "the oscillation stage deferred its rate, but this"
+                    " container has no factorized-histogram matrices"
+                )
+            self._apply_stacked_deferred(container, dr)
+            return
+        container.representation = "events"
+        w = container["weights"]
+        if self.error_method == "sumw2":
+            res = container.stacked_histogram(
+                torch.stack([w, torch.square(w)], dim=-1), self.apply_mode
+            )
+            hist_w, sumw2 = res[..., 0], res[..., 1]
+        else:
+            hist_w = container.stacked_histogram(w, self.apply_mode)
+        container.representation = self.apply_mode
+        container["weights"] = hist_w
+        # histogramming does not invalidate the events representation
+        container.validity["weights"][hash("events")] = True
+        if self.error_method == "sumw2":
+            container["errors"] = torch.sqrt(sumw2)
+            container["bin_unc2"] = hist_w
+
     def apply_function(self):
         for container in self.data:
+            if getattr(container, "is_stacked", False):
+                self._apply_stacked(container)
+                continue
             container.representation = "events"
             w = container["weights"]
             if self.error_method == "sumw2":

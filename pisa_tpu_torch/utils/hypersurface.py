@@ -22,7 +22,7 @@ import torch
 from pisa_tpu_torch import FTYPE, TORCH_FTYPE
 from pisa_tpu_torch.utils.fileio import read_csv
 
-__all__ = ["Hypersurface", "load_hypersurfaces"]
+__all__ = ["Hypersurface", "evaluate_stacked", "load_hypersurfaces"]
 
 
 class Hypersurface:
@@ -59,6 +59,29 @@ class Hypersurface:
         for i, name in enumerate(self.param_names, start=1):
             total = total + coeffts[i] * param_values[name]
         return total
+
+
+def evaluate_stacked(surfaces, param_values, device, cache):
+    """The scale factors of several hypersurfaces over the same params and
+    bins as one ``(G, B)`` tensor on `device`: ``intercepts + slopes . p``,
+    one product for all of them (a category-stacked container's groups,
+    ``stages/discr_sys/hypersurfaces.py``). `param_values` maps each
+    systematic to a float or a 0-d tensor on `device`; `cache` (a dict the
+    caller keeps) holds the stacked coefficients, uploaded once."""
+    names = surfaces[0].param_names
+    if any(s.param_names != names for s in surfaces[1:]):
+        raise ValueError("hypersurfaces over different params")
+    key = (tuple(id(s) for s in surfaces), device)
+    if key not in cache:
+        coeffts = np.stack([s._coeffts for s in surfaces])  # (G, 1 + P, B)
+        cache[key] = torch.as_tensor(coeffts, dtype=TORCH_FTYPE, device=device)
+    coeffts = cache[key]
+    p = torch.stack([
+        v.to(TORCH_FTYPE) if isinstance(v, torch.Tensor)
+        else torch.full((), float(v), dtype=TORCH_FTYPE, device=device)
+        for v in (param_values[name] for name in names)
+    ])
+    return coeffts[:, 0] + torch.einsum("gpb,p->gb", coeffts[:, 1:], p)
 
 
 _DATA_RELEASE_KEYS = {

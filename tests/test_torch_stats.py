@@ -117,3 +117,28 @@ def test_prior_llh_torch_matches_llh_jax(kind):
         np.testing.assert_allclose(float(grad), want_grad, rtol=1e-9,
                                    atol=1e-12,
                                    err_msg=f"{kind} slope at {x}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", list(PRIORS))
+def test_prior_llh_torch_stays_on_the_card(kind):
+    """Every kind of prior takes a 0-d tensor on the card, computes there
+    and waits for nothing (its interpolation table is uploaded once, at the
+    first call); the values are the CPU's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (torch.cuda.is_available() is False)")
+    prior = Prior(**PRIORS[kind])
+    xs = [torch.tensor(x, dtype=torch.float64, device="cuda")
+          for x in PRIOR_POINTS[kind]]
+    prior.llh_torch(xs[0])  # uploads the table of a linterp or spline prior
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = [prior.llh_torch(x) for x in xs]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    for x, g in zip(PRIOR_POINTS[kind], got):
+        assert g.device.type == "cuda"
+        want = prior.llh_torch(torch.tensor(x, dtype=torch.float64))
+        np.testing.assert_allclose(float(g), float(want), rtol=1e-14,
+                                   atol=1e-14)

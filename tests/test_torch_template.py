@@ -274,3 +274,147 @@ def test_param_holds_template_tensor_values():
     assert ParamSet([p]).values_hash is not None
     with pytest.raises(ValueError, match="out of range"):
         p.value = 9e-3 * torch_ureg.eV**2
+
+
+def test_routes_share_the_objective_code(templates):
+    """capture is for a CUDA device: on the CPU the same objective runs
+    eagerly, asking for a capture raises, and the objective says where it
+    lives (analysis/device_fit.py checks it)."""
+    _, pipeline, ct, data, _ = templates
+    with pytest.raises(ValueError, match="CUDA device"):
+        ct.build_objective(_as_arrays(data), "mod_chi2", capture=True)
+    value_fn, _ = ct.build_objective(_as_arrays(data), "mod_chi2",
+                                     capture=False)
+    assert value_fn.raw.device == pipeline.device == torch.device("cpu")
+
+
+# -- on the card: the captured program ------------------------------------------
+class _OnCardOnly(torch.utils._python_dispatch.TorchDispatchMode):
+    """Raises when an operation gives a tensor that does not lie on the
+    card."""
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        for t in out if isinstance(out, (tuple, list)) else (out,):
+            if isinstance(t, torch.Tensor) and t.device.type != "cuda":
+                raise AssertionError(f"{func} gave a tensor on {t.device}")
+        return out
+
+
+@pytest.fixture(scope="module")
+def card_pipeline():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (torch.cuda.is_available() is False)")
+    return TorchPipeline(
+        _small_grid_config(torch_parse, torch_binning, torch_ureg),
+        device="cuda",
+    )
+
+
+def _card_point(ct, seed):
+    v0 = np.clip(ct.current_rescaled_values(), 0.15, 0.85)
+    rng = np.random.RandomState(seed)
+    return np.clip(v0 + rng.uniform(-0.1, 0.1, v0.size), 0.15, 0.85)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate_defer", [True, False],
+                         ids=["deferral", "gather"])
+def test_captured_replay_matches_eager_on_the_card(card_pipeline, rate_defer):
+    """fp64 on the card: a replay of the captured value_and_grad equals a
+    fresh eager run to 1e-12 relative (the same kernels in the same order;
+    atomics may reorder sums), at a first point, at another one, and after a
+    change of a parameter's range (the bounds are inputs of the graph); the
+    eager get_outputs() of the same pipeline is untouched."""
+    pipeline = card_pipeline
+    eager_maps = pipeline.get_outputs()
+    ct = pipeline.compile(rate_defer=rate_defer)
+    assert ct.stacked and ct.rate_deferred is rate_defer
+    data = ct.get_outputs()
+    eager_value, eager_vg = ct.build_objective(data, "mod_chi2", capture=False)
+    value_fn, vg = ct.build_objective(data, "mod_chi2")
+
+    def check(v):
+        want_v, want_g = eager_vg(v)
+        got_v, got_g = vg(v)
+        assert got_v.device.type == got_g.device.type == "cuda"
+        np.testing.assert_allclose(float(got_v), float(want_v), rtol=1e-12)
+        np.testing.assert_allclose(float(value_fn(v)), float(eager_value(v)),
+                                   rtol=1e-12)
+        scale = float(want_g.abs().max())
+        np.testing.assert_allclose(got_g.cpu().numpy(), want_g.cpu().numpy(),
+                                   rtol=1e-9, atol=1e-12 * scale)
+        return float(got_v)
+
+    first = check(_card_point(ct, 5))
+    assert check(_card_point(ct, 6)) != first
+    theta23 = pipeline.params["theta23"]
+    saved = theta23.range
+    lo, hi = saved
+    theta23.range = (lo + 0.1 * (hi - lo), hi - 0.1 * (hi - lo))
+    try:
+        narrowed = check(_card_point(ct, 5))
+    finally:
+        theta23.range = saved
+    assert narrowed != first
+    assert check(_card_point(ct, 5)) == pytest.approx(first, rel=1e-12)
+    again = pipeline.get_outputs()
+    for m in eager_maps:
+        np.testing.assert_array_equal(again[m.name].hist, m.hist)
+
+
+@pytest.mark.cuda
+def test_capture_counts_launches_and_replay_does_not_wait(card_pipeline):
+    """The launch counters advance where the wrappers launch, that is at
+    the warm-up runs and the capture (2 primal + 2 multitangent per
+    value_and_grad, 2 primal per value), and not at a replay; a replay
+    with its vector on the card waits for nothing until the value is
+    read."""
+    from pisa_tpu_torch.core.template import CAPTURE_WARMUP
+
+    ct = card_pipeline.compile()
+    data = ct.get_outputs()
+    before = (chain.launch_count, chain.tangent_launch_count,
+              chain.multitangent_launch_count)
+    _, vg = ct.build_objective(data, "mod_chi2")
+    after = (chain.launch_count, chain.tangent_launch_count,
+             chain.multitangent_launch_count)
+    runs = CAPTURE_WARMUP + 1
+    assert tuple(a - b for a, b in zip(after, before)) == (
+        runs * 2 + runs * 2, 0, runs * 2)
+    vec = torch.as_tensor(_card_point(ct, 5), device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        value, grad = vg(vec)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert np.isfinite(float(value)) and grad.shape == (15,)
+    assert (chain.launch_count, chain.tangent_launch_count,
+            chain.multitangent_launch_count) == after
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["stacked+deferral", "stacked", "unstacked"])
+def test_no_cpu_tensor_in_the_evaluated_path(card_pipeline, route):
+    """With the vector on the card, the eager evaluation makes no tensor
+    on the CPU (forward, seen operation by operation) and waits for the
+    card nowhere (forward and backward, torch's sync debug mode)."""
+    kw = {"stacked+deferral": dict(rate_defer=True),
+          "stacked": dict(rate_defer=False),
+          "unstacked": dict(stack=False)}[route]
+    ct = card_pipeline.compile(**kw)
+    data = ct.get_outputs()
+    value_fn, vg = ct.build_objective(data, "mod_chi2", capture=False)
+    vec = torch.as_tensor(_card_point(ct, 5), device="cuda")
+    vg(vec)  # builds what is cached at first use
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with _OnCardOnly():
+            value = value_fn(vec)
+        value2, grad = vg(vec)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert value.device.type == grad.device.type == "cuda"
+    assert float(value) == pytest.approx(float(value2), rel=1e-12)

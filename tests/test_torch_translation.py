@@ -109,6 +109,39 @@ def test_histogram_matmul_matches_scatter():
     )
 
 
+def test_stacked_coordinates_pad_to_the_sentinel():
+    """Coordinates of any shape: a stacked container's (C, n_pad) ones, NaN
+    in the padded slots, give (C, n_pad) indices with the padding at the
+    out-of-range sentinel `size`, row by row what the flat search gives;
+    the stacked one-hot product is C histogram_matmul calls, and a padded
+    event adds to no bin."""
+    (e, cz), _, tb, _ = _both(n=600)
+    n_cats, n_pad, sizes = 3, 250, (200, 250, 150)
+    stacked = [np.full((n_cats, n_pad), np.nan) for _ in range(2)]
+    for c, n in enumerate(sizes):
+        stacked[0][c, :n] = e[c * 200:c * 200 + n]
+        stacked[1][c, :n] = cz[c * 200:c * 200 + n]
+    sample = [torch.as_tensor(x) for x in stacked]
+    idx = torch_translation.sanitized_flat_indices(sample, tb)
+    assert idx.shape == (n_cats, n_pad)
+    w = torch.as_tensor(
+        np.random.RandomState(3).uniform(0, 2, (n_cats, n_pad, 2)))
+    onehot = torch.nn.functional.one_hot(idx, tb.size + 1)[..., :tb.size]
+    got = torch_translation.histogram_matmul_stacked(w, onehot.double())
+    got1 = torch_translation.histogram_matmul_stacked(w[..., 0],
+                                                      onehot.double())
+    assert got.shape == (n_cats, tb.size, 2)
+    for c, n in enumerate(sizes):
+        row = [x[c] for x in sample]
+        np.testing.assert_array_equal(
+            idx[c], torch_translation.sanitized_flat_indices(row, tb))
+        assert (idx[c, n:] == tb.size).all()
+        want = torch_translation.histogram(
+            [x[:n] for x in row], w[c, :n], tb)
+        np.testing.assert_allclose(got[c], want, rtol=1e-12, atol=0)
+        np.testing.assert_allclose(got1[c], want[:, 0], rtol=1e-12, atol=0)
+
+
 def test_lookup_matches():
     (e, cz), jb, tb, sample = _both()
     table = np.random.RandomState(4).uniform(0, 1, (tb.size, 2))
