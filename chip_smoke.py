@@ -26,7 +26,19 @@ oscillation grid, 15 free parameters) on the card through its two paths:
   against central finite differences, and with separate tangents against
   the multitangent. In float32: the same against float64, and the bounded
   L-BFGS Asimov fit (``analysis/device_fit.minimize_on_device``) on the
-  captured objective.
+  captured objective;
+- the captured template call, ``Pipeline(...).compile()(vec)`` and
+  ``scan_totals``: in float64 a replay against a fresh eager run per bin
+  (at two points and after a range change) and the scan against the calls;
+  in float32 timed over 100 randomized vectors, the scan waiting once;
+- the analysis layer, the slice's main path: ``DistributionMaker([cfg],
+  device="cuda")``, Asimov data at nominal, theta23 moved by +0.10
+  rescaled, and ``Analysis().fit_recursively`` with the methods ``device``
+  and ``gradient`` and the octant strategy around ``device``, each timed
+  with its iterations, evaluations and waits for the card (float32);
+- the L-BFGS of ``analysis/device_fit.py`` on the card and on the CPU over
+  the 20x20-grid flagship from the same start (float64): the same
+  iterations and best fit.
 
 It times the kernels (device-only, from a CUDA graph of 200 launches, and
 host-inclusive, from back-to-back launches between CUDA events; the
@@ -114,6 +126,24 @@ REPLAY_FP64 = 1e-12
 # same arithmetic summed in another order; gradient in max |difference| /
 # max |gradient|
 STACKED_FP32 = {"value": 1e-5, "grad": 1e-4}
+# the captured template call vs a fresh eager run of the same template
+# (float64), relative per bin; scan_totals vs the replays' totals, relative
+TEMPLATE_REPLAY_FP64 = 1e-12
+# randomized templates timed (bench.py:251-252: rescaled vectors uniform in
+# [0.05, 0.95], seed 0); the first is excluded from the median
+N_TEMPLATES = 100
+# the device fit through Analysis may wait for the card at most this often
+# per objective evaluation (one flag read per evaluation is the design)
+DEVICE_FIT_WAITS = 2.0
+# card vs CPU L-BFGS (float64, the 20x20-grid flagship): the same
+# iterations, best fits within this (rescaled)
+LBFGS_X_ATOL = 1e-8
+LBFGS_MAX_STEPS = 20
+# the per-container eager Asimov fit (unstacked, uncaptured) is cut to
+# this many iterations: at float32 the reference's L-BFGS never meets gtol and
+# runs to max_steps, which per container and eager takes over a minute on
+# the card (PERF.md); theta23 is back within FIT_TOL long before
+EAGER_FIT_STEPS = 40
 
 # the routes of one value_and_grad: label, compile options, captured
 ROUTES = (
@@ -235,6 +265,12 @@ def captured_launches(template_module):
     each run of the value 2 primal."""
     runs = template_module.CAPTURE_WARMUP + 1
     return (2 * runs + 2 * runs, 0, 2 * runs)
+
+
+def first_call_runs(ct, template_module):
+    """How often the first call of a template runs its stages: once, or on
+    a capturing template the warm-up runs and the capture."""
+    return template_module.CAPTURE_WARMUP + 1 if ct.capture else 1
 
 
 def deferred_calls(fn):
@@ -371,8 +407,9 @@ def stacked_captured_fp64(pipeline, chain, data, v, cpu_value, cpu_grad,
               f" rate_deferred={ct.rate_deferred}")
         maps = []
         took_deferred = deferred_calls(lambda: maps.append(ct.get_outputs(v)))
-        check(took_deferred == (1 if defer else 0),
-              f"{tag}: {took_deferred} factorized histograms in one template")
+        check(took_deferred == first_call_runs(ct, template_module) * defer,
+              f"{tag}: {took_deferred} factorized histograms in the first"
+              " template")
         worst_w = max(max_rel(m.hist, maps[0][m.name].hist)
                       for m in cpu_template)
         worst_e = max(max_rel(m.error_hist, maps[0][m.name].error_hist)
@@ -435,6 +472,121 @@ def stacked_captured_fp64(pipeline, chain, data, v, cpu_value, cpu_grad,
         del vg
 
 
+def template_fp64(pipeline, smi):
+    """float64 on the card: the captured template call (compile()'s
+    default) against a fresh eager run of the same template, per bin, at two
+    points and after a change of theta23's range; scan_totals against the
+    totals of the calls and of the eager template's scan. Prints and checks
+    here (in the float64 child)."""
+    import numpy as np
+    import torch
+
+    ct = pipeline.compile()
+    eager = pipeline.compile(capture=False)
+    check(ct.capture and not eager.capture, "compile()'s template does not"
+          " capture on the card")
+
+    def replay_vs_eager(label, point):
+        got, want = ct.get_outputs(point), eager.get_outputs(point)
+        worst = max(max(max_rel(m.hist, got[m.name].hist),
+                        max_rel(m.error_hist, got[m.name].error_hist))
+                    for m in want)
+        total = sum(float(m.hist.sum()) for m in got)
+        print(f"float64 captured template call vs a fresh eager run, {label}:"
+              f" {total!r} expected events, max rel per bin (weights and"
+              f" errors) {worst:.3e} (bound {TEMPLATE_REPLAY_FP64:g}) [{smi}]")
+        check(worst <= TEMPLATE_REPLAY_FP64,
+              f"captured template call off the eager run ({label})")
+        return total
+
+    first = replay_vs_eager("the gradient point", gradient_point(ct))
+    second = replay_vs_eager("another point", gradient_point(ct, seed=6))
+    theta23 = pipeline.params["theta23"]
+    saved = theta23.range
+    lo, hi = saved
+    theta23.range = (lo + 0.1 * (hi - lo), hi - 0.1 * (hi - lo))
+    try:
+        narrowed = replay_vs_eager("theta23's range narrowed",
+                                   gradient_point(ct))
+    finally:
+        theta23.range = saved
+    check(len({first, second, narrowed}) == 3,
+          "the captured template calls did not follow their inputs")
+
+    vecs = np.random.RandomState(0).uniform(0.05, 0.95,
+                                            (8, len(ct.free_names)))
+    scanned = ct.scan_totals(vecs).cpu().numpy()
+    called = [float(ct._stack_outputs(ct(v))[2]) for v in vecs]
+    eager_scanned = eager.scan_totals(
+        torch.as_tensor(vecs, device=pipeline.device)).cpu().numpy()
+    err_calls, err_eager = max_rel(called, scanned), max_rel(eager_scanned,
+                                                             scanned)
+    print(f"float64 scan_totals over {len(vecs)} vectors vs the calls'"
+          f" totals: max rel {err_calls:.3e}; vs the eager template's scan:"
+          f" {err_eager:.3e} (bound {TEMPLATE_REPLAY_FP64:g}) [{smi}]")
+    check(max(err_calls, err_eager) <= TEMPLATE_REPLAY_FP64,
+          "scan_totals off the calls")
+    del ct, eager
+
+
+def small_grid_config():
+    """The flagship config with the true_allsky_fine oscillation grid cut
+    to 20x20 over the same domains (tests/test_torch_pipeline.py:
+    _small_grid_config), for a fit that the CPU runs in a minute."""
+    from pisa_tpu_torch import ureg
+    from pisa_tpu_torch.config.parser import parse_pipeline_config
+    from pisa_tpu_torch.core import binning
+
+    config = parse_pipeline_config(CFG)
+    grid = binning.MultiDimBinning([
+        binning.OneDimBinning("true_energy", num_bins=20, is_log=True,
+                              domain=[1, 1000] * ureg.GeV),
+        binning.OneDimBinning("true_coszen", num_bins=20, is_lin=True,
+                              domain=[-1, 1]),
+    ], name="true_allsky_fine")
+    for key, settings in config.items():
+        if isinstance(key, tuple):
+            for mode in ("calc_mode", "apply_mode"):
+                if getattr(settings.get(mode), "name", None) == grid.name:
+                    settings[mode] = grid
+    return config
+
+
+def lbfgs_parity_fp64(smi):
+    """float64: the port's minimize_on_device on the card (captured
+    objective) and on the CPU (eager) over the 20x20-grid flagship, from
+    theta23 + 0.10 rescaled: the same iterations and best fit."""
+    import numpy as np
+
+    from pisa_tpu_torch.analysis.device_fit import minimize_on_device
+    from pisa_tpu_torch.core.pipeline import Pipeline
+
+    fits = {}
+    for device in ("cuda", "cpu"):
+        ct = Pipeline(small_grid_config(), device=device).compile()
+        v0 = ct.current_rescaled_values()
+        value_fn, _ = ct.build_objective(ct.get_outputs(v0), "mod_chi2")
+        i23 = ct.free_names.index("theta23")
+        x0 = v0.copy()
+        x0[i23] = min(0.95, x0[i23] + 0.10)
+        t0 = time.perf_counter()
+        fits[device] = minimize_on_device(
+            value_fn.raw, x0, *ct._current_bounds(),
+            max_steps=LBFGS_MAX_STEPS, device=device)
+        fit = fits[device]
+        print(f"float64 L-BFGS, 20x20-grid flagship, {device}: nit"
+              f" {fit['nit']}, nfev {fit['nfev']}, flag reads {fit['reads']},"
+              f" fun {fit['fun']!r}; wall {time.perf_counter() - t0:.2f} s"
+              f" [{smi}]")
+    dx = float(np.abs(fits["cuda"]["x"] - fits["cpu"]["x"]).max())
+    print(f"float64 L-BFGS card vs CPU: nit {fits['cuda']['nit']} vs"
+          f" {fits['cpu']['nit']}, max |dx| {dx:.3e} rescaled (bound"
+          f" {LBFGS_X_ATOL:g}) [{smi}]")
+    check(fits["cuda"]["nit"] == fits["cpu"]["nit"],
+          "card and CPU L-BFGS took different iterations")
+    check(dx <= LBFGS_X_ATOL, "card and CPU L-BFGS best fits differ")
+
+
 # -- the float64 child ---------------------------------------------------------
 def reference_worker(path):
     """float64: the CPU reference and the card run at every template point,
@@ -467,18 +619,32 @@ def reference_worker(path):
                 arrays[f"{tag}|{label}|e|{name}"] = errs[name]
         arrays[f"launches|{label}"] = np.asarray(launches[label])
     arrays.update(gradient_worker(cpu_pipeline, gpu_pipeline, chain))
+    smi = card_line()
+    t0 = time.perf_counter()
+    template_fp64(gpu_pipeline, smi)
+    print(f"float64 template phase: {time.perf_counter() - t0:.1f} s")
+    del cpu_pipeline, gpu_pipeline
+    t0 = time.perf_counter()
+    lbfgs_parity_fp64(smi)
+    print(f"float64 L-BFGS parity phase: {time.perf_counter() - t0:.1f} s"
+          f" [{smi}]")
     np.savez(path, **arrays)
 
 
 # -- the main (float32) process ------------------------------------------------
-def device_lines():
-    import torch
-
-    smi = subprocess.run(
+def card_line():
+    """The card's name and power limit as nvidia-smi gives them."""
+    return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
+
+
+def device_lines():
+    import torch
+
+    smi = card_line()
     print(f"nvidia-smi: {smi}")
     print(f"torch.cuda.get_device_name(0): {torch.cuda.get_device_name(0)}")
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda},"
@@ -1218,14 +1384,17 @@ def gradient_and_fit_fp32(pipeline, chain, ref, smi):
     print(f"host syncs of the fit on the captured objective (torch.cuda sync"
           f" debug mode, a second run):"
           f" {syncs} over {again['nit']} iterations and {again['nfev']}"
-          f" evaluations ({syncs / max(again['nfev'], 1):.1f} per evaluation:"
-          f" torch.optim.LBFGS's own reads)")
+          f" evaluations ({syncs / max(again['nfev'], 1):.2f} per evaluation:"
+          f" {again['reads']} flag reads of the L-BFGS loop, the rest the"
+          f" reads of its result)")
     eager_fit_fn, _ = eager_ct.build_objective(asimov, "mod_chi2",
                                                capture=False)
     t0 = time.perf_counter()
-    eager_fit = minimize_on_device(eager_fit_fn.raw, x0, los, his)
+    eager_fit = minimize_on_device(eager_fit_fn.raw, x0, los, his,
+                                   max_steps=EAGER_FIT_STEPS)
     torch.cuda.synchronize()
-    print(f"Asimov fit, float32, per container and eager (one run): nit"
+    print(f"Asimov fit, float32, per container and eager (one run, at most"
+          f" {EAGER_FIT_STEPS} iterations): nit"
           f" {eager_fit['nit']}, nfev {eager_fit['nfev']}, theta23 off by"
           f" {float(eager_fit['x'][i23] - v0[i23]):.3e}; wall"
           f" {time.perf_counter() - t0:.3f} s [{smi}]")
@@ -1264,8 +1433,8 @@ def route_table(pipeline, chain, data, v, value_ref, grad_ref, smi):
               f"{label}: stacked={ct.stacked},"
               f" rate_deferred={ct.rate_deferred}")
         took = deferred_calls(ct.get_outputs)
-        check(took == (1 if ct.rate_deferred else 0),
-              f"{label}: {took} factorized histograms in one template")
+        check(took == first_call_runs(ct, template_module) * ct.rate_deferred,
+              f"{label}: {took} factorized histograms in the first template")
         value_fn, vg = ct.build_objective(data, "mod_chi2", capture=capture)
         # the eager routes take the vector where it lies (on the card); the
         # captured one brings an array over through its pinned buffer
@@ -1353,6 +1522,137 @@ def route_table(pipeline, chain, data, v, value_ref, grad_ref, smi):
               f" {' / '.join(f'{x:.4f}' for x in ms)} ms [{smi}]")
     print(f"prob3's default route: {routes[1 if default else 0][0]}")
     return {"routes": rows}
+
+
+def template_fp32(pipeline, chain, smi):
+    """The captured template call at full size, float32: compile()'s
+    default template, captured at its first call; each of N_TEMPLATES
+    randomized vectors (bench.py:251-252) timed on the host clock ending in
+    synchronize(), the first excluded; scan_totals over the same vectors,
+    which must wait once (its read). Returns the path's launches and the
+    numbers."""
+    import numpy as np
+    import torch
+
+    reset_launch_counts(chain)
+    t0 = time.perf_counter()
+    ct = pipeline.compile()
+    vecs = np.random.RandomState(0).uniform(0.05, 0.95,
+                                            (N_TEMPLATES, len(ct.free_names)))
+    ct(vecs[0])  # the capture
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    walls = []
+    for v in vecs:
+        t0 = time.perf_counter()
+        ct(v)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    template_ms = float(np.median(walls[1:])) * 1e3
+    t0 = time.perf_counter()
+    scanned = ct.scan_totals(vecs).cpu().numpy()
+    scan_ms = (time.perf_counter() - t0) * 1e3
+    launches = launch_counts(chain)
+
+    call_waits, maps = count_host_syncs(lambda: ct.get_outputs(vecs[1]))
+    scan_waits, again = count_host_syncs(
+        lambda: ct.scan_totals(vecs).cpu().numpy())
+    check_template(({m.name: m.hist for m in maps},
+                    {m.name: m.error_hist for m in maps}),
+                   "float32 captured template call")
+    totals = [float(sum(m.hist.sum() for m in ct.get_outputs(v)))
+              for v in vecs[:5]]
+    err = max_rel(totals, scanned[:5])
+    replay_ms = replay_time(lambda: ct(vecs[1]))
+    print(f"template phase (compile()'s default, {ct.stacked and 'stacked'},"
+          f" captured at the first call; set-up and capture {setup_s:.2f} s):"
+          f" ct(vec) median {template_ms:.4f} ms over {N_TEMPLATES - 1}"
+          f" randomized vectors (host clock ending in synchronize()), i.e."
+          f" {1e3 / template_ms:.1f} templates/s; 20 calls back to back"
+          f" (CUDA events) {replay_ms:.4f} ms each; scan_totals over"
+          f" {N_TEMPLATES} vectors {scan_ms:.2f} ms"
+          f" ({N_TEMPLATES * 1e3 / scan_ms:.1f} templates/s) with"
+          f" {scan_waits} wait; get_outputs waits {call_waits} time(s)"
+          f" [{smi}]")
+    print(f"  scan_totals vs get_outputs totals (float32, 5 vectors): max rel"
+          f" {err:.3e}; launches at the capture {launches}")
+    check(scan_waits == 1, f"scan_totals waited {scan_waits} times")
+    check(call_waits == 1, f"a captured get_outputs waited {call_waits}"
+          " times")
+    check(np.all(np.isfinite(scanned)) and np.array_equal(scanned, again),
+          "scan_totals not finite or not repeatable")
+    check(err <= 1e-5, "scan_totals off the calls' totals")
+    del ct
+    return launches, {"template_ms": template_ms, "scan_ms": scan_ms,
+                      "replay_ms": replay_ms}
+
+
+def analysis_fp32(chain, ureg, smi):
+    """The slice's main path at full size, float32: DistributionMaker over
+    the flagship on the card, Asimov data at nominal, theta23 moved by +0.10
+    rescaled, then Analysis().fit_recursively with method 'device', with
+    method 'gradient' and with the octant strategy around 'device'. Each
+    fit runs twice: the first builds and captures (set-up), the second is
+    timed and counts its waits for the card (torch's sync debug mode, which
+    adds ~0.1 ms to each wait). Returns the path's launches."""
+    import torch
+
+    from pisa_tpu_torch.analysis.analysis import Analysis, BasicAnalysis
+    from pisa_tpu_torch.core.distribution_maker import DistributionMaker
+
+    reset_launch_counts(chain)
+    t0 = time.perf_counter()
+    dm = DistributionMaker([CFG], device="cuda")
+    data = dm.get_outputs(return_sum=True)
+    print(f"analysis phase: DistributionMaker set-up and Asimov data"
+          f" {time.perf_counter() - t0:.2f} s")
+    truth = dm.params["theta23"]._rescaled_value
+    fits = (
+        ("device", "device", {}, None),
+        ("gradient", "gradient", {}, None),
+        ("octants around device", "octants",
+         {"angle": "theta23", "inflection_point": 45 * ureg.degree},
+         {"method": "device", "method_kwargs": {}}),
+    )
+    for label, method, method_kwargs, local in fits:
+        def fit():
+            dm.reset_free()
+            dm.params["theta23"]._rescaled_value = min(0.95, truth + 0.10)
+            return Analysis().fit_recursively(data, dm, "mod_chi2", None,
+                                              method, method_kwargs, local)
+
+        t0 = time.perf_counter()
+        fit()
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        waits, result = count_host_syncs(fit)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        meta = result.minimizer_metadata
+        moved = result.params["theta23"]._rescaled_value - truth
+        print(f"Analysis fit, {label}, float32: wall {wall:.3f} s (first run"
+              f" with set-up and capture {first_s:.2f} s), nit {meta['nit']},"
+              f" nfev {meta['nfev']}, {waits} waits for the card"
+              f" ({waits / meta['nfev']:.2f} per evaluation"
+              f"{', both octants over the winner' if local else ''}),"
+              f" theta23 off by {moved:.3e} rescaled (bound {FIT_TOL:g}),"
+              f" metric {result.metric_val!r} [{smi}]")
+        check(abs(moved) <= FIT_TOL, f"the {label} fit did not recover theta23")
+        if method == "device":
+            check(waits / meta["nfev"] <= DEVICE_FIT_WAITS,
+                  f"the device fit waited {waits / meta['nfev']:.2f} times"
+                  " per evaluation")
+    launches = launch_counts(chain)
+    print(f"analysis path launches: primal {launches[0]}, tangent"
+          f" {launches[1]}, multitangent {launches[2]}; peak memory"
+          f" {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB [{smi}]")
+    check(launches[0] > 0 and launches[2] > 0,
+          "a kernel of the analysis path never ran")
+    # the compiled objectives live in a class-level cache
+    BasicAnalysis._compiled_cache.clear()
+    del dm
+    return launches
 
 
 def print_kernel_times(kernels, smi):
@@ -1467,8 +1767,22 @@ def main(kernels_only=False):
     print(f"torch.cuda.max_memory_allocated (float32 pipeline):"
           f" {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB [{smi}]")
 
-    # float32, the gradient and fit path on the card (the slice's main path)
-    main_path, _ = gradient_and_fit_fp32(pipeline, chain, ref, smi)
+    # float32, the gradient and fit path on the card
+    t0 = time.perf_counter()
+    fit_path, _ = gradient_and_fit_fp32(pipeline, chain, ref, smi)
+    print(f"float32 gradient and fit phase: {time.perf_counter() - t0:.1f} s")
+    # float32, the captured template call
+    t0 = time.perf_counter()
+    template_path, _ = template_fp32(pipeline, chain, smi)
+    print(f"float32 template phase: {time.perf_counter() - t0:.1f} s")
+    # float32, fits through the analysis layer (the slice's main path)
+    t0 = time.perf_counter()
+    analysis_path = analysis_fp32(chain, ureg, smi)
+    print(f"float32 analysis phase: {time.perf_counter() - t0:.1f} s")
+    print(f"launches (primal, tangent, multitangent) by path: gradient and fit"
+          f" {fit_path}, template {template_path}, analysis {analysis_path}")
+    main_path = tuple(sum(c) for c in zip(fit_path, template_path,
+                                          analysis_path))
 
     print_kernel_times(kernels, smi)
     lines = []

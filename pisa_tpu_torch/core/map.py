@@ -20,6 +20,7 @@ import re
 from functools import cached_property
 
 import numpy as np
+import torch
 
 from pisa_tpu_torch import FTYPE, HASH_SIGFIGS
 from pisa_tpu_torch.core.binning import MultiDimBinning, OneDimBinning
@@ -493,11 +494,10 @@ class Map:
         fn = stats.metric_function(metric)
         if var is None:
             var = np.zeros_like(exp)
+        args = [torch.as_tensor(np.asarray(x)) for x in (self._hist, exp, var)]
         if metric in ("chi2", "llh", "poisson_llh"):
-            vals = fn(self._hist, exp)
-        else:
-            vals = fn(self._hist, exp, var)
-        return float(np.sum(np.asarray(vals)))
+            args = args[:2]
+        return float(fn(*args).sum())
 
     def metric_total(self, expected_values, metric):
         return self.metric_per_map(expected_values, metric)

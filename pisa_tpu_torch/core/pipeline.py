@@ -6,7 +6,10 @@ Counterpart of ``pisa_tpu/core/pipeline.py`` (reference
 OrderedDict, or dict), it instantiates its services by import path
 ``pisa_tpu_torch.stages.<stage>.<service>``, unifies same-named params
 across stages into shared objects, and evaluates templates eagerly with
-``get_outputs()``.
+``get_outputs()``. It carries the surface the fitting layers call
+(``core/distribution_maker.py``, ``analysis/analysis.py``): rescaled and
+physical free-param setters, resets, ``update_params``, the output binning
+and key, and per-stage timing with ``profile=True``.
 
 The data lives on one explicit device: ``device="cuda"`` (the default) or
 ``device="cpu"``. A CUDA device without a card raises; nothing falls back to
@@ -18,9 +21,13 @@ Per-selection ``VarBinning`` outputs are not ported yet.
 from __future__ import annotations
 
 import importlib
+import time
+
+import numpy as np
 
 from pisa_tpu_torch.core.binning import VarBinning
 from pisa_tpu_torch.core.container import ContainerSet, resolve_device
+from pisa_tpu_torch.core.map import MapSet
 from pisa_tpu_torch.core.param import ParamSet
 from pisa_tpu_torch.utils.log import logging
 
@@ -35,9 +42,12 @@ class Pipeline:
         dict with keys 'pipeline' and stage tuples
     device : torch.device or str
         Where the containers' tensors live and the kernels run.
+    profile : bool
+        Record setup, run and get_outputs times, and each stage's
+        (:meth:`report_profile`).
     """
 
-    def __init__(self, config, device="cuda"):
+    def __init__(self, config, device="cuda", profile=False):
         if isinstance(config, str):
             from pisa_tpu_torch.config.parser import parse_pipeline_config
 
@@ -48,11 +58,16 @@ class Pipeline:
         self._config = config
         pipeline_settings = config.get("pipeline", {})
         self.name = pipeline_settings.get("name", "pipeline")
+        self.detector_name = pipeline_settings.get("detector_name")
         self._output_binning = pipeline_settings.get("output_binning")
         self._output_key = pipeline_settings.get("output_key")
         self.param_selections_applied = pipeline_settings.get(
             "param_selections", []
         )
+        self.profile = profile
+        self._get_outputs_times = []
+        self._run_times = []
+        self._setup_times = []
 
         self.data = ContainerSet(self.name, device=self.device)
         self.stages = []
@@ -72,6 +87,8 @@ class Pipeline:
                 continue
             stage_name, service_name = key
             cls = self._import_service(stage_name, service_name)
+            settings = dict(settings)
+            settings.setdefault("profile", self.profile)
             stage = cls(**settings)
             stage.data = self.data
             self.stages.append(stage)
@@ -108,6 +125,7 @@ class Pipeline:
     def setup(self):
         """Fresh ContainerSet shared by every stage; run every stage's setup
         (reference ``pipeline.py:560-577``)."""
+        t0 = time.perf_counter()
         self.data = ContainerSet(self.name, device=self.device)
         if self._output_binning is not None:
             self.data["output_binning"] = self._output_binning
@@ -115,6 +133,7 @@ class Pipeline:
             stage.data = self.data
             stage.param_hash = None
             stage.setup()
+        self._setup_times.append(time.perf_counter() - t0)
 
     # -- params -----------------------------------------------------------------
     @property
@@ -142,6 +161,18 @@ class Pipeline:
         if error_on_missing and successes == 0:
             raise KeyError(f"No stage accepted param selections {selections}")
 
+    def update_params(self, params, existing_must_match=False, extend=False):
+        """Put the params of `params` (ParamSet or sequence) into every
+        stage that has one of their names, by object (so they are shared
+        with whoever else holds them)."""
+        params = params if isinstance(params, ParamSet) else ParamSet(params)
+        for stage in self.stages:
+            for p in params:
+                if p.name in stage.params:
+                    stage._param_selector.update(
+                        p, existing_must_match=existing_must_match
+                    )
+
     def index(self, stage_id):
         """Index of a stage by int, 'stage_name', or 'stage_name.service'."""
         if isinstance(stage_id, int):
@@ -165,19 +196,35 @@ class Pipeline:
     def output_binning(self):
         return self._output_binning
 
+    @output_binning.setter
+    def output_binning(self, binning):
+        self._output_binning = binning
+
     @property
     def output_key(self):
         return self._output_key
 
+    @output_key.setter
+    def output_key(self, key):
+        self._output_key = key
+
     def run(self):
+        t0 = time.perf_counter()
         for stage in self.stages:
             logging.trace("running %s", stage)
             stage.run()
+        self._run_times.append(time.perf_counter() - t0)
 
-    def get_outputs(self, output_binning=None, output_key=None):
+    def get_outputs(self, output_binning=None, output_key=None,
+                    return_sum=False):
         """Evaluate the template: run all stages and read the output keys in
         the output binning (reference ``pipeline.py:360-483``). Returns a
-        host MapSet."""
+        host MapSet; with `return_sum`, its maps summed into a one-map
+        MapSet (so that a lone Pipeline serves as a hypo maker)."""
+        if return_sum:
+            out = self.get_outputs(output_binning, output_key)
+            return MapSet([out.sum()], name=self.name)
+        t0 = time.perf_counter()
         output_binning = output_binning or self._output_binning
         output_key = output_key or self._output_key
         if output_binning is None:
@@ -192,14 +239,17 @@ class Pipeline:
         else:
             key, error_key = output_key, None
         self.data.representation = output_binning
-        return self.data.get_mapset(key, error=error_key)
+        outputs = self.data.get_mapset(key, error=error_key)
+        self._get_outputs_times.append(time.perf_counter() - t0)
+        return outputs
 
     def compile(self, output_binning=None, output_key=None, **options):
         """The pipeline as a differentiable function of its rescaled free
-        parameters; `options` are ``stack``, ``rate_defer`` and ``hoist``
-        of :class:`pisa_tpu_torch.core.template.CompiledTemplate` (by
-        default the categories are stacked where every traced stage can
-        run stacked)."""
+        parameters; `options` are ``stack``, ``rate_defer``, ``hoist`` and
+        ``capture`` of :class:`pisa_tpu_torch.core.template.
+        CompiledTemplate` (by default the categories are stacked where
+        every traced stage can run stacked, and on a CUDA device the
+        template call is captured)."""
         from pisa_tpu_torch.core.template import CompiledTemplate
 
         return CompiledTemplate(
@@ -208,6 +258,104 @@ class Pipeline:
             output_key=output_key or self._output_key,
             **options,
         )
+
+    # -- fitting interface (the DistributionMaker surface, so that a lone
+    # Pipeline serves as a hypo maker) -----------------------------------------
+    def _set_rescaled_free_params(self, rvalues):
+        free = self.params.free
+        if len(rvalues) != len(free):
+            raise ValueError(
+                f"Got {len(rvalues)} values for {len(free)} free params"
+            )
+        for p, v in zip(free, rvalues):
+            p._rescaled_value = float(v)
+
+    def set_free_params(self, values):
+        free = self.params.free
+        if len(values) != len(free):
+            raise ValueError(
+                f"Got {len(values)} values for {len(free)} free params"
+            )
+        for p, v in zip(free, values):
+            p.value = v
+
+    def reset_free(self):
+        self.params.reset_free()
+
+    def reset_all(self):
+        self.params.reset_all()
+
+    # -- profiling ----------------------------------------------------------------
+    @staticmethod
+    def _format_times(times):
+        """'n=..., total=..., mean +- std, min/max' of a list of times
+        (reference ``format.format_times``)."""
+        t = np.asarray(times, dtype=np.float64)
+        if t.size == 0:
+            return "n=0"
+        return (
+            f"n={t.size}, total={t.sum():.4f} s,"
+            f" mean={t.mean() * 1e3:.2f} +- {t.std() * 1e3:.2f} ms,"
+            f" min={t.min() * 1e3:.2f} ms, max={t.max() * 1e3:.2f} ms"
+        )
+
+    def report_profile(self, detailed=False):
+        """The pipeline's setup, run and get_outputs times and, with
+        `detailed`, each stage's setup, compute and apply times (reference
+        ``pipeline.py:148-187``); host times, recorded with
+        ``profile=True``."""
+        print(f"Pipeline: {self.name}")
+        for label, times in (("setup", self._setup_times),
+                             ("run", self._run_times),
+                             ("get_outputs", self._get_outputs_times)):
+            if times:
+                print(f"  {label + ':':12s} {self._format_times(times)}")
+        if detailed:
+            for stage in self.stages:
+                print(f"  {stage}:")
+                for label, times in (("setup", stage.setup_times),
+                                     ("compute", stage.calc_times),
+                                     ("apply", stage.apply_times)):
+                    if times:
+                        print(f"    {label}: {self._format_times(times)}")
+
+    def _stage_table_rows(self):
+        """(headers, rows) describing each stage (reference
+        ``pipeline.py:138-146``)."""
+        headers = ["stage number", "name", "calc_mode", "apply_mode",
+                   "# fixed params", "# free params"]
+        rows = [
+            [str(i), f"{s.stage_name}.{s.service_name}", str(s.calc_mode),
+             str(s.apply_mode), str(len(s.params.fixed)),
+             str(len(s.params.free))]
+            for i, s in enumerate(self.stages)
+        ]
+        return headers, rows
+
+    def tabulate(self, tablefmt="plain"):
+        """Plain ('plain'/'presto') or 'html' table of the pipeline's stages
+        (reference ``pipeline.py:138``)."""
+        headers, rows = self._stage_table_rows()
+        if tablefmt == "html":
+            cells = "".join(f"<th>{h}</th>" for h in headers)
+            body = "".join(
+                "<tr>" + "".join(f"<td>{c}</td>" for c in row) + "</tr>"
+                for row in rows
+            )
+            return (f"<table><thead><tr>{cells}</tr></thead>"
+                    f"<tbody>{body}</tbody></table>")
+        widths = [max(len(h), *(len(r[j]) for r in rows)) if rows else len(h)
+                  for j, h in enumerate(headers)]
+        sep = " | " if tablefmt == "presto" else "  "
+        lines = [sep.join(h.ljust(w) for h, w in zip(headers, widths))]
+        if tablefmt == "presto":
+            lines.append("-+-".join("-" * w for w in widths))
+        for row in rows:
+            lines.append(sep.join(c.ljust(w) for c, w in zip(row, widths)))
+        return "\n".join(lines)
+
+    def _repr_html_(self):
+        return self.tabulate(tablefmt="html")
 
     def __str__(self):
         stages = " -> ".join(str(s) for s in self.stages)

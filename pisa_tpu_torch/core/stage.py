@@ -21,6 +21,8 @@ which the oscillation stage may hand its grid rate to the histogram
 
 from __future__ import annotations
 
+import time
+
 from pisa_tpu_torch.core.binning import MultiDimBinning
 from pisa_tpu_torch.core.param import ParamSelector, ParamSet
 from pisa_tpu_torch.utils.log import logging
@@ -48,6 +50,10 @@ class Stage:
         Representation selected before compute_function.
     apply_mode : 'events' or MultiDimBinning, optional
         Representation selected before apply_function.
+    profile : bool
+        Record the host time of each setup, compute and apply
+        (``setup_times``, ``calc_times``, ``apply_times``; outside template
+        mode). On a CUDA device this is the time to enqueue the work.
     """
 
     def __init__(
@@ -59,6 +65,7 @@ class Stage:
         error_method=None,
         calc_mode=None,
         apply_mode=None,
+        profile=False,
     ):
         module_path = self.__class__.__module__.split(".")
         self.stage_name = module_path[-2] if len(module_path) >= 2 else ""
@@ -82,6 +89,10 @@ class Stage:
         self._check_params()
         self.param_hash = None
         self._template_mode = False  # bypasses the compute cache
+        self.profile = profile
+        self.setup_times = []
+        self.calc_times = []
+        self.apply_times = []
 
     host_param_names = ()
 
@@ -182,8 +193,16 @@ class Stage:
             raise ValueError(f"{self}: no data container set")
         if self.calc_mode is not None:
             self.data.representation = self.calc_mode
-        self.setup_function()
+        self._timed(self.setup_function, self.setup_times)
         self._check_exp_keys_in_data()
+
+    def _timed(self, fn, times):
+        if not self.profile or self._template_mode:
+            fn()
+            return
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
 
     def setup_function(self):
         """Override: one-time setup."""
@@ -198,7 +217,7 @@ class Stage:
                 return
         if self.calc_mode is not None:
             self.data.representation = self.calc_mode
-        self.compute_function()
+        self._timed(self.compute_function, self.calc_times)
         if not self._template_mode:
             self.param_hash = self.params.values_hash
 
@@ -208,7 +227,7 @@ class Stage:
     def apply(self):
         if self.apply_mode is not None:
             self.data.representation = self.apply_mode
-        self.apply_function()
+        self._timed(self.apply_function, self.apply_times)
 
     def apply_function(self):
         """Override: per-evaluation application (weights *= ...)."""

@@ -31,11 +31,14 @@ Mechanics, as in the JAX package:
   hand-off lives on this template's own stacked container, so two templates
   over one pipeline do not interfere.
 
-Where the JAX package has ``jax.jit``, :meth:`build_objective` on a CUDA
-device captures the whole ``value_and_grad`` (magnitudes, pack, stages,
-metric, priors and the backward with its kernel launches) in one CUDA
-graph, and the value alone in another (:class:`CapturedObjective`); an
-evaluation copies its inputs into the graphs' static tensors and replays.
+Where the JAX package has ``jax.jit``, the port captures CUDA graphs on a
+CUDA device: the template call itself (``vec, los, his -> histograms``,
+:class:`CapturedFunction`, at the first call), and in
+:meth:`build_objective` the whole ``value_and_grad`` (magnitudes, pack,
+stages, metric, priors and the backward with its kernel launches) and the
+value alone (:class:`CapturedObjective`); an evaluation copies its inputs
+into the graphs' static tensors and replays. A graph bakes in what it read
+at capture: the fixed params' values and the container data (by address).
 On the CPU the same code runs eagerly. ``shard`` is not ported (ROADMAP
 queue 1, item 12).
 """
@@ -51,7 +54,8 @@ from pisa_tpu_torch.core.map import Map, MapSet
 from pisa_tpu_torch.units import Quantity
 from pisa_tpu_torch.utils.log import logging
 
-__all__ = ["CompiledTemplate", "CapturedObjective", "HOST_PARAM_NAMES",
+__all__ = ["CompiledTemplate", "CapturedObjective", "CapturedFunction",
+           "magnitudes_from_rescaled", "HOST_PARAM_NAMES",
            "RATE_DEFER_DEFAULT", "CAPTURE_WARMUP"]
 
 #: params that steer host-side precomputation and hence cannot be
@@ -85,6 +89,20 @@ RATE_DEFER_DEFAULT = True
 CAPTURE_WARMUP = 3
 
 
+def magnitudes_from_rescaled(vec, los, his, log_scaled):
+    """Physical magnitudes (a list of 0-d tensors, differentiable in `vec`)
+    of the rescaled vector `vec` between the bounds `los` and `his`, with
+    the params flagged in `log_scaled` scaling as logs
+    (``Param._rescaled_value``; ``pisa_tpu/core/template.py:364``)."""
+    mags = list((los + (his - los) * vec).unbind())
+    for i, log_scale in enumerate(log_scaled):
+        if log_scale:
+            lo, hi = los[i], his[i]
+            mags[i] = torch.exp(
+                vec[i] * (torch.log(hi.abs()) - torch.log(lo.abs()))) * lo
+    return mags
+
+
 class CompiledTemplate:
     """``rescaled free params -> histograms`` for a Pipeline.
 
@@ -103,6 +121,9 @@ class CompiledTemplate:
     hoist : bool
         Run the leading stages without free parameters once, here
         (``PISA_TPU_HOIST``).
+    capture : bool or None
+        Capture the template call in a CUDA graph at its first call (by
+        default: on a CUDA device); ``False`` keeps the eager route.
 
     The vector is in the *rescaled* [0, 1] space of minimizers (reference
     ``param.py:358``); the conversion to physical magnitudes happens inside,
@@ -110,8 +131,17 @@ class CompiledTemplate:
     """
 
     def __init__(self, pipeline, output_binning, output_key, stack=True,
-                 rate_defer=RATE_DEFER_DEFAULT, hoist=True):
+                 rate_defer=RATE_DEFER_DEFAULT, hoist=True, capture=None):
         self.pipeline = pipeline
+        device = pipeline.device
+        if capture is None:
+            capture = device.type == "cuda"
+        elif capture and device.type != "cuda":
+            raise ValueError(f"capture=True needs a CUDA device, not {device}")
+        self.capture = bool(capture)
+        #: the captured template call (:class:`CapturedFunction`), made at
+        #: the first call on a capturing template
+        self._program = None
         self.output_binning = output_binning
         if isinstance(output_key, (tuple, list)):
             self.output_key, self.error_key = output_key[0], output_key[1]
@@ -299,13 +329,7 @@ class CompiledTemplate:
         if los is None or his is None:
             los, his = self._device_bounds()
         vec, los, his = (self._on_device(x) for x in (vec, los, his))
-        mags = list((los + (his - los) * vec).unbind())
-        for i, log_scale in enumerate(self._log_scaled):
-            if log_scale:
-                lo, hi = los[i], his[i]
-                mags[i] = torch.exp(
-                    vec[i] * (torch.log(hi.abs()) - torch.log(lo.abs()))) * lo
-        return mags
+        return magnitudes_from_rescaled(vec, los, his, self._log_scaled)
 
     def current_rescaled_values(self):
         return np.asarray(
@@ -363,46 +387,94 @@ class CompiledTemplate:
                 stage.data = pipeline.data
             data.set_state(saved_state)
 
+    def _stack_outputs(self, out):
+        """(hist, error or None, total): the categories' histograms as one
+        (C, size) tensor in the order of ``self.names``."""
+        stacks = []
+        for label in ("hist", "error"):
+            if label not in out:
+                stacks.append(None)
+            elif label + "_stacked" in out:
+                stacks.append(out[label + "_stacked"])
+            else:
+                stacks.append(torch.stack([out[label][n] for n in self.names]))
+        return stacks[0], stacks[1], stacks[0].sum()
+
+    def _captured(self):
+        """The captured template call, captured at the current values and
+        bounds on first use (the warm-up runs and the capture launch the
+        kernels; a replay does not advance their counters)."""
+        if self._program is None:
+            def run(vec, los, his):
+                return self._stack_outputs(self._evaluate(
+                    self._magnitudes_from_rescaled(vec, los, his)))
+
+            self._program = CapturedFunction(
+                run, self.current_rescaled_values(), *self._device_bounds(),
+                device=self.pipeline.device)
+        return self._program
+
     def __call__(self, rescaled_vector):
         """Raw evaluation: dict with 'hist' (and 'error') name -> flat
-        tensor on the pipeline's device."""
-        return self._evaluate(self._magnitudes_from_rescaled(rescaled_vector))
+        tensor on the pipeline's device; on a capturing template a replay
+        of the captured call (copies of its outputs, with no autograd graph:
+        gradients come from :meth:`build_objective`)."""
+        if not self.capture:
+            return self._evaluate(
+                self._magnitudes_from_rescaled(rescaled_vector))
+        outputs = self._captured()(rescaled_vector, *self._device_bounds())
+        out = {}
+        for label, stacked in zip(("hist", "error"), outputs[:2]):
+            if stacked is not None:
+                out[label] = dict(zip(self.names, stacked.clone().unbind()))
+        return out
 
     def scan_totals(self, vecs):
         """The summed template's total for each row of `vecs` (n, n_free),
         evaluated back to back with no wait for the card in between
         (``pisa_tpu/core/template.py:566``): an (n,) tensor on the
-        pipeline's device."""
-        vecs = self._on_device(vecs)
+        pipeline's device. On a capturing template: one upload of `vecs`
+        (through pinned memory, without a wait), then n replays, each
+        followed by an enqueued copy of its total; the caller's read of the
+        result is the one wait."""
+        if not self.capture:
+            vecs = self._on_device(vecs)
+            los, his = self._device_bounds()
+            with torch.no_grad():
+                return torch.stack([
+                    self._stack_outputs(self._evaluate(
+                        self._magnitudes_from_rescaled(vec, los, his)))[2]
+                    for vec in vecs])
+        program = self._captured()
         los, his = self._device_bounds()
-        totals = []
-        with torch.no_grad():
-            for vec in vecs:
-                out = self._evaluate(
-                    self._magnitudes_from_rescaled(vec, los, his))
-                if "hist_stacked" in out:
-                    totals.append(out["hist_stacked"].sum())
-                else:
-                    totals.append(sum(h.sum() for h in out["hist"].values()))
-        return torch.stack(totals)
+        vecs = program.upload(vecs)
+        totals = torch.empty(vecs.shape[0], dtype=TORCH_FTYPE,
+                             device=vecs.device)
+        for i in range(vecs.shape[0]):
+            _, _, total = program(vecs[i], los, his)
+            totals[i].copy_(total)
+        return totals
 
     def get_outputs(self, rescaled_vector=None) -> MapSet:
         """Host-side MapSet in the pipeline's container order (mirrors
-        ``Pipeline.get_outputs``); the current values by default."""
+        ``Pipeline.get_outputs``); the current values by default. The
+        histograms come to the host in one copy."""
         if rescaled_vector is None:
             rescaled_vector = self.current_rescaled_values()
-        with torch.no_grad():
-            out = self(rescaled_vector)
-        maps = []
-        for name in self.names:
-            err = out.get("error", {}).get(name)
-            maps.append(Map(
-                name=name,
-                hist=out["hist"][name].cpu().numpy(),
-                binning=self.output_binning,
-                error_hist=None if err is None else err.cpu().numpy(),
-            ))
-        return MapSet(maps, name=self.pipeline.name)
+        if self.capture:
+            hist, err, _ = self._captured()(rescaled_vector,
+                                            *self._device_bounds())
+        else:
+            with torch.no_grad():
+                hist, err, _ = self._stack_outputs(self(rescaled_vector))
+        host = (hist if err is None else torch.stack([hist, err])).cpu()
+        host = host.numpy()
+        hist, err = (host, None) if err is None else host
+        return MapSet([
+            Map(name=name, hist=hist[i], binning=self.output_binning,
+                error_hist=None if err is None else err[i])
+            for i, name in enumerate(self.names)
+        ], name=self.pipeline.name)
 
     # -- objectives ---------------------------------------------------------------
     def build_objective(self, data_dist, metric, priors=True, capture=None):
@@ -416,7 +488,7 @@ class CompiledTemplate:
         the metric summed over maps plus the prior penalties, sign-flipped
         for llh-family metrics so that it is always minimized.
 
-        `capture` (by default: on a CUDA device) captures the two functions
+        `capture` (by default: as the template captures) captures the two functions
         in CUDA graphs, once, here (:class:`CapturedObjective`); a capture
         that fails raises. ``capture=False`` keeps the eager route on the
         card. ``value_only.raw`` is the objective ``(vec, los, his) ->
@@ -439,7 +511,7 @@ class CompiledTemplate:
 
         device = self.pipeline.device
         if capture is None:
-            capture = device.type == "cuda"
+            capture = self.capture
         elif capture and device.type != "cuda":
             raise ValueError(f"capture=True needs a CUDA device, not {device}")
         if isinstance(data_dist, MapSet):
@@ -523,46 +595,22 @@ class _Replay(torch.autograd.Function):
         return g * grad, None, None, None
 
 
-class CapturedObjective:
-    """``objective(vec, los, his) -> value`` and its gradient in `vec` as
-    two CUDA graphs over static input tensors (the port's counterpart of
-    ``jax.jit`` of the objective, ``pisa_tpu/core/template.py:730``).
+class _CapturedProgram:
+    """Static input tensors ``(vec, los, his)`` on a CUDA device, loaded
+    without a wait, and the capture of functions of them in CUDA graphs.
 
-    The constructor runs ``value_and_grad`` and the value eagerly
-    :data:`CAPTURE_WARMUP` times each on a side stream at `vec0`, `los`,
-    `his`, then captures each once; a capture that fails raises. An
-    evaluation copies its inputs into the static tensors (arrays through
-    one pinned staging buffer, without waiting) and replays; it returns
-    copies of the static outputs, so the next replay does not change what
-    the caller holds. Nothing inside waits for the card: the caller's read
-    of the value is the one wait.
-    """
+    A function is run eagerly :data:`CAPTURE_WARMUP` times on a side stream,
+    which builds every lazily cached tensor outside the graph's memory pool,
+    then captured once; a capture that fails raises. The graphs read what
+    the function reads (the data it closes over) where it lay at capture,
+    so subclasses keep the function alive as long as the graphs."""
 
-    def __init__(self, objective, vec0, los, his, device):
-        n = len(vec0)
+    def __init__(self, n, device):
         self.device = device
-        # the graphs read the tensors that `objective` closes over (the
-        # data) where they lay at capture: they must live as long as this
-        self._objective = objective
         self._static = torch.zeros((3, n), dtype=torch.float64, device=device)
         self._pinned = torch.zeros((3, n), dtype=torch.float64).pin_memory()
         self._uploaded = torch.cuda.Event()
-        self._load(vec0, los, his)
-        vec_s, los_s, his_s = self._static.unbind()
-
-        def value_and_grad():
-            vec = vec_s.detach().requires_grad_(True)
-            value = objective(vec, los_s, his_s)
-            (grad,) = torch.autograd.grad(value, vec)
-            return value.detach(), grad
-
-        def value_only():
-            with torch.no_grad():
-                return (objective(vec_s, los_s, his_s),)
-
-        self._vg_graph, (self._value, self._grad) = self._capture(
-            value_and_grad)
-        self._value_graph, (self._value_only,) = self._capture(value_only)
+        self._staged = None  # a pinned array on its way to the card
 
     def _capture(self, fn):
         stream = torch.cuda.Stream(self.device)
@@ -599,6 +647,86 @@ class CapturedObjective:
             self._pinned[i].copy_(torch.from_numpy(x))
             self._static[i].copy_(self._pinned[i], non_blocking=True)
         self._uploaded.record()
+
+    def upload(self, rows):
+        """`rows` (an array, or a tensor on the device) as a float64 tensor
+        on the device; an array goes through pinned memory by a copy that
+        the host does not wait for."""
+        if isinstance(rows, torch.Tensor):
+            if rows.device != self._static.device:
+                raise ValueError(f"the program lives on {self.device}; got a"
+                                 f" tensor on {rows.device}")
+            return rows.to(torch.float64)
+        self._uploaded.synchronize()
+        self._staged = torch.from_numpy(
+            np.array(rows, dtype=np.float64)).pin_memory()
+        out = self._staged.to(self.device, non_blocking=True)
+        self._uploaded.record()
+        return out
+
+
+class CapturedFunction(_CapturedProgram):
+    """``fn(vec, los, his) -> tuple of tensors`` (no gradient) as one CUDA
+    graph over static input tensors: the port's counterpart of ``jax.jit``
+    of the template call (``pisa_tpu/core/template.py:553``). A call loads
+    its inputs (:meth:`_CapturedProgram._load`) and replays; it returns the
+    graph's static outputs, which the next replay overwrites (copy what you
+    keep). Nothing inside waits for the card."""
+
+    def __init__(self, fn, vec0, los, his, device):
+        super().__init__(len(vec0), device)
+        self._fn = fn
+        self._load(vec0, los, his)
+        vec_s, los_s, his_s = self._static.unbind()
+
+        def run():
+            with torch.no_grad():
+                return fn(vec_s, los_s, his_s)
+
+        self._graph, self._outputs = self._capture(run)
+
+    def __call__(self, vec, los, his):
+        self._load(vec, los, his)
+        self._graph.replay()
+        return self._outputs
+
+
+class CapturedObjective(_CapturedProgram):
+    """``objective(vec, los, his) -> value`` and its gradient in `vec` as
+    two CUDA graphs over static input tensors (the port's counterpart of
+    ``jax.jit`` of the objective, ``pisa_tpu/core/template.py:730``).
+
+    The constructor runs ``value_and_grad`` and the value eagerly
+    :data:`CAPTURE_WARMUP` times each on a side stream at `vec0`, `los`,
+    `his`, then captures each once; a capture that fails raises. An
+    evaluation copies its inputs into the static tensors (arrays through
+    one pinned staging buffer, without waiting) and replays; it returns
+    copies of the static outputs, so the next replay does not change what
+    the caller holds. Nothing inside waits for the card: the caller's read
+    of the value is the one wait.
+    """
+
+    def __init__(self, objective, vec0, los, his, device):
+        super().__init__(len(vec0), device)
+        # the graphs read the tensors that `objective` closes over (the
+        # data) where they lay at capture: they must live as long as this
+        self._objective = objective
+        self._load(vec0, los, his)
+        vec_s, los_s, his_s = self._static.unbind()
+
+        def value_and_grad():
+            vec = vec_s.detach().requires_grad_(True)
+            value = objective(vec, los_s, his_s)
+            (grad,) = torch.autograd.grad(value, vec)
+            return value.detach(), grad
+
+        def value_only():
+            with torch.no_grad():
+                return (objective(vec_s, los_s, his_s),)
+
+        self._vg_graph, (self._value, self._grad) = self._capture(
+            value_and_grad)
+        self._value_graph, (self._value_only,) = self._capture(value_only)
 
     def value(self, vec, los, his):
         self._load(vec, los, his)

@@ -433,30 +433,51 @@ def chain_probs_reference(pvec, e, dens, dist, nl):
     return abs2(F)
 
 
+def _jvps_reference(pvec, dpvecs, e, dens, dist, nl):
+    """The primal of :func:`chain_probs_reference` and its derivatives
+    along the pack directions `dpvecs` (K, 57), (K, 2, 3, N).
+
+    On the card: forward mode (``torch.func.jvp``, batched over the
+    directions by ``torch.func.vmap``). On the CPU, where forward-mode
+    transforms of the layer loop run its complex ops through Python
+    decompositions, two reverse passes per direction take a third of the
+    time: with the cotangent u a free variable, g(u) = J^T u is linear, and
+    the gradient of <g(u), d> in u is J d."""
+    dpvecs = dpvecs.to(pvec.dtype)
+    if pvec.device.type != "cpu":
+        primals, tangents = torch.func.vmap(
+            lambda d: torch.func.jvp(
+                lambda p: chain_probs_reference(p, e, dens, dist, nl),
+                (pvec,), (d,),
+            )
+        )(dpvecs)
+        return primals[0], tangents
+    point = pvec.detach().requires_grad_(True)
+    with torch.enable_grad():
+        primal = chain_probs_reference(point, e, dens, dist, nl)
+        u = torch.zeros_like(primal, requires_grad=True)
+        (g,) = torch.autograd.grad(primal, point, u, create_graph=True)
+        tangents = [torch.autograd.grad(g, u, d, retain_graph=True)[0]
+                    for d in dpvecs]
+    return primal.detach(), torch.stack(tangents)
+
+
 def chain_tangent_reference(pvec, dpvec, e, dens, dist, nl):
-    """d(probs)/dt along the pack direction `dpvec`: the forward-mode
-    derivative (``torch.func.jvp``) of :func:`chain_probs_reference` in its
-    pack. Same inputs as the primal plus `dpvec` (57,); returns (2, 3, N)."""
-    return torch.func.jvp(
-        lambda p: chain_probs_reference(p, e, dens, dist, nl),
-        (pvec,),
-        (dpvec.to(pvec.dtype),),
-    )[1]
+    """d(probs)/dt along the pack direction `dpvec`: the directional
+    derivative of :func:`chain_probs_reference` in its pack. Same inputs as
+    the primal plus `dpvec` (57,); returns (2, 3, N)."""
+    if pvec.device.type != "cpu":
+        return torch.func.jvp(
+            lambda p: chain_probs_reference(p, e, dens, dist, nl),
+            (pvec,), (dpvec.to(pvec.dtype),),
+        )[1]
+    return _jvps_reference(pvec, dpvec[None], e, dens, dist, nl)[1][0]
 
 
 def chain_multitangent_reference(pvec, dpvecs, e, dens, dist, nl):
-    """The primal (2, 3, N) and its tangents along the K pack directions
-    `dpvecs` (K, 57), stacked (K, 2, 3, N): the forward-mode derivative of
-    :func:`chain_probs_reference`, batched over the directions
-    (``torch.func.vmap``)."""
-    primals, tangents = torch.func.vmap(
-        lambda d: torch.func.jvp(
-            lambda p: chain_probs_reference(p, e, dens, dist, nl),
-            (pvec,),
-            (d,),
-        )
-    )(dpvecs.to(pvec.dtype))
-    return primals[0], tangents
+    """The primal (2, 3, N) and its derivatives along the K pack directions
+    `dpvecs` (K, 57), stacked (K, 2, 3, N)."""
+    return _jvps_reference(pvec, dpvecs, e, dens, dist, nl)
 
 
 # -- the kernels -----------------------------------------------------------------
@@ -764,7 +785,7 @@ class OscProbs(torch.autograd.Function):
 
 
 def osc_probs(theta, nubar, geom, reparam=False, nlo_factor=1.0,
-              active=None, multitangent=False):
+              active=None, multitangent=True):
     """Standard-path propagation over :func:`prepare_chain_geometry` output,
     differentiable in ``theta`` = (theta12, theta13, theta23, deltacp [rad],
     dm21, dm31 [eV^2]): (N, 3, 3) probabilities in the original point order
@@ -774,8 +795,9 @@ def osc_probs(theta, nubar, geom, reparam=False, nlo_factor=1.0,
     `theta` is a (6,) tensor or a sequence of numbers and 0-d tensors (the
     parameter magnitudes), on the geometry's device. `active` (indices into
     theta, default all) selects the components whose tangents the backward
-    computes; the others get zero gradient. `multitangent` computes them in
-    one multitangent launch instead of one tangent launch each."""
+    computes; the others get zero gradient. `multitangent` (the default, as
+    ``prob3``'s) computes them in one multitangent launch; ``False`` in one
+    tangent launch each."""
     theta = theta_tensor(theta, device=geom["e"].device)
     active = tuple(range(6)) if active is None else tuple(int(i) for i in active)
     return OscProbs.apply(theta, geom, int(nubar), bool(reparam),

@@ -242,6 +242,18 @@ def test_function_gradcheck(multitangent):
         )
 
 
+def test_multitangent_is_the_default_route():
+    """osc_probs and prob3 take the multitangent route by default, so a
+    direct caller of the Function runs what the stage runs."""
+    import inspect
+
+    from pisa_tpu_torch.stages.osc.prob3 import prob3
+
+    for fn in (chain.osc_probs, prob3.__init__):
+        default = inspect.signature(fn).parameters["multitangent"].default
+        assert default is True, fn
+
+
 def test_tangent_wrappers_reject_bad_inputs():
     e, dens, dist = _geometry(16)
     args = _layer_major(e, dens, dist)

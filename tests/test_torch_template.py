@@ -418,3 +418,54 @@ def test_no_cpu_tensor_in_the_evaluated_path(card_pipeline, route):
         torch.cuda.set_sync_debug_mode("default")
     assert value.device.type == grad.device.type == "cuda"
     assert float(value) == pytest.approx(float(value2), rel=1e-12)
+
+
+@pytest.mark.cuda
+def test_captured_template_call_matches_eager(card_pipeline):
+    """On the card the template call is captured at its first call: a
+    replay equals a fresh eager run of the same template to 1e-12 per bin
+    (fp64), at two points and after a range change, and waits once (the
+    read of its result)."""
+    ct = card_pipeline.compile()
+    eager = card_pipeline.compile(capture=False)
+    assert ct.capture and not eager.capture
+
+    def worst(point):
+        got, want = ct.get_outputs(point), eager.get_outputs(point)
+        assert [m.name for m in got] == [m.name for m in want]
+        return max(
+            float(np.abs(g.hist - w.hist).max() / np.abs(w.hist).max())
+            for g, w in zip(got, want))
+
+    assert worst(_card_point(ct, 5)) <= 1e-12
+    assert worst(_card_point(ct, 6)) <= 1e-12
+    theta23 = card_pipeline.params["theta23"]
+    saved = theta23.range
+    lo, hi = saved
+    theta23.range = (lo + 0.1 * (hi - lo), hi - 0.1 * (hi - lo))
+    try:
+        assert worst(_card_point(ct, 5)) <= 1e-12
+    finally:
+        theta23.range = saved
+    out = ct(_card_point(ct, 5))
+    assert list(out["hist"]) == ct.names
+    assert all(h.device.type == "cuda" for h in out["hist"].values())
+
+
+@pytest.mark.cuda
+def test_scan_totals_are_the_calls_totals(card_pipeline):
+    """scan_totals on the card: n replays with their totals copied into
+    one tensor, the same as n calls' totals; nothing waits until the read."""
+    ct = card_pipeline.compile()
+    vecs = np.random.RandomState(0).uniform(0.05, 0.95,
+                                            (6, len(ct.free_names)))
+    want = [float(sum(h.sum() for h in ct(v)["hist"].values()))
+            for v in vecs]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        totals = ct.scan_totals(vecs)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert totals.shape == (6,) and totals.device.type == "cuda"
+    np.testing.assert_allclose(totals.cpu().numpy(), want, rtol=1e-12)
