@@ -38,15 +38,27 @@ oscillation grid, 15 free parameters) on the card through its two paths:
   with its iterations, evaluations and waits for the card (float32);
 - the L-BFGS of ``analysis/device_fit.py`` on the card and on the CPU over
   the 20x20-grid flagship from the same start (float64): the same
-  iterations and best fit.
+  iterations and best fit;
+- the batched fits, this slice's main path: ``fit_batch_on_device`` with 4
+  lanes on the 20x20-grid flagship that stop at different iterations,
+  against each lane's solo fit on the card and against the same batch on
+  the CPU (float64),
+  and ``fit_pseudo_ensemble(cd, "llh", n_trials=64)`` on the flagship at
+  full width (float32), with the batched ``value_and_grad`` timed at B = 1,
+  16 and 64 (its launches, waits and peak memory) and one solo fit from the
+  same start beside the ensemble.
 
 It times the kernels (device-only, from a CUDA graph of 200 launches, and
 host-inclusive, from back-to-back launches between CUDA events; the
-multitangent at K = 3 and K = 6 beside K launches of the tangent), prints
-their registers and occupancy, and times ``value`` and ``value_and_grad`` by
-every route (per container, stacked, stacked and captured; deferral on and
-off; host clock and device time) with each route's launches, waits for the
-card and copies from the host, and the fit. A ``value_and_grad`` that waits
+multitangent at K = 3 and K = 6 beside K launches of the tangent), checks
+them with a lane axis (64 distinct lanes in one launch, the ensemble's
+shapes, against the plain version and against single launches) and times
+them device-only at 1, 16 and 64 of those lanes beside as many single
+launches, prints their registers and occupancy, and
+times ``value`` and ``value_and_grad`` by every route (per container,
+stacked, stacked and captured; deferral on and off; host clock and device
+time) with each route's launches, waits for the card and copies from the
+host, and the fit. A ``value_and_grad`` that waits
 for the card anywhere but at the read of its result fails the run. It exits
 non-zero on any failed check; the last line of a passing run is
 ``{"ok": true, "device": {...}}``. With ``--kernels-only`` it stops after
@@ -136,9 +148,33 @@ N_TEMPLATES = 100
 # per objective evaluation (one flag read per evaluation is the design)
 DEVICE_FIT_WAITS = 2.0
 # card vs CPU L-BFGS (float64, the 20x20-grid flagship): the same
-# iterations, best fits within this (rescaled)
+# iterations, best fits within this (rescaled); the iteration cap is low
+# because the CPU side takes ~3 s an iteration (the batched fits' parity
+# below holds four more fits to the same rule)
 LBFGS_X_ATOL = 1e-8
-LBFGS_MAX_STEPS = 20
+LBFGS_MAX_STEPS = 8
+# the batched kernels: lanes of one launch at the checks (the ensemble's
+# trials: the main path's lanes), and the first of them at the timings
+KERNEL_LANES = 64
+KERNEL_TIME_LANES = (1, 16, 64)
+# batched fits, float64, 20x20-grid flagship: lanes of distinct data, the
+# iteration cap, and the bounds on each lane's best fit against its solo
+# fit on the card (the same objective, its lanes in one program) and
+# against the same batch on the CPU (another summation order)
+BATCH_FIT_LANES = 4
+BATCH_FIT_STEPS = 10
+# ... and its stopping tolerance (the gradient's L2 norm in z), at which the
+# lanes stop at different iterations (1, 6, 10 and 10 on the CPU): the lanes
+# that have stopped stay frozen while the others go on
+BATCH_FIT_GTOL = 0.5
+BATCH_SOLO_X_ATOL = 1e-10
+BATCH_CPU_X_ATOL = 1e-9
+# the float32 ensemble on the flagship: trials (lanes), iteration cap
+# (fit_pseudo_ensemble's default), and the lanes the batched
+# value_and_grad is timed at
+ENSEMBLE_TRIALS = 64
+ENSEMBLE_MAX_STEPS = 100
+VG_LANES = (1, 16, 64)
 # the per-container eager Asimov fit (unstacked, uncaptured) is cut to
 # this many iterations: at float32 the reference's L-BFGS never meets gtol and
 # runs to max_steps, which per container and eager takes over a minute on
@@ -587,6 +623,82 @@ def lbfgs_parity_fp64(smi):
     check(dx <= LBFGS_X_ATOL, "card and CPU L-BFGS best fits differ")
 
 
+def batch_parity_fp64(smi):
+    """float64, the batched fits on the 20x20-grid flagship:
+    BATCH_FIT_LANES lanes, fit by fit_batch_on_device on the card and on
+    the CPU, and each lane by itself (minimize_on_device over the
+    single-lane objective of its data) on the card: the same iterations
+    lane by lane, best fits within BATCH_SOLO_X_ATOL and BATCH_CPU_X_ATOL.
+    Lane 0 fits the Asimov template from the nominal values (its optimum:
+    it stops after one iteration), lane 1 the Asimov template from theta23
+    + 0.01 rescaled, lanes 2 and 3 seeded Poisson data of it from the
+    nominal values and from theta23 + 0.05; at BATCH_FIT_GTOL they stop at
+    different iterations, which the check requires."""
+    import numpy as np
+
+    from pisa_tpu_torch.analysis.device_fit import (
+        fit_batch_on_device,
+        minimize_on_device,
+    )
+    from pisa_tpu_torch.analysis.gradient import CompiledDistribution
+    from pisa_tpu_torch.core.pipeline import Pipeline
+
+    cds = {device: CompiledDistribution(Pipeline(small_grid_config(),
+                                                 device=device))
+           for device in ("cuda", "cpu")}
+    x0 = cds["cpu"].current_rescaled_values()
+    asimov = cds["cpu"].sum_hist(x0)
+    rng = np.random.RandomState(20261017)
+    data = rng.poisson(np.clip(asimov, 0, None),
+                       (BATCH_FIT_LANES, asimov.size)).astype(np.float64)
+    data[:2] = asimov
+    x0s = np.tile(x0, (BATCH_FIT_LANES, 1))
+    i23 = cds["cpu"].free_names.index("theta23")
+    x0s[1, i23] += 0.01
+    x0s[3, i23] += 0.05
+    fits = {}
+    for device, cd in cds.items():
+        value_fn, _ = cd.build_objective(asimov, "llh")
+        t0 = time.perf_counter()
+        x, fun, nit = fit_batch_on_device(
+            value_fn.raw_with_data, x0s, *cd._current_bounds(), data,
+            max_steps=BATCH_FIT_STEPS, gtol=BATCH_FIT_GTOL, device=device)
+        fits[device] = (x.cpu().numpy(), fun.cpu().numpy(),
+                        nit.cpu().numpy())
+        print(f"float64 batched fit, {BATCH_FIT_LANES} lanes, 20x20-grid"
+              f" flagship, {device}: nit {fits[device][2].tolist()}, fun"
+              f" {fits[device][1].tolist()}; wall"
+              f" {time.perf_counter() - t0:.2f} s (with the capture) [{smi}]")
+    solo_nit, solo_dx = [], 0.0
+    t0 = time.perf_counter()
+    for b in range(BATCH_FIT_LANES):
+        value_fn, _ = cds["cuda"].build_objective(data[b], "llh")
+        fit = minimize_on_device(value_fn.raw, x0s[b],
+                                 *cds["cuda"]._current_bounds(),
+                                 max_steps=BATCH_FIT_STEPS,
+                                 gtol=BATCH_FIT_GTOL, device="cuda")
+        solo_nit.append(fit["nit"])
+        solo_dx = max(solo_dx, float(np.abs(fit["x"]
+                                            - fits["cuda"][0][b]).max()))
+    cpu_dx = float(np.abs(fits["cuda"][0] - fits["cpu"][0]).max())
+    print(f"float64 batched fit on the card vs each lane's solo card fit:"
+          f" nit {fits['cuda'][2].tolist()} vs {solo_nit}, max |dx|"
+          f" {solo_dx:.3e} (bound {BATCH_SOLO_X_ATOL:g}); solo fits"
+          f" {time.perf_counter() - t0:.2f} s [{smi}]")
+    print(f"float64 batched fit, card vs CPU: nit"
+          f" {fits['cuda'][2].tolist()} vs {fits['cpu'][2].tolist()}, max"
+          f" |dx| {cpu_dx:.3e} (bound {BATCH_CPU_X_ATOL:g}) [{smi}]")
+    check(len(set(solo_nit)) > 1,
+          f"the lanes all stopped at iteration {solo_nit[0]}")
+    check(fits["cuda"][2].tolist() == solo_nit,
+          "a batched lane took other iterations than its solo fit")
+    check(solo_dx <= BATCH_SOLO_X_ATOL,
+          "a batched lane's best fit is off its solo fit")
+    check(np.array_equal(fits["cuda"][2], fits["cpu"][2]),
+          "card and CPU batched fits took different iterations")
+    check(cpu_dx <= BATCH_CPU_X_ATOL, "card and CPU batched fits differ")
+
+
 # -- the float64 child ---------------------------------------------------------
 def reference_worker(path):
     """float64: the CPU reference and the card run at every template point,
@@ -628,6 +740,10 @@ def reference_worker(path):
     lbfgs_parity_fp64(smi)
     print(f"float64 L-BFGS parity phase: {time.perf_counter() - t0:.1f} s"
           f" [{smi}]")
+    t0 = time.perf_counter()
+    batch_parity_fp64(smi)
+    print(f"float64 batched-fit parity phase: {time.perf_counter() - t0:.1f}"
+          f" s [{smi}]")
     np.savez(path, **arrays)
 
 
@@ -694,8 +810,9 @@ def flagship_geometry(dtype):
     ), params
 
 
-def flagship_thetas(params):
-    """Nominal NuFIT and 3 seeded random theta (the same for every dtype)."""
+def flagship_thetas(params, count=4):
+    """Nominal NuFIT and `count` - 1 seeded random theta (the same for every
+    dtype; the first 4 the same for every count)."""
     import numpy as np
 
     nominal = [
@@ -709,7 +826,7 @@ def flagship_thetas(params):
          np.radians(rng.uniform(38, 52)), np.radians(rng.uniform(0, 360)),
          rng.uniform(7e-5, 8e-5),
          rng.choice([-1, 1]) * rng.uniform(2.3e-3, 2.7e-3)]
-        for _ in range(3)
+        for _ in range(count - 1)
     ]
 
 
@@ -724,21 +841,22 @@ def pack_and_directions(chain, theta, nubar, dtype):
             jac.T.contiguous().to("cuda", dtype))
 
 
-def kernel_bound(chain, geom, k, with_primal):
-    """Least time of one launch on the card: operations
-    (chain.chain_operations, counted for this geometry's layer steps) over
-    the peak rate of the dtype, or bytes (inputs read once: energy, bounds,
-    the slab entries the chains reach, the pack and its directions; outputs
-    written once) over the memory rate; the larger, and which it is."""
+def kernel_bound(chain, geom, k, with_primal, lanes=1):
+    """Least time of one launch over `lanes` lanes on the card: operations
+    (chain.chain_operations, counted for this geometry's layer steps, each
+    lane's) over the peak rate of the dtype, or bytes (inputs read once:
+    energy, bounds and the slab entries the chains reach, shared by the
+    lanes, and each lane's pack and directions; each lane's outputs written
+    once) over the memory rate; the larger, and which it is."""
     dname = str(geom["e"].dtype).split(".")[-1]
     size = geom["e"].element_size()
     n = geom["e"].shape[0]
     steps = int((geom["dist"] > 0).sum())
     slab_entries = int(geom["nl"].long().sum())
-    per_point, per_step = chain.chain_operations(k)
+    per_point, per_step = chain.chain_operations(k, lanes)
     ops = n * per_point + steps * per_step
-    outputs = 6 * n * (k + (1 if with_primal else 0))
-    nbytes = size * (n + 2 * slab_entries + chain.N_PACK * (1 + k)
+    outputs = 6 * n * (k + (1 if with_primal else 0)) * lanes
+    nbytes = size * (n + 2 * slab_entries + chain.N_PACK * (1 + k) * lanes
                      + outputs) + 4 * n
     t_ops = ops / PEAK_FLOPS[dname] * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -965,6 +1083,139 @@ def multitangent_vs_plain(chain):
     return summary
 
 
+def lane_kernels(chain):
+    """The three kernels with a lane axis at the main path's shapes (the
+    flagship geometry, KERNEL_LANES lanes: the ensemble's trials), float64
+    and float32. The lanes are distinct: the nominal and seeded random
+    theta, neutrinos in the even lanes and antineutrinos in the odd ones.
+    One launch over all lanes is held against the plain version's lane axis
+    in float64 on the same inputs, within the single launches' bounds
+    (primal absolute; tangents relative to each lane's and direction's
+    largest): in float32 that is the kernel's own error, where the float32
+    plain version has one of its own (printed beside it; its tangents reach
+    1e-3 of their largest at some of these lanes). Lane b is held against a
+    single launch at pack b (0.0 in float64: the same code in the same
+    order).
+    Then each kernel's device-only time (a CUDA graph) over the first
+    KERNEL_TIME_LANES of those lanes beside as many single launches, with
+    each lane count's bound. Returns per kernel and dtype the errors and
+    the times by lane count."""
+    import torch
+
+    summary = {name: {} for name in KERNELS}
+    for dtype in (torch.float64, torch.float32):
+        dname = str(dtype).split(".")[-1]
+        geom, params = flagship_geometry(dtype)
+        args = (geom["e"], geom["dens"], geom["dist"], geom["nl"])
+        args64 = tuple(a.double() for a in args[:3]) + args[3:]
+        tiles = geom["tiles"]
+        theta = torch.tensor(flagship_thetas(params, KERNEL_LANES),
+                             dtype=torch.float64)
+        nu = (torch.arange(KERNEL_LANES) % 2 == 0)[:, None]
+        pvec = torch.where(nu, chain.theta_to_pvec(theta, 1),
+                           chain.theta_to_pvec(theta, -1))
+        pvec = pvec.to("cuda", dtype).contiguous()
+        dirs = torch.where(nu[..., None], chain.pack_jacobian(theta, 1),
+                           chain.pack_jacobian(theta, -1))
+        dirs = dirs[..., list(FREE_THETA)].transpose(1, 2)
+        dirs = dirs.to("cuda", dtype).contiguous()  # (B, K, 57)
+        # name: (tangents K, directions, the kernel, its plain version,
+        # which outputs are tangents)
+        cases = {
+            "osc_chain": (
+                0, None,
+                lambda p, d: (chain.chain_probs(p, *args, tiles),),
+                lambda p, d, a: (chain.chain_probs_reference(p, *a),),
+                (False,)),
+            "osc_chain_tangent": (
+                1, dirs[:, 1].contiguous(),
+                lambda p, d: (chain.chain_tangent(p, d, *args, tiles),),
+                lambda p, d, a: (chain.chain_tangent_reference(p, d, *a),),
+                (True,)),
+            "osc_chain_multitangent": (
+                len(FREE_THETA), dirs,
+                lambda p, d: chain.chain_multitangent(p, d, *args, tiles),
+                lambda p, d, a: chain.chain_multitangent_reference(p, d, *a),
+                (False, True)),
+        }
+
+        def errors(outputs, ref, tangent):
+            """Max abs difference, max tangent difference relative to each
+            lane's and direction's largest, max primal difference."""
+            err_abs = err_rel = primal_err = 0.0
+            for g, r, is_tangent in zip(outputs, ref, tangent):
+                diff = (g.double() - r).abs()
+                err_abs = max(err_abs, float(diff.max()))
+                if is_tangent:
+                    scale = r.abs().amax(dim=(-3, -2, -1), keepdim=True)
+                    err_rel = max(err_rel, float((diff / scale).max()))
+                else:
+                    primal_err = max(primal_err, float(diff.max()))
+            return err_abs, err_rel, primal_err
+
+        for name, (k, d, run, plain, tangent) in cases.items():
+            t0 = time.perf_counter()
+            got = run(pvec, d)
+            ref = plain(pvec.double(), None if d is None else d.double(),
+                        args64)
+            torch.cuda.synchronize()
+            for g in got:
+                check(bool(torch.isfinite(g).all()),
+                      f"{dname}: {name} with lanes not finite")
+            err_abs, err_rel, primal_err = errors(got, ref, tangent)
+            plain_own = ""
+            if dtype != torch.float64:
+                own = errors(plain(pvec, d, args), ref, tangent)
+                plain_own = (f"; the {dname} plain version vs float64:"
+                             f" primal {own[2]:.3e} abs, tangents"
+                             f" {own[1]:.3e} rel")
+            del ref
+            vs_single = 0.0
+            for b in range(KERNEL_LANES):
+                single = run(pvec[b], None if d is None else d[b])
+                for g, s in zip(got, single):
+                    vs_single = max(vs_single, float((g[b] - s).abs().max()))
+            bound_rel = TANGENT_RTOL[dname]
+            bound_abs = (MULTI_PRIMAL_ATOL[dname] if k else KERNEL_ATOL[dname])
+            print(f"lanes, {name} {dname}: {KERNEL_LANES} distinct lanes in"
+                  f" one launch vs plain (float64): primal {primal_err:.3e}"
+                  f" abs (bound {bound_abs:g}), tangents {err_rel:.3e} rel"
+                  f" (bound {bound_rel:g}){plain_own}; vs {KERNEL_LANES}"
+                  f" single launches {vs_single:.3e}"
+                  f" ({'must be 0.0' if dtype == torch.float64 else 'float32'});"
+                  f" {time.perf_counter() - t0:.1f} s")
+            check(primal_err <= bound_abs and err_rel <= bound_rel,
+                  f"{dname}: {name} lanes disagree with the plain version")
+            if dtype == torch.float64:
+                check(vs_single == 0.0,
+                      f"{name}: a lane differs from its single launch by"
+                      f" {vs_single}")
+            times = {}
+            for lanes in KERNEL_TIME_LANES:
+                p_l = pvec[:lanes].contiguous()
+                d_l = None if d is None else d[:lanes].contiguous()
+                batched_ms = graph_time(lambda: run(p_l, d_l),
+                                        launches=max(3, 200 // lanes))
+                singles_ms = graph_time(
+                    lambda: [run(p_l[b], None if d_l is None else d_l[b])
+                             for b in range(lanes)],
+                    launches=max(2, 200 // lanes))
+                bound = kernel_bound(chain, geom, k, not tangent[0], lanes)
+                times[lanes] = {"ms": batched_ms, "singles_ms": singles_ms,
+                                "bound_ms": bound["bound_ms"],
+                                "bound_by": bound["bound_by"]}
+                print(f"time, {name} {dname}, {lanes} lanes: one launch"
+                      f" {batched_ms:.5f} ms device-only (CUDA graph),"
+                      f" {lanes} single launches {singles_ms:.5f} ms; bound"
+                      f" {bound['bound_ms']:.5f} ms by {bound['bound_by']}"
+                      f" ({bound['ops']} operations, {bound['bytes']} bytes):"
+                      f" {100 * bound['bound_ms'] / batched_ms:.1f}% of it")
+            summary[name][dname] = {"max_abs_err": err_abs,
+                                    "max_rel_err": err_rel,
+                                    "vs_single": vs_single, "lanes": times}
+    return summary
+
+
 def tile_line(tiles):
     t = tiles["tile"]
     return (f"{t.shape[0]} tiles of <= {int(t[:, 3].max())} steps"
@@ -1120,13 +1371,15 @@ def count_host_syncs(fn, sources=None):
 
     import torch
 
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
+    # the mode is switched outside the recorded region: the first switch in
+    # a process may itself warn, and that is no wait of fn's
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
             result = fn()
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
     syncs = [w for w in caught if "synchroniz" in str(w.message)]
     if sources is not None:
         for w in syncs:
@@ -1655,6 +1908,140 @@ def analysis_fp32(chain, ureg, smi):
     return launches
 
 
+def ensemble_fp32(chain, smi):
+    """The slice's main path at full width, float32: the flagship's
+    DistributionMaker on the card, its CompiledDistribution, and
+    fit_pseudo_ensemble(cd, "llh", n_trials=ENSEMBLE_TRIALS, seed=0,
+    max_steps=ENSEMBLE_MAX_STEPS), which captures its batched objective
+    (counts set to 0 just before it, read just after). Then the batched
+    objective (value_fn.raw_with_data) at VG_LANES lanes: its launches per
+    eager value_and_grad (which must not grow with the lanes), the captured
+    value_and_grad's capture, wall (one wait) and back-to-back time, and the
+    peak memory; and one solo minimize_on_device fit of trial 0's data from
+    the same start. Returns the ensemble's launches."""
+    import numpy as np
+    import torch
+
+    from pisa_tpu_torch import TORCH_FTYPE
+    from pisa_tpu_torch.analysis.device_fit import (
+        fit_pseudo_ensemble,
+        minimize_on_device,
+    )
+    from pisa_tpu_torch.analysis.gradient import CompiledDistribution
+    from pisa_tpu_torch.core.distribution_maker import DistributionMaker
+
+    t0 = time.perf_counter()
+    dm = DistributionMaker([CFG], device="cuda")
+    cd = CompiledDistribution(dm)
+    x_nom = cd.current_rescaled_values()
+    asimov = cd.sum_hist(x_nom)
+    value_fn, _ = cd.build_objective(asimov, "llh")
+    torch.cuda.synchronize()
+    print(f"ensemble phase: DistributionMaker, CompiledDistribution and"
+          f" objective set-up {time.perf_counter() - t0:.2f} s [{smi}]")
+
+    # -- the main path
+    reset_launch_counts(chain)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ens = fit_pseudo_ensemble(cd, "llh", n_trials=ENSEMBLE_TRIALS, seed=0,
+                              max_steps=ENSEMBLE_MAX_STEPS)
+    wall = time.perf_counter() - t0
+    launches = launch_counts(chain)
+    nit = ens["nit"]
+    print(f"fit_pseudo_ensemble, {ENSEMBLE_TRIALS} trials, flagship, float32:"
+          f" wall {wall:.3f} s with the capture of its {ENSEMBLE_TRIALS}-lane"
+          f" objective ({wall / ENSEMBLE_TRIALS * 1e3:.2f} ms a lane), nit"
+          f" median {float(np.median(nit))} max {int(nit.max())} min"
+          f" {int(nit.min())}, {ens['nfev']} evaluations, {ens['reads']} flag"
+          f" reads; peak memory"
+          f" {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB; launches"
+          f" (primal, tangent, multitangent) {launches} [{smi}]")
+    check(launches[0] > 0 and launches[2] > 0,
+          "a kernel of the ensemble path never ran")
+    check(np.all(np.isfinite(ens["fun"])) and np.all(nit > 0),
+          "the ensemble's fits are not all finite")
+    check(np.all(np.isfinite(ens["magnitudes"])),
+          "the ensemble's magnitudes are not all finite")
+    check(len({d.tobytes() for d in ens["data"]}) == ENSEMBLE_TRIALS,
+          "the ensemble's trials share data")
+    nominal = [p.value.m_as(p.units) for p in cd._free_params]
+    for i, name in enumerate(ens["free_names"]):
+        col = ens["magnitudes"][:, i]
+        print(f"  {name:22s} injected {nominal[i]: .6g}  mean"
+              f" {float(col.mean()): .6g}  std {float(col.std()): .6g}")
+
+    # -- the batched value_and_grad by lanes
+    eager = cd._objective(asimov, "llh")
+    los, his = cd._device_bounds()
+    lam = torch.as_tensor(asimov, dtype=TORCH_FTYPE, device="cuda")
+    generator = torch.Generator(device="cuda")
+    generator.manual_seed(1)
+    rng = np.random.RandomState(3)
+    per_lane = {}
+    for lanes in VG_LANES:
+        x = np.clip(x_nom + rng.uniform(-0.05, 0.05, (lanes, x_nom.size)),
+                    0.01, 0.99)
+        vec = torch.as_tensor(x, device="cuda")
+        data = torch.poisson(lam.expand(lanes, -1).contiguous(),
+                             generator=generator)
+        # one eager batched value_and_grad: its kernel launches
+        reset_launch_counts(chain)
+        v = vec.clone().requires_grad_(True)
+        eager(v, los, his, data).sum().backward()
+        torch.cuda.synchronize()
+        vg_launches = launch_counts(chain)
+        # the ensemble captured its lane count's program already
+        captured = (lanes, True) in value_fn.raw_with_data.programs
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        value_fn.raw_with_data(vec, los, his, data)
+        torch.cuda.synchronize()
+        capture = ("by the ensemble" if captured else
+                   f"{time.perf_counter() - t0:.2f} s")
+        program = value_fn.raw_with_data.programs[(lanes, True)]
+        program.load_extra(data)
+
+        def vg():
+            value, grad = program.value_and_grad(vec, los, his)
+            return torch.cat([value.reshape(-1), grad.reshape(-1)]).cpu()
+
+        waits = print_host_sync_sources(
+            f"batched value_and_grad, {lanes} lanes", vg)
+        vg_wall, wall_min = median_wall(vg, 10)
+        back_ms = cuda_time(lambda: program.value_and_grad(vec, los, his),
+                            20)
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        per_lane[lanes] = vg_launches
+        print(f"batched value_and_grad, {lanes} lanes, float32: wall"
+              f" {vg_wall * 1e3:.3f} ms median of 10 (min"
+              f" {wall_min * 1e3:.3f}), {back_ms:.3f} ms back to back"
+              f" ({back_ms / lanes:.4f} ms a lane); capture {capture};"
+              f" launches (primal, tangent, multitangent) per eager"
+              f" value_and_grad {vg_launches}; {waits} wait(s); peak memory"
+              f" {peak:.1f} MiB{' (replays only)' if captured else ''}"
+              f" [{smi}]")
+        check(waits == 1, f"the batched value_and_grad at {lanes} lanes"
+              f" waited {waits} times")
+    check(set(per_lane.values()) == {expected_vg_launches(True)},
+          f"batched value_and_grad launches by lanes: {per_lane}")
+
+    # -- one solo fit beside the ensemble
+    value_0, _ = cd.build_objective(ens["data"][0], "llh")
+    value_0.raw(torch.as_tensor(x_nom, device="cuda"), los, his)  # capture
+    t0 = time.perf_counter()
+    solo = minimize_on_device(value_0.raw, x_nom, *cd._current_bounds(),
+                              max_steps=ENSEMBLE_MAX_STEPS, device="cuda")
+    solo_wall = time.perf_counter() - t0
+    print(f"solo minimize_on_device, trial 0's data, same start, float32:"
+          f" wall {solo_wall:.3f} s, nit {solo['nit']} (lane 0: {int(nit[0])}),"
+          f" {solo['nfev']} evaluations, {solo['reads']} flag reads; the"
+          f" ensemble took {wall / solo_wall:.2f} solo fits' wall for"
+          f" {ENSEMBLE_TRIALS} fits [{smi}]")
+    del dm, cd
+    return launches
+
+
 def print_kernel_times(kernels, smi):
     for name, k in kernels.items():
         for dname, t in k.items():
@@ -1693,6 +2080,7 @@ def main(kernels_only=False):
         "osc_chain_tangent": tangent_vs_plain(chain),
         "osc_chain_multitangent": multitangent_vs_plain(chain),
     }
+    lanes = lane_kernels(chain)
     print_kernel_times(kernels, smi)
     if kernels_only:
         return 0
@@ -1775,19 +2163,25 @@ def main(kernels_only=False):
     t0 = time.perf_counter()
     template_path, _ = template_fp32(pipeline, chain, smi)
     print(f"float32 template phase: {time.perf_counter() - t0:.1f} s")
-    # float32, fits through the analysis layer (the slice's main path)
+    # float32, fits through the analysis layer
     t0 = time.perf_counter()
     analysis_path = analysis_fp32(chain, ureg, smi)
     print(f"float32 analysis phase: {time.perf_counter() - t0:.1f} s")
+    # float32, the batched fits (this slice's main path)
+    t0 = time.perf_counter()
+    ensemble_path = ensemble_fp32(chain, smi)
+    print(f"float32 ensemble phase: {time.perf_counter() - t0:.1f} s")
     print(f"launches (primal, tangent, multitangent) by path: gradient and fit"
-          f" {fit_path}, template {template_path}, analysis {analysis_path}")
+          f" {fit_path}, template {template_path}, analysis {analysis_path},"
+          f" ensemble {ensemble_path}")
     main_path = tuple(sum(c) for c in zip(fit_path, template_path,
-                                          analysis_path))
+                                          analysis_path, ensemble_path))
 
     print_kernel_times(kernels, smi)
     lines = []
     for (name, replaces), launches in zip(KERNELS.items(), main_path):
         k = kernels[name]["float32"]
+        lane = lanes[name]["float32"]
         lines.append({
             "name": name,
             "route": "cuda",
@@ -1807,6 +2201,10 @@ def main(kernels_only=False):
             "local_bytes": k["local_bytes"],
             "threads": k["threads"],
             "blocks_per_sm": k["blocks_per_sm"],
+            # one launch over several lanes (the batched fits), device-only,
+            # beside as many single launches, with its bound
+            "lanes_max_abs_err": lane["max_abs_err"],
+            "lanes": {str(b): t for b, t in lane["lanes"].items()},
         })
     print(json.dumps({"kernels": lines}))
     print(smi)

@@ -22,6 +22,16 @@ data into its jitted objective as an argument (``_all_data_vals``), the
 port's graphs read the data tensors by address, where they lay at capture,
 and keep them alive; so ``value_fn.raw`` takes ``(vec, los, his)`` only.
 On the CPU the same functions run eagerly.
+
+``value_fn.raw_with_data`` (``pisa_tpu/analysis/gradient.py:316-318``) is
+the batched form for the batched fits (``analysis/device_fit.py``):
+``(vec (B, n), los, his, data (B, bins) or None) -> (B,)`` values, B
+independent lanes in one program (``core/template.py``), differentiable in
+`vec`; ``None`` compares every lane with the closed-over data. On a CUDA
+device it is captured once per (B, with or without data), the data batch a
+static input of the program that a call copies in;
+``raw_with_data.bind(data, B)`` copies it in once and returns ``(vec, los,
+his) -> (B,)`` for all the evaluations of a fit.
 """
 
 from __future__ import annotations
@@ -89,41 +99,68 @@ class _FreeParams:
     def _prior_penalty(self, vec, los, his, maximize):
         """The free params' prior penalties in the metric's family (llh, or
         chi2 = -2 llh), from the magnitudes of `vec` (``gradient.py:261-287``
-        of the JAX package)."""
+        of the JAX package); one per lane for a (B, n) `vec`."""
         if any(p.name.startswith("daemon_") for p in self._free_params):
             raise NotImplementedError(
                 "the daemonflux correlated prior penalty is not ported yet"
                 " (ROADMAP queue 1, item 10)"
             )
         mags = magnitudes_from_rescaled(vec, los, his, self._log_scaled)
+        lead = tuple(vec.shape[:-1])
         penalty = 0.0
         for p, mag in zip(self._free_params, mags):
             if p.prior is None:
                 continue
             if p.prior.units is not None:
                 mag = mag * Quantity(1.0, p.units).m_as(p.prior.units)
-            penalty = penalty + p.prior.llh_torch(mag) * (
+            penalty = penalty + p.prior.llh_torch(mag).reshape(lead) * (
                 1.0 if maximize else -2.0)
         return penalty
 
     def _wrap_objective(self, objective, capture):
         """``(value_fn, vg_fn)`` of the rescaled vector over
-        ``objective(vec, los, his)``: captured in one program on a CUDA
-        device, eager otherwise; ``value_fn.raw`` is the objective with the
-        bounds as arguments, differentiable in `vec`, for
-        :func:`pisa_tpu_torch.analysis.device_fit.minimize_on_device`."""
+        ``objective(vec, los, his[, data])``: captured in one program on a
+        CUDA device, eager otherwise; ``value_fn.raw`` is the objective with
+        the bounds as arguments, differentiable in `vec`, for
+        :func:`pisa_tpu_torch.analysis.device_fit.minimize_on_device`, and
+        ``value_fn.raw_with_data`` its batched form (module docstring)."""
         device = self.device
         if capture:
             program = CapturedObjective(
                 objective, self.current_rescaled_values(),
                 *self._device_bounds(), device=device)
             vg = program.value_and_grad
+            batched = {}  # (B, with data) -> CapturedObjective
 
             def raw(vec, los, his):
                 return program.differentiable(vec, los, his)
+
+            def bind_data(data, lanes):
+                key = (lanes, data is not None)
+                extra = () if data is None else (data,)
+                if key not in batched:
+                    batched[key] = CapturedObjective(
+                        objective,
+                        np.tile(self.current_rescaled_values(), (lanes, 1)),
+                        *self._device_bounds(), device=device, extra=extra)
+                else:
+                    batched[key].load_extra(*extra)
+                bound = batched[key]
+
+                def raw_bound(vec, los, his):
+                    _check_lanes(vec, data, device, lanes)
+                    return bound.differentiable(vec, los, his)
+                return raw_bound
         else:
             program = None
             raw = objective
+            batched = None
+
+            def bind_data(data, lanes):
+                def raw_bound(vec, los, his):
+                    _check_lanes(vec, data, device, lanes)
+                    return objective(vec, los, his, data)
+                return raw_bound
 
             def vg(vec, los, his):
                 vec = _on_device(vec, device).detach().clone()
@@ -131,6 +168,10 @@ class _FreeParams:
                 value = objective(vec, los, his)
                 (grad,) = torch.autograd.grad(value, vec)
                 return value.detach(), grad
+
+        def raw_with_data(vec, los, his, data=None):
+            _check_lanes(vec, data, device)
+            return bind_data(data, vec.shape[0])(vec, los, his)
 
         def value_fn(vec):
             with torch.no_grad():
@@ -141,10 +182,35 @@ class _FreeParams:
             return vg(_maybe_on_device(vec, device, capture),
                       *self._device_bounds())
 
-        raw.device = device
+        raw.device = raw_with_data.device = device
+        #: the captured batched programs, by (B, with data)
+        raw_with_data.programs = batched
+        #: ``bind(data, lanes)``: the batched objective with `data` (B, bins)
+        #: or None fixed, ``(vec, los, his) -> (B,)``; on the card the data
+        #: is copied into the program once, at the bind, for a whole fit
+        raw_with_data.bind = bind_data
         value_fn.raw = vg_fn.raw = raw
+        value_fn.raw_with_data = vg_fn.raw_with_data = raw_with_data
         value_fn.program = vg_fn.program = program
         return value_fn, vg_fn
+
+
+def _check_lanes(vec, data, device, lanes=None):
+    """A batched objective takes a (B, n) tensor on its device (B = `lanes`
+    where given) and (B, bins) data or None."""
+    if not isinstance(vec, torch.Tensor) or vec.dim() != 2:
+        raise ValueError("raw_with_data takes a (B, n) tensor of lanes; got"
+                         f" {type(vec).__name__} {tuple(np.shape(vec))}")
+    if lanes is not None and vec.shape[0] != lanes:
+        raise ValueError(f"the objective was bound for {lanes} lanes; got"
+                         f" {vec.shape[0]}")
+    for x in (vec, data):
+        if x is not None and x.device != device:
+            raise ValueError(f"the objective lives on {device}; got a tensor"
+                             f" on {x.device}")
+    if data is not None and (data.dim() != 2 or data.shape[0] != vec.shape[0]):
+        raise ValueError(f"data must be ({vec.shape[0]}, bins) for"
+                         f" {vec.shape[0]} lanes; got {tuple(data.shape)}")
 
 
 def _on_device(x, device):
@@ -221,14 +287,16 @@ class CompiledDistribution(_FreeParams):
 
     # -- the summed template ----------------------------------------------------
     def _sum_fn(self, vec, los, his):
-        """The summed histogram (flat) of every map of every pipeline."""
+        """The summed histogram (flat) of every map of every pipeline; (B,
+        bins) for a (B, n) `vec` of lanes."""
+        lanes = vec.shape[0] if vec.dim() == 2 else None
         total = None
         for ct, idx in zip(self.templates, self._index_tensors):
-            sub, sub_lo, sub_hi = (x.index_select(0, idx)
-                                   for x in (vec, los, his))
+            sub = vec.index_select(-1, idx)
+            sub_lo, sub_hi = (x.index_select(0, idx) for x in (los, his))
             hist, _, _ = ct._stack_outputs(ct._evaluate(
-                ct._magnitudes_from_rescaled(sub, sub_lo, sub_hi)))
-            s = hist.sum(0)
+                ct._magnitudes_from_rescaled(sub, sub_lo, sub_hi), lanes))
+            s = hist.sum(-2)
             total = s if total is None else total + s
         return total
 
@@ -317,11 +385,14 @@ class CompiledDistribution(_FreeParams):
         var = on_device(var if var is not None else np.zeros(data.shape))
         uses_variance = metric in _USES_VARIANCE
 
-        def objective(vec, los, his):
+        def objective(vec, los, his, data_arg=None):
+            # `data_arg`: the observed histograms as a program input, one
+            # per lane (the batched fits); the closed-over variance stays
             exp = self._sum_fn(vec, los, his)
-            vals = (metric_fn(data, exp, var) if uses_variance
-                    else metric_fn(data, exp))
-            total = vals.sum()
+            d = data if data_arg is None else data_arg
+            vals = (metric_fn(d, exp, var) if uses_variance
+                    else metric_fn(d, exp))
+            total = vals.sum(-1)
             if priors:
                 total = total + self._prior_penalty(vec, los, his, maximize)
             return -total if maximize else total

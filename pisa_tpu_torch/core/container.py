@@ -16,6 +16,22 @@ Counterpart of ``pisa_tpu/core/container.py`` (reference
 - ``link_containers`` groups physically identical containers so shared
   quantities are computed once (``VirtualContainer``).
 
+Lanes (the batched fits' B independent parameter points, evaluated in one
+program by ``core/template.py``): while a compiled template evaluates lanes
+it sets ``lanes`` = B on every container. Then every value a stage reads
+carries a leading lane axis: a value written in this evaluation has it, a
+value from before (the hoisted stages' static data, a binning coordinate)
+is returned as a broadcast view ``expand(B, ...)``, which costs no memory;
+and every value a stage writes must carry it. So stage code sees one shape
+convention, ``(B, *shape)``. A written floating value is stored in
+``TORCH_FTYPE``. A lane's magnitudes are (B, 1) float64 tensors, which,
+unlike the 0-d ones of a single point, would promote float32 data to
+float64: stages take them through ``core.stage.in_data_type``, so that a
+lane computes in the data's type as its single point does. A translation
+between representations of a laned value is supported on a
+category-stacked container (``core/stacking.py``), not on a plain one (it
+raises).
+
 Variables are torch tensors on the container set's device. Host arrays
 (numpy) are uploaded when set, floating ones in ``TORCH_FTYPE`` (as the JAX
 package's arrays take FTYPE); a tensor on another device is refused rather
@@ -89,6 +105,11 @@ class Container:
         self._flatidx = {}
         #: cache key -> coordinate names the entry depends on
         self._flatidx_names = {}
+        #: the number of lanes of the evaluation in progress (None: one
+        #: parameter point); set by the compiled template
+        self.lanes = None
+        #: keys written with the lane axis in the evaluation in progress
+        self._laned = set()
         self.representation = representation
 
     # -- representation handling --------------------------------------------
@@ -114,10 +135,10 @@ class Container:
     def shape(self):
         if self.is_map:
             return self._representation.shape
-        for per_rep in self._data.values():
+        for key, per_rep in self._data.items():
             arr = per_rep.get(_rep_hash(self._representation))
             if arr is not None:
-                return (arr.shape[0],)
+                return (arr.shape[1 if key in self._laned else 0],)
         return None
 
     @property
@@ -162,7 +183,7 @@ class Container:
     # -- get / set ------------------------------------------------------------
     def __getitem__(self, key):
         if self.is_map and key in self._representation.names:
-            return self._binning_coord(key)
+            return self._with_lanes(key, self._binning_coord(key))
         if key not in self._data:
             if key in self._aux_data:
                 return self._aux_data[key]
@@ -173,7 +194,29 @@ class Container:
         h = _rep_hash(self._representation)
         if not self.validity[key].get(h, False):
             self.auto_translate(key)
-        return self._data[key][h]
+        return self._with_lanes(key, self._data[key][h])
+
+    def _with_lanes(self, key, value):
+        """`value` as a stage sees it: in an evaluation of lanes, a value
+        without the lane axis as a broadcast view over the lanes."""
+        if self.lanes is None or key in self._laned:
+            return value
+        return value.expand((self.lanes,) + tuple(value.shape))
+
+    def _lane_value(self, key, data):
+        """In an evaluation of lanes, a written value: checked to carry the
+        lane axis first, and stored in ``TORCH_FTYPE`` if floating."""
+        if self.lanes is None:
+            return data
+        if data.dim() == 0 or data.shape[0] != self.lanes:
+            raise ValueError(
+                f"Container {self.name!r} evaluates {self.lanes} lanes; the"
+                f" value written to {key!r} has shape {tuple(data.shape)},"
+                " without the lane axis first"
+            )
+        if data.is_floating_point() and data.dtype != TORCH_FTYPE:
+            data = data.to(TORCH_FTYPE)
+        return data
 
     def __setitem__(self, key, data):
         if self.is_map and key in self._representation.names:
@@ -181,7 +224,8 @@ class Container:
         if key in self._aux_data:
             raise KeyError(f"Key {key!r} is aux data; cannot set as variable")
         h = _rep_hash(self._representation)
-        self._data.setdefault(key, {})[h] = self._flatten(self._to_device(data))
+        data = self._lane_value(key, self._to_device(data))
+        self._data.setdefault(key, {})[h] = self._flatten(data)
         if key not in self.translation_modes:
             self.translation_modes[key] = (
                 "sum" if key in self.sum_mode_keys else "average"
@@ -202,14 +246,19 @@ class Container:
 
     def _flatten(self, data):
         if self.is_map:
+            k = 0 if self.lanes is None else 1
             bshape = tuple(self._representation.shape)
-            if tuple(data.shape[: len(bshape)]) == bshape:
-                return data.reshape((-1,) + tuple(data.shape[len(bshape):]))
+            if tuple(data.shape[k:k + len(bshape)]) == bshape:
+                return data.reshape(tuple(data.shape[:k]) + (-1,)
+                                    + tuple(data.shape[k + len(bshape):]))
         return data
 
     def mark_changed(self, key):
-        """Current representation becomes the only valid one for `key`."""
+        """Current representation becomes the only valid one for `key` (in
+        an evaluation of lanes, a value with the lane axis)."""
         self.validity[key] = {_rep_hash(self._representation): True}
+        if self.lanes is not None:
+            self._laned.add(key)
         # a rewritten coordinate invalidates index caches built on it
         self.drop_index_caches({key})
 
@@ -232,12 +281,13 @@ class Container:
             self._representation,
             dict(self._representations),
             dict(self.translation_modes),
+            frozenset(self._laned),
         )
 
     def set_state(self, state):
         """Install a :meth:`state`; index caches built on a coordinate whose
         tensors differ between the two states are dropped."""
-        data, validity, rep, reps, modes = state
+        data, validity, rep, reps, modes, laned = state
 
         def same(a, b):
             return (a is None) == (b is None) and (
@@ -254,6 +304,7 @@ class Container:
         self._representation = rep
         self._representations = dict(reps)
         self.translation_modes = dict(modes)
+        self._laned = set(laned)
 
     def _binning_coord(self, key):
         """The unrolled weighted-center grid of binning dimension `key`,
@@ -291,6 +342,12 @@ class Container:
         from_map = isinstance(src_representation, MultiDimBinning)
         to_map = isinstance(dest, MultiDimBinning)
         values = self._data[key][_rep_hash(src_representation)]
+        if key in self._laned:
+            raise NotImplementedError(
+                f"translating {key!r} with a lane axis ({src_representation}"
+                f" -> {dest}) needs a category-stacked container; this"
+                " template runs per container"
+            )
 
         if mode == "average":
             if from_map and to_map:
@@ -328,13 +385,14 @@ class Container:
         self.validity[key][_rep_hash(dest)] = True
 
     def _sample_arrays(self, rep, names):
-        """Coordinate tensors for `names` as seen in representation `rep`."""
-        prev = self._representation
-        self._representation = rep
+        """Coordinate tensors for `names` as seen in representation `rep`
+        (without a lane axis: coordinates are static)."""
+        prev, lanes = self._representation, self.lanes
+        self._representation, self.lanes = rep, None
         try:
             return [self[n] for n in names]
         finally:
-            self._representation = prev
+            self._representation, self.lanes = prev, lanes
 
     def cached_flat_indices(self, binning, events_rep="events"):
         """Sanitized flat bin indices of this container's events under
@@ -436,6 +494,10 @@ class VirtualContainer:
         return self.containers[0].is_map
 
     @property
+    def lanes(self):
+        return self.containers[0].lanes
+
+    @property
     def size(self):
         return self.containers[0].size
 
@@ -527,6 +589,16 @@ class ContainerSet:
     def representation(self, rep):
         for c in self.containers:
             c.representation = rep
+
+    @property
+    def lanes(self):
+        """The lanes of the evaluation in progress (None: one point)."""
+        return self.containers[0].lanes if self.containers else None
+
+    @lanes.setter
+    def lanes(self, lanes):
+        for c in self.containers:
+            c.lanes = lanes
 
     # -- linking --------------------------------------------------------------
     def link_containers(self, key, names):

@@ -31,6 +31,11 @@ Per-category scalar aux data (``nubar``, ``flav``) is kept as ``(C,)`` numpy
 arrays; stacked-aware stage code reads it with
 :meth:`StackedContainer.cat_aux`.
 
+In an evaluation of lanes (``container.lanes``, ``core/container.py``) every
+shape above gains a leading lane axis: ``(B, C, n_pad, ...)``, ``(B, G,
+size, ...)``, ``(B, size, ...)``; rows maps, gathers and histograms act
+behind it, so the lanes share every index and matrix.
+
 Stages opt in through ``supports_stacked``/``stacked_ok()``
 (``core/stage.py``); ``core/template.py:CompiledTemplate`` stacks only when
 every traced stage does, and says so (``CompiledTemplate.stacked``). The
@@ -164,7 +169,12 @@ class StackedContainer(Container):
                 raise ValueError(
                     f"rows must be (C,)=({self.n_cats},); got {rows.shape}"
                 )
-        self._store(key, self._to_device(data), rows)
+        self._store(key, self._lane_value(key, self._to_device(data)), rows)
+
+    @property
+    def _lead(self):
+        """The lane axis of the evaluation in progress: () or (B,)."""
+        return () if self.lanes is None else (self.lanes,)
 
     def __setitem__(self, key, data):
         """Plain writes infer the rows entry from the shape: an events
@@ -174,18 +184,20 @@ class StackedContainer(Container):
             raise KeyError(f"Key {key!r} is per-category aux data")
         if self.is_map and key in self._representation.names:
             raise ValueError(f"Cannot set {key!r}: it is a binning dimension")
-        data = self._to_device(data)
-        shape = tuple(data.shape)
+        data = self._lane_value(key, self._to_device(data))
+        lead = self._lead
+        shape = tuple(data.shape)[len(lead):]
         if self.is_map:
             size = self._representation.size
             bshape = tuple(self._representation.shape)
             nb = len(bshape)
             # unflattened (C,) + bshape + extra, or bshape + extra
             if shape[:1] == (self.n_cats,) and shape[1:1 + nb] == bshape:
-                data = data.reshape((self.n_cats, size) + shape[1 + nb:])
+                data = data.reshape(lead + (self.n_cats, size)
+                                    + shape[1 + nb:])
             elif shape[:nb] == bshape and shape[:1] != (size,):
-                data = data.reshape((size,) + shape[nb:])
-            shape = tuple(data.shape)
+                data = data.reshape(lead + (size,) + shape[nb:])
+            shape = tuple(data.shape)[len(lead):]
             if shape[:2] == (self.n_cats, size):
                 rows = "cat"
             elif shape[:1] == (size,):
@@ -213,7 +225,7 @@ class StackedContainer(Container):
         rows = self.rows.get((key, _rep_hash(self._representation)))
         if rows is None or _is_cat(rows):
             return values
-        return values.index_select(0, self.row_tensor(rows))
+        return values.index_select(len(self._lead), self.row_tensor(rows))
 
     # -- translation -------------------------------------------------------
     def translate(self, key, src_representation):
@@ -226,14 +238,15 @@ class StackedContainer(Container):
         src_h = _rep_hash(src_representation)
         values = self._data[key][src_h]
         rows = self.rows.get((key, src_h))
+        laned = key in self._laned
 
         if from_map and not to_map and mode == "average":
             out = self._stacked_binned_to_array(
-                values, rows, src_representation
+                values, rows, src_representation, laned
             )
         elif to_map and not from_map:
             out = self.stacked_histogram(
-                values, dest, averaged=(mode == "average")
+                values, dest, averaged=(mode == "average"), laned=laned
             )
         else:
             raise NotImplementedError(
@@ -268,30 +281,36 @@ class StackedContainer(Container):
             self._flatidx_names[key] = tuple(binning.names)
         return self._flatidx[key]
 
-    def _stacked_binned_to_array(self, values, rows, src_binning):
+    def _stacked_binned_to_array(self, values, rows, src_binning,
+                                 laned=False):
         """'average'-mode binned -> events: every category's lookup, with
         the rows indirection folded in, as one gather; padded and
         out-of-range events get 0. (``index_select``: its reverse pass is an
-        ``index_add_`` of the event cotangents into the grid cells.)"""
+        ``index_add_`` of the event cotangents into the grid cells.) With
+        `laned`, `values` carries a leading lane axis and so does the
+        result."""
         gidx, invalid = self._gather_indices(src_binning, rows)
+        lead = tuple(values.shape[:1]) if laned else ()
+        k = len(lead)
         if rows is not None:
-            values = values.reshape((-1,) + tuple(values.shape[2:]))
-        out = values.index_select(0, gidx)
-        out = out.reshape((self.n_cats, self.n_pad) + tuple(values.shape[1:]))
-        if out.dim() > invalid.dim():
-            invalid = invalid.reshape(
-                invalid.shape + (1,) * (out.dim() - invalid.dim())
-            )
+            values = values.reshape(lead + (-1,) + tuple(values.shape[k + 2:]))
+        out = values.index_select(k, gidx)
+        extra = tuple(values.shape[k + 1:])
+        out = out.reshape(lead + (self.n_cats, self.n_pad) + extra)
+        invalid = invalid.reshape(invalid.shape + (1,) * len(extra))
         return torch.where(invalid, 0.0, out)
 
-    def stacked_histogram(self, values, binning, averaged=False):
+    def stacked_histogram(self, values, binning, averaged=False,
+                          laned=False):
         """(C, n_pad[, k]) event values -> (C, size[, k]) per-category
         histograms: one batched product with the cached stacked one-hot
         where there is one, otherwise one scatter-add with each category
-        offset into its own block of bins."""
+        offset into its own block of bins. With `laned`, `values` and the
+        result carry a leading lane axis."""
         matrix = self.cached_hist_matrix(binning, events_rep="events")
         if matrix is not None and not averaged:
-            return translation.histogram_matmul_stacked(values, matrix)
+            return translation.histogram_matmul_stacked(values, matrix,
+                                                        laned=laned)
         size = binning.size
         C = self.n_cats
         key = (_rep_hash("events"), _rep_hash(binning), "offset")
@@ -304,19 +323,22 @@ class StackedContainer(Container):
             self._flatidx[key] = off.reshape(-1)
             self._flatidx_names[key] = tuple(binning.names)
         off = self._flatidx[key]
-        extra = tuple(values.shape[2:])
+        lead = tuple(values.shape[:1]) if laned else ()
+        extra = tuple(values.shape[len(lead) + 2:])
 
-        def scatter(flat_values):
-            out = torch.zeros((C * (size + 1),) + tuple(flat_values.shape[1:]),
+        def scatter(flat_values, lead):
+            k = len(lead)
+            rest = tuple(flat_values.shape[k + 1:])
+            out = torch.zeros(lead + (C * (size + 1),) + rest,
                               dtype=values.dtype, device=self.device)
-            out = out.index_add_(0, off, flat_values)
-            return out.reshape((C, size + 1) + tuple(flat_values.shape[1:]))[
-                :, :size]
+            out = out.index_add_(k, off, flat_values)
+            return out.reshape(lead + (C, size + 1) + rest).narrow(
+                k + 1, 0, size)
 
-        out = scatter(values.reshape((C * self.n_pad,) + extra))
+        out = scatter(values.reshape(lead + (C * self.n_pad,) + extra), lead)
         if averaged:
             counts = scatter(torch.ones(C * self.n_pad, dtype=values.dtype,
-                                        device=self.device))
+                                        device=self.device), ())
             counts = counts.reshape(counts.shape + (1,) * len(extra))
             out = torch.where(
                 counts > 0, out / torch.where(counts > 0, counts, 1.0), 0.0

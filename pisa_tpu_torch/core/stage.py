@@ -17,17 +17,34 @@ stage that can run on a category-stacked container
 and through the rate-deferral hooks whether it keeps the contract under
 which the oscillation stage may hand its grid rate to the histogram
 (``core/template.py:_setup_rate_deferral``).
+
+A free parameter's magnitude that meets the containers' data in a stage's
+arithmetic goes through :func:`in_data_type`.
 """
 
 from __future__ import annotations
 
 import time
 
+import torch
+
+from pisa_tpu_torch import TORCH_FTYPE
 from pisa_tpu_torch.core.binning import MultiDimBinning
 from pisa_tpu_torch.core.param import ParamSelector, ParamSet
 from pisa_tpu_torch.utils.log import logging
 
-__all__ = ["Stage"]
+__all__ = ["Stage", "in_data_type"]
+
+
+def in_data_type(value):
+    """A parameter magnitude for arithmetic with the containers' data: a
+    tensor (a compiled template's float64 magnitude, 0-d, or (B, 1) in an
+    evaluation of lanes) cast to the data's ``TORCH_FTYPE``, a host number
+    unchanged. A 0-d tensor would take the data's type by PyTorch's
+    promotion rules anyway; a (B, 1) one would instead promote float32 data
+    to float64, and then a lane would not compute what its single point
+    does."""
+    return value.to(TORCH_FTYPE) if isinstance(value, torch.Tensor) else value
 
 
 class Stage:

@@ -41,9 +41,20 @@ into the graphs' static tensors and replays. A graph bakes in what it read
 at capture: the fixed params' values and the container data (by address).
 On the CPU the same code runs eagerly. ``shard`` is not ported (ROADMAP
 queue 1, item 12).
+
+Lanes (the batched fits, the counterpart of ``jax.vmap`` over the template):
+a (B, n) rescaled matrix evaluates B independent parameter points in one
+program. Each free magnitude is then a (B, 1) tensor, so per-event
+arithmetic broadcasts to (B, E); the containers see ``lanes`` = B
+(``core/container.py``), and every output gains a leading lane axis. The
+oscillation kernels launch as often as for one point, each launch serving
+all lanes (``ops/osc/chain.py``). A :class:`CapturedObjective` captures a
+batched objective as it does a single one, one program per B.
 """
 
 from __future__ import annotations
+
+import gc
 
 import numpy as np
 import torch
@@ -93,13 +104,18 @@ def magnitudes_from_rescaled(vec, los, his, log_scaled):
     """Physical magnitudes (a list of 0-d tensors, differentiable in `vec`)
     of the rescaled vector `vec` between the bounds `los` and `his`, with
     the params flagged in `log_scaled` scaling as logs
-    (``Param._rescaled_value``; ``pisa_tpu/core/template.py:364``)."""
-    mags = list((los + (his - los) * vec).unbind())
+    (``Param._rescaled_value``; ``pisa_tpu/core/template.py:364``). For a
+    (B, n) matrix of lanes each magnitude is a (B, 1) tensor, which
+    broadcasts over the events."""
+    mags = list((los + (his - los) * vec).unbind(-1))
     for i, log_scale in enumerate(log_scaled):
         if log_scale:
             lo, hi = los[i], his[i]
             mags[i] = torch.exp(
-                vec[i] * (torch.log(hi.abs()) - torch.log(lo.abs()))) * lo
+                vec[..., i] * (torch.log(hi.abs()) - torch.log(lo.abs()))
+            ) * lo
+    if vec.dim() == 2:
+        mags = [m[:, None] for m in mags]
     return mags
 
 
@@ -338,23 +354,27 @@ class CompiledTemplate:
         )
 
     # -- evaluation ---------------------------------------------------------------
-    def _evaluate(self, mags):
+    def _evaluate(self, mags, lanes=None):
         """Run the traced stages with the free params at `mags` from the
         hoisted state; returns ``{"hist": {name: flat tensor}}`` (and
         ``"error"``) on the pipeline's device, with the autograd graph back
         to `mags`; on a stacked template also ``"hist_stacked"``, the (C,
         size) tensor the per-name entries are rows of (in the order of
-        ``self.names``)."""
+        ``self.names``). With `lanes` = B (magnitudes of shape (B, 1)) every
+        output has a leading lane axis: (B, size) per name, (B, C, size)
+        stacked."""
         pipeline = self.pipeline
         data = self._trace_data
         saved_state = data.state()
         saved_values = [p._value for p in self._free_params]
+        lead = () if lanes is None else (lanes,)
         for stage in pipeline.stages:
             stage._template_mode = True
         for stage in self._traced_stages:
             stage.data = data
         try:
             data.set_state(self._base_state)
+            data.lanes = lanes
             for p, mag in zip(self._free_params, mags):
                 p._value = Quantity(mag, p.units)
             for stage in self._traced_stages:
@@ -371,14 +391,18 @@ class CompiledTemplate:
                         # unstack: one flat (size,) view per category
                         values = c.expanded(key)
                         if c.rows[(key, hash(self.output_binning))] is None:
-                            values = values.expand(c.n_cats, *values.shape)
-                        values = values.reshape(c.n_cats, -1)
+                            values = values.unsqueeze(len(lead)).expand(
+                                lead + (c.n_cats,)
+                                + tuple(values.shape[len(lead):]))
+                        values = values.reshape(lead + (c.n_cats, -1))
                         out[label + "_stacked"] = values
-                        out[label].update(zip(c.cat_names, values.unbind()))
+                        out[label].update(zip(c.cat_names,
+                                              values.unbind(len(lead))))
                     else:
-                        out[label][c.name] = c[key].reshape(-1)
+                        out[label][c.name] = c[key].reshape(lead + (-1,))
             return out
         finally:
+            data.lanes = None
             for p, value in zip(self._free_params, saved_values):
                 p._value = value
             for stage in pipeline.stages:
@@ -389,7 +413,8 @@ class CompiledTemplate:
 
     def _stack_outputs(self, out):
         """(hist, error or None, total): the categories' histograms as one
-        (C, size) tensor in the order of ``self.names``."""
+        (C, size) tensor in the order of ``self.names``; lanes: (B, C, size)
+        and (B,) totals."""
         stacks = []
         for label in ("hist", "error"):
             if label not in out:
@@ -397,8 +422,11 @@ class CompiledTemplate:
             elif label + "_stacked" in out:
                 stacks.append(out[label + "_stacked"])
             else:
-                stacks.append(torch.stack([out[label][n] for n in self.names]))
-        return stacks[0], stacks[1], stacks[0].sum()
+                stacks.append(torch.stack([out[label][n] for n in self.names],
+                                          dim=-2))
+        hist = stacks[0]
+        total = hist.sum() if hist.dim() == 2 else hist.sum(dim=(-2, -1))
+        return hist, stacks[1], total
 
     def _captured(self):
         """The captured template call, captured at the current values and
@@ -581,7 +609,8 @@ class CompiledTemplate:
 class _Replay(torch.autograd.Function):
     """A :class:`CapturedObjective`'s value as a node of an autograd graph:
     the forward replays the captured ``value_and_grad``, the backward
-    returns the captured gradient times the cotangent."""
+    returns the captured gradient times the cotangent (per lane, for a
+    batched objective)."""
 
     @staticmethod
     def forward(ctx, vec, program, los, his):
@@ -592,12 +621,15 @@ class _Replay(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         (grad,) = ctx.saved_tensors
-        return g * grad, None, None, None
+        return g.unsqueeze(-1) * grad, None, None, None
 
 
 class _CapturedProgram:
-    """Static input tensors ``(vec, los, his)`` on a CUDA device, loaded
-    without a wait, and the capture of functions of them in CUDA graphs.
+    """Static input tensors on a CUDA device (``vec``, (n,) or (B, n) for B
+    lanes, and the bounds ``los`` and ``his``, (n,) each, loaded at every
+    call without a wait; any further input such as a data batch, loaded by
+    :meth:`load_extra`), and the capture of functions of them in CUDA
+    graphs.
 
     A function is run eagerly :data:`CAPTURE_WARMUP` times on a side stream,
     which builds every lazily cached tensor outside the graph's memory pool,
@@ -605,10 +637,16 @@ class _CapturedProgram:
     the function reads (the data it closes over) where it lay at capture,
     so subclasses keep the function alive as long as the graphs."""
 
-    def __init__(self, n, device):
+    def __init__(self, inputs, device):
         self.device = device
-        self._static = torch.zeros((3, n), dtype=torch.float64, device=device)
-        self._pinned = torch.zeros((3, n), dtype=torch.float64).pin_memory()
+        self._static = []
+        self._pinned = []
+        for x in inputs:
+            dtype = x.dtype if isinstance(x, torch.Tensor) else torch.float64
+            shape = tuple(np.shape(x))
+            self._static.append(torch.zeros(shape, dtype=dtype,
+                                            device=device))
+            self._pinned.append(torch.zeros(shape, dtype=dtype).pin_memory())
         self._uploaded = torch.cuda.Event()
         self._staged = None  # a pinned array on its way to the card
 
@@ -620,9 +658,19 @@ class _CapturedProgram:
                 fn()
         torch.cuda.current_stream(self.device).wait_stream(stream)
         torch.cuda.synchronize(self.device)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            outputs = fn()
+        # a graph freed while another is captured breaks that capture (CUDA
+        # forbids destroying it then): the garbage collector, which frees
+        # programs left in reference cycles, runs before and not during it
+        gc.collect()
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                outputs = fn()
+        finally:
+            if collecting:
+                gc.enable()
         return graph, outputs
 
     @torch.no_grad()
@@ -633,7 +681,7 @@ class _CapturedProgram:
         arrays = {}
         for i, x in enumerate((vec, los, his)):
             if isinstance(x, torch.Tensor):
-                if x.device != self._static.device:
+                if x.device != self._static[i].device:
                     raise ValueError(f"the program lives on {self.device};"
                                      f" got a tensor on {x.device}")
                 self._static[i].copy_(x)
@@ -648,12 +696,26 @@ class _CapturedProgram:
             self._static[i].copy_(self._pinned[i], non_blocking=True)
         self._uploaded.record()
 
+    @torch.no_grad()
+    def load_extra(self, *extra):
+        """The further inputs (tensors on the device, such as a data batch)
+        into their static tensors, by copies there: once for all the
+        evaluations that read them."""
+        if len(extra) != len(self._static) - 3:
+            raise ValueError(f"the program takes {len(self._static) - 3}"
+                             f" further inputs; got {len(extra)}")
+        for static, x in zip(self._static[3:], extra):
+            if x.device != static.device:
+                raise ValueError(f"the program lives on {self.device}; got a"
+                                 f" tensor on {x.device}")
+            static.copy_(x)
+
     def upload(self, rows):
         """`rows` (an array, or a tensor on the device) as a float64 tensor
         on the device; an array goes through pinned memory by a copy that
         the host does not wait for."""
         if isinstance(rows, torch.Tensor):
-            if rows.device != self._static.device:
+            if rows.device != self._static[0].device:
                 raise ValueError(f"the program lives on {self.device}; got a"
                                  f" tensor on {rows.device}")
             return rows.to(torch.float64)
@@ -674,10 +736,10 @@ class CapturedFunction(_CapturedProgram):
     keep). Nothing inside waits for the card."""
 
     def __init__(self, fn, vec0, los, his, device):
-        super().__init__(len(vec0), device)
+        super().__init__((vec0, los, his), device)
         self._fn = fn
         self._load(vec0, los, his)
-        vec_s, los_s, his_s = self._static.unbind()
+        vec_s, los_s, his_s = self._static
 
         def run():
             with torch.no_grad():
@@ -692,37 +754,44 @@ class CapturedFunction(_CapturedProgram):
 
 
 class CapturedObjective(_CapturedProgram):
-    """``objective(vec, los, his) -> value`` and its gradient in `vec` as
-    two CUDA graphs over static input tensors (the port's counterpart of
-    ``jax.jit`` of the objective, ``pisa_tpu/core/template.py:730``).
+    """``objective(vec, los, his, *extra) -> value`` and its gradient in
+    `vec` as two CUDA graphs over static input tensors (the port's
+    counterpart of ``jax.jit`` of the objective,
+    ``pisa_tpu/core/template.py:730``).
 
-    The constructor runs ``value_and_grad`` and the value eagerly
-    :data:`CAPTURE_WARMUP` times each on a side stream at `vec0`, `los`,
-    `his`, then captures each once; a capture that fails raises. An
-    evaluation copies its inputs into the static tensors (arrays through
-    one pinned staging buffer, without waiting) and replays; it returns
-    copies of the static outputs, so the next replay does not change what
-    the caller holds. Nothing inside waits for the card: the caller's read
-    of the value is the one wait.
+    `vec0` is (n,), or (B, n) for a batched objective whose value is (B,)
+    (B independent lanes: the gradient of the lanes' sum is each lane's
+    gradient); `extra` holds further inputs of the objective, such as a
+    (B, bins) data batch, which become static inputs too, loaded here and
+    again by :meth:`load_extra`, not at an evaluation. The constructor
+    runs ``value_and_grad`` and the value eagerly :data:`CAPTURE_WARMUP`
+    times each on a side stream at these inputs, then captures each once; a
+    capture that fails raises. An evaluation copies its inputs into the
+    static tensors (arrays through one pinned staging buffer, without
+    waiting) and replays; it
+    returns copies of the static outputs, so the next replay does not
+    change what the caller holds. Nothing inside waits for the card: the
+    caller's read of the value is the one wait.
     """
 
-    def __init__(self, objective, vec0, los, his, device):
-        super().__init__(len(vec0), device)
+    def __init__(self, objective, vec0, los, his, device, extra=()):
+        super().__init__((vec0, los, his) + tuple(extra), device)
         # the graphs read the tensors that `objective` closes over (the
         # data) where they lay at capture: they must live as long as this
         self._objective = objective
         self._load(vec0, los, his)
-        vec_s, los_s, his_s = self._static.unbind()
+        self.load_extra(*extra)
+        vec_s, *rest = self._static
 
         def value_and_grad():
             vec = vec_s.detach().requires_grad_(True)
-            value = objective(vec, los_s, his_s)
-            (grad,) = torch.autograd.grad(value, vec)
+            value = objective(vec, *rest)
+            (grad,) = torch.autograd.grad(value, vec, torch.ones_like(value))
             return value.detach(), grad
 
         def value_only():
             with torch.no_grad():
-                return (objective(vec_s, los_s, his_s),)
+                return (objective(vec_s, *rest),)
 
         self._vg_graph, (self._value, self._grad) = self._capture(
             value_and_grad)

@@ -127,24 +127,26 @@ def histogram(sample, weights, binning_or_spec, averaged=False, idx=None):
     return flat_hist
 
 
-def histogram_matmul(weights, matrix):
+def histogram_matmul(weights, matrix, laned=False):
     """Histogram as one dense product with the cached ``(N, size)`` one-hot
     bin-membership matrix (an all-zero row marks an out-of-range event).
-    ``weights`` is (N,) or (N, ch); returns (size,) or (size, ch). The caller
-    keeps TF32 off for float32 products (stages/utils/hist.py)."""
-    if weights.dim() == 1:
+    ``weights`` is (N,) or (N, ch); returns (size,) or (size, ch). With
+    `laned`, a leading lane axis on both. The caller keeps TF32 off for
+    float32 products (stages/utils/hist.py)."""
+    if weights.dim() == (2 if laned else 1):
         return weights @ matrix
-    return (weights.transpose(0, 1) @ matrix).transpose(0, 1)
+    return (weights.transpose(-1, -2) @ matrix).transpose(-1, -2)
 
 
-def histogram_matmul_stacked(weights, matrix):
+def histogram_matmul_stacked(weights, matrix, laned=False):
     """Per-category histograms as one batched product with the stacked
     ``(C, N, size)`` one-hot matrix (all-zero rows mark padded and
     out-of-range events). ``weights`` is (C, N) or (C, N, ch); returns
-    (C, size) or (C, size, ch), as C calls of :func:`histogram_matmul`."""
-    if weights.dim() == 2:
-        return torch.einsum("cn,cnb->cb", weights, matrix)
-    return torch.einsum("cnk,cnb->cbk", weights, matrix)
+    (C, size) or (C, size, ch), as C calls of :func:`histogram_matmul`.
+    With `laned`, a leading lane axis on both."""
+    if weights.dim() == (3 if laned else 2):
+        return torch.einsum("...cn,cnb->...cb", weights, matrix)
+    return torch.einsum("...cnk,cnb->...cbk", weights, matrix)
 
 
 def lookup(sample, flat_hist, binning_or_spec, idx=None):

@@ -74,8 +74,8 @@
 //   intermediate 1 + K times, so the directions are cut into chunks of at
 //   most 3, a thread per (step, chunk); a later chunk computes the primal
 //   part again. With 3 the fp64 instances stay within 255 registers and
-//   spill nothing; the block has a thread per step and chunk (128 for
-//   K <= 3, 256 above);
+//   spill at most 8 bytes (K = 3, 5, 6); the block has a thread per step
+//   and chunk (128 for K <= 3, 256 above);
 // - the chain walk: a thread per (point, initial flavour, direction), each
 //   walking v with one tangent: short threads, K times as many, instead of
 //   one thread carrying 6 (1 + K) complex registers along 24 steps.
@@ -85,6 +85,13 @@
 // chain_point, a point's whole chain in one thread over any scalar type, is
 // the arithmetic reference: the host tests
 // (tests/test_torch_chain_source.py) hold the tile passes against it.
+//
+// Lanes: one launch serves B independent packs (the batched fits' lanes,
+// what jax.vmap adds to a pallas_call as a grid axis): blockIdx.y is the
+// lane, each lane's pack, directions and outputs are contiguous slices
+// (lane_slices, 64-bit offsets), and the geometry and the tile table are
+// shared by every lane. A block is unchanged: it rebuilds T from its lane's
+// pack. B = 1 is the single-pack launch, bit for bit.
 //
 // The kernels read the pack and its tangent directions from device
 // pointers into shared memory at block start: no host sync, so a launch can
@@ -640,6 +647,34 @@ OSC_HD Tile tile_at(const int* tiles, int k) {
   return Tile{r[0], r[1], r[2], r[3]};
 }
 
+// Lane `lane`'s slices of a launch over several lanes: its pack (57,), its
+// K directions (K, 57), its primal (2, 3, N) and its tangents (K, 2, 3, N),
+// the lanes laid out one after another. The offsets are 64-bit: at 256
+// lanes, K = 6 and N = 40,000 the tangents hold 368M elements. A null
+// pointer stays null.
+template <typename S>
+struct LaneSlices {
+  const S* pack;
+  const S* dirs;
+  S* out;
+  S* dout;
+};
+template <typename S>
+OSC_HD LaneSlices<S> lane_slices(const S* pvec, const S* dpvecs, S* out,
+                                 S* dout, int k, int n, int lane) {
+  const size_t b = static_cast<size_t>(lane);
+  const size_t n6 = static_cast<size_t>(6) * static_cast<size_t>(n);
+  const size_t kk = static_cast<size_t>(k);
+  return LaneSlices<S>{
+      pvec + b * kPack,
+      dpvecs == nullptr ? nullptr : dpvecs + b * kk * kPack,
+      out == nullptr ? nullptr : out + b * n6,
+      dout == nullptr ? nullptr : dout + b * kk * n6};
+}
+
+// The most lanes of a launch: gridDim.y's limit
+constexpr int kMaxLanes = 65535;
+
 // Shared memory of one tile block: the pack and its K directions (zero
 // directions after them where a chunk of directions reaches past K), each
 // point's energy and packed vacuum picks, and the tile's steps' t with its
@@ -798,8 +833,9 @@ struct MultiShape {
 
 #ifdef __CUDACC__
 #if defined(OSC_CHAIN_PRIMAL) || defined(OSC_CHAIN_TANGENT)
-// One block per tile; K = 0: the primal into `out`; K = 1: the tangent along
-// `dpvec` into `dout` (no primal output).
+// One block per (tile, lane); K = 0: the primal into `out`; K = 1: the
+// tangent along `dpvec` into `dout` (no primal output). pvec, dpvec, out
+// and dout hold one slice per lane (lane_slices).
 template <typename S, int K>
 __global__ void __launch_bounds__(kTileThreads)
     tile_kernel(const S* __restrict__ pvec, const S* __restrict__ dpvec,
@@ -810,8 +846,10 @@ __global__ void __launch_bounds__(kTileThreads)
                 const S* __restrict__ energy, S* __restrict__ out,
                 S* __restrict__ dout, int n) {
   __shared__ TileShared<S, K> sh;
+  const LaneSlices<S> lane =
+      lane_slices(pvec, dpvec, out, dout, K, n, static_cast<int>(blockIdx.y));
   for (int k = threadIdx.x; k < kPack * (1 + K); k += blockDim.x)
-    sh.pack[k] = k < kPack ? pvec[k] : dpvec[k - kPack];
+    sh.pack[k] = k < kPack ? lane.pack[k] : lane.dirs[k - kPack];
   const TileMem<S> m = sh.mem();
   const Tile tile = tile_at(tiles, blockIdx.x);
   __syncthreads();
@@ -822,16 +860,19 @@ __global__ void __launch_bounds__(kTileThreads)
     tile_phase1<S, K, K>(tile, tid, 0, step_point, rho, dx, m);
   __syncthreads();
   if (tid < 2 * tile.n_points)
-    tile_phase2<S, K, K>(tile, tid, 0, point_step, m, out, dout, n);
+    tile_phase2<S, K, K>(tile, tid, 0, point_step, m, lane.out, lane.dout,
+                         n);
 }
 
 template <typename S, int K>
 int launch_tiles(const S* pvec, const S* dpvec, const int* tiles,
                  const int* point_step, const int* step_point, const S* rho,
                  const S* dx, const S* energy, S* out, S* dout, int n_tiles,
-                 int n, void* stream) {
+                 int n, int lanes, void* stream) {
+  if (lanes < 1 || lanes > kMaxLanes)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (n_tiles <= 0) return 0;
-  tile_kernel<S, K><<<n_tiles, kTileThreads, 0,
+  tile_kernel<S, K><<<dim3(n_tiles, lanes), kTileThreads, 0,
                       static_cast<cudaStream_t>(stream)>>>(
       pvec, dpvec, tiles, point_step, step_point, rho, dx, energy, out, dout,
       n);
@@ -863,13 +904,13 @@ int kernel_attributes(F* kernel, int threads, size_t shared, int* info) {
 // The most dynamic shared memory a block may ask for on sm_90
 constexpr size_t kMaxDynamicShared = 232448;
 
-// One block per tile of at most tile_steps steps: the primal into `out`
-// (unless it is null) and the K tangents along dpvecs (K, 57) into dout
-// (K, 2, 3, N). Each phase is a loop of the block's threads over its work:
-// points; (step, chunk of C1 directions); (point, initial flavour, chunk of
-// C2 directions), a chunk's threads being neighbours so that a warp's
-// shared-memory accesses stay consecutive (phase 1) or pairwise equal
-// (phase 2).
+// One block per (tile of at most tile_steps steps, lane): the primal into
+// `out` (unless it is null) and the K tangents along dpvecs (K, 57) into
+// dout (K, 2, 3, N), each a slice per lane (lane_slices). Each phase is a
+// loop of the block's threads over its work: points; (step, chunk of C1
+// directions); (point, initial flavour, chunk of C2 directions), a chunk's
+// threads being neighbours so that a warp's shared-memory accesses stay
+// consecutive (phase 1) or pairwise equal (phase 2).
 template <typename S, int K>
 __global__ void __launch_bounds__(MultiShape<S, K>::threads)
     tile_multi_kernel(const S* __restrict__ pvec,
@@ -889,10 +930,13 @@ __global__ void __launch_bounds__(MultiShape<S, K>::threads)
   m.e = m.pack + kPack * (1 + Shape::k_pack);
   m.picks = reinterpret_cast<unsigned char*>(m.e + kTilePoints);
   m.steps = tile_steps;
+  const LaneSlices<S> lane = lane_slices(pvec, dpvecs, out, dout, K, n,
+                                         static_cast<int>(blockIdx.y));
   const int tid = threadIdx.x;
   for (int k = tid; k < kPack * (1 + Shape::k_pack); k += Shape::threads)
-    m.pack[k] = k < kPack ? pvec[k]
-                          : (k < kPack * (1 + K) ? dpvecs[k - kPack] : S(0));
+    m.pack[k] = k < kPack ? lane.pack[k]
+                          : (k < kPack * (1 + K) ? lane.dirs[k - kPack]
+                                                 : S(0));
   const Tile tile = tile_at(tiles, blockIdx.x);
   constexpr int chunks1 = padded(K, c1) / c1, chunks2 = padded(K, c2) / c2;
   __syncthreads();
@@ -905,8 +949,8 @@ __global__ void __launch_bounds__(MultiShape<S, K>::threads)
   __syncthreads();
   const int walks = 2 * tile.n_points;
   for (int w = tid; w < walks * chunks2; w += Shape::threads)
-    tile_phase2<S, K, c2>(tile, w % walks, w / walks * c2, point_step, m, out,
-                          dout, n);
+    tile_phase2<S, K, c2>(tile, w % walks, w / walks * c2, point_step, m,
+                          lane.out, lane.dout, n);
 }
 
 // In an unnamed namespace: the static of allow_shared is this library's own
@@ -925,14 +969,16 @@ struct Multi {
   static int launch(const S* pvec, const S* dpvecs, const int* tiles,
                     const int* point_step, const int* step_point,
                     const S* rho, const S* dx, const S* energy, S* out,
-                    S* dout, int n_tiles, int n, int tile_steps,
+                    S* dout, int n_tiles, int n, int tile_steps, int lanes,
                     void* stream) {
     using Shape = MultiShape<S, K>;
+    if (lanes < 1 || lanes > kMaxLanes)
+      return static_cast<int>(cudaErrorInvalidValue);
     if (n_tiles <= 0) return 0;
     if (tile_steps < 1 || Shape::shared_bytes(tile_steps) > kMaxDynamicShared)
       return static_cast<int>(cudaErrorInvalidValue);
     if (allow_shared() != cudaSuccess) return static_cast<int>(allow_shared());
-    tile_multi_kernel<S, K><<<n_tiles, Shape::threads,
+    tile_multi_kernel<S, K><<<dim3(n_tiles, lanes), Shape::threads,
                               Shape::shared_bytes(tile_steps),
                               static_cast<cudaStream_t>(stream)>>>(
         pvec, dpvecs, tiles, point_step, step_point, rho, dx, energy, out,
@@ -971,10 +1017,11 @@ template <typename S>
 int launch_multi(const S* pvec, const S* dpvecs, int k, const int* tiles,
                  const int* point_step, const int* step_point, const S* rho,
                  const S* dx, const S* energy, S* out, S* dout, int n_tiles,
-                 int n, int tile_steps, void* stream) {
+                 int n, int tile_steps, int lanes, void* stream) {
   return with_multi<S>(k, [&](auto multi) {
     return multi.launch(pvec, dpvecs, tiles, point_step, step_point, rho, dx,
-                        energy, out, dout, n_tiles, n, tile_steps, stream);
+                        energy, out, dout, n_tiles, n, tile_steps, lanes,
+                        stream);
   });
 }
 
@@ -989,12 +1036,14 @@ int multi_attributes(int k, int tile_steps, int* info) {
 }  // namespace osc_chain
 
 #ifdef __CUDACC__
-// All pointers are device pointers, launched on `stream`: pvec (57,),
-// dpvec (57,), dpvecs (K, 57); the tile table of ops/osc/chain.py:tile_table
-// (tiles (n_tiles, 4) int32, point_step (N + 1,) int32, step_point,
-// rho and dx (steps,)), cut to kTileSteps steps a tile for the primal and
-// the tangent and to tile_steps for the multitangent; energy (N,);
-// out (2, 3, N), dout (2, 3, N) or (K, 2, 3, N). Each launch returns the
+// All pointers are device pointers, launched on `stream`, over `lanes`
+// lanes (1..kMaxLanes, else cudaErrorInvalidValue): pvec (lanes, 57),
+// dpvec (lanes, 57), dpvecs (lanes, K, 57); the tile table of
+// ops/osc/chain.py:tile_table (tiles (n_tiles, 4) int32, point_step (N + 1,)
+// int32, step_point, rho and dx (steps,)), cut to kTileSteps steps a tile
+// for the primal and the tangent and to tile_steps for the multitangent,
+// and energy (N,), all shared by the lanes; out (lanes, 2, 3, N), dout
+// (lanes, 2, 3, N) or (lanes, K, 2, 3, N). Each launch returns the
 // cudaError_t of its launch (0 on success); each *_attributes fills info
 // (7 ints) as osc_chain::kernel_attributes and Multi::attributes do (k and
 // tile_steps: the multitangent's, ignored by the others).
@@ -1003,20 +1052,21 @@ extern "C" int osc_chain_f32(const float* pvec, const int* tiles,
                              const int* point_step, const int* step_point,
                              const float* rho, const float* dx,
                              const float* energy, float* out, int n_tiles,
-                             int n, void* stream) {
+                             int n, int lanes, void* stream) {
   return osc_chain::launch_tiles<float, 0>(pvec, nullptr, tiles, point_step,
                                            step_point, rho, dx, energy, out,
-                                           nullptr, n_tiles, n, stream);
+                                           nullptr, n_tiles, n, lanes, stream);
 }
 
 extern "C" int osc_chain_f64(const double* pvec, const int* tiles,
                              const int* point_step, const int* step_point,
                              const double* rho, const double* dx,
                              const double* energy, double* out, int n_tiles,
-                             int n, void* stream) {
+                             int n, int lanes, void* stream) {
   return osc_chain::launch_tiles<double, 0>(pvec, nullptr, tiles, point_step,
                                             step_point, rho, dx, energy, out,
-                                            nullptr, n_tiles, n, stream);
+                                            nullptr, n_tiles, n, lanes,
+                                            stream);
 }
 
 extern "C" int osc_chain_attributes_f32(int k, int tile_steps, int* info) {
@@ -1036,10 +1086,11 @@ extern "C" int osc_chain_tangent_f32(const float* pvec, const float* dpvec,
                                      const int* step_point, const float* rho,
                                      const float* dx, const float* energy,
                                      float* dout, int n_tiles, int n,
-                                     void* stream) {
+                                     int lanes, void* stream) {
   return osc_chain::launch_tiles<float, 1>(pvec, dpvec, tiles, point_step,
                                            step_point, rho, dx, energy,
-                                           nullptr, dout, n_tiles, n, stream);
+                                           nullptr, dout, n_tiles, n, lanes,
+                                           stream);
 }
 
 extern "C" int osc_chain_tangent_f64(const double* pvec, const double* dpvec,
@@ -1047,10 +1098,11 @@ extern "C" int osc_chain_tangent_f64(const double* pvec, const double* dpvec,
                                      const int* step_point, const double* rho,
                                      const double* dx, const double* energy,
                                      double* dout, int n_tiles, int n,
-                                     void* stream) {
+                                     int lanes, void* stream) {
   return osc_chain::launch_tiles<double, 1>(pvec, dpvec, tiles, point_step,
                                             step_point, rho, dx, energy,
-                                            nullptr, dout, n_tiles, n, stream);
+                                            nullptr, dout, n_tiles, n, lanes,
+                                            stream);
 }
 
 extern "C" int osc_chain_tangent_attributes_f32(int k, int tile_steps,
@@ -1071,20 +1123,21 @@ extern "C" int osc_chain_multitangent_f32(
     const float* pvec, const float* dpvecs, int k, const int* tiles,
     const int* point_step, const int* step_point, const float* rho,
     const float* dx, const float* energy, float* out, float* dout,
-    int n_tiles, int n, int tile_steps, void* stream) {
+    int n_tiles, int n, int tile_steps, int lanes, void* stream) {
   return osc_chain::launch_multi<float>(pvec, dpvecs, k, tiles, point_step,
                                         step_point, rho, dx, energy, out, dout,
-                                        n_tiles, n, tile_steps, stream);
+                                        n_tiles, n, tile_steps, lanes, stream);
 }
 
 extern "C" int osc_chain_multitangent_f64(
     const double* pvec, const double* dpvecs, int k, const int* tiles,
     const int* point_step, const int* step_point, const double* rho,
     const double* dx, const double* energy, double* out, double* dout,
-    int n_tiles, int n, int tile_steps, void* stream) {
+    int n_tiles, int n, int tile_steps, int lanes, void* stream) {
   return osc_chain::launch_multi<double>(pvec, dpvecs, k, tiles, point_step,
                                          step_point, rho, dx, energy, out,
-                                         dout, n_tiles, n, tile_steps, stream);
+                                         dout, n_tiles, n, tile_steps, lanes,
+                                         stream);
 }
 
 extern "C" int osc_chain_multitangent_attributes_f32(int k, int tile_steps,

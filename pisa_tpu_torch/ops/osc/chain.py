@@ -21,8 +21,16 @@ multitangent splits its K directions into chunks over more threads.
 
 CPU tensors go through the plain versions (vectorized torch over the point
 axis; the tangents are ``torch.func.jvp`` of the primal); CUDA tensors
-launch the kernels or raise. What carries over from the JAX package is the
-math and its interfaces:
+launch the kernels or raise.
+
+Lanes: every function here also takes a leading lane axis on the pack and
+its directions (B independent packs, the batched fits' lanes; what
+``jax.vmap`` adds to the Pallas calls as a grid axis), and gives its outputs
+the same leading axis. A launch serves all lanes, over the geometry and
+tile table they share; the plain versions broadcast over lanes as over
+points. Without the axis a call is the single-pack one, bit for bit.
+
+What carries over from the JAX package is the math and its interfaces:
 
 - the 57-scalar parameter pack (:func:`theta_to_pvec`, same layout as
   ``pallas_chain._unpack_params``), differentiable in theta;
@@ -56,6 +64,7 @@ __all__ = [
     "N_PACK",
     "theta_tensor",
     "theta_to_pvec",
+    "pack_jacobian",
     "pack_from_physics",
     "prepare_chain_geometry",
     "tile_table",
@@ -76,12 +85,16 @@ __all__ = [
     "tangent_launch_count",
     "multitangent_launch_count",
     "MAX_TANGENTS",
+    "MAX_LANES",
     "chain_operations",
     "kernel_attributes",
 ]
 
 N_PACK = 57
 MAX_TANGENTS = 6  # multitangent K, dispatched to template instances 1..6
+#: the most lanes of one launch (``csrc/osc_chain.cu`` kMaxLanes: the grid's
+#: y dimension)
+MAX_LANES = 65535
 TWO_SQRT2_GF = 1.52588e-4  # 2*sqrt(2)*G_F in (eV^2 cm^3)/(mole GeV)
 HBAR_C_FACTOR = 2.534  # (1/2)/(hbar c) in GeV/(eV^2 km)
 _HALF_SQRT3 = 0.8660254037844386
@@ -92,10 +105,11 @@ TILE_STEPS = 128
 TILE_POINTS = 64
 
 
-def chain_operations(k=0):
+def chain_operations(k=0, lanes=1):
     """Floating-point operations of one point's chain in ``csrc/osc_chain.cu``
     as ``(per point, per real layer step)``, for the primal (``k=0``) or a
-    pass with k tangents. Each add, subtract, multiply and divide counts
+    pass with k tangents, summed over `lanes` lanes (each does the same
+    work on its own pack). Each add, subtract, multiply and divide counts
     one, and so does each sqrt, rsqrt, atan2 and sincos call; max, min,
     selects and negations count nothing. Counted by running ``chain_point``
     with an operation-counting scalar type (tests/test_torch_chain_source.py
@@ -103,8 +117,8 @@ def chain_operations(k=0):
     per_step`` operations, with ``steps`` the points' layers of nonzero
     length."""
     if k == 0:
-        return 217, 473
-    return 217 + 318 * k, 483 + 946 * k
+        return 217 * lanes, 473 * lanes
+    return (217 + 318 * k) * lanes, (483 + 946 * k) * lanes
 
 
 #: Numbers of CUDA kernel launches made in this process by
@@ -142,32 +156,57 @@ def pack_from_physics(dm_vac, U, mat_pot, lri_pot, nubar):
     return torch.cat([x.reshape(-1) for x in parts])
 
 
-def theta_tensor(theta, device=None):
+def theta_tensor(theta, device=None, lanes=None):
     """theta as a (6,) float64 tensor on `device` (by default that of its
-    first tensor entry, else the CPU), keeping the autograd graph of any
-    tensor entries. Numbers are filled in on the device (a fill, not a copy
-    from the host, so nothing waits and a stream capture takes it)."""
+    first tensor entry, else the CPU), or with `lanes` as a (lanes, 6) one,
+    keeping the autograd graph of any tensor entries. Numbers are filled in
+    on the device (a fill, not a copy from the host, so nothing waits and a
+    stream capture takes it); with `lanes` every entry is spread over the
+    lanes (a tensor entry holds one value per lane, or one for all)."""
     if isinstance(theta, torch.Tensor):
         return theta.to(torch.float64)
     if device is None:
         device = next((t.device for t in theta
                        if isinstance(t, torch.Tensor)), "cpu")
+    shape = () if lanes is None else (lanes,)
     return torch.stack([
-        t.to(torch.float64) if isinstance(t, torch.Tensor)
-        else torch.full((), float(t), dtype=torch.float64, device=device)
+        t.to(torch.float64).reshape(-1).expand(shape) if lanes is not None
+        and isinstance(t, torch.Tensor)
+        else t.to(torch.float64) if isinstance(t, torch.Tensor)
+        else torch.full(shape, float(t), dtype=torch.float64, device=device)
         for t in theta
-    ])
+    ], dim=-1)
 
 
 def theta_to_pvec(theta, nubar, reparam=False, nlo_factor=1.0):
     """(theta12, theta13, theta23, deltacp [rad], dm21, dm31 [eV^2]) ->
     packed (57,) float64 vector for the standard matter path
     (``pallas_chain._build_standard`` :1114 + ``_theta_to_pvec`` :1238), on
-    the device of `theta`.
+    the device of `theta`; (B, 6) lanes of theta give (B, 57) packs.
 
-    `theta` is a (6,) tensor or a sequence of numbers and 0-d tensors; the
-    pack is differentiable in every tensor entry."""
+    `theta` is a (6,) or (B, 6) tensor or a sequence of numbers and 0-d
+    tensors; the pack is differentiable in every tensor entry."""
     theta = theta_tensor(theta)
+    if theta.dim() == 2:
+        return torch.func.vmap(
+            lambda t: _theta_to_pvec(t, nubar, reparam, nlo_factor))(theta)
+    return _theta_to_pvec(theta, nubar, reparam, nlo_factor)
+
+
+def pack_jacobian(theta, nubar, reparam=False, nlo_factor=1.0):
+    """d pack / d theta: (57, 6) at a (6,) theta, (B, 57, 6) at (B, 6)
+    lanes (each lane's own block; no cross-lane blocks are formed)."""
+    def jac(t):
+        return torch.func.jacfwd(
+            lambda u: _theta_to_pvec(u, nubar, reparam, nlo_factor))(t)
+
+    theta = theta_tensor(theta).detach()
+    if theta.dim() == 2:
+        return torch.func.vmap(jac)(theta)
+    return jac(theta)
+
+
+def _theta_to_pvec(theta, nubar, reparam, nlo_factor):
     t12, t13, t23, dcp, dm21, dm31 = theta.unbind()
     fn = pmns_matrix_reparam if reparam else pmns_matrix
     mix = fn(torch.sin(t12), torch.sin(t13), torch.sin(t23), dcp)
@@ -290,14 +329,21 @@ def tile_table(densities, distances, *, dtype, device, steps=TILE_STEPS):
 # -- the plain version ------------------------------------------------------------
 def chain_probs_reference(pvec, e, dens, dist, nl):
     """The kernel's algorithm as vectorized torch: same inputs and output
-    as :func:`chain_probs` ((2, 3, N) P(nu_a -> nu_b) for a in {e, mu}), a
-    Python loop over layers and ``torch.where`` for zero-length or
-    out-of-chain layers."""
-    p = pvec.to(e.dtype)
-    U = torch.complex(p[0:9], p[9:18]).reshape(3, 3)
-    Me = torch.complex(p[18:27], p[27:36]).reshape(3, 3)
-    Le = torch.complex(p[36:45], p[45:54]).reshape(3, 3)
-    dm00, dm10, dm20 = p[54], p[55], p[56]
+    as :func:`chain_probs` ((2, 3, N) P(nu_a -> nu_b) for a in {e, mu}, or
+    (B, 2, 3, N) for (B, 57) lanes of packs), a Python loop over layers and
+    ``torch.where`` for zero-length or out-of-chain layers. Each scalar of
+    the pack is kept with a trailing unit axis, so that it broadcasts over
+    the points (and its lanes over theirs)."""
+    lead = tuple(pvec.shape[:-1])
+    p = pvec.to(e.dtype)[..., None]  # (..., 57, 1)
+
+    def cmat(start):
+        return torch.complex(p[..., start:start + 9, :],
+                             p[..., start + 9:start + 18, :]).reshape(
+                                 lead + (3, 3, 1))
+
+    U, Me, Le = cmat(0), cmat(18), cmat(36)
+    dm00, dm10, dm20 = p[..., 54, :], p[..., 55, :], p[..., 56, :]
     third = 1.0 / 3.0
     one_over_two_e = 0.5 / e
     two_e = 2.0 * e
@@ -333,18 +379,20 @@ def chain_probs_reference(pvec, e, dens, dist, nl):
     def abs2(z):
         return z.real * z.real + z.imag * z.imag
 
-    # states v[a, i] = conj(U[a, i]) in the mass basis, (2, 3, N)
-    V = U[:2].conj()[:, :, None].expand(2, 3, e.shape[0]).clone()
+    # states v[a, i] = conj(U[a, i]) in the mass basis, (..., 2, 3, N)
+    V = U[..., :2, :, :].conj().expand(lead + (2, 3, e.shape[0])).clone()
     n_layers = int(nl.max()) if nl.numel() else 0
     for layer in range(n_layers):
         rho, dx = dens[layer], dist[layer]
         a = (0.5 * TWO_SQRT2_GF) * rho
-        h01 = Me[0, 1] * a + Le[0, 1]
-        h02 = Me[0, 2] * a + Le[0, 2]
-        h12 = Me[1, 2] * a + Le[1, 2]
-        h00 = Me[0, 0].real * a + Le[0, 0].real
-        h11 = Me[1, 1].real * a + Le[1, 1].real + dm10 * one_over_two_e
-        h22 = Me[2, 2].real * a + Le[2, 2].real + dm20 * one_over_two_e
+        h01 = Me[..., 0, 1, :] * a + Le[..., 0, 1, :]
+        h02 = Me[..., 0, 2, :] * a + Le[..., 0, 2, :]
+        h12 = Me[..., 1, 2, :] * a + Le[..., 1, 2, :]
+        h00 = Me[..., 0, 0, :].real * a + Le[..., 0, 0, :].real
+        h11 = (Me[..., 1, 1, :].real * a + Le[..., 1, 1, :].real
+               + dm10 * one_over_two_e)
+        h22 = (Me[..., 2, 2, :].real * a + Le[..., 2, 2, :].real
+               + dm20 * one_over_two_e)
 
         n01, n02, n12 = abs2(h01), abs2(h02), abs2(h12)
         scale2 = torch.maximum(
@@ -420,22 +468,28 @@ def chain_probs_reference(pvec, e, dens, dist, nl):
 
         T = torch.stack(
             [
-                torch.stack([tdiag(0), toffd(3), toffd(4)]),
-                torch.stack([toffd(3, True), tdiag(1), toffd(5)]),
-                torch.stack([toffd(4, True), toffd(5, True), tdiag(2)]),
-            ]
-        )  # (3, 3, N)
-        newV = (T[None] * V[:, None, :, :]).sum(dim=2)
+                torch.stack([tdiag(0), toffd(3), toffd(4)], dim=-2),
+                torch.stack([toffd(3, True), tdiag(1), toffd(5)], dim=-2),
+                torch.stack([toffd(4, True), toffd(5, True), tdiag(2)],
+                            dim=-2),
+            ],
+            dim=-3,
+        )  # (..., 3, 3, N)
+        # newV[a, i] = sum_k T[i, k] V[a, k]
+        newV = (T[..., None, :, :, :] * V[..., :, None, :, :]).sum(dim=-2)
         keep = (dx > 0.0) & (layer < nl)
         V = torch.where(keep, newV, V)
 
-    F = (U[None, :, :, None] * V[:, None, :, :]).sum(dim=2)  # (a, b, N)
+    # F[a, b] = sum_i U[b, i] V[a, i]
+    F = (U[..., None, :, :, :] * V[..., :, None, :, :]).sum(dim=-2)
     return abs2(F)
 
 
 def _jvps_reference(pvec, dpvecs, e, dens, dist, nl):
     """The primal of :func:`chain_probs_reference` and its derivatives
-    along the pack directions `dpvecs` (K, 57), (K, 2, 3, N).
+    along the pack directions `dpvecs` (K, 57), (K, 2, 3, N); with lanes,
+    pvec (B, 57) and dpvecs (B, K, 57) give (B, 2, 3, N) and
+    (B, K, 2, 3, N).
 
     On the card: forward mode (``torch.func.jvp``, batched over the
     directions by ``torch.func.vmap``). On the CPU, where forward-mode
@@ -444,39 +498,47 @@ def _jvps_reference(pvec, dpvecs, e, dens, dist, nl):
     time: with the cotangent u a free variable, g(u) = J^T u is linear, and
     the gradient of <g(u), d> in u is J d."""
     dpvecs = dpvecs.to(pvec.dtype)
+    lanes_axis = pvec.dim() - 1  # where the directions' axis goes
     if pvec.device.type != "cpu":
         primals, tangents = torch.func.vmap(
             lambda d: torch.func.jvp(
                 lambda p: chain_probs_reference(p, e, dens, dist, nl),
                 (pvec,), (d,),
-            )
+            ),
+            in_dims=lanes_axis,
         )(dpvecs)
-        return primals[0], tangents
+        return primals[0], tangents.movedim(0, lanes_axis)
     point = pvec.detach().requires_grad_(True)
     with torch.enable_grad():
+        # lanes are independent: the gradient of the lanes' sum is each
+        # lane's own J^T u
         primal = chain_probs_reference(point, e, dens, dist, nl)
         u = torch.zeros_like(primal, requires_grad=True)
         (g,) = torch.autograd.grad(primal, point, u, create_graph=True)
         tangents = [torch.autograd.grad(g, u, d, retain_graph=True)[0]
-                    for d in dpvecs]
-    return primal.detach(), torch.stack(tangents)
+                    for d in dpvecs.unbind(lanes_axis)]
+    return primal.detach(), torch.stack(tangents, dim=lanes_axis)
 
 
 def chain_tangent_reference(pvec, dpvec, e, dens, dist, nl):
     """d(probs)/dt along the pack direction `dpvec`: the directional
     derivative of :func:`chain_probs_reference` in its pack. Same inputs as
-    the primal plus `dpvec` (57,); returns (2, 3, N)."""
+    the primal plus `dpvec` (57,) (lanes: (B, 57)); returns (2, 3, N)
+    ((B, 2, 3, N))."""
     if pvec.device.type != "cpu":
         return torch.func.jvp(
             lambda p: chain_probs_reference(p, e, dens, dist, nl),
             (pvec,), (dpvec.to(pvec.dtype),),
         )[1]
-    return _jvps_reference(pvec, dpvec[None], e, dens, dist, nl)[1][0]
+    axis = pvec.dim() - 1
+    return _jvps_reference(pvec, dpvec.unsqueeze(axis), e, dens, dist,
+                           nl)[1].select(axis, 0)
 
 
 def chain_multitangent_reference(pvec, dpvecs, e, dens, dist, nl):
     """The primal (2, 3, N) and its derivatives along the K pack directions
-    `dpvecs` (K, 57), stacked (K, 2, 3, N)."""
+    `dpvecs` (K, 57), stacked (K, 2, 3, N); lanes: (B, 57) and (B, K, 57)
+    give (B, 2, 3, N) and (B, K, 2, 3, N)."""
     return _jvps_reference(pvec, dpvecs, e, dens, dist, nl)
 
 
@@ -490,14 +552,15 @@ _PARTS = {
 }
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {
-    # pvec, tile, point_step, step_point, rho, dx, e, out, n_tiles, n, stream
-    "osc_chain": [_P] * 8 + [_I, _I, _P],
+    # pvec, tile, point_step, step_point, rho, dx, e, out, n_tiles, n,
+    # lanes, stream
+    "osc_chain": [_P] * 8 + [_I, _I, _I, _P],
     # pvec, dpvec, tile, point_step, step_point, rho, dx, e, dout, n_tiles,
-    # n, stream
-    "osc_chain_tangent": [_P] * 9 + [_I, _I, _P],
+    # n, lanes, stream
+    "osc_chain_tangent": [_P] * 9 + [_I, _I, _I, _P],
     # pvec, dpvecs, k, tile, point_step, step_point, rho, dx, e, out, dout,
-    # n_tiles, n, tile_steps, stream
-    "osc_chain_multitangent": [_P, _P, _I] + [_P] * 8 + [_I, _I, _I, _P],
+    # n_tiles, n, tile_steps, lanes, stream
+    "osc_chain_multitangent": [_P, _P, _I] + [_P] * 8 + [_I] * 4 + [_P],
 }
 
 
@@ -549,13 +612,19 @@ def kernel_attributes(name, dtype, k=1):
 
 
 def _check_inputs(pvec, e, dens, dist, nl):
+    """Checks the inputs; returns the lanes' leading shape, () or (B,)."""
     if e.dtype not in (torch.float32, torch.float64) or e.dim() != 1:
         raise ValueError(f"energy must be (N,) float32/float64; got {e.dtype}"
                          f" {tuple(e.shape)}")
     n = e.shape[0]
-    if pvec.shape != (N_PACK,) or pvec.dtype != e.dtype:
-        raise ValueError(f"pvec must be ({N_PACK},) {e.dtype}; got"
-                         f" {pvec.dtype} {tuple(pvec.shape)}")
+    if (pvec.dim() not in (1, 2) or pvec.shape[-1] != N_PACK
+            or pvec.dtype != e.dtype):
+        raise ValueError(f"pvec must be ({N_PACK},) or (B, {N_PACK})"
+                         f" {e.dtype}; got {pvec.dtype} {tuple(pvec.shape)}")
+    lead = tuple(pvec.shape[:-1])
+    if lead and not 1 <= lead[0] <= MAX_LANES:
+        raise ValueError(f"{lead[0]} lanes: a launch takes 1 to {MAX_LANES}"
+                         " (the grid's y limit); split the batch")
     if dens.dim() != 2 or dens.shape != dist.shape or dens.shape[1] != n:
         raise ValueError(f"dens/dist must be (L, {n}); got"
                          f" {tuple(dens.shape)}, {tuple(dist.shape)}")
@@ -567,6 +636,7 @@ def _check_inputs(pvec, e, dens, dist, nl):
     devices = {t.device for t in (pvec, e, dens, dist, nl)}
     if len(devices) != 1:
         raise ValueError(f"inputs on several devices: {sorted(map(str, devices))}")
+    return lead
 
 
 def _check_directions(name, d, shape, e):
@@ -629,83 +699,94 @@ def _launch(name, e, *args):
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
 
 
+def _n_lanes(lead):
+    return lead[0] if lead else 1
+
+
 def chain_probs(pvec, e, dens, dist, nl, tiles=None):
     """P(nu_a -> nu_b) through each point's layer chain, (2, 3, N) for
-    a in {e, mu}, b in {e, mu, tau}.
+    a in {e, mu}, b in {e, mu, tau}; for (B, 57) lanes of packs, (B, 2, 3,
+    N) from one launch.
 
-    pvec (57,), e (N,), dens/dist (L, N) layer-major, all of one float
-    dtype; nl (N,) int32 per-point loop bounds (``nl[i] <= L``); `tiles`
-    the same points' :func:`tile_table`. CPU tensors go through
+    pvec (57,) or (B, 57), e (N,), dens/dist (L, N) layer-major, all of one
+    float dtype; nl (N,) int32 per-point loop bounds (``nl[i] <= L``);
+    `tiles` the same points' :func:`tile_table`. CPU tensors go through
     :func:`chain_probs_reference` (which needs no tile table); CUDA tensors
     launch the CUDA kernel over the tile table or raise."""
     global launch_count
-    _check_inputs(pvec, e, dens, dist, nl)
+    lead = _check_inputs(pvec, e, dens, dist, nl)
     if not _on_card("chain_probs", e, (pvec, e, dens, dist, nl)):
         return chain_probs_reference(pvec, e, dens, dist, nl)
     t = _tile_args("chain_probs", tiles, e)
     n = e.shape[0]
-    out = torch.empty((2, 3, n), dtype=e.dtype, device=e.device)
-    _launch("osc_chain", e, pvec, *t, e, out, t[0].shape[0], n)
+    out = torch.empty(lead + (2, 3, n), dtype=e.dtype, device=e.device)
+    _launch("osc_chain", e, pvec, *t, e, out, t[0].shape[0], n,
+            _n_lanes(lead))
     launch_count += 1
     return out
 
 
 def chain_tangent(pvec, dpvec, e, dens, dist, nl, tiles=None):
     """d P(nu_a -> nu_b) / dt along the pack direction `dpvec` (57,),
-    (2, 3, N); the other inputs as for :func:`chain_probs`. CPU tensors go
+    (2, 3, N); with lanes, pvec and dpvec (B, 57) give (B, 2, 3, N) from
+    one launch. The other inputs as for :func:`chain_probs`. CPU tensors go
     through :func:`chain_tangent_reference`; CUDA tensors launch the CUDA
     tangent kernel over the tile table or raise."""
     global tangent_launch_count
-    _check_inputs(pvec, e, dens, dist, nl)
-    _check_directions("dpvec", dpvec, (N_PACK,), e)
+    lead = _check_inputs(pvec, e, dens, dist, nl)
+    _check_directions("dpvec", dpvec, lead + (N_PACK,), e)
     if not _on_card("chain_tangent", e, (pvec, dpvec, e, dens, dist, nl)):
         return chain_tangent_reference(pvec, dpvec, e, dens, dist, nl)
     t = _tile_args("chain_tangent", tiles, e)
     n = e.shape[0]
-    dout = torch.empty((2, 3, n), dtype=e.dtype, device=e.device)
+    dout = torch.empty(lead + (2, 3, n), dtype=e.dtype, device=e.device)
     _launch("osc_chain_tangent", e, pvec, dpvec, *t, e, dout, t[0].shape[0],
-            n)
+            n, _n_lanes(lead))
     tangent_launch_count += 1
     return dout
 
 
 def chain_multitangent(pvec, dpvecs, e, dens, dist, nl, tiles=None):
     """The primal (2, 3, N) and its tangents along the K pack directions
-    `dpvecs` (K, 57), 1 <= K <= 6, as (K, 2, 3, N), in one pass; the other
-    inputs as for :func:`chain_probs`. CPU tensors go through
-    :func:`chain_multitangent_reference`; CUDA tensors launch the CUDA
-    multitangent kernel over the tile table or raise."""
+    `dpvecs` (K, 57), 1 <= K <= 6, as (K, 2, 3, N), in one pass; with
+    lanes, pvec (B, 57) and dpvecs (B, K, 57) give (B, 2, 3, N) and (B, K,
+    2, 3, N) from one launch. The other inputs as for :func:`chain_probs`.
+    CPU tensors go through :func:`chain_multitangent_reference`; CUDA
+    tensors launch the CUDA multitangent kernel over the tile table or
+    raise."""
     global multitangent_launch_count
-    _check_inputs(pvec, e, dens, dist, nl)
-    k = dpvecs.shape[0] if dpvecs.dim() == 2 else 0
+    lead = _check_inputs(pvec, e, dens, dist, nl)
+    k = dpvecs.shape[-2] if dpvecs.dim() == len(lead) + 2 else 0
     if not 1 <= k <= MAX_TANGENTS:
         raise ValueError(f"dpvecs must hold 1..{MAX_TANGENTS} directions;"
                          f" got shape {tuple(dpvecs.shape)}")
-    _check_directions("dpvecs", dpvecs, (k, N_PACK), e)
+    _check_directions("dpvecs", dpvecs, lead + (k, N_PACK), e)
     if not _on_card("chain_multitangent", e, (pvec, dpvecs, e, dens, dist, nl)):
         return chain_multitangent_reference(pvec, dpvecs, e, dens, dist, nl)
     t = _tile_args("chain_multitangent", tiles, e)
     n = e.shape[0]
-    out = torch.empty((2, 3, n), dtype=e.dtype, device=e.device)
-    dout = torch.empty((k, 2, 3, n), dtype=e.dtype, device=e.device)
+    out = torch.empty(lead + (2, 3, n), dtype=e.dtype, device=e.device)
+    dout = torch.empty(lead + (k, 2, 3, n), dtype=e.dtype, device=e.device)
     _launch("osc_chain_multitangent", e, pvec, dpvecs, k, *t, e, out, dout,
-            t[0].shape[0], n, TILE_STEPS)
+            t[0].shape[0], n, TILE_STEPS, _n_lanes(lead))
     multitangent_launch_count += 1
     return out, dout
 
 
 def tau_epilogue(p2):
-    """(2, 3, N) nu_e/nu_mu initial-state rows -> (N, 3, 3) with the tau row
-    from double stochasticity (``pallas_chain._tau_epilogue`` :821)."""
-    tau = torch.clamp(1.0 - p2[0] - p2[1], min=0.0)
-    return torch.cat([p2, tau[None]], dim=0).permute(2, 0, 1)
+    """(..., 2, 3, N) nu_e/nu_mu initial-state rows -> (..., N, 3, 3) with
+    the tau row from double stochasticity (``pallas_chain._tau_epilogue``
+    :821)."""
+    tau = torch.clamp(1.0 - p2[..., 0, :, :] - p2[..., 1, :, :], min=0.0)
+    return torch.cat([p2, tau.unsqueeze(-3)], dim=-3).movedim(-1, -3)
 
 
 def _tau_row_tangent(p2, dp2):
-    """Tangent of :func:`tau_epilogue`'s tau row for raw tangents
-    dp2 (..., 2, 3, N): (..., 3, N). As ``jnp.maximum``'s jvp, an exact tie
-    at the clamp takes half the tangent."""
-    tau = 1.0 - p2[0] - p2[1]
+    """Tangent of :func:`tau_epilogue`'s tau row for the primal p2
+    (..., 2, 3, N) and its K raw tangents dp2 (..., K, 2, 3, N):
+    (..., K, 3, N). As ``jnp.maximum``'s jvp, an exact tie at the clamp
+    takes half the tangent."""
+    tau = (1.0 - p2[..., 0, :, :] - p2[..., 1, :, :]).unsqueeze(-3)
     d = -dp2[..., 0, :, :] - dp2[..., 1, :, :]
     return torch.where(tau > 0, d, torch.where(tau == 0, 0.5 * d, torch.zeros_like(d)))
 
@@ -713,27 +794,31 @@ def _tau_row_tangent(p2, dp2):
 def osc_probs_prepared(pvec, geom):
     """One propagation over :func:`prepare_chain_geometry` output: (N, 3, 3)
     probabilities ``probs[i, a, b] = P(nu_a -> nu_b)`` in the original point
-    order (the counterpart of ``chain_probs_pallas_prepared`` :803)."""
+    order (the counterpart of ``chain_probs_pallas_prepared`` :803); (B, 57)
+    lanes of packs give (B, N, 3, 3)."""
     p2 = chain_probs(pvec, geom["e"], geom["dens"], geom["dist"], geom["nl"],
                      geom["tiles"])
-    return tau_epilogue(p2)[geom["inv"]]
+    return tau_epilogue(p2).index_select(-3, geom["inv"])
 
 
 # -- the gradient boundary ------------------------------------------------------------
 class OscProbs(torch.autograd.Function):
     """theta (6,) -> (N, 3, 3) probabilities over prepared geometry, with the
     forward-mode gradient of ``pallas_chain._probs_pallas_fwdgrad_prep``
-    (:1227-1324). Everything happens on the geometry's device, where
-    `theta` must lie: nothing is copied from or to the host, so neither
-    pass waits for the card and both can be captured in a CUDA graph.
+    (:1227-1324); (B, 6) lanes of theta -> (B, N, 3, 3), through the same
+    launches as one theta. Everything happens on the geometry's device,
+    where `theta` must lie: nothing is copied from or to the host, so
+    neither pass waits for the card and both can be captured in a CUDA
+    graph.
 
     forward: the pack from theta (float64, cast to the geometry's type), one
     primal launch, the tau row and the unsort. backward: the pack's 57x6
-    Jacobian (``torch.func.jacfwd``, there and then), one tangent launch per
-    active theta component or one multitangent launch for all of them; each
-    tangent goes through the tau row's derivative and is contracted with
-    the cotangent in sorted order. Inactive components get zero gradient.
-    The geometry gets none."""
+    Jacobian (``torch.func.jacfwd``, there and then; per lane, with no
+    cross-lane blocks), one tangent launch per active theta component or
+    one multitangent launch for all of them; each tangent goes through the
+    tau row's derivative and is contracted with the cotangent in sorted
+    order. Inactive components get zero gradient. The geometry gets
+    none."""
 
     @staticmethod
     def forward(ctx, theta, geom, nubar, reparam, nlo_factor, active,
@@ -750,7 +835,7 @@ class OscProbs(torch.autograd.Function):
         ctx.pack_args = (nubar, reparam, nlo_factor)
         ctx.active = active
         ctx.multitangent = multitangent
-        return tau_epilogue(p2)[geom["inv"]]
+        return tau_epilogue(p2).index_select(-3, geom["inv"])
 
     @staticmethod
     def backward(ctx, g):
@@ -760,27 +845,27 @@ class OscProbs(torch.autograd.Function):
         if not ks:
             return (torch.zeros_like(theta),) + (None,) * 6
         nubar, reparam, nlo_factor = ctx.pack_args
-        jac = torch.func.jacfwd(
-            lambda th: theta_to_pvec(th, nubar, reparam, nlo_factor)
-        )(theta.detach())  # (57, 6)
+        jac = pack_jacobian(theta, nubar, reparam, nlo_factor)  # (..., 57, 6)
         # the active columns, picked by Python ints: views, no index tensor
-        dpvecs = torch.stack([jac[:, k] for k in ks]).to(pvec.dtype)
+        dpvecs = torch.stack([jac[..., k] for k in ks], dim=-2).to(
+            pvec.dtype)  # (..., K, 57)
         args = (geom["e"], geom["dens"], geom["dist"], geom["nl"])
         if ctx.multitangent:
             _, dp2s = chain_multitangent(pvec, dpvecs, *args, geom["tiles"])
         else:
             dp2s = torch.stack(
-                [chain_tangent(pvec, d, *args, geom["tiles"]) for d in dpvecs]
-            )
+                [chain_tangent(pvec, d.contiguous(), *args, geom["tiles"])
+                 for d in dpvecs.unbind(-2)], dim=-4)
         # probs = probs_sorted[inv]  =>  the sorted cotangent is g[order]
-        g_s = g[geom["order"]].permute(1, 2, 0)  # (3, 3, N)
-        grads = ((g_s[:2] * dp2s).sum(dim=(1, 2, 3)) + (
-            g_s[2] * _tau_row_tangent(p2, dp2s)
-        ).sum(dim=(1, 2))).to(theta.dtype)
-        zero = torch.zeros((), dtype=theta.dtype, device=theta.device)
+        g_s = g.index_select(-3, geom["order"]).movedim(-3, -1)  # (.., 3, 3, N)
+        grads = ((g_s[..., None, :2, :, :] * dp2s).sum(dim=(-3, -2, -1)) + (
+            g_s[..., None, 2, :, :] * _tau_row_tangent(p2, dp2s)
+        ).sum(dim=(-2, -1))).to(theta.dtype)  # (..., K)
+        zero = torch.zeros(grads.shape[:-1], dtype=theta.dtype,
+                           device=theta.device)
         dtheta = torch.stack([
-            grads[ks.index(i)] if i in ks else zero for i in range(6)
-        ])
+            grads[..., ks.index(i)] if i in ks else zero for i in range(6)
+        ], dim=-1)
         return (dtheta,) + (None,) * 6
 
 
@@ -793,7 +878,9 @@ def osc_probs(theta, nubar, geom, reparam=False, nlo_factor=1.0,
     :1431).
 
     `theta` is a (6,) tensor or a sequence of numbers and 0-d tensors (the
-    parameter magnitudes), on the geometry's device. `active` (indices into
+    parameter magnitudes), on the geometry's device, or a (B, 6) tensor of
+    lanes, which gives (B, N, 3, 3) from the launches of one theta.
+    `active` (indices into
     theta, default all) selects the components whose tangents the backward
     computes; the others get zero gradient. `multitangent` (the default, as
     ``prob3``'s) computes them in one multitangent launch; ``False`` in one

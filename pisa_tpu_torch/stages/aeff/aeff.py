@@ -4,14 +4,15 @@ Effective-area / normalization stage (counterpart of
 ``weights *= weighted_aeff * livetime * aeff_scale`` with per-category norms
 (nutau_cc_norm for nutau(bar)_cc, nutau_norm for all nutau categories,
 nu_nc_norm for NC). On a category-stacked container the per-category scales
-are one ``(C,)`` vector, selected by name masks that live on the device.
+are one ``(C,)`` vector (``(B, C)`` in an evaluation of lanes), selected by
+name masks that live on the device.
 """
 
 from __future__ import annotations
 
 import torch
 
-from pisa_tpu_torch.core.stage import Stage
+from pisa_tpu_torch.core.stage import Stage, in_data_type
 
 __all__ = ["aeff"]
 
@@ -75,7 +76,7 @@ class aeff(Stage):  # noqa: N801
                     * torch.where(m_nc, nu_nc_norm, one)
                 ).to(weights.dtype)
                 container["weights"] = (
-                    weights * container["weighted_aeff"] * scale[:, None]
+                    weights * container["weighted_aeff"] * scale[..., None]
                 )
                 continue
             scale = aeff_scale * livetime_s
@@ -86,5 +87,6 @@ class aeff(Stage):  # noqa: N801
             if "nc" in container.name:
                 scale = scale * nu_nc_norm
             container["weights"] = (
-                container["weights"] * container["weighted_aeff"] * scale
+                container["weights"] * container["weighted_aeff"]
+                * in_data_type(scale)
             )

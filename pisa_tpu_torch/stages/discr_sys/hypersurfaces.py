@@ -5,7 +5,8 @@ reference ``pisa/stages/discr_sys/hypersurfaces.py:42``): per-bin scale
 factors from :class:`pisa_tpu_torch.utils.hypersurface.Hypersurface`,
 evaluated on the pipeline's device. On a category-stacked container
 (``core/stacking.py``) the linked groups are evaluated together, one row
-each, and a rows map spreads them over the categories.
+each, and a rows map spreads them over the categories. In an evaluation of
+lanes the scales gain a leading lane axis.
 
 Interpolated hypersurfaces and fit-uncertainty propagation are not ported
 yet (ROADMAP queue 1, item 10).
@@ -107,7 +108,7 @@ class hypersurfaces(Stage):  # noqa: N801
                 raise ValueError(f"no hypersurface for map {gname!r}")
         scales = hs.evaluate_stacked(
             [self.hypersurfaces[g] for g in group_names], param_values,
-            container.device, self._stacked_coeffts,
+            container.device, self._stacked_coeffts, lanes=container.lanes,
         )
         # empty bins (non-finite fit) -> scale 1
         container.set_stacked(
@@ -135,7 +136,7 @@ class hypersurfaces(Stage):  # noqa: N801
                 self._compute_stacked(container, param_values)
                 continue
             scales = self.hypersurfaces[container.name].evaluate(
-                param_values, self.data.device
+                param_values, self.data.device, lanes=container.lanes
             )
             # empty bins (non-finite fit) -> scale 1
             container["hs_scales"] = torch.where(

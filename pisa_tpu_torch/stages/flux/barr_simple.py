@@ -6,7 +6,8 @@ ratio, spectral-index tilt, and Barr up/hor + nu/nubar parameterized
 modifications to the nominal (nue, numu) flux pair per point, as one set of
 torch ops per (linked) container, or, on a category-stacked container
 (``core/stacking.py``) in grid calc mode, as one chain that gives the
-(2, ngrid, 2) nu/nubar flux pair from fields precomputed on the grid.
+(2, ngrid, 2) nu/nubar flux pair from fields precomputed on the grid. In an
+evaluation of lanes every flux gains a leading lane axis.
 """
 
 from __future__ import annotations
@@ -14,7 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from pisa_tpu_torch.core.stage import Stage
+from pisa_tpu_torch.core.stage import Stage, in_data_type
 from pisa_tpu_torch.ops.flux import barr
 
 __all__ = ["barr_simple"]
@@ -107,16 +108,16 @@ class barr_simple(Stage):  # noqa: N801
         nue_numu_ratio, nu_nubar_ratio, delta_index, uphor, barr_nubar = params
         nu_flux = container["nu_flux_nominal"]
         nubar_flux = container["nubar_flux_nominal"]
-        if nu_flux.dim() != 2:
+        if nu_flux.dim() != (2 if container.lanes is None else 3):
             raise ValueError(
                 "stacked barr_simple expects a shared nominal flux on the"
                 f" calc grid; got shape {tuple(nu_flux.shape)}"
             )
         nu_e, nu_mu = _apply_ratio_scale_sum_constant(
-            nue_numu_ratio, nu_flux[:, 0], nu_flux[:, 1]
+            nue_numu_ratio, nu_flux[..., 0], nu_flux[..., 1]
         )
         nub_e, nub_mu = _apply_ratio_scale_sum_constant(
-            nue_numu_ratio, nubar_flux[:, 0], nubar_flux[:, 1]
+            nue_numu_ratio, nubar_flux[..., 0], nubar_flux[..., 1]
         )
         idx_scale = barr.spectral_index_scale_from_log(
             container["barr_log_e_pivot"], delta_index
@@ -142,17 +143,18 @@ class barr_simple(Stage):  # noqa: N801
             om = out_mu * barr.mod_ratio_nubar_from_field(
                 nubar, field_mu, barr_nubar
             )
-            out_rows.append(torch.stack([oe * uphor_e, om], dim=1))
+            out_rows.append(torch.stack(
+                torch.broadcast_tensors(oe * uphor_e, om), dim=-1))
         rows = (np.asarray(container.cat_aux("nubar")) < 0).astype(np.int32)
-        container.set_stacked("nu_flux", torch.stack(out_rows), rows=rows)
+        container.set_stacked("nu_flux", torch.stack(out_rows, dim=-3),
+                              rows=rows)
 
     def compute_function(self):
         p = self.params
-        nue_numu_ratio = p.nue_numu_ratio.m_as("dimensionless")
-        nu_nubar_ratio = p.nu_nubar_ratio.m_as("dimensionless")
-        delta_index = p.delta_index.m_as("dimensionless")
-        uphor = p.Barr_uphor_ratio.m_as("dimensionless")
-        barr_nubar = p.Barr_nu_nubar_ratio.m_as("dimensionless")
+        nue_numu_ratio, nu_nubar_ratio, delta_index, uphor, barr_nubar = (
+            in_data_type(p[name].m_as("dimensionless"))
+            for name in ("nue_numu_ratio", "nu_nubar_ratio", "delta_index",
+                         "Barr_uphor_ratio", "Barr_nu_nubar_ratio"))
 
         if any(getattr(c, "is_stacked", False) for c in self.data.containers):
             for container in self.data:
@@ -179,10 +181,10 @@ class barr_simple(Stage):  # noqa: N801
 
             # nue/numu ratio on both nu and nubar nominal pairs
             nu_e, nu_mu = _apply_ratio_scale_sum_constant(
-                nue_numu_ratio, nu_flux[:, 0], nu_flux[:, 1]
+                nue_numu_ratio, nu_flux[..., 0], nu_flux[..., 1]
             )
             nub_e, nub_mu = _apply_ratio_scale_sum_constant(
-                nue_numu_ratio, nubar_flux[:, 0], nubar_flux[:, 1]
+                nue_numu_ratio, nubar_flux[..., 0], nubar_flux[..., 1]
             )
 
             # spectral index
@@ -214,5 +216,6 @@ class barr_simple(Stage):  # noqa: N801
             out_e = out_e * barr.mod_ratio_uphor(0, energy, coszen, uphor)
             out_mu = out_mu * barr.mod_ratio_uphor(1, energy, coszen, uphor)
 
-            container["nu_flux"] = torch.stack([out_e, out_mu], dim=1)
+            container["nu_flux"] = torch.stack(
+                torch.broadcast_tensors(out_e, out_mu), dim=-1)
         self.data.unlink_containers()

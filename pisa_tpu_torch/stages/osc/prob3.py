@@ -23,6 +23,10 @@ the stacked events in one op, or, when the template that owns the container
 set up rate deferral (``container.rate_defer``), handed to the histogram
 stage as a grid-level factor (``container.deferred_rate``).
 
+In an evaluation of lanes (``container.lanes``, the batched fits) theta is a
+(B, 6) tensor and every output gains a leading lane axis; the launches stay
+two per sign-pair, each serving all lanes.
+
 NSI, neutrino decay, LRI, Earth tomography, layer dedup and per-event calc
 mode (with it the JAX package's stacked events-calc route, which needs the
 XLA formulation ``ops/osc/kernels.py``) are not ported yet (ROADMAP queue 1,
@@ -171,10 +175,11 @@ class prob3(Stage):  # noqa: N801
         # carry the autograd graph (compiled template): stacked, not
         # converted; the numbers among them are filled in on the device
         prms = [self.params[name] for name in self._THETA_NAMES]
+        lanes = self.data.lanes
         theta = theta_tensor(
             [p.m_as(u) for p, u in zip(prms, self._THETA_UNITS)],
-            device=self.data.device,
-        )
+            device=self.data.device, lanes=lanes,
+        )  # (6,), or (B, 6) lanes
         # tangents only for the free oscillation parameters (prob3.py:604-617
         # of the JAX package); the flagship frees 3 of the 6
         active = tuple(i for i, p in enumerate(prms) if not p.is_fixed)
@@ -197,11 +202,14 @@ class prob3(Stage):  # noqa: N801
                         multitangent=self.multitangent,
                     )
                     for sign in (1, -1)
-                ])  # (2, n, 3, 3)
+                ], dim=-4)  # ([B,] 2, n, 3, 3)
                 container.set_stacked("probability", probability, rows=grp)
                 # rows = group * 3 + final flavour: P(e -> f), P(mu -> f)
-                pe = probability[:, :, 0, :].permute(0, 2, 1).reshape(6, -1)
-                pm = probability[:, :, 1, :].permute(0, 2, 1).reshape(6, -1)
+                lead = probability.shape[:-4]
+                pe = probability[..., 0, :].transpose(-1, -2).reshape(
+                    lead + (6, -1))
+                pm = probability[..., 1, :].transpose(-1, -2).reshape(
+                    lead + (6, -1))
                 container.set_stacked("prob_e", pe, rows=grp * 3 + flav)
                 container.set_stacked("prob_mu", pm, rows=grp * 3 + flav)
             return
@@ -220,8 +228,8 @@ class prob3(Stage):  # noqa: N801
         for container in self.data:
             flav = int(container["flav"])
             probs = container["probability"]
-            container["prob_e"] = probs[:, 0, flav]
-            container["prob_mu"] = probs[:, 1, flav]
+            container["prob_e"] = probs[..., 0, flav]
+            container["prob_mu"] = probs[..., 1, flav]
 
     def stacked_ok(self):
         return not isinstance(self.apply_mode, MultiDimBinning)
@@ -235,6 +243,7 @@ class prob3(Stage):  # noqa: N801
         product taken per event, as on the unstacked unfused branch."""
         rep = container.representation
         calc_h = hash(self.calc_mode)
+        k = 0 if container.lanes is None else 1  # the lane axis, if any
         if isinstance(rep, str) and container.validity.get(
                 "nu_flux", {}).get(hash(rep), False):
             nu_flux = container["nu_flux"]  # (C, n_pad, 2) per event
@@ -249,15 +258,15 @@ class prob3(Stage):  # noqa: N801
         pe = container["prob_e"]  # (6, n), rows = group * 3 + flavour
         pm = container["prob_mu"]
         rows_pf = container.rows[("prob_e", calc_h)]
-        if nu_flux.dim() == 2:
-            nf6 = nu_flux[None]  # one flux shared by all categories
+        if nu_flux.dim() - k == 2:
+            nf6 = nu_flux.unsqueeze(k)  # one flux shared by all categories
         elif (
-            nu_flux.shape[0] == 2
+            nu_flux.shape[k] == 2
             and isinstance(rows_flux, np.ndarray)
             and np.array_equal(rows_flux, np.asarray(rows_pf) // 3)
         ):
             # each flux group row for its 3 flavour rows
-            nf6 = nu_flux.repeat_interleave(3, dim=0)
+            nf6 = nu_flux.repeat_interleave(3, dim=k)
         else:
             raise NotImplementedError(
                 "stacked prob3 expects a shared or nubar-grouped nu_flux on"
@@ -304,8 +313,8 @@ class prob3(Stage):  # noqa: N801
                 container.representation = self.calc_mode
                 nu_flux = container["nu_flux"]
                 container["osc_flux_rate"] = (
-                    nu_flux[:, 0] * container["prob_e"]
-                    + nu_flux[:, 1] * container["prob_mu"]
+                    nu_flux[..., 0] * container["prob_e"]
+                    + nu_flux[..., 1] * container["prob_mu"]
                 )
                 container.representation = apply_rep
                 container["weights"] = (
@@ -314,6 +323,6 @@ class prob3(Stage):  # noqa: N801
             else:
                 nu_flux = container["nu_flux"]
                 container["weights"] = container["weights"] * (
-                    nu_flux[:, 0] * container["prob_e"]
-                    + nu_flux[:, 1] * container["prob_mu"]
+                    nu_flux[..., 0] * container["prob_e"]
+                    + nu_flux[..., 1] * container["prob_mu"]
                 )

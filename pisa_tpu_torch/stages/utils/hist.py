@@ -18,6 +18,10 @@ it to the events, the histogram is the contraction of that rate with static
 on that template's stacked container (``container.rate_defer``), never on
 this stage: two templates over one pipeline each have their own.
 
+In an evaluation of lanes (``container.lanes``) the weights and the rate
+carry a leading lane axis B: the deferred histogram is then, per category,
+one (B, grid) @ (grid, bins) product, a GEMM where one point's is a GEMV.
+
 Binned calc mode, unweighted and uncertainty-weighted histograms are not
 ported yet (ROADMAP queue 1, item 11).
 """
@@ -180,22 +184,27 @@ class hist(Stage):  # noqa: N801
         """The factorized histogram of a container whose oscillation stage
         deferred its rate in this evaluation."""
         defer = container.rate_defer
-        rate = dr["rate"]  # (R, G)
+        rate = dr["rate"]  # ([B,] R, G)
+        lead = () if container.lanes is None else (container.lanes,)
         container.representation = "events"
-        A = container["weights"]  # (C, n_pad) weights before the rate
+        A = container["weights"]  # ([B,] C, n_pad) weights before the rate
         s = torch.where(
             defer["a0_nonzero"],
-            A.reshape(-1).index_select(0, defer["e0"]) * defer["inv_a0"],
+            A.reshape(lead + (-1,)).index_select(len(lead), defer["e0"])
+            * defer["inv_a0"],
             1.0,
         )
-        rate_c = rate.index_select(0, container.row_tensor(dr["rows"]))
+        rate_c = rate.index_select(len(lead),
+                                   container.row_tensor(dr["rows"]))
         hist_w = (
-            torch.einsum("cg,cgb->cb", rate_c, defer["S"]) * s[:, None]
+            torch.einsum("...cg,cgb->...cb", rate_c, defer["S"])
+            * s[..., None]
         )
         if self.error_method == "sumw2":
             sumw2 = (
-                torch.einsum("cg,cgb->cb", torch.square(rate_c), defer["S2"])
-                * torch.square(s)[:, None]
+                torch.einsum("...cg,cgb->...cb", torch.square(rate_c),
+                             defer["S2"])
+                * torch.square(s)[..., None]
             )
         container.representation = self.apply_mode
         container["weights"] = hist_w
@@ -222,13 +231,16 @@ class hist(Stage):  # noqa: N801
             return
         container.representation = "events"
         w = container["weights"]
+        laned = container.lanes is not None
         if self.error_method == "sumw2":
             res = container.stacked_histogram(
-                torch.stack([w, torch.square(w)], dim=-1), self.apply_mode
+                torch.stack([w, torch.square(w)], dim=-1), self.apply_mode,
+                laned=laned,
             )
             hist_w, sumw2 = res[..., 0], res[..., 1]
         else:
-            hist_w = container.stacked_histogram(w, self.apply_mode)
+            hist_w = container.stacked_histogram(w, self.apply_mode,
+                                                 laned=laned)
         container.representation = self.apply_mode
         container["weights"] = hist_w
         # histogramming does not invalidate the events representation
@@ -249,16 +261,22 @@ class hist(Stage):  # noqa: N801
             else:
                 chans = w
             matrix = container.cached_hist_matrix(self.apply_mode)
+            laned = container.lanes is not None
             if matrix is not None:
-                res = translation.histogram_matmul(chans, matrix)
+                res = translation.histogram_matmul(chans, matrix, laned=laned)
+            elif laned:
+                raise NotImplementedError(
+                    "lanes through a scatter-added histogram (a container"
+                    " past the one-hot size budget) need a stacked template"
+                )
             else:
                 idx = container.cached_flat_indices(self.apply_mode)
                 res = translation.histogram(None, chans, self.apply_mode, idx=idx)
             container.representation = self.apply_mode
             if self.error_method == "sumw2":
-                container["weights"] = res[:, 0]
-                container["errors"] = torch.sqrt(res[:, 1])
-                container["bin_unc2"] = res[:, 0]
+                container["weights"] = res[..., 0]
+                container["errors"] = torch.sqrt(res[..., 1])
+                container["bin_unc2"] = res[..., 0]
             else:
                 container["weights"] = res
             # histogramming does not invalidate the events representation

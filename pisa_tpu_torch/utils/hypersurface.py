@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from pisa_tpu_torch import FTYPE, TORCH_FTYPE
+from pisa_tpu_torch.core.stage import in_data_type
 from pisa_tpu_torch.utils.fileio import read_csv
 
 __all__ = ["Hypersurface", "evaluate_stacked", "load_hypersurfaces"]
@@ -46,10 +47,11 @@ class Hypersurface:
         )
         self._device_coeffts = {}
 
-    def evaluate(self, param_values, device):
+    def evaluate(self, param_values, device, lanes=None):
         """Per-bin scale factors, flat ``(binning.size,)`` on `device`
         (reference ``hypersurface.py:356``); `param_values` maps each
-        systematic to a float."""
+        systematic to a float, a 0-d tensor or, with `lanes`, a (lanes, 1)
+        one, and the result is then (lanes, binning.size)."""
         if device not in self._device_coeffts:
             self._device_coeffts[device] = torch.as_tensor(
                 self._coeffts, dtype=TORCH_FTYPE, device=device
@@ -57,17 +59,20 @@ class Hypersurface:
         coeffts = self._device_coeffts[device]
         total = coeffts[0]
         for i, name in enumerate(self.param_names, start=1):
-            total = total + coeffts[i] * param_values[name]
+            total = total + coeffts[i] * in_data_type(param_values[name])
+        if lanes is not None and total.dim() == 1:
+            total = total.expand(lanes, -1)
         return total
 
 
-def evaluate_stacked(surfaces, param_values, device, cache):
+def evaluate_stacked(surfaces, param_values, device, cache, lanes=None):
     """The scale factors of several hypersurfaces over the same params and
     bins as one ``(G, B)`` tensor on `device`: ``intercepts + slopes . p``,
     one product for all of them (a category-stacked container's groups,
     ``stages/discr_sys/hypersurfaces.py``). `param_values` maps each
-    systematic to a float or a 0-d tensor on `device`; `cache` (a dict the
-    caller keeps) holds the stacked coefficients, uploaded once."""
+    systematic to a float or a 0-d tensor on `device`, or with `lanes` to a
+    (lanes, 1) tensor, and the result is then (lanes, G, B); `cache` (a
+    dict the caller keeps) holds the stacked coefficients, uploaded once."""
     names = surfaces[0].param_names
     if any(s.param_names != names for s in surfaces[1:]):
         raise ValueError("hypersurfaces over different params")
@@ -76,12 +81,15 @@ def evaluate_stacked(surfaces, param_values, device, cache):
         coeffts = np.stack([s._coeffts for s in surfaces])  # (G, 1 + P, B)
         cache[key] = torch.as_tensor(coeffts, dtype=TORCH_FTYPE, device=device)
     coeffts = cache[key]
+    shape = () if lanes is None else (lanes,)
     p = torch.stack([
-        v.to(TORCH_FTYPE) if isinstance(v, torch.Tensor)
-        else torch.full((), float(v), dtype=TORCH_FTYPE, device=device)
+        v.to(TORCH_FTYPE).reshape(-1).expand(shape) if lanes is not None
+        and isinstance(v, torch.Tensor)
+        else v.to(TORCH_FTYPE) if isinstance(v, torch.Tensor)
+        else torch.full(shape, float(v), dtype=TORCH_FTYPE, device=device)
         for v in (param_values[name] for name in names)
-    ])
-    return coeffts[:, 0] + torch.einsum("gpb,p->gb", coeffts[:, 1:], p)
+    ], dim=-1)
+    return coeffts[:, 0] + torch.einsum("gpb,...p->...gb", coeffts[:, 1:], p)
 
 
 _DATA_RELEASE_KEYS = {

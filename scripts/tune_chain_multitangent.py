@@ -108,7 +108,8 @@ def bind(lib, suffix, parent=False):
         fn.argtypes = [p, p, i] + [p] * 6 + [i, p]
         attrs.argtypes = [i, p]
     else:
-        fn.argtypes = [p, p, i] + [p] * 8 + [i, i, i, p]
+        # ..., n_tiles, n, tile_steps, lanes, stream
+        fn.argtypes = [p, p, i] + [p] * 8 + [i, i, i, i, p]
         attrs.argtypes = [i, i, p]
     fn.restype = attrs.restype = i
     return fn, attrs
@@ -231,7 +232,7 @@ def main():
                     rc = fn(pvec.data_ptr(), dpvecs.data_ptr(), k,
                             *(x.data_ptr() for x in t), geom["e"].data_ptr(),
                             out.data_ptr(), dout.data_ptr(), t[0].shape[0],
-                            n, steps, stream())
+                            n, steps, 1, stream())
                     assert rc == 0, rc
                 return launch
 

@@ -288,3 +288,158 @@ def test_kernel_matches_reference_on_card(cuda_device, dtype, atol):
     with pytest.raises(ValueError, match="tile table"):
         chain.chain_probs(pvec, *args)
     assert chain.launch_count == before + 1
+
+
+# three lanes of theta (both signs of dm31)
+LANE_THETAS = np.array([
+    THETA,
+    [0.6, 0.14, 0.70, 1.0, 7.5e-5, -2.4e-3],
+    [0.58, 0.16, 0.92, 0.2, 7.2e-5, 2.6e-3],
+])
+LANE_ACTIVE = [1, 2, 5]  # theta13, theta23, dm31: the flagship's free ones
+
+
+def _lane_inputs(nubar, device="cpu", dtype=torch.float64, n=300):
+    e, dens, dist = _geometry(n, seed=11)
+    geom = chain.prepare_chain_geometry(e, dens, dist, dtype=dtype,
+                                        device=device)
+    theta = torch.as_tensor(LANE_THETAS, dtype=torch.float64)
+    pvec = chain.theta_to_pvec(theta, nubar)
+    dirs = chain.pack_jacobian(theta, nubar)[..., LANE_ACTIVE].transpose(1, 2)
+    return (geom, pvec.to(device, dtype).contiguous(),
+            dirs.to(device, dtype).contiguous())
+
+
+@pytest.mark.parametrize("nubar", [1, -1])
+def test_pack_lanes_equal_single_packs(nubar):
+    """theta_to_pvec and pack_jacobian over (B, 6) lanes: each lane is the
+    single theta's pack and 57x6 Jacobian (no cross-lane blocks)."""
+    theta = torch.as_tensor(LANE_THETAS, dtype=torch.float64)
+    packs = chain.theta_to_pvec(theta, nubar)
+    jacs = chain.pack_jacobian(theta, nubar)
+    assert packs.shape == (3, chain.N_PACK)
+    assert jacs.shape == (3, chain.N_PACK, 6)
+    for b in range(3):
+        np.testing.assert_allclose(
+            packs[b].numpy(), chain.theta_to_pvec(theta[b], nubar).numpy(),
+            rtol=0, atol=1e-16)
+        np.testing.assert_allclose(
+            jacs[b].numpy(), chain.pack_jacobian(theta[b], nubar).numpy(),
+            rtol=0, atol=1e-16)
+
+
+@pytest.mark.parametrize("which", ["primal", "tangent", "multitangent"])
+def test_reference_lanes_equal_single_calls(which):
+    """The plain versions with a lane axis: (B, 57) packs (and (B, 57) or
+    (B, K, 57) directions) give each lane's single call, to rounding
+    (1e-13 of the largest output; fp64)."""
+    geom, pvec, dirs = _lane_inputs(1)
+    args = (geom["e"], geom["dens"], geom["dist"], geom["nl"])
+    if which == "primal":
+        got = [chain.chain_probs(pvec, *args)]
+        want = [torch.stack([chain.chain_probs(p, *args) for p in pvec])]
+    elif which == "tangent":
+        d = dirs[:, 1].contiguous()
+        got = [chain.chain_tangent(pvec, d, *args)]
+        want = [torch.stack([chain.chain_tangent(p, x, *args)
+                             for p, x in zip(pvec, d)])]
+    else:
+        got = list(chain.chain_multitangent(pvec, dirs, *args))
+        ones = [chain.chain_multitangent(p, d, *args)
+                for p, d in zip(pvec, dirs)]
+        want = [torch.stack([o[0] for o in ones]),
+                torch.stack([o[1] for o in ones])]
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.shape[0] == 3
+        assert float((g - w).abs().max()) <= 1e-13 * float(w.abs().max())
+
+
+@pytest.mark.parametrize("multitangent", [True, False])
+def test_osc_probs_lanes_equal_single_theta(multitangent):
+    """OscProbs over (B, 6) lanes of theta: the probabilities and the
+    gradient of a weighted sum equal each lane's single-theta call (1e-12
+    relative; fp64), on both backward routes."""
+    geom, _, _ = _lane_inputs(-1)
+    rng = np.random.RandomState(5)
+    w = torch.as_tensor(rng.uniform(size=(geom["e"].shape[0], 3, 3)))
+    theta = torch.as_tensor(LANE_THETAS, dtype=torch.float64)
+    th = theta.clone().requires_grad_(True)
+    probs = chain.osc_probs(th, -1, geom, active=LANE_ACTIVE,
+                            multitangent=multitangent)
+    (probs * w).sum().backward()
+    for b in range(3):
+        tb = theta[b].clone().requires_grad_(True)
+        pb = chain.osc_probs(tb, -1, geom, active=LANE_ACTIVE,
+                             multitangent=multitangent)
+        (pb * w).sum().backward()
+        np.testing.assert_allclose(probs[b].detach().numpy(),
+                                   pb.detach().numpy(), rtol=0, atol=1e-14)
+        np.testing.assert_allclose(th.grad[b].numpy(), tb.grad.numpy(),
+                                   rtol=1e-12, atol=0)
+    assert np.all(th.grad[:, [0, 3, 4]].numpy() == 0.0)
+
+
+def test_chain_probs_rejects_bad_lanes():
+    """Directions whose lanes do not match the packs', and more lanes than
+    a launch takes, are refused before any launch."""
+    geom, pvec, dirs = _lane_inputs(1)
+    args = (geom["e"], geom["dens"], geom["dist"], geom["nl"])
+    with pytest.raises(ValueError, match="dpvecs"):
+        chain.chain_multitangent(pvec, dirs[:2], *args)
+    with pytest.raises(ValueError, match="dpvec"):
+        chain.chain_tangent(pvec, dirs[0, 0], *args)
+    big = pvec[:1].expand(chain.MAX_LANES + 1, -1)
+    with pytest.raises(ValueError, match="lanes"):
+        chain.chain_probs(big, *args)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,atol", [(torch.float64, 1e-10),
+                                        (torch.float32, 1e-4)])
+@pytest.mark.parametrize("which", ["primal", "tangent", "multitangent"])
+def test_lane_kernels_on_card(cuda_device, dtype, atol, which):
+    """Each batched CUDA kernel (B = 3 lanes, one launch) against its plain
+    version's lane axis on the card (the single-launch bounds: primal atol,
+    tangents relative to their direction's largest), and lane b against a
+    single launch at pack b: equal in fp64 (the same code in the same
+    order), within rounding in fp32."""
+    geom, pvec, dirs = _lane_inputs(1, cuda_device, dtype, n=4099)
+    args = (geom["e"], geom["dens"], geom["dist"], geom["nl"])
+    tiles = geom["tiles"]
+    counter = {"primal": "launch_count", "tangent": "tangent_launch_count",
+               "multitangent": "multitangent_launch_count"}[which]
+    if which == "primal":
+        def run(p, d):
+            return chain.chain_probs(p, *args, tiles), None
+        want = (chain.chain_probs_reference(pvec, *args), None)
+        d = None
+    elif which == "tangent":
+        def run(p, d):
+            return None, chain.chain_tangent(p, d, *args, tiles)
+        d = dirs[:, 1].contiguous()
+        want = (None, chain.chain_tangent_reference(pvec, d, *args))
+    else:
+        def run(p, d):
+            return chain.chain_multitangent(p, d, *args, tiles)
+        d = dirs
+        want = chain.chain_multitangent_reference(pvec, d, *args)
+    before = getattr(chain, counter)
+    got = run(pvec, d)
+    assert getattr(chain, counter) == before + 1
+    torch.cuda.synchronize()
+    if got[0] is not None:
+        assert float((got[0] - want[0]).abs().max()) <= atol
+    if got[1] is not None:
+        dims = tuple(range(1 - got[1].dim(), 0))[-3:]
+        scale = want[1].abs().amax(dim=dims, keepdim=True)
+        assert float(((got[1] - want[1]).abs() / scale).max()) <= 10 * atol
+    for b in range(3):
+        one = run(pvec[b].contiguous(), None if d is None
+                  else d[b].contiguous())
+        for g, o in zip(got, one):
+            if g is None:
+                continue
+            if dtype == torch.float64:
+                assert torch.equal(g[b], o)
+            else:
+                assert float((g[b] - o).abs().max()) <= atol

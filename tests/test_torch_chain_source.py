@@ -3,11 +3,13 @@ The math of ``pisa_tpu_torch/csrc/osc_chain.cu`` compiled for the host with
 the C++ compiler (its per-point ``chain_point`` and the three phases of the
 layer-parallel tile pass are ``__host__ __device__``): the primal and the
 dual-number tangents against the port's plain versions, the tile pass,
-driven by a host loop over tiles and over the threads of each phase,
-against both, and the operation counts behind the kernels' bounds
-(``chain.chain_operations``). This checks the CUDA source's arithmetic
-without a card; the kernels themselves run only on one (``chip_smoke.py``,
-the ``cuda`` tests). Skipped where no C++ compiler is installed.
+driven by a host loop over lanes, tiles and the threads of each phase,
+against both (with several lanes: each lane against a single-lane pass at
+its pack, through the kernels' own lane offsets), and the operation counts
+behind the kernels' bounds (``chain.chain_operations``). This checks the
+CUDA source's arithmetic without a card; the kernels themselves run only on
+one (``chip_smoke.py``, the ``cuda`` tests). Skipped where no C++ compiler
+is installed.
 """
 
 import ctypes
@@ -58,17 +60,19 @@ void dual(const S* p, const S* dp, const int* nl, const S* e, const S* dens,
   }
 }
 
-// A tile kernel's block, one tile after another: each phase's work items in
-// turn (phase 1 by chunks of C1 of the K directions, phase 2 by chunks of
-// C2), with the shared memory poisoned (NaN) before each tile so that a
-// read of another tile's data shows. The table is cut to `steps` steps a
-// tile.
+// A tile kernel's blocks, one lane and one tile after another: each lane's
+// pack, directions and outputs through the kernels' lane_slices, then each
+// phase's work items in turn (phase 1 by chunks of C1 of the K directions,
+// phase 2 by chunks of C2), with the shared memory poisoned (NaN) before
+// each tile so that a read of another tile's data shows. The table is cut
+// to `steps` steps a tile.
 constexpr int chunks(int k, int c) { return c == 0 ? 1 : (k + c - 1) / c; }
 
 template <typename S, int K, int C1, int C2>
 void tile_pass(const S* pvec, const S* dpvec, const int* tiles, int n_tiles,
                const int* point_step, const int* step_point, const S* rho,
-               const S* dx, const S* e, S* out, S* dout, int n, int steps) {
+               const S* dx, const S* e, S* out, S* dout, int n, int steps,
+               int lanes) {
   constexpr int n1 = chunks(K, C1), n2 = chunks(K, C2);
   constexpr int k_pack = n1 * C1 > n2 * C2 ? n1 * C1 : n2 * C2;
   std::vector<S> t((size_t)steps * 18 * (1 + K)), pack(kPack * (1 + k_pack)),
@@ -76,21 +80,24 @@ void tile_pass(const S* pvec, const S* dpvec, const int* tiles, int n_tiles,
   std::vector<unsigned char> picks(kTilePoints);
   const TileMem<S> m{pack.data(), energy.data(), picks.data(), t.data(),
                      steps};
-  for (int k = 0; k < kPack * (1 + k_pack); ++k)
-    pack[k] = k < kPack ? pvec[k]
-                        : (k < kPack * (1 + K) ? dpvec[k - kPack] : S(0));
-  for (int b = 0; b < n_tiles; ++b) {
-    for (auto& x : t) x = std::nan("");
-    for (auto& x : energy) x = std::nan("");
-    const Tile tile = tile_at(tiles, b);
-    for (int j = 0; j < tile.n_points; ++j) tile_phase0(tile, j, e, m);
-    for (int w = 0; w < tile.n_steps * n1; ++w)
-      tile_phase1<S, K, C1>(tile, w % tile.n_steps, w / tile.n_steps * C1,
-                            step_point, rho, dx, m);
-    const int walks = 2 * tile.n_points;
-    for (int w = 0; w < walks * n2; ++w)
-      tile_phase2<S, K, C2>(tile, w % walks, w / walks * C2, point_step, m,
-                            out, dout, n);
+  for (int lane = 0; lane < lanes; ++lane) {
+    const LaneSlices<S> sl = lane_slices(pvec, dpvec, out, dout, K, n, lane);
+    for (int k = 0; k < kPack * (1 + k_pack); ++k)
+      pack[k] = k < kPack ? sl.pack[k]
+                          : (k < kPack * (1 + K) ? sl.dirs[k - kPack] : S(0));
+    for (int b = 0; b < n_tiles; ++b) {
+      for (auto& x : t) x = std::nan("");
+      for (auto& x : energy) x = std::nan("");
+      const Tile tile = tile_at(tiles, b);
+      for (int j = 0; j < tile.n_points; ++j) tile_phase0(tile, j, e, m);
+      for (int w = 0; w < tile.n_steps * n1; ++w)
+        tile_phase1<S, K, C1>(tile, w % tile.n_steps, w / tile.n_steps * C1,
+                              step_point, rho, dx, m);
+      const int walks = 2 * tile.n_points;
+      for (int w = 0; w < walks * n2; ++w)
+        tile_phase2<S, K, C2>(tile, w % walks, w / walks * C2, point_step, m,
+                              sl.out, sl.dout, n);
+    }
   }
 }
 
@@ -100,19 +107,21 @@ template <int K>
 int multi_pass(int c1, int c2, const double* p, const double* dp,
                const int* tiles, int n_tiles, const int* point_step,
                const int* step_point, const double* rho, const double* dx,
-               const double* e, double* out, double* dout, int n, int steps) {
+               const double* e, double* out, double* dout, int n, int steps,
+               int lanes) {
   using Shape = MultiShape<double, K>;
 #define OSC_PASS(C1, C2)                                                     \
   if (c1 == (C1) && c2 == (C2)) {                                            \
     tile_pass<double, K, ((C1) < K ? (C1) : K), ((C2) < K ? (C2) : K)>(      \
         p, dp, tiles, n_tiles, point_step, step_point, rho, dx, e, out,      \
-        dout, n, steps);                                                     \
+        dout, n, steps, lanes);                                              \
     return 0;                                                                \
   }
   if (c1 == 0) {
     tile_pass<double, K, Shape::c1, Shape::c2>(p, dp, tiles, n_tiles,
                                                point_step, step_point, rho,
-                                               dx, e, out, dout, n, steps);
+                                               dx, e, out, dout, n, steps,
+                                               lanes);
     return 0;
   }
   OSC_PASS(1, 1) OSC_PASS(1, 6) OSC_PASS(2, 1) OSC_PASS(2, 2) OSC_PASS(3, 1)
@@ -172,34 +181,36 @@ void tile_shape(int* out) {
   out[0] = kTileSteps;
   out[1] = kTilePoints;
   out[2] = kTileThreads;
+  out[3] = kMaxLanes;
 }
 void tiles_primal_f64(const double* p, const int* tiles, int n_tiles,
                       const int* point_step, const int* step_point,
                       const double* rho, const double* dx, const double* e,
-                      double* out, int n) {
+                      double* out, int n, int lanes) {
   tile_pass<double, 0, 0, 0>(p, nullptr, tiles, n_tiles, point_step,
                              step_point, rho, dx, e, out, nullptr, n,
-                             kTileSteps);
+                             kTileSteps, lanes);
 }
 void tiles_tangent_f64(const double* p, const double* dp, const int* tiles,
                        int n_tiles, const int* point_step,
                        const int* step_point, const double* rho,
                        const double* dx, const double* e, double* dout,
-                       int n) {
+                       int n, int lanes) {
   tile_pass<double, 1, 1, 1>(p, dp, tiles, n_tiles, point_step, step_point,
-                             rho, dx, e, nullptr, dout, n, kTileSteps);
+                             rho, dx, e, nullptr, dout, n, kTileSteps, lanes);
 }
 // returns 1 for a (k, c1, c2) that is not instantiated
 int tiles_multi_f64(int k, int c1, int c2, const double* p, const double* dp,
                     const int* tiles, int n_tiles, const int* point_step,
                     const int* step_point, const double* rho,
                     const double* dx, const double* e, double* out,
-                    double* dout, int n, int steps) {
+                    double* dout, int n, int steps, int lanes) {
   switch (k) {
 #define OSC_K(K)                                                            \
   case K:                                                                   \
     return multi_pass<K>(c1, c2, p, dp, tiles, n_tiles, point_step,         \
-                         step_point, rho, dx, e, out, dout, n, steps);
+                         step_point, rho, dx, e, out, dout, n, steps,       \
+                         lanes);
     OSC_K(1) OSC_K(2) OSC_K(3) OSC_K(4) OSC_K(5) OSC_K(6)
 #undef OSC_K
   }
@@ -285,12 +296,12 @@ def host_lib(tmp_path_factory):
     lib.dual1_f64.argtypes = [p] * 8 + [i]
     lib.dual3_f64.argtypes = [p] * 8 + [i]
     lib.dual6_f64.argtypes = [p] * 8 + [i]
-    lib.tiles_multi_f64.argtypes = [i, i, i, p, p, p, i] + [p] * 7 + [i, i]
+    lib.tiles_multi_f64.argtypes = [i, i, i, p, p, p, i] + [p] * 7 + [i] * 3
     lib.multi_shape.argtypes = [i, i, i, p]
     lib.count_ops.argtypes = [i, p, i, ctypes.c_double, p, p]
     lib.tile_shape.argtypes = [p]
-    lib.tiles_primal_f64.argtypes = [p, p, i] + [p] * 6 + [i]
-    lib.tiles_tangent_f64.argtypes = [p, p, p, i] + [p] * 6 + [i]
+    lib.tiles_primal_f64.argtypes = [p, p, i] + [p] * 6 + [i, i]
+    lib.tiles_tangent_f64.argtypes = [p, p, p, i] + [p] * 6 + [i, i]
     lib.count_ops.restype = ctypes.c_longlong
     return lib
 
@@ -453,13 +464,15 @@ def test_operation_counts(host_lib, k):
 def test_tile_shape_matches_source(host_lib):
     """The tile shape the host cuts (chain.TILE_STEPS, TILE_POINTS) is the
     kernel's (kTileSteps, kTilePoints), with a thread per step and two per
-    point. The multitangent's tiles of the same shape fit a block's 227 KB
+    point, and the most lanes of a launch is the wrappers'. The
+    multitangent's tiles of the same shape fit a block's 227 KB
     of shared memory for every K in both float types; its chunks of
     directions are within 1..K, and it has a thread per step and chunk."""
-    shape = (ctypes.c_int * 3)()
+    shape = (ctypes.c_int * 4)()
     host_lib.tile_shape(ctypes.addressof(shape))
-    steps, points, threads = shape
+    steps, points, threads, lanes = shape
     assert (steps, points) == (chain.TILE_STEPS, chain.TILE_POINTS)
+    assert lanes == chain.MAX_LANES
     assert threads >= steps and threads >= 2 * points
     for dtype in (torch.float32, torch.float64):
         size = torch.empty((), dtype=dtype).element_size()
@@ -483,7 +496,7 @@ def test_source_tile_pass_primal(host_lib, kind, nubar):
     n = geom["e"].shape[0]
     got = torch.full((2, 3, n), np.nan, dtype=torch.float64)
     host_lib.tiles_primal_f64(*_ptrs_and_ints(pvec, *_tile_args(geom), got,
-                                              n))
+                                              n, 1))
     args = (geom["e"], geom["dens"], geom["dist"], geom["nl"])
     want = chain.chain_probs_reference(pvec, *args)
     np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0, atol=1e-12)
@@ -511,7 +524,7 @@ def test_source_tile_pass_tangent(host_lib, kind, nubar):
         d = dirs[k].contiguous()
         got = torch.full((2, 3, n), np.nan, dtype=torch.float64)
         host_lib.tiles_tangent_f64(*_ptrs_and_ints(pvec, d, *_tile_args(geom),
-                                                   got, n))
+                                                   got, n, 1))
         want = chain.chain_tangent_reference(pvec, d, *args)
         scale = float(want.abs().max())
         assert scale > 0
@@ -557,7 +570,7 @@ def test_source_tile_pass_multitangent(host_lib, kind, k, c1, c2, steps):
     rc = host_lib.tiles_multi_f64(k, c1, c2, *_ptrs_and_ints(
         pvec, dpvecs, tiles["tile"], tiles["tile"].shape[0],
         tiles["point_step"], tiles["step_point"], tiles["rho"], tiles["dx"],
-        geom["e"], got_p, got_t, n, steps))
+        geom["e"], got_p, got_t, n, steps, 1))
     assert rc == 0
     want_p, want_t = chain.chain_multitangent_reference(pvec, dpvecs, *args)
     np.testing.assert_allclose(got_p.numpy(), want_p.numpy(), rtol=0,
@@ -570,3 +583,74 @@ def test_source_tile_pass_multitangent(host_lib, kind, k, c1, c2, steps):
         np.testing.assert_allclose(got_p.numpy(), serial_p.numpy(), rtol=0,
                                    atol=1e-14)
         assert float(((got_t - serial_t).abs() / scale).max()) <= 1e-14
+
+
+# three lanes of theta: nominal and two others (both signs of dm31)
+LANE_THETAS = [
+    THETA,
+    [0.6, 0.14, 0.70, 1.0, 7.5e-5, -2.4e-3],
+    [0.58, 0.16, 0.92, 0.2, 7.2e-5, 2.6e-3],
+]
+
+
+@pytest.mark.parametrize("kind", ["prem20x20", "gaps"])
+@pytest.mark.parametrize("which", ["primal", "tangent", "multitangent"])
+def test_source_tile_pass_lanes(host_lib, kind, which):
+    """B = 3 lanes through one tile pass, with the kernels' lane offsets
+    (lane_slices): each lane equals the single-lane pass at its own pack
+    bit for bit (the same code in the same order), and the lanes together
+    match the plain version's lane axis (primal to 1e-12, tangents to
+    1e-12 of their direction's largest; fp64). Outputs start as NaN, so a
+    slice that no lane writes shows."""
+    geom = _grid_geometry(kind)
+    n = geom["e"].shape[0]
+    theta = torch.tensor(LANE_THETAS, dtype=torch.float64)
+    pvec = chain.theta_to_pvec(theta, 1).contiguous()  # (3, 57)
+    jac = chain.pack_jacobian(theta, 1)  # (3, 57, 6)
+    dirs = jac[..., ACTIVE].transpose(1, 2).contiguous()  # (3, 3, 57)
+    args = (geom["e"], geom["dens"], geom["dist"], geom["nl"])
+    k = {"primal": 0, "tangent": 1, "multitangent": 3}[which]
+    dp = dirs[:, 1].contiguous() if k == 1 else dirs
+
+    def run(p, d, lanes):
+        out = torch.full((lanes, 2, 3, n), np.nan, dtype=torch.float64)
+        dout = torch.full((lanes, max(k, 1), 2, 3, n), np.nan,
+                          dtype=torch.float64)
+        if k == 0:
+            host_lib.tiles_primal_f64(*_ptrs_and_ints(
+                p, *_tile_args(geom), out, n, lanes))
+            return out, None
+        if k == 1:
+            host_lib.tiles_tangent_f64(*_ptrs_and_ints(
+                p, d, *_tile_args(geom), dout, n, lanes))
+            return None, dout[:, 0]
+        t = geom["tiles"]
+        rc = host_lib.tiles_multi_f64(k, 0, 0, *_ptrs_and_ints(
+            p, d, t["tile"], t["tile"].shape[0], t["point_step"],
+            t["step_point"], t["rho"], t["dx"], geom["e"], out, dout, n,
+            chain.TILE_STEPS, lanes))
+        assert rc == 0
+        return out, dout
+
+    got_p, got_t = run(pvec, dp, 3)
+    for b in range(3):
+        one_p, one_t = run(pvec[b].contiguous(), dp[b].contiguous(), 1)
+        if got_p is not None:
+            assert torch.equal(got_p[b], one_p[0])
+        if got_t is not None:
+            assert torch.equal(got_t[b], one_t[0])
+    if k == 0:
+        want = chain.chain_probs_reference(pvec, *args)
+        np.testing.assert_allclose(got_p.numpy(), want.numpy(), rtol=0,
+                                   atol=1e-12)
+        return
+    if k == 1:
+        want_t = chain.chain_tangent_reference(pvec, dp, *args)[:, None]
+        got_t = got_t[:, None]
+    else:
+        want_p, want_t = chain.chain_multitangent_reference(pvec, dp, *args)
+        np.testing.assert_allclose(got_p.numpy(), want_p.numpy(), rtol=0,
+                                   atol=1e-12)
+    scale = want_t.abs().amax(dim=(2, 3, 4), keepdim=True)
+    assert float(scale.min()) > 0
+    assert float(((got_t - want_t).abs() / scale).max()) <= 1e-12

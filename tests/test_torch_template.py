@@ -395,6 +395,35 @@ def test_capture_counts_launches_and_replay_does_not_wait(card_pipeline):
 
 
 @pytest.mark.cuda
+def test_capture_is_safe_from_the_garbage_collector(card_pipeline):
+    """Captured programs left in a reference cycle are freed by the garbage
+    collector, whenever it runs. If it ran inside another capture, CUDA
+    would refuse to destroy their graphs there and that capture would fail:
+    a capture collects first, so a collection inside it finds nothing."""
+    import gc
+
+    from pisa_tpu_torch.core.template import CAPTURE_WARMUP, CapturedFunction
+
+    ct = card_pipeline.compile()
+    value_fn, vg = ct.build_objective(ct.get_outputs(), "mod_chi2")
+    cycle = [value_fn, vg]
+    cycle.append(cycle)
+    del value_fn, vg, cycle
+    calls = []
+
+    def fn(vec, los, his):
+        calls.append(None)
+        if len(calls) == CAPTURE_WARMUP + 1:  # the run being captured
+            gc.collect()
+        return (vec * 2.0,)
+
+    vec = torch.as_tensor(_card_point(ct, 5), device="cuda")
+    program = CapturedFunction(fn, vec, *ct._device_bounds(), device=vec.device)
+    (out,) = program(vec + 1.0, *ct._device_bounds())
+    torch.testing.assert_close(out, 2.0 * (vec + 1.0))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("route", ["stacked+deferral", "stacked", "unstacked"])
 def test_no_cpu_tensor_in_the_evaluated_path(card_pipeline, route):
     """With the vector on the card, the eager evaluation makes no tensor
