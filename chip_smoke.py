@@ -39,14 +39,25 @@ oscillation grid, 15 free parameters) on the card through its two paths:
 - the L-BFGS of ``analysis/device_fit.py`` on the card and on the CPU over
   the 20x20-grid flagship from the same start (float64): the same
   iterations and best fit;
-- the batched fits, this slice's main path: ``fit_batch_on_device`` with 4
+- the batched fits: ``fit_batch_on_device`` with 4
   lanes on the 20x20-grid flagship that stop at different iterations,
   against each lane's solo fit on the card and against the same batch on
   the CPU (float64),
   and ``fit_pseudo_ensemble(cd, "llh", n_trials=64)`` on the flagship at
   full width (float32), with the batched ``value_and_grad`` timed at B = 1,
   16 and 64 (its launches, waits and peak memory) and one solo fit from the
-  same start beside the ensemble.
+  same start beside the ensemble;
+- the IceCube 3-year data release's fit, this slice's main path:
+  ``DistributionMaker([IceCube_3y_neutrinos_daemon.cfg,
+  IceCube_3y_muons.cfg], device="cuda")`` (36 free parameters, the
+  daemonflux flux per event, the neutrinos stacked and the muons per
+  container, in one captured program) against the released counts of
+  ``IceCube_3y_data.cfg``: the value_and_grad of mod_chi2 on the card
+  against the CPU in float64, then in float32 against that, with its
+  wall, waits, kernels, busy share and peak memory;
+  ``Analysis().fit_recursively(data, hm, "mod_chi2", None, "device", {},
+  None)`` and ``fit_pseudo_ensemble(cd, "mod_chi2", n_trials=64)`` beside
+  one solo fit.
 
 It times the kernels (device-only, from a CUDA graph of 200 launches, and
 host-inclusive, from back-to-back launches between CUDA events; the
@@ -62,7 +73,8 @@ host, and the fit. A ``value_and_grad`` that waits
 for the card anywhere but at the read of its result fails the run. It exits
 non-zero on any failed check; the last line of a passing run is
 ``{"ok": true, "device": {...}}``. With ``--kernels-only`` it stops after
-the kernel checks and timings (and prints no status line).
+the kernel checks and timings, and with ``--release-only`` it builds the
+kernels and runs the release phases alone; neither prints a status line.
 
 The float64 runs (CPU reference and card) happen in a child process, since
 the float type is chosen once per process (``PISA_TPU_FTYPE``); the main
@@ -180,6 +192,16 @@ VG_LANES = (1, 16, 64)
 # runs to max_steps, which per container and eager takes over a minute on
 # the card (PERF.md); theta23 is back within FIT_TOL long before
 EAGER_FIT_STEPS = 40
+
+# the IceCube 3-year data release's fit: the daemonflux neutrino variant
+# (24 correlated flux parameters, the flux per event) and the muon pipeline
+# against the released counts, at full width
+DAEMON_CFG = "settings/pipeline/IceCube_3y_neutrinos_daemon.cfg"
+MUON_CFG = "settings/pipeline/IceCube_3y_muons.cfg"
+DATA_CFG = "settings/pipeline/IceCube_3y_data.cfg"
+RELEASE_FREE = 36  # 24 daemon_*, 3 oscillation, 3 aeff, 5 hypersurface, muons
+RELEASE_TRIALS = 64
+RELEASE_MAX_STEPS = 100
 
 # the routes of one value_and_grad: label, compile options, captured
 ROUTES = (
@@ -699,6 +721,80 @@ def batch_parity_fp64(smi):
     check(cpu_dx <= BATCH_CPU_X_ATOL, "card and CPU batched fits differ")
 
 
+def release_hypothesis(device):
+    """The released counts (a MapSet) and DistributionMaker([daemon
+    neutrinos, muons]) on `device`, at full width."""
+    from pisa_tpu_torch.core.distribution_maker import DistributionMaker
+    from pisa_tpu_torch.core.pipeline import Pipeline
+
+    data = Pipeline(DATA_CFG, device=device).get_outputs()
+    return data, DistributionMaker([DAEMON_CFG, MUON_CFG], device=device)
+
+
+def release_point(cd, seed=8):
+    """The release objective's value_and_grad point: the nominal rescaled
+    values clipped to [0.15, 0.85] plus a seeded offset in [-0.05, 0.05]."""
+    import numpy as np
+
+    v0 = np.clip(cd.current_rescaled_values(), 0.15, 0.85)
+    rng = np.random.RandomState(seed)
+    return np.clip(v0 + rng.uniform(-0.05, 0.05, v0.size), 0.1, 0.9)
+
+
+def release_fp64(smi):
+    """float64, the release's fit at full width: value_and_grad of mod_chi2
+    of the daemon neutrinos plus muons against the released counts, on the
+    CPU (eager) and on the card (one captured program over both pipelines,
+    the neutrinos stacked with the flux per event, so no rate deferral),
+    held to VG_FP64. Returns the CPU's point, value and gradient (for the
+    float32 check in the main process)."""
+    import numpy as np
+    import torch
+
+    from pisa_tpu_torch.analysis.gradient import CompiledDistribution
+
+    results = {}
+    for device in ("cpu", "cuda"):
+        t0 = time.perf_counter()
+        data, dm = release_hypothesis(device)
+        cd = CompiledDistribution(dm)
+        _, vg = cd.build_objective(data, "mod_chi2")
+        setup = time.perf_counter() - t0
+        check(len(cd.free_names) == RELEASE_FREE
+              and cd.free_names[-1] == "atm_muon_scale",
+              f"release free params {cd.free_names}")
+        check(cd.templates[0].stacked and not cd.templates[0].rate_deferred
+              and not cd.templates[1].stacked,
+              "the release's neutrinos do not run stacked with the flux per"
+              " event, or the muons not per container")
+        v = release_point(cd)
+        t0 = time.perf_counter()
+        value, grad = vg(v)
+        value, grad = float(value), grad.cpu().numpy()
+        wall = time.perf_counter() - t0
+        results[device] = (v, value, grad, cd.free_names)
+        print(f"float64 release objective (daemon neutrinos + muons vs the"
+              f" released counts), {device}: value {value!r}, set-up and"
+              f" capture {setup:.2f} s, value_and_grad {wall:.3f} s [{smi}]")
+        del cd, dm
+        if device == "cuda":
+            torch.cuda.synchronize()
+    v, value, grad, names = results["cpu"]
+    check(results["cuda"][3] == names, "card and CPU free params differ")
+    check(np.array_equal(results["cuda"][0], v), "card and CPU points differ")
+    rel = abs(results["cuda"][1] - value) / abs(value)
+    mism = grad_mismatch(results["cuda"][2], grad, VG_FP64["grad_rtol"],
+                         VG_FP64["grad_atol"])
+    print(f"float64 release value_and_grad, card vs CPU: value {rel:.3e}"
+          f" relative (bound {VG_FP64['value']:g}), gradient at"
+          f" {mism:.3e} of its bound (rtol {VG_FP64['grad_rtol']:g}, atol"
+          f" {VG_FP64['grad_atol']:g} max|g|) [{smi}]")
+    check(rel <= VG_FP64["value"], "release value: card vs CPU")
+    check(mism <= 1.0, "release gradient: card vs CPU")
+    return {"release|v": v, "release|value": np.asarray(value),
+            "release|grad": grad, "release|names": np.asarray(names)}
+
+
 # -- the float64 child ---------------------------------------------------------
 def reference_worker(path):
     """float64: the CPU reference and the card run at every template point,
@@ -744,6 +840,23 @@ def reference_worker(path):
     batch_parity_fp64(smi)
     print(f"float64 batched-fit parity phase: {time.perf_counter() - t0:.1f}"
           f" s [{smi}]")
+    t0 = time.perf_counter()
+    arrays.update(release_fp64(smi))
+    print(f"float64 release phase: {time.perf_counter() - t0:.1f} s [{smi}]")
+    np.savez(path, **arrays)
+
+
+def release_worker(path):
+    """float64: the release phase alone (``--release-only``)."""
+    import numpy as np
+
+    from pisa_tpu_torch import FTYPE_NAME
+
+    check(FTYPE_NAME == "fp64", f"release worker runs {FTYPE_NAME}")
+    smi = card_line()
+    t0 = time.perf_counter()
+    arrays = release_fp64(smi)
+    print(f"float64 release phase: {time.perf_counter() - t0:.1f} s [{smi}]")
     np.savez(path, **arrays)
 
 
@@ -2042,6 +2155,163 @@ def ensemble_fp32(chain, smi):
     return launches
 
 
+def release_fp32(chain, ref, smi):
+    """The release's fit at full width, float32, this slice's main path:
+    the released counts and DistributionMaker([daemon neutrinos, muons]) on
+    the card; the captured value_and_grad of mod_chi2 against the float64
+    CPU run of the child (VG_FP32), its wall, back-to-back time, waits,
+    kernel count, device busy share and peak memory, and the launches of
+    one eager value_and_grad. Then, with the counts set to 0 just before
+    and read just after: Analysis().fit_recursively(data, hm, "mod_chi2",
+    None, "device", {}, None) from the nominal values (run twice: the
+    first builds and captures, the second is timed and counts its waits)
+    and fit_pseudo_ensemble(cd, "mod_chi2", n_trials=RELEASE_TRIALS,
+    max_steps=RELEASE_MAX_STEPS), beside one solo fit of trial 0's data.
+    Returns the launches of the fit and the ensemble."""
+    import numpy as np
+    import torch
+
+    from pisa_tpu_torch.analysis.analysis import Analysis, BasicAnalysis
+    from pisa_tpu_torch.analysis.device_fit import (
+        fit_pseudo_ensemble,
+        minimize_on_device,
+    )
+
+    t0 = time.perf_counter()
+    data, hm = release_hypothesis("cuda")
+    cd = BasicAnalysis()._get_compiled(hm)
+    value_fn, vg = cd.build_objective(data, "mod_chi2")
+    torch.cuda.synchronize()
+    print(f"release phase: data, DistributionMaker([daemon neutrinos,"
+          f" muons]), CompiledDistribution and captured objective set-up"
+          f" {time.perf_counter() - t0:.2f} s [{smi}]")
+    check(cd.free_names == [str(n) for n in ref["release|names"]],
+          "release free params differ from the float64 child's")
+
+    # -- the captured value_and_grad against the float64 CPU run
+    v = ref["release|v"]
+    value, grad = vg(v)
+    value, grad = float(value), grad.cpu().numpy()
+    rel = abs(value - float(ref["release|value"])) / abs(
+        float(ref["release|value"]))
+    mism = grad_mismatch(grad, ref["release|grad"], VG_FP32["grad_rtol"],
+                         VG_FP32["grad_atol"])
+    print(f"float32 release value_and_grad on the card vs float64 CPU: value"
+          f" {value!r}, {rel:.3e} relative (bound {VG_FP32['value']:g}),"
+          f" gradient at {mism:.3e} of its bound [{smi}]")
+    check(np.isfinite(value) and np.all(np.isfinite(grad)),
+          "the release's value_and_grad is not finite")
+    check(rel <= VG_FP32["value"], "release value: float32 vs float64")
+    check(mism <= 1.0, "release gradient: float32 vs float64")
+    torch.cuda.reset_peak_memory_stats()
+    waits, _ = count_host_syncs(lambda: read_back(vg(v)))
+    vg_wall, vg_min = median_wall(lambda: read_back(vg(v)), 10)
+    program = value_fn.program
+    los, his = cd._device_bounds()
+    vec = torch.as_tensor(v, device="cuda")
+    back_ms = cuda_time(lambda: program.value_and_grad(vec, los, his), 20)
+    # the second of two profiled replays (the first warms the profiler up);
+    # busy: its device time over the median wall, as route_table reads it
+    profiled = [profile_device_busy(
+        lambda: program.value_and_grad(vec, los, his)) for _ in range(2)]
+    _, device_ms, top, _, kernels = profiled[-1]
+    print(f"float32 release value_and_grad (captured, one program over both"
+          f" pipelines): wall {vg_wall * 1e3:.3f} ms median of 10 (min"
+          f" {vg_min * 1e3:.3f}), {back_ms:.3f} ms back to back, {waits}"
+          f" wait(s); one replay: {kernels} kernels, {device_ms:.3f} ms of"
+          f" device time ({100 * device_ms / (vg_wall * 1e3):.1f}% busy of"
+          f" the median wall); peak memory"
+          f" {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB [{smi}]")
+    for key, ms, count in top:
+        print(f"  {ms:8.3f} ms  {count:5d}x  {key[:80]}")
+    check(waits == 1, f"the release's value_and_grad waited {waits} times")
+    # the launches of one eager value_and_grad
+    reset_launch_counts(chain)
+    eager = cd._objective(data, "mod_chi2")
+    x = torch.as_tensor(v, device="cuda").requires_grad_(True)
+    eager(x, los, his).backward()
+    torch.cuda.synchronize()
+    vg_launches = launch_counts(chain)
+    print(f"release: launches (primal, tangent, multitangent) per eager"
+          f" value_and_grad {vg_launches} [{smi}]")
+    check(vg_launches == expected_vg_launches(True),
+          f"release value_and_grad launches {vg_launches}")
+
+    # -- the main path: the fit to the released counts, and the ensemble
+    hm.reset_free()
+    nominal = float(value_fn(cd.current_rescaled_values()))
+    reset_launch_counts(chain)
+    torch.cuda.reset_peak_memory_stats()
+
+    def fit():
+        hm.reset_free()
+        return Analysis().fit_recursively(data, hm, "mod_chi2", None,
+                                          "device", {}, None)
+
+    t0 = time.perf_counter()
+    fit()
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sources = {}
+    waits, result = count_host_syncs(fit, sources)
+    torch.cuda.synchronize()
+    fit_wall = time.perf_counter() - t0
+    meta = result.minimizer_metadata
+    print(f"Analysis fit to the released counts, device, float32: wall"
+          f" {fit_wall:.3f} s (first run with set-up and capture"
+          f" {first_s:.2f} s), nit {meta['nit']}, nfev {meta['nfev']},"
+          f" {waits} waits for the card ({waits / meta['nfev']:.2f} per"
+          f" evaluation), mod_chi2 {result.metric_val!r} (at the nominal"
+          f" values {nominal!r}) [{smi}]")
+    for where, count in sorted(sources.items(), key=lambda x: -x[1])[:6]:
+        print(f"  {count:5d} waits at {where}")
+    for name in ("theta23", "deltam31", "atm_muon_scale", "daemon_pi_31G"):
+        print(f"  {name:16s} best fit {result.params[name].value}")
+    check(np.isfinite(result.metric_val)
+          and result.metric_val < nominal,
+          "the fit to the released counts did not lower mod_chi2")
+    check(waits / meta["nfev"] <= DEVICE_FIT_WAITS,
+          f"the release fit waited {waits / meta['nfev']:.2f} times per"
+          " evaluation")
+    hm.reset_free()
+    t0 = time.perf_counter()
+    ens = fit_pseudo_ensemble(cd, "mod_chi2", n_trials=RELEASE_TRIALS,
+                              seed=0, max_steps=RELEASE_MAX_STEPS)
+    wall = time.perf_counter() - t0
+    launches = launch_counts(chain)
+    nit = ens["nit"]
+    print(f"fit_pseudo_ensemble, {RELEASE_TRIALS} trials, release hypothesis,"
+          f" float32: wall {wall:.3f} s with the capture of its"
+          f" {RELEASE_TRIALS}-lane objective"
+          f" ({wall / RELEASE_TRIALS * 1e3:.2f} ms a lane), nit median"
+          f" {float(np.median(nit))} max {int(nit.max())} min {int(nit.min())},"
+          f" {ens['nfev']} evaluations, {ens['reads']} flag reads; peak memory"
+          f" (fit and ensemble) {torch.cuda.max_memory_allocated() / 2**20:.1f}"
+          f" MiB; launches (primal, tangent, multitangent) of the fit and the"
+          f" ensemble {launches} [{smi}]")
+    check(launches[0] > 0 and launches[2] > 0,
+          "a kernel of the release path never ran")
+    check(np.all(np.isfinite(ens["fun"])) and np.all(nit > 0)
+          and np.all(np.isfinite(ens["magnitudes"])),
+          "the release ensemble's fits are not all finite")
+    value_0, _ = cd.build_objective(ens["data"][0], "mod_chi2")
+    x_nom = cd.current_rescaled_values()
+    value_0.raw(torch.as_tensor(x_nom, device="cuda"), los, his)  # capture
+    t0 = time.perf_counter()
+    solo = minimize_on_device(value_0.raw, x_nom, *cd._current_bounds(),
+                              max_steps=RELEASE_MAX_STEPS, device="cuda")
+    solo_wall = time.perf_counter() - t0
+    print(f"solo minimize_on_device, trial 0's data, same start, float32:"
+          f" wall {solo_wall:.3f} s, nit {solo['nit']} (lane 0: {int(nit[0])}),"
+          f" {solo['nfev']} evaluations; the ensemble took"
+          f" {wall / solo_wall:.2f} solo fits' wall for {RELEASE_TRIALS} fits"
+          f" [{smi}]")
+    BasicAnalysis._compiled_cache.clear()
+    del hm, cd
+    return launches
+
+
 def print_kernel_times(kernels, smi):
     for name, k in kernels.items():
         for dname, t in k.items():
@@ -2053,7 +2323,25 @@ def print_kernel_times(kernels, smi):
                   f" [{smi}]")
 
 
-def main(kernels_only=False):
+def release_only_main(chain, smi):
+    """``--release-only``: the kernels built, then the release phases alone
+    (the float64 child's and the main process's); no status line."""
+    import numpy as np
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "release.npz")
+        env = dict(os.environ, PISA_TPU_FTYPE="fp64")
+        subprocess.run([sys.executable, os.path.abspath(__file__),
+                        "--release-worker", path], env=env, check=True)
+        with np.load(path) as f:
+            ref = {k: f[k] for k in f.files}
+    t0 = time.perf_counter()
+    release_fp32(chain, ref, smi)
+    print(f"float32 release phase: {time.perf_counter() - t0:.1f} s")
+    return 0
+
+
+def main(kernels_only=False, release_only=False):
     if not os.path.isdir(os.path.join(ROOT, "pisa_tpu_torch")):
         print("chip_smoke.py must run from a checkout of the repository"
               " (pisa_tpu_torch/ not found beside it)", file=sys.stderr)
@@ -2075,6 +2363,8 @@ def main(kernels_only=False):
 
     smi = device_lines()
     build_kernel(chain)
+    if release_only:
+        return release_only_main(chain, smi)
     kernels = {
         "osc_chain": kernel_vs_plain(chain),
         "osc_chain_tangent": tangent_vs_plain(chain),
@@ -2167,15 +2457,21 @@ def main(kernels_only=False):
     t0 = time.perf_counter()
     analysis_path = analysis_fp32(chain, ureg, smi)
     print(f"float32 analysis phase: {time.perf_counter() - t0:.1f} s")
-    # float32, the batched fits (this slice's main path)
+    # float32, the batched fits
     t0 = time.perf_counter()
     ensemble_path = ensemble_fp32(chain, smi)
     print(f"float32 ensemble phase: {time.perf_counter() - t0:.1f} s")
+    # float32, the release's fit to the released counts (this slice's main
+    # path)
+    t0 = time.perf_counter()
+    release_path = release_fp32(chain, ref, smi)
+    print(f"float32 release phase: {time.perf_counter() - t0:.1f} s")
     print(f"launches (primal, tangent, multitangent) by path: gradient and fit"
           f" {fit_path}, template {template_path}, analysis {analysis_path},"
-          f" ensemble {ensemble_path}")
+          f" ensemble {ensemble_path}, release {release_path}")
     main_path = tuple(sum(c) for c in zip(fit_path, template_path,
-                                          analysis_path, ensemble_path))
+                                          analysis_path, ensemble_path,
+                                          release_path))
 
     print_kernel_times(kernels, smi)
     lines = []
@@ -2217,9 +2513,13 @@ def main(kernels_only=False):
 
 
 if __name__ == "__main__":
-    if len(sys.argv) == 3 and sys.argv[1] == "--reference-worker":
+    if len(sys.argv) == 3 and sys.argv[1] in ("--reference-worker",
+                                              "--release-worker"):
         sys.path.insert(0, ROOT)
         os.chdir(ROOT)
-        reference_worker(sys.argv[2])
+        worker = (reference_worker if sys.argv[1] == "--reference-worker"
+                  else release_worker)
+        worker(sys.argv[2])
         sys.exit(0)
-    sys.exit(main(kernels_only=sys.argv[1:] == ["--kernels-only"]))
+    sys.exit(main(kernels_only=sys.argv[1:] == ["--kernels-only"],
+                  release_only=sys.argv[1:] == ["--release-only"]))

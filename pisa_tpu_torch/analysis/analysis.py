@@ -56,6 +56,13 @@ __all__ = ["Counter", "HypoFitResult", "BasicAnalysis", "Analysis"]
 
 _NOT_PORTED = "is not ported yet (ROADMAP queue 1, item 14)"
 
+#: fixed params whose value a stage writes as a result of an evaluation
+#: (daemon_flux's covariance chi2), not an input of the compiled objective:
+#: they stay out of the compiled-distribution cache's key, which would
+#: otherwise change at every eager evaluation (the JAX package's
+#: ``analysis.py:286`` keeps them in, and recompiles each fit)
+_RESULT_PARAMS = frozenset({"daemon_chi2"})
+
 LOCAL_SCIPY_METHODS = (
     "l-bfgs-b",
     "slsqp",
@@ -285,7 +292,8 @@ class BasicAnalysis:
             id(hypo_maker),
             tuple(hypo_maker.params.free.names),
             tuple(getattr(hypo_maker, "param_selections", [])),
-            tuple(str(p.value) for p in hypo_maker.params.fixed),
+            tuple(str(p.value) for p in hypo_maker.params.fixed
+                  if p.name not in _RESULT_PARAMS),
             # note: param RANGES are runtime inputs of the compiled objective
             # (CompiledDistribution._current_bounds), so octant/ranges
             # strategies reuse the same executable

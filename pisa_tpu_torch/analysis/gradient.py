@@ -49,6 +49,7 @@ from pisa_tpu_torch.core.template import (
 )
 from pisa_tpu_torch.units import Quantity
 from pisa_tpu_torch.utils import stats
+from pisa_tpu_torch.utils.daemonflux_native import compiled_daemon_penalty
 
 __all__ = ["CompiledDistribution", "CompiledDetectors"]
 
@@ -96,24 +97,33 @@ class _FreeParams:
         for p, v in zip(self._free_params, np.asarray(vec)):
             p._rescaled_value = float(np.clip(v, 0.0, 1.0))
 
-    def _prior_penalty(self, vec, los, his, maximize):
+    def _daemon_penalty(self, priors):
+        """The daemonflux switch of the hypo maker's pipelines
+        (``compiled_daemon_penalty``), or None: built with the objective, so
+        that fixed daemon params enter with their values then."""
+        if not priors:
+            return None
+        return compiled_daemon_penalty(self._free_params, self._pipelines())
+
+    def _prior_penalty(self, vec, los, his, maximize, daemon=None):
         """The free params' prior penalties in the metric's family (llh, or
         chi2 = -2 llh), from the magnitudes of `vec` (``gradient.py:261-287``
-        of the JAX package); one per lane for a (B, n) `vec`."""
-        if any(p.name.startswith("daemon_") for p in self._free_params):
-            raise NotImplementedError(
-                "the daemonflux correlated prior penalty is not ported yet"
-                " (ROADMAP queue 1, item 10)"
-            )
+        of the JAX package); one per lane for a (B, n) `vec`. With `daemon`
+        (:meth:`_daemon_penalty`) the free daemon_* params' priors give way
+        to their one correlated chi2 (``gradient.py:224-287``)."""
         mags = magnitudes_from_rescaled(vec, los, his, self._log_scaled)
         lead = tuple(vec.shape[:-1])
+        skip = daemon[0] if daemon is not None else frozenset()
         penalty = 0.0
-        for p, mag in zip(self._free_params, mags):
-            if p.prior is None:
+        for i, (p, mag) in enumerate(zip(self._free_params, mags)):
+            if p.prior is None or i in skip:
                 continue
             if p.prior.units is not None:
                 mag = mag * Quantity(1.0, p.units).m_as(p.prior.units)
             penalty = penalty + p.prior.llh_torch(mag).reshape(lead) * (
+                1.0 if maximize else -2.0)
+        if daemon is not None:
+            penalty = penalty + daemon[1](mags).reshape(lead) * (
                 1.0 if maximize else -2.0)
         return penalty
 
@@ -285,6 +295,9 @@ class CompiledDistribution(_FreeParams):
         self._sum_program = None
         self._objective_cache = {}
 
+    def _pipelines(self):
+        return [ct.pipeline for ct in self.templates]
+
     # -- the summed template ----------------------------------------------------
     def _sum_fn(self, vec, los, his):
         """The summed histogram (flat) of every map of every pipeline; (B,
@@ -384,6 +397,7 @@ class CompiledDistribution(_FreeParams):
         data = on_device(data)
         var = on_device(var if var is not None else np.zeros(data.shape))
         uses_variance = metric in _USES_VARIANCE
+        daemon = self._daemon_penalty(priors)
 
         def objective(vec, los, his, data_arg=None):
             # `data_arg`: the observed histograms as a program input, one
@@ -394,7 +408,8 @@ class CompiledDistribution(_FreeParams):
                     else metric_fn(d, exp))
             total = vals.sum(-1)
             if priors:
-                total = total + self._prior_penalty(vec, los, his, maximize)
+                total = total + self._prior_penalty(vec, los, his, maximize,
+                                                    daemon)
             return -total if maximize else total
 
         return objective
@@ -440,6 +455,9 @@ class CompiledDetectors(_FreeParams):
                                for i in self.index_maps]
         self._objective_cache = {}
 
+    def _pipelines(self):
+        return [p for cd in self._cds for p in cd._pipelines()]
+
     def build_objective(self, data_dists, metric, priors=True):
         """``(value_fn, vg_fn)`` of the joint rescaled vector; `data_dists`
         is the per-detector list of data distributions. Memoized as
@@ -461,6 +479,7 @@ class CompiledDetectors(_FreeParams):
         # count each shared param once
         objectives = [cd._objective(data, metric, priors=False)
                       for cd, data in zip(self._cds, data_dists)]
+        daemon = self._daemon_penalty(priors)
 
         def objective(vec, los, his):
             total = 0.0
@@ -468,7 +487,7 @@ class CompiledDetectors(_FreeParams):
                 total = total + obj(*(x.index_select(0, idx)
                                       for x in (vec, los, his)))
             if priors:
-                penalty = self._prior_penalty(vec, los, his, maximize)
+                penalty = self._prior_penalty(vec, los, his, maximize, daemon)
                 # the detectors' objectives are already sign-flipped
                 total = total + (-penalty if maximize else penalty)
             return total

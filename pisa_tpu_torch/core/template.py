@@ -63,6 +63,7 @@ from pisa_tpu_torch import TORCH_FTYPE
 from pisa_tpu_torch.core import stacking
 from pisa_tpu_torch.core.map import Map, MapSet
 from pisa_tpu_torch.units import Quantity
+from pisa_tpu_torch.utils.daemonflux_native import compiled_daemon_penalty
 from pisa_tpu_torch.utils.log import logging
 
 __all__ = ["CompiledTemplate", "CapturedObjective", "CapturedFunction",
@@ -302,6 +303,14 @@ class CompiledTemplate:
         others = [s for s in stages if s is not osc and s is not hs]
         if not all(s.stacked_rate_defer_ok() for s in others):
             return
+        if any(s.stage_name == "flux" and not s.is_map
+               for s in self.pipeline.stages):
+            # a per-event flux (daemon_flux): the oscillation stage forms
+            # the rate per event and hands none over (prob3._apply_stacked),
+            # so the matrices would go unused. The JAX package builds them
+            # all the same; the results are the same.
+            logging.info("rate deferral off: the flux is per event")
+            return
         static_keys = [k for s in others for k in s.stacked_static_weight_keys]
         if hs.prepare_rate_defer(self._trace_data, osc.calc_mode, static_keys):
             logging.info("rate deferral on: factorized histogram (static"
@@ -527,15 +536,12 @@ class CompiledTemplate:
 
         maximize = stats.is_metric_to_maximize(metric)
         metric_fn = stats.metric_function(metric)
-        if priors and (
-            any(p.name.startswith("daemon_") for p in self._free_params)
-            or any(s.service_name == "daemon_flux"
-                   for s in self.pipeline.stages)
-        ):
-            raise NotImplementedError(
-                "the daemonflux correlated prior penalty is not ported yet"
-                " (ROADMAP queue 1, item 10)"
-            )
+        # the daemonflux switch (reference param.py:1388-1402): the free
+        # daemon_* params' penalty is one correlated chi2, not their
+        # individual priors
+        daemon = (compiled_daemon_penalty(self._free_params, [self.pipeline])
+                  if priors else None)
+        daemon_skip = daemon[0] if daemon is not None else frozenset()
 
         device = self.pipeline.device
         if capture is None:
@@ -569,12 +575,14 @@ class CompiledTemplate:
                 total = sum(metric_fn(d, out["hist"][name]).sum()
                             for name, d in data.items())
             if priors:
-                for p, mag in zip(self._free_params, mags):
-                    if p.prior is None:
+                for i, (p, mag) in enumerate(zip(self._free_params, mags)):
+                    if p.prior is None or i in daemon_skip:
                         continue
                     if p.prior.units is not None:
                         mag = Quantity(mag, p.units).m_as(p.prior.units)
                     total = total + sign * p.prior.llh_torch(mag)
+                if daemon is not None:
+                    total = total + sign * daemon[1](mags)
             return -total if maximize else total
 
         if capture:
