@@ -57,7 +57,21 @@ oscillation grid, 15 free parameters) on the card through its two paths:
   wall, waits, kernels, busy share and peak memory;
   ``Analysis().fit_recursively(data, hm, "mod_chi2", None, "device", {},
   None)`` and ``fit_pseudo_ensemble(cd, "mod_chi2", n_trials=64)`` beside
-  one solo fit.
+  one solo fit;
+- the rest of the analysis layer: in float64 (a child process), card
+  against CPU, the MC-uncertainty metrics (``mcllh_mean``, ``mcllh_eff``,
+  ``barlow_llh``, ``conv_llh``, through ``CompiledDistribution`` with a
+  nonzero data variance) and ``build_objective(sum_maps=True)`` on the
+  20x20-grid flagship, the generalized likelihood's toy
+  (``toy_generalized_llh.cfg``, n_events set through its param to 240,000:
+  alphas, betas, value and gradient, k_max, the objective's and the
+  recursion's times), and the Fisher matrix and pulls on the 20x20-grid
+  flagship; in float32 at full width, each metric's captured
+  value_and_grad timed, a ``device`` fit under mcllh_eff and two ``nlopt``
+  fits through ``Analysis``, the Fisher matrix (``jacfwd``: its launches
+  against the vmap rule's count, its Jacobian against central differences
+  of the captured template, one jvp's tangent launches), and
+  ``mcmc_sampling`` with 32 walkers (wall and host waits per step).
 
 It times the kernels (device-only, from a CUDA graph of 200 launches, and
 host-inclusive, from back-to-back launches between CUDA events; the
@@ -73,8 +87,9 @@ host, and the fit. A ``value_and_grad`` that waits
 for the card anywhere but at the read of its result fails the run. It exits
 non-zero on any failed check; the last line of a passing run is
 ``{"ok": true, "device": {...}}``. With ``--kernels-only`` it stops after
-the kernel checks and timings, and with ``--release-only`` it builds the
-kernels and runs the release phases alone; neither prints a status line.
+the kernel checks and timings, with ``--release-only`` it builds the
+kernels and runs the release phases alone, and with ``--analysis-only`` the
+phases of the rest of the analysis layer alone; none prints a status line.
 
 The float64 runs (CPU reference and card) happen in a child process, since
 the float type is chosen once per process (``PISA_TPU_FTYPE``); the main
@@ -202,6 +217,22 @@ DATA_CFG = "settings/pipeline/IceCube_3y_data.cfg"
 RELEASE_FREE = 36  # 24 daemon_*, 3 oscillation, 3 aeff, 5 hypersurface, muons
 RELEASE_TRIALS = 64
 RELEASE_MAX_STEPS = 100
+
+# the rest of the analysis layer: the MC-uncertainty metrics, the
+# generalized likelihood's toy pipeline at the flagship's event count, the
+# Fisher matrix (float64 card vs CPU relative to its largest entry, pulls in
+# units of each param's sigma; float32 Jacobian vs central differences of
+# the captured template at steps h and h/2, extrapolated: error <= rtol
+# max|column| + 3 noise max|template| / h, noise ~100 float32 epsilons) and
+# the ensemble sampler
+MC_METRICS = ("mcllh_mean", "mcllh_eff", "barlow_llh", "conv_llh")
+GEN_CFG = "settings/pipeline/toy_generalized_llh.cfg"
+GEN_EVENTS = 240000
+FISHER_FP64 = 1e-9
+FISHER_FD = {"step": 1e-2, "rtol": 1e-3, "noise": 1e-5}
+MCMC_WALKERS = 32
+MCMC_BURNIN = 20
+MCMC_STEPS = 50
 
 # the routes of one value_and_grad: label, compile options, captured
 ROUTES = (
@@ -858,6 +889,215 @@ def release_worker(path):
     arrays = release_fp64(smi)
     print(f"float64 release phase: {time.perf_counter() - t0:.1f} s [{smi}]")
     np.savez(path, **arrays)
+
+
+# -- the rest of the analysis layer, float64 (its own child) ---------------------
+def small_grid_variance(data, seed=3):
+    """A nonzero data variance for the MC-uncertainty metrics (the JAX
+    package passes the data's variance to them; at zero they fall to their
+    Poisson limit): a seeded fraction of each bin's count plus one."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    return rng.uniform(0.2, 1.0, data.shape) * (data + 1.0)
+
+
+def metrics_fp64(smi):
+    """float64, the 20x20-grid flagship on the CPU and on the card: the
+    value_and_grad of each MC-uncertainty metric through
+    CompiledDistribution with a nonzero data variance, and of mcllh_eff
+    through CompiledTemplate.build_objective(sum_maps=True), at the
+    gradient point; the card (captured) against the CPU (eager) within
+    VG_FP64."""
+    import numpy as np
+    import torch
+
+    from pisa_tpu_torch.analysis.gradient import CompiledDistribution
+    from pisa_tpu_torch.core.pipeline import Pipeline
+
+    sides = {}
+    for device in ("cpu", "cuda"):
+        pipeline = Pipeline(small_grid_config(), device=device)
+        sides[device] = (pipeline, CompiledDistribution(pipeline),
+                         pipeline.compile())
+    cd_cpu, ct_cpu = sides["cpu"][1:]
+    v = gradient_point(ct_cpu)
+    nominal = ct_cpu.current_rescaled_values()
+    data = cd_cpu.sum_hist(nominal)
+    var = small_grid_variance(data)
+    maps = ct_cpu.get_outputs(nominal)
+    objectives = [(m, lambda cd, ct, m=m: cd.build_objective(
+        data, m, data_variance=var)[1]) for m in MC_METRICS]
+    objectives.append(("mcllh_eff, sum_maps", lambda cd, ct: ct.build_objective(
+        maps, "mcllh_eff", sum_maps=True)[1]))
+    for label, build in objectives:
+        results = {}
+        for device, (_, cd, ct) in sides.items():
+            vg = build(cd, ct)
+            value, grad = vg(v)
+            results[device] = (float(value), grad.cpu().numpy())
+        (want, want_g), (got, got_g) = results["cpu"], results["cuda"]
+        rel = abs(got - want) / abs(want)
+        mism = grad_mismatch(got_g, want_g, VG_FP64["grad_rtol"],
+                             VG_FP64["grad_atol"])
+        print(f"float64 {label}, 20x20-grid flagship, card vs CPU: value"
+              f" {got!r} vs {want!r} ({rel:.3e} relative, bound"
+              f" {VG_FP64['value']:g}); gradient at {mism:.3e} of its bound"
+              f" [{smi}]")
+        check(np.isfinite(got) and np.all(np.isfinite(got_g)),
+              f"{label}: not finite on the card")
+        check(rel <= VG_FP64["value"], f"{label}: card value vs CPU")
+        check(mism <= 1.0, f"{label}: card gradient vs CPU")
+    torch.cuda.synchronize()
+
+
+def generalized_fp64(smi):
+    """float64, the generalized Poisson-gamma likelihood's toy pipeline
+    (GEN_CFG) with n_events set through its param to GEN_EVENTS, on the CPU
+    and on the card: the template's histograms, alphas and betas, and the
+    captured value_and_grad of generalized_poisson_llh (at the nominal
+    values + 0.05 rescaled) against the CPU; k_max and the objective's
+    times. Then the mixture's recursion alone at the data's largest count
+    (the length the JAX package would take) on the card, forward and
+    backward, timed."""
+    import numpy as np
+    import torch
+
+    from pisa_tpu_torch import ureg
+    from pisa_tpu_torch.core.pipeline import Pipeline
+    from pisa_tpu_torch.utils.llh_defs.poisson import (
+        generalized_pg_log_mixture,
+    )
+
+    templates = {}
+    for device in ("cpu", "cuda"):
+        t0 = time.perf_counter()
+        pipeline = Pipeline(GEN_CFG, device=device)
+        pipeline.params["n_events"].value = GEN_EVENTS * ureg.dimensionless
+        pipeline.setup()
+        templates[device] = pipeline.compile()
+        print(f"generalized: {GEN_EVENTS} toy events, set-up on {device}"
+              f" {time.perf_counter() - t0:.2f} s")
+    ct_cpu, ct = templates["cpu"], templates["cuda"]
+    v0 = ct_cpu.current_rescaled_values()
+    v = np.clip(v0 + 0.05, 0.0, 1.0)
+    out_cpu, out = ct_cpu(v), ct(v)
+    for key in ("hist", "llh_alphas", "llh_betas", "n_mc_events"):
+        for name in out_cpu[key]:
+            err = max_rel(out_cpu[key][name].numpy(),
+                          out[key][name].cpu().numpy())
+            print(f"float64 generalized {key} {name}, card vs CPU: {err:.3e}"
+                  f" relative (bound {TEMPLATE_RTOL['float64']:g})")
+            check(err <= TEMPLATE_RTOL["float64"], f"generalized {key}")
+    data = {n: h.numpy() for n, h in ct_cpu(v0)["hist"].items()}
+    total = sum(data.values())
+    k_max = ct._mixture_k_max(total)
+    results = {}
+    for device, tpl in templates.items():
+        t0 = time.perf_counter()
+        value_fn, vg = tpl.build_objective(data, "generalized_poisson_llh")
+        built = time.perf_counter() - t0
+        value, grad = vg(v)
+        results[device] = (float(value), grad.cpu().numpy(), built, vg)
+    (want, want_g, cpu_built, cpu_vg), (got, got_g, built, vg) = (
+        results["cpu"], results["cuda"])
+    rel = abs(got - want) / abs(want)
+    mism = grad_mismatch(got_g, want_g, VG_FP64["grad_rtol"],
+                         VG_FP64["grad_atol"])
+    wall, wall_min = median_wall(lambda: read_back(vg(v)), 10)
+    cpu_wall = median_wall(lambda: read_back(cpu_vg(v)), 3)[0]
+    print(f"float64 generalized_poisson_llh, {GEN_EVENTS} events, card vs"
+          f" CPU: value {got!r} ({rel:.3e} relative, bound"
+          f" {VG_FP64['value']:g}), gradient {got_g} at {mism:.3e} of its"
+          f" bound; k_max {k_max} (the bins that use the mixture; the"
+          f" data's largest count {int(np.ceil(total.max()))}); captured"
+          f" value_and_grad {wall * 1e3:.3f} ms median of 10 (min"
+          f" {wall_min * 1e3:.3f}; build and capture {built:.2f} s), CPU"
+          f" {cpu_wall * 1e3:.1f} ms [{smi}]")
+    check(np.isfinite(got) and np.all(np.isfinite(got_g)),
+          "generalized: not finite on the card")
+    check(rel <= VG_FP64["value"], "generalized: card value vs CPU")
+    check(mism <= 1.0, "generalized: card gradient vs CPU")
+
+    # the recursion alone, at the length the JAX package takes here
+    k_full = int(np.ceil(total.max()))
+    out = ct(v)
+    alphas = torch.stack([out["llh_alphas"][n] for n in data]).T.contiguous()
+    betas = torch.stack([out["llh_betas"][n] for n in data]).T.contiguous()
+    counts = torch.as_tensor(np.minimum(total, k_full), device="cuda").to(
+        torch.int64)
+    for k in (k_max, 256, k_full):
+        a = alphas.clone().requires_grad_(True)
+
+        def run(a=a, k=k):
+            lp = generalized_pg_log_mixture(counts, a, betas, k_max=k)
+            (g,) = torch.autograd.grad(lp.sum(), a)
+            return g
+
+        run()
+        mix_wall, _ = median_wall(run, 3)
+        with torch.no_grad():
+            fwd_wall, _ = median_wall(
+                lambda k=k: generalized_pg_log_mixture(counts, alphas, betas,
+                                                       k_max=k), 3)
+        print(f"float64 generalized mixture recursion alone, {counts.numel()}"
+              f" bins x {alphas.shape[1]} sources, eager on the card: k_max"
+              f" {k}: forward {fwd_wall * 1e3:.2f} ms, forward and backward"
+              f" {mix_wall * 1e3:.2f} ms [{smi}]")
+
+
+def fisher_fp64(smi):
+    """float64, the 20x20-grid flagship: get_fisher_matrix (priors on) and
+    calculate_pulls (the data at the gradient point, the template at
+    nominal) on the card against the CPU, relative to the matrix's largest
+    entry and per pull."""
+    import numpy as np
+
+    from pisa_tpu_torch.analysis.fisher import (
+        calculate_pulls,
+        get_fisher_matrix,
+    )
+    from pisa_tpu_torch.core.pipeline import Pipeline
+
+    results = {}
+    for device in ("cpu", "cuda"):
+        ct = Pipeline(small_grid_config(), device=device).compile()
+        shifted = {n: h.cpu().numpy()
+                   for n, h in ct(gradient_point(ct))["hist"].items()}
+        t0 = time.perf_counter()
+        fm = get_fisher_matrix(ct)
+        wall = time.perf_counter() - t0
+        results[device] = (fm, calculate_pulls(ct, shifted), wall)
+    (fm_cpu, pulls_cpu, cpu_wall), (fm, pulls, wall) = (results["cpu"],
+                                                        results["cuda"])
+    err = rel_max(fm.matrix, fm_cpu.matrix)
+    # the matrix's condition (~6e9) amplifies round-off in the pulls: they
+    # are compared in units of each param's Fisher sigma
+    pull_err = max(abs(pulls[n] - pulls_cpu[n]) / fm_cpu.get_sigma(n)
+                   for n in pulls_cpu)
+    print(f"float64 Fisher matrix, 20x20-grid flagship ({len(fm.parameters)}"
+          f" params, condition {np.linalg.cond(fm_cpu.matrix):.3g}), card vs"
+          f" CPU: {err:.3e} of the largest entry (bound {FISHER_FP64:g});"
+          f" pulls within {pull_err:.3e} sigma (bound {FISHER_FP64:g}); wall"
+          f" {wall:.2f} s on the card, {cpu_wall:.2f} s on the CPU [{smi}]")
+    check(np.all(np.isfinite(fm.matrix)), "Fisher matrix not finite")
+    check(err <= FISHER_FP64, "Fisher matrix: card vs CPU")
+    check(pull_err <= FISHER_FP64, "pulls: card vs CPU")
+
+
+def analysis_worker():
+    """float64: the rest of the analysis layer, card against CPU."""
+    from pisa_tpu_torch import FTYPE_NAME
+
+    check(FTYPE_NAME == "fp64", f"analysis worker runs {FTYPE_NAME}")
+    smi = card_line()
+    for label, phase in (("metrics", metrics_fp64),
+                         ("generalized", generalized_fp64),
+                         ("fisher", fisher_fp64)):
+        t0 = time.perf_counter()
+        phase(smi)
+        print(f"float64 {label} phase: {time.perf_counter() - t0:.1f} s"
+              f" [{smi}]")
 
 
 # -- the main (float32) process ------------------------------------------------
@@ -2312,6 +2552,258 @@ def release_fp32(chain, ref, smi):
     return launches
 
 
+# -- the rest of the analysis layer, float32 -------------------------------------
+def time_captured_vg(label, value_fn, vg, v, bounds, smi):
+    """Wall (median of 10, with its one read), back-to-back time, waits,
+    kernels per replay and busy share of a captured value_and_grad."""
+    import torch
+
+    waits, _ = count_host_syncs(lambda: read_back(vg(v)))
+    wall, wall_min = median_wall(lambda: read_back(vg(v)), 10)
+    program = value_fn.program
+    vec = torch.as_tensor(v, device="cuda")
+    back_ms = cuda_time(lambda: program.value_and_grad(vec, *bounds), 20)
+    profiled = [profile_device_busy(
+        lambda: program.value_and_grad(vec, *bounds)) for _ in range(2)]
+    _, device_ms, _, _, kernels = profiled[-1]
+    print(f"float32 {label}, captured value_and_grad: wall"
+          f" {wall * 1e3:.3f} ms median of 10 (min {wall_min * 1e3:.3f}),"
+          f" {back_ms:.3f} ms back to back, {waits} wait(s); one replay:"
+          f" {kernels} kernels, {device_ms:.3f} ms of device time"
+          f" ({100 * device_ms / (wall * 1e3):.1f}% busy of the median wall)"
+          f" [{smi}]")
+    check(waits == 1, f"{label}: value_and_grad waited {waits} times")
+
+
+def metrics_fp32(pipeline, chain, smi):
+    """float32, the flagship at full width on the card: each MC-uncertainty
+    metric's captured value_and_grad through CompiledDistribution (nonzero
+    data variance) and mcllh_eff through the template's sum_maps objective,
+    timed; then, with the counts set to 0 just before and read just after,
+    a device fit through Analysis under mcllh_eff and two nlopt fits (one
+    derivative-free name with theta23 alone free, one gradient name with
+    every param free), each from theta23 + 0.10 rescaled and each held to
+    recover theta23 within FIT_TOL. Returns the fits' launches."""
+    import numpy as np
+    import torch
+
+    from pisa_tpu_torch.analysis.analysis import Analysis, BasicAnalysis
+    from pisa_tpu_torch.analysis.gradient import CompiledDistribution
+    from pisa_tpu_torch.core.distribution_maker import DistributionMaker
+
+    cd = CompiledDistribution(pipeline)
+    ct = pipeline.compile()
+    nominal = ct.current_rescaled_values()
+    data = cd.sum_hist(nominal)
+    var = small_grid_variance(data)
+    v = gradient_point(ct)
+    for label, build, owner in [
+            (m, lambda m=m: cd.build_objective(data, m, data_variance=var),
+             cd) for m in MC_METRICS] + [
+            ("mcllh_eff, sum_maps", lambda: ct.build_objective(
+                ct.get_outputs(nominal), "mcllh_eff", sum_maps=True), ct)]:
+        t0 = time.perf_counter()
+        value_fn, vg = build()
+        torch.cuda.synchronize()
+        built = time.perf_counter() - t0
+        value, grad = vg(v)
+        check(np.isfinite(float(value))
+              and bool(torch.isfinite(grad).all()), f"{label}: not finite")
+        print(f"float32 {label}: value {float(value)!r}; build and capture"
+              f" {built:.2f} s")
+        time_captured_vg(label, value_fn, vg, v, owner._device_bounds(), smi)
+    del cd, ct
+
+    reset_launch_counts(chain)
+    dm = DistributionMaker([CFG], device="cuda")
+    asimov = dm.get_outputs(return_sum=True)
+    truth = dm.params["theta23"]._rescaled_value
+    fits = (
+        ("device, mcllh_eff", "mcllh_eff", "device", {}, False),
+        ("nlopt LN_NELDERMEAD, theta23 alone free", "mod_chi2", "nlopt",
+         {"algorithm": "LN_NELDERMEAD", "ftol_abs": 1e-6, "maxeval": 200},
+         True),
+        ("nlopt LD_LBFGS", "mod_chi2", "nlopt",
+         {"algorithm": "LD_LBFGS", "ftol_abs": 1e-9, "maxeval": 500}, False),
+    )
+    for label, metric, method, kwargs, alone in fits:
+        dm.reset_free()
+        others = [p for p in dm.params.free if p.name != "theta23"]
+        if alone:
+            for p in others:
+                p.is_fixed = True
+        try:
+            dm.params["theta23"]._rescaled_value = min(0.95, truth + 0.10)
+            t0 = time.perf_counter()
+            result = Analysis().fit_recursively(asimov, dm, metric, None,
+                                                method, dict(kwargs), None)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            for p in others:
+                p.is_fixed = False
+        meta = result.minimizer_metadata
+        moved = result.params["theta23"]._rescaled_value - truth
+        print(f"Analysis fit, {label}, float32: wall {wall:.3f} s (with"
+              f" set-up and capture), nit {meta['nit']}, nfev {meta['nfev']},"
+              f" method {meta['method']}, theta23 off by {moved:.3e}"
+              f" rescaled (bound {FIT_TOL:g}), metric {result.metric_val!r}"
+              f" [{smi}]")
+        check(abs(moved) <= FIT_TOL, f"the {label} fit did not recover"
+              " theta23")
+    launches = launch_counts(chain)
+    print(f"metrics path launches (the three fits): primal {launches[0]},"
+          f" tangent {launches[1]}, multitangent {launches[2]} [{smi}]")
+    check(launches[0] > 0 and launches[2] > 0,
+          "a kernel of the metrics path never ran")
+    BasicAnalysis._compiled_cache.clear()
+    return launches
+
+
+def fisher_fp32(pipeline, chain, smi):
+    """float32, the flagship at full width: get_fisher_matrix (one
+    torch.func.jacfwd of the stacked eager template), with the counts set
+    to 0 just before and read just after, held to the vmap rule's count
+    (one primal and one multitangent launch per sign: the 15 directions
+    become the 3 active columns of one pass); its Jacobian against central
+    differences of the captured template (FISHER_FD); one direction's jvp
+    (one tangent launch per sign) against its column; the pulls."""
+    import numpy as np
+    import torch
+
+    from pisa_tpu_torch.analysis.fisher import (
+        _template_jacobian,
+        calculate_pulls,
+        get_fisher_matrix,
+    )
+
+    ct = pipeline.compile()
+    v = ct.current_rescaled_values()
+    reset_launch_counts(chain)
+    t0 = time.perf_counter()
+    fm = get_fisher_matrix(ct)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    fisher_launches = launch_counts(chain)
+    t0 = time.perf_counter()
+    mu, jac = _template_jacobian(ct, v)
+    torch.cuda.synchronize()
+    jac_wall = time.perf_counter() - t0
+    print(f"float32 Fisher matrix, flagship ({len(fm.parameters)} params,"
+          f" {mu.size} bins): get_fisher_matrix {wall:.3f} s (first, with"
+          f" the geometry's forward-mode set-up), jacfwd again"
+          f" {jac_wall * 1e3:.1f} ms; launches (primal, tangent,"
+          f" multitangent) {fisher_launches} [{smi}]")
+    check(fisher_launches == (2, 0, 2),
+          f"jacfwd launches {fisher_launches}, the vmap rule predicts"
+          " (2, 0, 2)")
+    check(np.all(np.isfinite(fm.matrix)), "Fisher matrix not finite")
+
+    def total(x):
+        out = ct(x)["hist"]
+        return torch.cat([out[n] for n in sorted(out)]).double().cpu().numpy()
+
+    def central(i, h):
+        vp, vm = v.copy(), v.copy()
+        vp[i] = min(1.0, v[i] + h)
+        vm[i] = max(0.0, v[i] - h)
+        return (total(vp) - total(vm)) / (vp[i] - vm[i])
+
+    worst = 0.0
+    h = FISHER_FD["step"]
+    for i, name in enumerate(ct.free_names):
+        # Richardson's extrapolation of steps h and h/2: the truncation
+        # goes as h^4 (deltam31's columns curve too much for h^2 at a step
+        # the float32 rounding allows)
+        fd = (4.0 * central(i, h / 2) - central(i, h)) / 3.0
+        bound = (FISHER_FD["rtol"] * np.abs(jac[:, i]).max()
+                 + 3.0 * FISHER_FD["noise"] * np.abs(mu).max() / h)
+        err = np.abs(fd - jac[:, i]).max() / bound
+        worst = max(worst, err)
+        check(err <= 1.0, f"Jacobian column {name} vs central differences:"
+              f" {err:.3e} of its bound")
+    print(f"float32 Jacobian vs central differences of the captured template"
+          f" (steps {h:g} and {h / 2:g} rescaled, extrapolated): worst column"
+          f" at {worst:.3e} of its bound")
+
+    # one direction: OscProbs.jvp, one tangent launch per sign
+    i23 = ct.free_names.index("theta23")
+    los, his = ct._device_bounds()
+
+    def hist_of(x):
+        out = ct._evaluate(ct._magnitudes_from_rescaled(x, los, his))
+        return torch.cat([out["hist"][n] for n in sorted(out["hist"])])
+
+    direction = torch.zeros(len(v), dtype=torch.float64, device="cuda")
+    direction[i23] = 1.0
+    reset_launch_counts(chain)
+    _, column = torch.func.jvp(
+        hist_of, (torch.as_tensor(v, device="cuda"),), (direction,))
+    jvp_launches = launch_counts(chain)
+    err = rel_max(column.double().cpu().numpy(), jac[:, i23])
+    print(f"float32 jvp along theta23: launches {jvp_launches}, against the"
+          f" jacfwd column {err:.3e} of its largest entry [{smi}]")
+    check(jvp_launches == (2, 2, 0), f"jvp launches {jvp_launches}")
+    check(err <= 1e-5, "jvp vs jacfwd column")
+    shifted = {n: h.cpu().numpy() for n, h in ct(gradient_point(ct))[
+        "hist"].items()}
+    pulls = calculate_pulls(ct, shifted)
+    print(f"float32 pulls toward the gradient point: theta23"
+          f" {pulls['theta23']:.5g}, aeff_scale {pulls['aeff_scale']:.5g}")
+    check(all(np.isfinite(p) for p in pulls.values()), "pulls not finite")
+    return tuple(a + b for a, b in zip(fisher_launches, jvp_launches))
+
+
+def mcmc_fp32(pipeline, chain, smi):
+    """float32, the flagship at full width: mcmc_sampling with MCMC_WALKERS
+    walkers (MCMC_WALKERS/2 lanes of one captured program),
+    MCMC_BURNIN burn-in and MCMC_STEPS recorded steps against the Asimov
+    data, beside the same call with one step: the difference is the other
+    steps' wall and waits for the card (held to 0 per step: the one read is at
+    the end). The counts are set to 0 just before the sampling run and read
+    just after; a replay does not advance them."""
+    import numpy as np
+
+    from pisa_tpu_torch.analysis.bayesian import mcmc_sampling
+
+    ct = pipeline.compile()
+    data = ct.get_outputs(ct.current_rescaled_values())
+    kwargs = dict(metric="llh", n_walkers=MCMC_WALKERS, seed=0,
+                  init_spread=0.01)
+    runs = {}
+    for label, burn, steps in (("one step", 0, 1),
+                               ("run", MCMC_BURNIN, MCMC_STEPS)):
+        if label == "run":
+            reset_launch_counts(chain)
+        t0 = time.perf_counter()
+        waits, out = count_host_syncs(lambda: mcmc_sampling(
+            ct, data, n_burnin=burn, n_steps=steps, **kwargs))
+        runs[label] = (time.perf_counter() - t0, waits, out)
+    launches = launch_counts(chain)
+    (wall0, waits0, _), (wall, waits, (samples, logp, acceptance)) = (
+        runs["one step"], runs["run"])
+    n = MCMC_BURNIN + MCMC_STEPS - 1
+    per_step = (wall - wall0) / n
+    step_waits = (waits - waits0) / n
+    print(f"float32 MCMC, flagship, {MCMC_WALKERS} walkers, {MCMC_BURNIN}"
+          f" burn-in + {MCMC_STEPS} steps: {per_step * 1e3:.2f} ms per step"
+          f" (two half-ensemble replays of {MCMC_WALKERS // 2} lanes),"
+          f" acceptance {acceptance:.3f}, {step_waits:g} host waits per step"
+          f" ({waits} in the run, {waits0} in a run of one step); launches"
+          f" (primal, tangent, multitangent) at the capture of the"
+          f" {MCMC_WALKERS // 2}-lane program {launches}; wall {wall:.2f} s"
+          f" [{smi}]")
+    check(samples.shape == (MCMC_STEPS, MCMC_WALKERS,
+                            len(ct.free_names)), "chain shape")
+    check(np.all(np.isfinite(samples)) and np.all(np.isfinite(logp)),
+          "MCMC chain not finite")
+    check(np.all((samples >= 0) & (samples <= 1)), "walkers left the box")
+    check(0.0 < acceptance < 1.0, f"acceptance {acceptance}")
+    check(step_waits == 0, f"{step_waits} waits per MCMC step")
+    check(launches[0] > 0, "the primal kernel never ran for the walkers")
+    return launches
+
+
 def print_kernel_times(kernels, smi):
     for name, k in kernels.items():
         for dname, t in k.items():
@@ -2341,7 +2833,29 @@ def release_only_main(chain, smi):
     return 0
 
 
-def main(kernels_only=False, release_only=False):
+def analysis_only_main(chain, smi):
+    """``--analysis-only``: the kernels built, then the phases of the rest
+    of the analysis layer alone (the float64 child's and the main
+    process's, on a fresh flagship pipeline); no status line."""
+    from pisa_tpu_torch.core.pipeline import Pipeline
+
+    t0 = time.perf_counter()
+    subprocess.run([sys.executable, os.path.abspath(__file__),
+                    "--analysis-worker"],
+                   env=dict(os.environ, PISA_TPU_FTYPE="fp64"), check=True)
+    print(f"float64 child (metrics, generalized, Fisher):"
+          f" {time.perf_counter() - t0:.1f} s")
+    pipeline = Pipeline(CFG, device="cuda")
+    for label, phase in (("metrics", metrics_fp32), ("fisher", fisher_fp32),
+                         ("mcmc", mcmc_fp32)):
+        t0 = time.perf_counter()
+        launches = phase(pipeline, chain, smi)
+        print(f"float32 {label} phase: {time.perf_counter() - t0:.1f} s;"
+              f" launches {launches}")
+    return 0
+
+
+def main(kernels_only=False, release_only=False, analysis_only=False):
     if not os.path.isdir(os.path.join(ROOT, "pisa_tpu_torch")):
         print("chip_smoke.py must run from a checkout of the repository"
               " (pisa_tpu_torch/ not found beside it)", file=sys.stderr)
@@ -2365,6 +2879,8 @@ def main(kernels_only=False, release_only=False):
     build_kernel(chain)
     if release_only:
         return release_only_main(chain, smi)
+    if analysis_only:
+        return analysis_only_main(chain, smi)
     kernels = {
         "osc_chain": kernel_vs_plain(chain),
         "osc_chain_tangent": tangent_vs_plain(chain),
@@ -2466,12 +2982,29 @@ def main(kernels_only=False, release_only=False):
     t0 = time.perf_counter()
     release_path = release_fp32(chain, ref, smi)
     print(f"float32 release phase: {time.perf_counter() - t0:.1f} s")
+    # float64: the rest of the analysis layer, card against CPU, in a child
+    t0 = time.perf_counter()
+    subprocess.run([sys.executable, os.path.abspath(__file__),
+                    "--analysis-worker"],
+                   env=dict(os.environ, PISA_TPU_FTYPE="fp64"), check=True)
+    print(f"float64 child (metrics, generalized, Fisher):"
+          f" {time.perf_counter() - t0:.1f} s")
+    # float32: the MC-uncertainty metrics and the nlopt fits, the Fisher
+    # matrix, the ensemble sampler
+    extra_paths = {}
+    for label, phase in (("metrics", metrics_fp32), ("fisher", fisher_fp32),
+                         ("mcmc", mcmc_fp32)):
+        t0 = time.perf_counter()
+        extra_paths[label] = phase(pipeline, chain, smi)
+        print(f"float32 {label} phase: {time.perf_counter() - t0:.1f} s")
     print(f"launches (primal, tangent, multitangent) by path: gradient and fit"
           f" {fit_path}, template {template_path}, analysis {analysis_path},"
-          f" ensemble {ensemble_path}, release {release_path}")
+          f" ensemble {ensemble_path}, release {release_path}, "
+          + ", ".join(f"{k} {v}" for k, v in extra_paths.items()))
     main_path = tuple(sum(c) for c in zip(fit_path, template_path,
                                           analysis_path, ensemble_path,
-                                          release_path))
+                                          release_path,
+                                          *extra_paths.values()))
 
     print_kernel_times(kernels, smi)
     lines = []
@@ -2513,6 +3046,11 @@ def main(kernels_only=False, release_only=False):
 
 
 if __name__ == "__main__":
+    if sys.argv[1:] == ["--analysis-worker"]:
+        sys.path.insert(0, ROOT)
+        os.chdir(ROOT)
+        analysis_worker()
+        sys.exit(0)
     if len(sys.argv) == 3 and sys.argv[1] in ("--reference-worker",
                                               "--release-worker"):
         sys.path.insert(0, ROOT)
@@ -2522,4 +3060,5 @@ if __name__ == "__main__":
         worker(sys.argv[2])
         sys.exit(0)
     sys.exit(main(kernels_only=sys.argv[1:] == ["--kernels-only"],
-                  release_only=sys.argv[1:] == ["--release-only"]))
+                  release_only=sys.argv[1:] == ["--release-only"],
+                  analysis_only=sys.argv[1:] == ["--analysis-only"]))

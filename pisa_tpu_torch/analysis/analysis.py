@@ -15,6 +15,12 @@ Counterpart of ``pisa_tpu/analysis/analysis.py`` (reference
                device (``analysis/device_fit.py``).
 - 'iminuit'  : L-BFGS-B with the analytic gradient, then a Hesse step
                (errors from central differences of the analytic gradient).
+- 'nlopt'    : the NLopt algorithm vocabulary: the derivative-free names
+               through the ``nlopt`` API (the real package where it is
+               installed, else the scipy-backed shim
+               ``utils/nlopt_shim.py``), the gradient names (LD_/GD_)
+               translated to the native scipy fits with the analytic
+               gradient.
 - 'octants', 'best_of', 'ranges', 'grid_scan', 'condition', 'staged',
   'constrained': recursive strategies as in the reference.
 
@@ -25,10 +31,9 @@ each compiled objective is one captured program
 (:class:`~pisa_tpu_torch.analysis.gradient.CompiledDistribution`), and a
 scipy evaluation reads its value and gradient in one copy.
 
-Not ported yet (ROADMAP queue 1, item 14; each raises
-``NotImplementedError``): the 'nlopt' method with its scipy-backed shim
-(``pisa_tpu/utils/nlopt_shim.py``), and the route through the real
-``iminuit`` package.
+Not ported yet (ROADMAP queue 1, item 14; it raises
+``NotImplementedError``): the route through the real ``iminuit`` package,
+which is installed nowhere the port runs.
 """
 
 from __future__ import annotations
@@ -217,6 +222,27 @@ class HypoFitResult:
         )
 
     __repr__ = __str__
+
+
+def _import_nlopt():
+    """The real ``nlopt`` package where it is importable, else the port's
+    scipy-backed shim with the same API (:mod:`pisa_tpu_torch.utils.
+    nlopt_shim`), so that the reference's whole fit schema (reference
+    ``analysis.py:2218-2470``) runs either way
+    (``pisa_tpu/analysis/analysis.py:203``). ``PISA_TPU_NLOPT_SHIM=1``
+    forces the shim."""
+    import os
+
+    if os.environ.get("PISA_TPU_NLOPT_SHIM", "0") != "1":
+        try:
+            import nlopt
+
+            return nlopt
+        except ImportError:
+            pass
+    from pisa_tpu_torch.utils import nlopt_shim
+
+    return nlopt_shim
 
 
 def _copy_param(p):
@@ -1049,13 +1075,372 @@ class BasicAnalysis:
         result.minimizer_metadata["hesse_errors"] = errors
         result.minimizer_metadata["hesse_cov_rescaled"] = cov.tolist()
 
+    # NLopt algorithm -> native scipy equivalent, for the gradient names
+    # (``pisa_tpu/analysis/analysis.py:1096``; reference ``analysis.py:2218``
+    # has the same vocabulary)
+    _NLOPT_EQUIV = {
+        "LN_NELDERMEAD": ("nelder-mead", False),
+        "LN_SBPLX": ("nelder-mead", False),
+        "LN_COBYLA": ("cobyla", False),
+        "LN_BOBYQA": ("powell", False),
+        "LN_PRAXIS": ("powell", False),
+        "LD_LBFGS": ("l-bfgs-b", True),
+        "LD_SLSQP": ("slsqp", True),
+        "LD_MMA": ("l-bfgs-b", True),
+        "GN_DIRECT": ("direct", False),
+        "GN_DIRECT_L": ("direct", False),
+        "GN_CRS2_LM": ("differential_evolution", False),
+        "GN_ESCH": ("differential_evolution", False),
+        "GN_ISRES": ("differential_evolution", False),
+        "G_MLSL": ("basinhopping", True),
+        "G_MLSL_LDS": ("basinhopping", True),
+        "GD_STOGO": ("basinhopping", True),
+    }
+
     def _fit_nlopt(
         self, data_dist, hypo_maker, metric, external_priors_penalty,
         method_kwargs, local_fit_kwargs,
     ):
-        """NLopt-style fits (``pisa_tpu/analysis/analysis.py:1118``)."""
-        raise NotImplementedError(
-            f"the 'nlopt' method with its shim {_NOT_PORTED}")
+        """NLopt-style fit (cf. reference ``analysis.py:2218``).
+
+        Uses the real ``nlopt`` when importable; otherwise translates the
+        NLopt algorithm vocabulary (``method_kwargs['algorithm']`` e.g.
+        'LN_NELDERMEAD', 'GN_CRS2_LM', …) and stopping criteria
+        (ftol_abs/ftol_rel/xtol_rel/maxeval) to the equivalent native
+        scipy/gradient fit.
+        """
+        kwargs = dict(method_kwargs or {})
+        algo = str(kwargs.pop("algorithm", "LN_NELDERMEAD")).upper()
+        algo = algo.replace("NLOPT_", "")
+
+        # gradient-based NLopt names (LD_/GD_) always use the native
+        # translation: the reference outright rejects them
+        # (``analysis.py:2407-2409``), while the native scipy path runs
+        # them with analytic (autodiff) gradients — strictly better.
+        # Derivative-free names run the real nlopt schema
+        # (`_fit_nlopt_real`) against the real package when installed or
+        # the in-repo shim otherwise (see `_import_nlopt`).
+        gradient_algo = len(algo) > 1 and algo.split("_")[0].endswith("D")
+        if not gradient_algo:
+            real_kwargs = dict(method_kwargs or {})
+            real_kwargs["algorithm"] = algo
+            return self._fit_nlopt_real(
+                data_dist, hypo_maker, metric, external_priors_penalty,
+                real_kwargs, local_fit_kwargs,
+            )
+
+        if algo not in self._NLOPT_EQUIV:
+            raise ValueError(
+                f"Unknown NLopt algorithm {algo!r}; known:"
+                f" {sorted(self._NLOPT_EQUIV)}"
+            )
+        scipy_method, use_grad = self._NLOPT_EQUIV[algo]
+
+        # translate NLopt stopping criteria to the TARGET's own vocabulary:
+        # each scipy global optimizer takes different keyword names (shgo has
+        # no maxiter; differential_evolution uses tol not ftol; basinhopping
+        # counts hops via niter), and scipy.optimize.minimize option names
+        # differ per local method
+        maxeval = kwargs.pop("maxeval", None)
+        ftol_abs = kwargs.pop("ftol_abs", None)
+        ftol_rel = kwargs.pop("ftol_rel", None)
+        xtol_rel = kwargs.pop("xtol_rel", None)
+        kwargs.pop("xtol_abs", None)
+
+        options = {}
+        if scipy_method == "nelder-mead":
+            if maxeval is not None:
+                options["maxfev"] = int(maxeval)
+            if ftol_abs is not None:
+                options["fatol"] = float(ftol_abs)
+            if xtol_rel is not None:
+                options["xatol"] = float(xtol_rel)
+        elif scipy_method == "cobyla":
+            if maxeval is not None:
+                options["maxiter"] = int(maxeval)
+            tol = ftol_abs if ftol_abs is not None else ftol_rel
+            if tol is not None:
+                options["tol"] = float(tol)
+        elif scipy_method == "powell":
+            if maxeval is not None:
+                options["maxfev"] = int(maxeval)
+            if ftol_rel is not None or ftol_abs is not None:
+                options["ftol"] = float(
+                    ftol_rel if ftol_rel is not None else ftol_abs
+                )
+            if xtol_rel is not None:
+                options["xtol"] = float(xtol_rel)
+        elif scipy_method in ("l-bfgs-b", "slsqp"):
+            if maxeval is not None:
+                options["maxiter"] = int(maxeval)
+            if ftol_abs is not None or ftol_rel is not None:
+                options["ftol"] = float(
+                    ftol_abs if ftol_abs is not None else ftol_rel
+                )
+            if scipy_method == "l-bfgs-b" and xtol_rel is not None:
+                options["gtol"] = float(xtol_rel)
+        elif scipy_method == "basinhopping":
+            if maxeval is not None:
+                # hops, each wrapping a full local fit; also cap each local
+                # fit's iterations so the NLopt-style total budget holds
+                options["niter"] = max(1, int(maxeval) // 20)
+                options["minimizer_options"] = {
+                    "maxiter": max(5, int(maxeval) // (options["niter"] + 1))
+                }
+        elif scipy_method == "differential_evolution":
+            if maxeval is not None:
+                # NLopt maxeval is a TOTAL evaluation budget; _fit_scipy
+                # converts it to a generation cap (popsize*n_params per
+                # generation) and disables polishing under tight budgets
+                options["_maxeval_budget"] = int(maxeval)
+            tol = ftol_rel if ftol_rel is not None else ftol_abs
+            if tol is not None:
+                options["tol"] = float(tol)
+        elif scipy_method == "dual_annealing":
+            if maxeval is not None:
+                options["maxiter"] = int(maxeval)
+        elif scipy_method == "shgo":
+            inner = {}
+            if maxeval is not None:
+                inner["maxfev"] = int(maxeval)
+            if ftol_abs is not None:
+                inner["f_tol"] = float(ftol_abs)
+            if inner:
+                options["options"] = inner
+        elif scipy_method == "direct":
+            # same DIRECT algorithm in scipy: maxfun is a hard evaluation
+            # cap (NLopt maxeval semantics); *_L variants are the
+            # locally-biased flavor
+            if maxeval is not None:
+                options["maxfun"] = int(maxeval)
+            options["locally_biased"] = algo.endswith("_L")
+            tol = ftol_rel if ftol_rel is not None else ftol_abs
+            if tol is not None:
+                options["f_min_rtol"] = float(max(tol, 1e-12))
+
+        fit_kwargs = {"method": scipy_method, "gradient": use_grad}
+        if options:
+            fit_kwargs["options"] = options
+        fit_kwargs.update(kwargs)
+        result = self._fit_scipy(
+            data_dist, hypo_maker, metric, external_priors_penalty,
+            fit_kwargs, local_fit_kwargs,
+        )
+        result.minimizer_metadata["method"] = (
+            f"nlopt-equivalent (native, {algo} -> {scipy_method})"
+        )
+        return result
+
+    #: nlopt result code -> message (cf. reference ``analysis.py:2354``)
+    _NLOPT_MESSAGES = {
+        1: "NLOPT_SUCCESS",
+        2: "NLOPT_STOPVAL_REACHED",
+        3: "NLOPT_FTOL_REACHED",
+        4: "NLOPT_XTOL_REACHED",
+        5: "NLOPT_MAXEVAL_REACHED",
+        6: "NLOPT_MAXTIME_REACHED",
+        -1: "NLOPT_FAILURE",
+        -2: "NLOPT_INVALID_ARGS",
+        -3: "NLOPT_OUT_OF_MEMORY",
+        -4: "NLOPT_ROUNDOFF_LIMITED",
+        -5: "NLOPT_FORCED_STOP",
+    }
+
+    def _define_nlopt_opt(self, method_kwargs, loss_func, n_free,
+                          hypo_maker):
+        """Build an ``nlopt.opt`` from a reference-schema options dict
+        (cf. reference ``analysis.py:2398-2460``): stopping criteria,
+        algorithm-specific params, inequality constraints (AUGLAG et al.),
+        stochastic population, initial step, and a recursively-constructed
+        ``local_optimizer`` (MLSL / AUGLAG subsidiary optimizers)."""
+        nlopt = _import_nlopt()
+
+        kwargs = dict(method_kwargs)
+        algo = str(kwargs.get("algorithm", ""))
+        name = algo.upper()
+        if name.startswith("NLOPT_"):
+            name = name[len("NLOPT_"):]
+        if not name:
+            raise ValueError("Need to specify the algorithm to use.")
+        parts = name.split("_")
+        if len(parts[0]) > 1 and parts[0][1] == "D":
+            raise ValueError(
+                "Only gradient-free NLopt algorithms (GN/LN/AUGLAG/MLSL)"
+                " are supported; for gradient-based fits use the native"
+                " 'gradient'/'device' methods, which use analytic"
+                " (autodiff) gradients instead of NLopt's user-supplied"
+                " ones"
+            )
+        try:
+            algorithm = getattr(nlopt, name)
+        except AttributeError:
+            raise ValueError(f"Unknown NLopt algorithm {algo!r}")
+
+        opt = nlopt.opt(algorithm, n_free)
+        opt.set_min_objective(loss_func)
+
+        if "ftol_abs" in kwargs:
+            opt.set_ftol_abs(kwargs["ftol_abs"])
+        if "ftol_rel" in kwargs:
+            opt.set_ftol_rel(kwargs["ftol_rel"])
+        if "xtol_abs" in kwargs:
+            opt.set_xtol_abs(kwargs["xtol_abs"])
+        if "xtol_rel" in kwargs:
+            opt.set_xtol_rel(kwargs["xtol_rel"])
+        if "stopval" in kwargs:
+            opt.set_stopval(kwargs["stopval"])
+        if "maxeval" in kwargs:
+            opt.set_maxeval(int(kwargs["maxeval"]))
+        if "maxtime" in kwargs:
+            opt.set_maxtime(kwargs["maxtime"])
+        for k, v in dict(kwargs.get("algorithm_params", {})).items():
+            opt.set_param(k, v)
+        if "ineq_constraints" in kwargs:
+            for fn in self._nlopt_ineq_constraint_funcs(
+                kwargs["ineq_constraints"], hypo_maker
+            ):
+                opt.add_inequality_constraint(fn)
+        if "population" in kwargs:
+            opt.set_population(int(kwargs["population"]))
+        if "initial_step" in kwargs:
+            opt.set_initial_step(kwargs["initial_step"])
+
+        opt.set_lower_bounds(0.0)
+        opt.set_upper_bounds(1.0)
+
+        if "local_optimizer" in kwargs:
+            opt.set_local_optimizer(
+                self._define_nlopt_opt(
+                    kwargs["local_optimizer"], loss_func, n_free, hypo_maker
+                )
+            )
+        return opt
+
+    def _nlopt_ineq_constraint_funcs(self, exprs, hypo_maker):
+        """NLopt-signature ``f(x, grad) >= 0 -> f <= 0`` constraint
+        callables from expression strings over the (physical-valued)
+        ParamSet (cf. reference
+        ``configure_nlopt_minimization.py``). NLopt requires f(x) <= 0
+        feasible; expressions are written scipy-style (>= 0 feasible) in
+        the repo's constrained-fit dialect, so the sign is flipped here."""
+        if isinstance(exprs, str):
+            exprs = [exprs]
+        funcs = []
+        for expr in exprs:
+            compiled = compile(str(expr), "<ineq_constraint>", "eval")
+
+            def fn(x, grad, _c=compiled, _hm=hypo_maker):
+                if grad.size > 0:
+                    raise RuntimeError(
+                        "inequality constraints are derivative-free"
+                    )
+                _hm._set_rescaled_free_params(np.asarray(x, float))
+                val = eval(  # noqa: S307 - reference-compatible config eval
+                    _c, {"np": np}, {"params": _hm.params}
+                )
+                return -float(val)
+
+            funcs.append(fn)
+        return funcs
+
+    def _fit_nlopt_real(
+        self, data_dist, hypo_maker, metric, external_priors_penalty,
+        method_kwargs, local_fit_kwargs,
+    ):
+        """Fit with the ``nlopt`` API — the real package when installed,
+        the in-repo scipy-backed shim otherwise — over [0,1]-rescaled free
+        params (cf. reference ``analysis.py:2218-2470``). Supports every
+        derivative-free NLopt algorithm, AUGLAG inequality constraints and
+        MLSL/AUGLAG subsidiary local optimizers via
+        ``method_kwargs['local_optimizer']``."""
+        nlopt = _import_nlopt()
+
+        if local_fit_kwargs is not None:
+            logging.warning(
+                "`local_fit_kwargs` are ignored by nlopt fits; use"
+                " method_kwargs['local_optimizer'] for subsidiary"
+                " optimizers"
+            )
+        metric_name = self._metric_name(metric)
+        free = hypo_maker.params.free
+        if len(free) == 0:
+            return self._no_fit_result(
+                data_dist, hypo_maker, metric, external_priors_penalty
+            )
+        x0 = np.asarray(free._rescaled_values, dtype=np.float64)
+        counter = Counter()
+        fit_history = [["metric"] + list(free.names)]
+
+        sign = -1.0 if stats.is_metric_to_maximize(metric_name) else +1.0
+
+        def loss_func(x, grad):
+            if np.any(~np.isfinite(x)):
+                logging.warning(
+                    "NLopt evaluated at non-finite parameters: %s", x
+                )
+                return np.nan
+            if grad.size > 0:
+                raise RuntimeError(
+                    "NLopt gradient request on a derivative-free fit;"
+                    " use the native 'gradient' method for analytic"
+                    " gradients"
+                )
+            val = self._minimizer_callable(
+                x, hypo_maker, data_dist, metric_name, counter, fit_history
+            )
+            if external_priors_penalty is not None:
+                val = val + sign * external_priors_penalty(
+                    hypo_maker, metric_name
+                )
+            return float(val)
+
+        if "seed" in method_kwargs:
+            nlopt.srand(int(method_kwargs.pop("seed")))
+
+        opt = self._define_nlopt_opt(
+            method_kwargs, loss_func, len(x0), hypo_maker
+        )
+
+        t_start = time.time()
+        try:
+            xopt = opt.optimize(x0)
+            nlopt_result = opt.last_optimize_result()
+            fun = float(opt.last_optimum_value())
+        except Exception as exc:  # optimizer failure -> +/-inf result
+            logging.warning("NLopt fit failed: %s", exc)
+            xopt = x0
+            nlopt_result = -1
+            fun = np.inf
+        minimizer_time = time.time() - t_start
+
+        best_x = np.clip(np.asarray(xopt, dtype=np.float64), 0.0, 1.0)
+        hypo_maker._set_rescaled_free_params(best_x)
+
+        metadata = {
+            "success": nlopt_result > 0,
+            "nlopt_result": int(nlopt_result),
+            "message": self._NLOPT_MESSAGES.get(
+                int(nlopt_result), str(nlopt_result)
+            ),
+            "nit": int(opt.get_numevals()),
+            "nfev": int(opt.get_numevals()),
+            "method": f"nlopt:{opt.get_algorithm_name()}",
+        }
+        result = HypoFitResult(
+            metric=metric,
+            metric_val=sign * fun,
+            data_dist=data_dist,
+            hypo_maker=hypo_maker,
+            minimizer_time=minimizer_time,
+            minimizer_metadata=metadata,
+            fit_history=fit_history,
+            counter=counter,
+        )
+        if not metadata["success"]:
+            logging.warning(
+                "NLopt reported failure: %s", metadata["message"]
+            )
+        return result
 
 class Analysis(BasicAnalysis):
     """Convenience interface mirroring the reference ``Analysis``."""

@@ -44,8 +44,9 @@ from pisa_tpu_torch.core.map import Map, MapSet
 from pisa_tpu_torch.core.pipeline import Pipeline
 from pisa_tpu_torch.core.template import (
     CapturedFunction,
-    CapturedObjective,
     magnitudes_from_rescaled,
+    on_device,
+    wrap_objective,
 )
 from pisa_tpu_torch.units import Quantity
 from pisa_tpu_torch.utils import stats
@@ -126,116 +127,6 @@ class _FreeParams:
             penalty = penalty + daemon[1](mags).reshape(lead) * (
                 1.0 if maximize else -2.0)
         return penalty
-
-    def _wrap_objective(self, objective, capture):
-        """``(value_fn, vg_fn)`` of the rescaled vector over
-        ``objective(vec, los, his[, data])``: captured in one program on a
-        CUDA device, eager otherwise; ``value_fn.raw`` is the objective with
-        the bounds as arguments, differentiable in `vec`, for
-        :func:`pisa_tpu_torch.analysis.device_fit.minimize_on_device`, and
-        ``value_fn.raw_with_data`` its batched form (module docstring)."""
-        device = self.device
-        if capture:
-            program = CapturedObjective(
-                objective, self.current_rescaled_values(),
-                *self._device_bounds(), device=device)
-            vg = program.value_and_grad
-            batched = {}  # (B, with data) -> CapturedObjective
-
-            def raw(vec, los, his):
-                return program.differentiable(vec, los, his)
-
-            def bind_data(data, lanes):
-                key = (lanes, data is not None)
-                extra = () if data is None else (data,)
-                if key not in batched:
-                    batched[key] = CapturedObjective(
-                        objective,
-                        np.tile(self.current_rescaled_values(), (lanes, 1)),
-                        *self._device_bounds(), device=device, extra=extra)
-                else:
-                    batched[key].load_extra(*extra)
-                bound = batched[key]
-
-                def raw_bound(vec, los, his):
-                    _check_lanes(vec, data, device, lanes)
-                    return bound.differentiable(vec, los, his)
-                return raw_bound
-        else:
-            program = None
-            raw = objective
-            batched = None
-
-            def bind_data(data, lanes):
-                def raw_bound(vec, los, his):
-                    _check_lanes(vec, data, device, lanes)
-                    return objective(vec, los, his, data)
-                return raw_bound
-
-            def vg(vec, los, his):
-                vec = _on_device(vec, device).detach().clone()
-                vec.requires_grad_(True)
-                value = objective(vec, los, his)
-                (grad,) = torch.autograd.grad(value, vec)
-                return value.detach(), grad
-
-        def raw_with_data(vec, los, his, data=None):
-            _check_lanes(vec, data, device)
-            return bind_data(data, vec.shape[0])(vec, los, his)
-
-        def value_fn(vec):
-            with torch.no_grad():
-                return raw(_maybe_on_device(vec, device, capture),
-                           *self._device_bounds())
-
-        def vg_fn(vec):
-            return vg(_maybe_on_device(vec, device, capture),
-                      *self._device_bounds())
-
-        raw.device = raw_with_data.device = device
-        #: the captured batched programs, by (B, with data)
-        raw_with_data.programs = batched
-        #: ``bind(data, lanes)``: the batched objective with `data` (B, bins)
-        #: or None fixed, ``(vec, los, his) -> (B,)``; on the card the data
-        #: is copied into the program once, at the bind, for a whole fit
-        raw_with_data.bind = bind_data
-        value_fn.raw = vg_fn.raw = raw
-        value_fn.raw_with_data = vg_fn.raw_with_data = raw_with_data
-        value_fn.program = vg_fn.program = program
-        return value_fn, vg_fn
-
-
-def _check_lanes(vec, data, device, lanes=None):
-    """A batched objective takes a (B, n) tensor on its device (B = `lanes`
-    where given) and (B, bins) data or None."""
-    if not isinstance(vec, torch.Tensor) or vec.dim() != 2:
-        raise ValueError("raw_with_data takes a (B, n) tensor of lanes; got"
-                         f" {type(vec).__name__} {tuple(np.shape(vec))}")
-    if lanes is not None and vec.shape[0] != lanes:
-        raise ValueError(f"the objective was bound for {lanes} lanes; got"
-                         f" {vec.shape[0]}")
-    for x in (vec, data):
-        if x is not None and x.device != device:
-            raise ValueError(f"the objective lives on {device}; got a tensor"
-                             f" on {x.device}")
-    if data is not None and (data.dim() != 2 or data.shape[0] != vec.shape[0]):
-        raise ValueError(f"data must be ({vec.shape[0]}, bins) for"
-                         f" {vec.shape[0]} lanes; got {tuple(data.shape)}")
-
-
-def _on_device(x, device):
-    if isinstance(x, torch.Tensor):
-        if x.device != device:
-            raise ValueError(f"the objective lives on {device}; got a tensor"
-                             f" on {x.device}")
-        return x.to(torch.float64)
-    return torch.as_tensor(np.asarray(x, dtype=np.float64), device=device)
-
-
-def _maybe_on_device(x, device, capture):
-    """A captured program takes arrays through its pinned buffer; the eager
-    route takes tensors."""
-    return x if capture else _on_device(x, device)
 
 
 def _data_key(data_dists):
@@ -328,7 +219,7 @@ class CompiledDistribution(_FreeParams):
             (hist,) = self._sum_program(vec, los, his)
         else:
             with torch.no_grad():
-                hist = self._sum_fn(_on_device(vec, self.device), los, his)
+                hist = self._sum_fn(on_device(vec, self.device), los, his)
         return hist.cpu().numpy()
 
     def get_outputs(self, vec=None, return_sum=True):
@@ -363,8 +254,8 @@ class CompiledDistribution(_FreeParams):
                    else np.asarray(data_variance).tobytes())
             if key in self._objective_cache:
                 return self._objective_cache[key]
-        result = self._wrap_objective(
-            self._objective(data_dist, metric, priors, data_variance),
+        result = wrap_objective(
+            self, self._objective(data_dist, metric, priors, data_variance),
             self.capture)
         if key is not None:
             self._objective_cache[key] = result
@@ -390,12 +281,12 @@ class CompiledDistribution(_FreeParams):
         if data_variance is not None:
             var = np.asarray(data_variance).ravel()
 
-        def on_device(x):
+        def upload(x):
             return torch.as_tensor(np.asarray(x, dtype=np.float64),
                                    dtype=TORCH_FTYPE, device=self.device)
 
-        data = on_device(data)
-        var = on_device(var if var is not None else np.zeros(data.shape))
+        data = upload(data)
+        var = upload(var if var is not None else np.zeros(data.shape))
         uses_variance = metric in _USES_VARIANCE
         daemon = self._daemon_penalty(priors)
 
@@ -492,7 +383,7 @@ class CompiledDetectors(_FreeParams):
                 total = total + (-penalty if maximize else penalty)
             return total
 
-        result = self._wrap_objective(objective, self.capture)
+        result = wrap_objective(self, objective, self.capture)
         if key is not None:
             self._objective_cache[key] = result
         return result

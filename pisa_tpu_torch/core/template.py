@@ -67,8 +67,8 @@ from pisa_tpu_torch.utils.daemonflux_native import compiled_daemon_penalty
 from pisa_tpu_torch.utils.log import logging
 
 __all__ = ["CompiledTemplate", "CapturedObjective", "CapturedFunction",
-           "magnitudes_from_rescaled", "HOST_PARAM_NAMES",
-           "RATE_DEFER_DEFAULT", "CAPTURE_WARMUP"]
+           "magnitudes_from_rescaled", "wrap_objective", "HOST_PARAM_NAMES",
+           "RATE_DEFER_DEFAULT", "CAPTURE_WARMUP", "LLH_KEYS"]
 
 #: params that steer host-side precomputation and hence cannot be
 #: differentiated (``pisa_tpu/core/template.py:42-56``); stages add theirs
@@ -99,6 +99,11 @@ RATE_DEFER_DEFAULT = True
 #: lazily cached tensor outside the graph's memory pool, and let the kernels
 #: opt into their shared memory)
 CAPTURE_WARMUP = 3
+
+#: the generalized likelihood's inputs, which a template returns beside the
+#: histograms where its pipeline makes them
+#: (``likelihood.generalized_llh_params``; ``pisa_tpu/core/template.py:448``)
+LLH_KEYS = ("llh_alphas", "llh_betas", "n_mc_events")
 
 
 def magnitudes_from_rescaled(vec, los, his, log_scaled):
@@ -196,6 +201,10 @@ class CompiledTemplate:
         self._bounds_cache = None
 
     # -- what the template runs on --------------------------------------------
+    @property
+    def device(self):
+        return self.pipeline.device
+
     @property
     def stacked(self):
         """Whether the traced stages run on one category-stacked
@@ -366,12 +375,12 @@ class CompiledTemplate:
     def _evaluate(self, mags, lanes=None):
         """Run the traced stages with the free params at `mags` from the
         hoisted state; returns ``{"hist": {name: flat tensor}}`` (and
-        ``"error"``) on the pipeline's device, with the autograd graph back
-        to `mags`; on a stacked template also ``"hist_stacked"``, the (C,
-        size) tensor the per-name entries are rows of (in the order of
-        ``self.names``). With `lanes` = B (magnitudes of shape (B, 1)) every
-        output has a leading lane axis: (B, size) per name, (B, C, size)
-        stacked."""
+        ``"error"``, and each of :data:`LLH_KEYS` the containers hold) on
+        the pipeline's device, with the autograd graph back to `mags`; on a
+        stacked template also ``"hist_stacked"``, the (C, size) tensor the
+        per-name entries are rows of (in the order of ``self.names``). With
+        `lanes` = B (magnitudes of shape (B, 1)) every output has a leading
+        lane axis: (B, size) per name, (B, C, size) stacked."""
         pipeline = self.pipeline
         data = self._trace_data
         saved_state = data.state()
@@ -409,6 +418,11 @@ class CompiledTemplate:
                                               values.unbind(len(lead))))
                     else:
                         out[label][c.name] = c[key].reshape(lead + (-1,))
+            for key in LLH_KEYS:
+                for c in data.containers:
+                    if key in c.keys:
+                        out.setdefault(key, {})[c.name] = c[key].reshape(
+                            lead + (-1,))
             return out
         finally:
             data.lanes = None
@@ -437,14 +451,25 @@ class CompiledTemplate:
         total = hist.sum() if hist.dim() == 2 else hist.sum(dim=(-2, -1))
         return hist, stacks[1], total
 
+    def _stack_llh_inputs(self, out):
+        """The :data:`LLH_KEYS` outputs as one (3, C, size) tensor in the
+        order of ``self.names``, or None where the pipeline makes none."""
+        if LLH_KEYS[0] not in out:
+            return None
+        return torch.stack([torch.stack([out[k][n] for n in self.names])
+                            for k in LLH_KEYS])
+
     def _captured(self):
         """The captured template call, captured at the current values and
         bounds on first use (the warm-up runs and the capture launch the
-        kernels; a replay does not advance their counters)."""
+        kernels; a replay does not advance their counters): (hist, error or
+        None, total, the :data:`LLH_KEYS` stack or None)."""
         if self._program is None:
             def run(vec, los, his):
-                return self._stack_outputs(self._evaluate(
-                    self._magnitudes_from_rescaled(vec, los, his)))
+                out = self._evaluate(
+                    self._magnitudes_from_rescaled(vec, los, his))
+                return self._stack_outputs(out) + (
+                    self._stack_llh_inputs(out),)
 
             self._program = CapturedFunction(
                 run, self.current_rescaled_values(), *self._device_bounds(),
@@ -452,18 +477,23 @@ class CompiledTemplate:
         return self._program
 
     def __call__(self, rescaled_vector):
-        """Raw evaluation: dict with 'hist' (and 'error') name -> flat
-        tensor on the pipeline's device; on a capturing template a replay
-        of the captured call (copies of its outputs, with no autograd graph:
+        """Raw evaluation: dict with 'hist' (and 'error', and the
+        :data:`LLH_KEYS` where the pipeline makes them) name -> flat tensor
+        on the pipeline's device; on a capturing template a replay of the
+        captured call (copies of its outputs, with no autograd graph:
         gradients come from :meth:`build_objective`)."""
         if not self.capture:
             return self._evaluate(
                 self._magnitudes_from_rescaled(rescaled_vector))
-        outputs = self._captured()(rescaled_vector, *self._device_bounds())
+        hist, err, _, llh_inputs = self._captured()(rescaled_vector,
+                                                    *self._device_bounds())
         out = {}
-        for label, stacked in zip(("hist", "error"), outputs[:2]):
+        for label, stacked in zip(("hist", "error"), (hist, err)):
             if stacked is not None:
                 out[label] = dict(zip(self.names, stacked.clone().unbind()))
+        if llh_inputs is not None:
+            for key, stacked in zip(LLH_KEYS, llh_inputs.clone().unbind()):
+                out[key] = dict(zip(self.names, stacked.unbind()))
         return out
 
     def scan_totals(self, vecs):
@@ -488,7 +518,7 @@ class CompiledTemplate:
         totals = torch.empty(vecs.shape[0], dtype=TORCH_FTYPE,
                              device=vecs.device)
         for i in range(vecs.shape[0]):
-            _, _, total = program(vecs[i], los, his)
+            total = program(vecs[i], los, his)[2]
             totals[i].copy_(total)
         return totals
 
@@ -499,8 +529,8 @@ class CompiledTemplate:
         if rescaled_vector is None:
             rescaled_vector = self.current_rescaled_values()
         if self.capture:
-            hist, err, _ = self._captured()(rescaled_vector,
-                                            *self._device_bounds())
+            hist, err = self._captured()(rescaled_vector,
+                                         *self._device_bounds())[:2]
         else:
             with torch.no_grad():
                 hist, err, _ = self._stack_outputs(self(rescaled_vector))
@@ -514,7 +544,8 @@ class CompiledTemplate:
         ], name=self.pipeline.name)
 
     # -- objectives ---------------------------------------------------------------
-    def build_objective(self, data_dist, metric, priors=True, capture=None):
+    def build_objective(self, data_dist, metric, priors=True, sum_maps=False,
+                        capture=None):
         """Functions ``value_only(vec)`` and ``value_and_grad(vec) ->
         (value, grad)`` of the rescaled vector for fitting `data_dist`
         (MapSet, Map, or dict name -> array) under `metric`
@@ -523,15 +554,23 @@ class CompiledTemplate:
 
         As in the reference's minimizer convention (``analysis.py:2493``):
         the metric summed over maps plus the prior penalties, sign-flipped
-        for llh-family metrics so that it is always minimized.
+        for llh-family metrics so that it is always minimized. With
+        `sum_maps` the metric compares the sum of the data's maps with the
+        sum of the template's. The metrics get no variance (the JAX
+        package's template objective passes none), so the MC-uncertainty
+        likelihoods take their Poisson limit here; ``generalized_poisson_llh``
+        takes the pipeline's :data:`LLH_KEYS` outputs, with its recursion
+        length fixed now (:meth:`_mixture_k_max`).
 
-        `capture` (by default: as the template captures) captures the two functions
-        in CUDA graphs, once, here (:class:`CapturedObjective`); a capture
-        that fails raises. ``capture=False`` keeps the eager route on the
-        card. ``value_only.raw`` is the objective ``(vec, los, his) ->
-        value`` with the bounds as arguments, differentiable in `vec` on
+        `capture` (by default: as the template captures) captures the two
+        functions in CUDA graphs, once, here (:class:`CapturedObjective`); a
+        capture that fails raises. ``capture=False`` keeps the eager route
+        on the card. ``value_only.raw`` is the objective ``(vec, los, his)
+        -> value`` with the bounds as arguments, differentiable in `vec` on
         either route, for :func:`pisa_tpu_torch.analysis.device_fit.
-        minimize_on_device`."""
+        minimize_on_device`; ``value_only.raw_with_data`` its batched form
+        over (B, n) lanes (:func:`wrap_objective`), whose data, where given,
+        is (B, bins) with the data's maps laid end to end."""
         from pisa_tpu_torch.utils import stats
 
         maximize = stats.is_metric_to_maximize(metric)
@@ -554,11 +593,14 @@ class CompiledTemplate:
             items = [(data_dist.name, data_dist.hist)]
         else:
             items = list(data_dist.items())
-        data = {
-            name: torch.as_tensor(np.array(h, dtype=np.float64).ravel(),
-                                  dtype=TORCH_FTYPE, device=device)
-            for name, h in items
-        }
+        host = {name: np.array(h, dtype=np.float64).ravel()
+                for name, h in items}
+        data = {name: torch.as_tensor(h, dtype=TORCH_FTYPE, device=device)
+                for name, h in host.items()}
+        sizes = [d.shape[0] for d in data.values()]
+        generalized = metric == "generalized_poisson_llh"
+        if generalized:
+            k_max = self._mixture_k_max(sum(host.values()))
         # on a stacked template whose categories the data covers in order,
         # the metric is taken over the (C, size) stack in one go
         data_stacked = None
@@ -566,52 +608,186 @@ class CompiledTemplate:
             data_stacked = torch.stack(list(data.values()))
         sign = 1.0 if maximize else -2.0  # llh, or chi2 = -2 llh
 
-        def objective(vec, los=None, his=None):
+        def objective(vec, los=None, his=None, data_arg=None):
             mags = self._magnitudes_from_rescaled(vec, los, his)
-            out = self._evaluate(mags)
-            if data_stacked is not None:
-                total = metric_fn(data_stacked, out["hist_stacked"]).sum()
+            lanes = vec.shape[0] if vec.dim() == 2 else None
+            lead = () if lanes is None else (lanes,)
+            out = self._evaluate(mags, lanes)
+            hists = out["hist"]
+            if data_arg is None:
+                datas = data
+            else:  # (B, bins): the data's maps end to end, one row a lane
+                datas = dict(zip(data, data_arg.split(sizes, dim=-1)))
+            if generalized:
+                if lanes is not None:
+                    raise ValueError("generalized_poisson_llh takes no lanes")
+                # per-source (S, bins) stacks of the mixture's inputs
+                # (``pisa_tpu/core/template.py:681-700``)
+                expected = {"weights": torch.stack(list(hists.values()))}
+                for key in LLH_KEYS:
+                    if key in out:  # else the metric names what is missing
+                        expected[key] = torch.stack([out[key][n]
+                                                     for n in hists])
+                total = metric_fn(sum(datas.values()), expected,
+                                  k_max=k_max).sum()
+            elif sum_maps:
+                total = metric_fn(sum(datas.values()),
+                                  sum(hists.values())).sum(-1)
+            elif data_stacked is not None:
+                d = (data_stacked if data_arg is None
+                     else data_arg.reshape(lead + data_stacked.shape))
+                total = metric_fn(d, out["hist_stacked"]).sum((-2, -1))
             else:
-                total = sum(metric_fn(d, out["hist"][name]).sum()
-                            for name, d in data.items())
+                total = sum(metric_fn(d, hists[name]).sum(-1)
+                            for name, d in datas.items())
             if priors:
                 for i, (p, mag) in enumerate(zip(self._free_params, mags)):
                     if p.prior is None or i in daemon_skip:
                         continue
                     if p.prior.units is not None:
                         mag = Quantity(mag, p.units).m_as(p.prior.units)
-                    total = total + sign * p.prior.llh_torch(mag)
+                    total = total + sign * p.prior.llh_torch(mag).reshape(
+                        lead)
                 if daemon is not None:
-                    total = total + sign * daemon[1](mags)
+                    total = total + sign * daemon[1](mags).reshape(lead)
             return -total if maximize else total
 
-        if capture:
-            program = CapturedObjective(
-                objective, self.current_rescaled_values(),
-                *self._device_bounds(), device=device)
-            vg = program.value_and_grad
+        return wrap_objective(self, objective, capture)
 
-            def raw(vec, los, his):
-                return program.differentiable(vec, los, his)
-        else:
-            raw = objective
+    def _mixture_k_max(self, data):
+        """The generalized likelihood's static recursion length for the
+        summed data `data` (host array), fixed when the objective is built
+        (``pisa_tpu/core/template.py:672-676``): the largest count among
+        the bins that take the mixture, from the MC event counts of one
+        evaluation here (static, from the stages' set-up)
+        (``utils/llh_defs/poisson.py:mixture_k_max``); the largest count
+        where the pipeline makes no MC event counts."""
+        from pisa_tpu_torch.utils.llh_defs.poisson import mixture_k_max
 
-            def vg(vec, los, his):
-                vec = self._on_device(vec).detach().clone().requires_grad_(True)
-                value = objective(vec, los, his)
-                (grad,) = torch.autograd.grad(value, vec)
-                return value.detach(), grad
+        with torch.no_grad():
+            out = self._evaluate(self._magnitudes_from_rescaled(
+                self.current_rescaled_values()))
+        if "n_mc_events" not in out:
+            return max(1, int(np.ceil(np.max(data))))
+        n_mc = torch.stack([out["n_mc_events"][n] for n in out["hist"]])
+        return mixture_k_max(data, n_mc.cpu().numpy())
 
-        def value_only(vec):
-            with torch.no_grad():
-                return raw(vec, *self._device_bounds())
 
-        def value_and_grad(vec):
-            return vg(vec, *self._device_bounds())
+def wrap_objective(owner, objective, capture):
+    """``(value_fn, vg_fn)`` of the rescaled vector over ``objective(vec,
+    los, his[, data])`` of a compiled template or distribution `owner`
+    (which gives ``device``, ``current_rescaled_values()`` and
+    ``_device_bounds()``): captured in one program on a CUDA device
+    (:class:`CapturedObjective`), eager otherwise.
 
-        raw.device = device
-        value_only.raw = raw
-        return value_only, value_and_grad
+    ``value_fn.raw`` is the objective with the bounds as arguments,
+    differentiable in `vec`, for :func:`pisa_tpu_torch.analysis.device_fit.
+    minimize_on_device`. ``value_fn.raw_with_data(vec (B, n), los, his,
+    data (B, bins) or None) -> (B,)`` is its batched form (B independent
+    lanes; ``pisa_tpu/analysis/gradient.py:316-318``), differentiable in
+    `vec`; ``None`` compares every lane with the closed-over data. On a
+    CUDA device it is captured once per (B, with or without data), the data
+    batch a static input of the program that a call copies in;
+    ``raw_with_data.bind(data, B)`` copies it in once and returns ``(vec,
+    los, his) -> (B,)`` for all the evaluations of a fit."""
+    device = owner.device
+    if capture:
+        program = CapturedObjective(
+            objective, owner.current_rescaled_values(),
+            *owner._device_bounds(), device=device)
+        vg = program.value_and_grad
+        batched = {}  # (B, with data) -> CapturedObjective
+
+        def raw(vec, los, his):
+            return program.differentiable(vec, los, his)
+
+        def bind_data(data, lanes):
+            key = (lanes, data is not None)
+            extra = () if data is None else (data,)
+            if key not in batched:
+                batched[key] = CapturedObjective(
+                    objective,
+                    np.tile(owner.current_rescaled_values(), (lanes, 1)),
+                    *owner._device_bounds(), device=device, extra=extra)
+            else:
+                batched[key].load_extra(*extra)
+            bound = batched[key]
+
+            def raw_bound(vec, los, his):
+                _check_lanes(vec, data, device, lanes)
+                return bound.differentiable(vec, los, his)
+            return raw_bound
+    else:
+        program = None
+        raw = objective
+        batched = None
+
+        def bind_data(data, lanes):
+            def raw_bound(vec, los, his):
+                _check_lanes(vec, data, device, lanes)
+                return objective(vec, los, his, data)
+            return raw_bound
+
+        def vg(vec, los, his):
+            vec = on_device(vec, device).detach().clone()
+            vec.requires_grad_(True)
+            value = objective(vec, los, his)
+            (grad,) = torch.autograd.grad(value, vec)
+            return value.detach(), grad
+
+    def raw_with_data(vec, los, his, data=None):
+        _check_lanes(vec, data, device)
+        return bind_data(data, vec.shape[0])(vec, los, his)
+
+    def value_fn(vec):
+        with torch.no_grad():
+            return raw(vec if capture else on_device(vec, device),
+                       *owner._device_bounds())
+
+    def vg_fn(vec):
+        return vg(vec if capture else on_device(vec, device),
+                  *owner._device_bounds())
+
+    raw.device = raw_with_data.device = device
+    #: the captured batched programs, by (B, with data)
+    raw_with_data.programs = batched
+    #: ``bind(data, lanes)``: the batched objective with `data` (B, bins)
+    #: or None fixed, ``(vec, los, his) -> (B,)``; on the card the data is
+    #: copied into the program once, at the bind, for a whole fit
+    raw_with_data.bind = bind_data
+    value_fn.raw = vg_fn.raw = raw
+    value_fn.raw_with_data = vg_fn.raw_with_data = raw_with_data
+    value_fn.program = vg_fn.program = program
+    return value_fn, vg_fn
+
+
+def _check_lanes(vec, data, device, lanes=None):
+    """A batched objective takes a (B, n) tensor on its device (B = `lanes`
+    where given) and (B, bins) data or None."""
+    if not isinstance(vec, torch.Tensor) or vec.dim() != 2:
+        raise ValueError("raw_with_data takes a (B, n) tensor of lanes; got"
+                         f" {type(vec).__name__} {tuple(np.shape(vec))}")
+    if lanes is not None and vec.shape[0] != lanes:
+        raise ValueError(f"the objective was bound for {lanes} lanes; got"
+                         f" {vec.shape[0]}")
+    for x in (vec, data):
+        if x is not None and x.device != device:
+            raise ValueError(f"the objective lives on {device}; got a tensor"
+                             f" on {x.device}")
+    if data is not None and (data.dim() != 2 or data.shape[0] != vec.shape[0]):
+        raise ValueError(f"data must be ({vec.shape[0]}, bins) for"
+                         f" {vec.shape[0]} lanes; got {tuple(data.shape)}")
+
+
+def on_device(x, device):
+    """`x` (array or tensor) as a float64 tensor on `device`; a tensor that
+    lies elsewhere is refused, not moved."""
+    if isinstance(x, torch.Tensor):
+        if x.device != device:
+            raise ValueError(f"the objective lives on {device}; got a tensor"
+                             f" on {x.device}")
+        return x.to(torch.float64)
+    return torch.as_tensor(np.asarray(x, dtype=np.float64), device=device)
 
 
 class _Replay(torch.autograd.Function):

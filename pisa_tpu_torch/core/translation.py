@@ -5,7 +5,8 @@ Counterpart of ``pisa_tpu/core/translation.py`` (reference
 ``pisa/core/translation.py:49,90,228,504``), with the same conventions:
 
 - ``find_index``: bin search with underflow -> -1, overflow -> num_bins, the
-  last bin closed, NaN -> overflow;
+  last bin closed, NaN -> overflow; ``lookup_indices_flat`` the flat index
+  per event, -1 or the binning's size out of range;
 - ``histogram``: scatter-add (``index_add_``) over flat bin indices, with
   multi-channel weights (N, ch) and an 'averaged' mode (divide by counts);
 - ``histogram_matmul``: the histogram as ``weights @ one_hot`` (the JAX
@@ -32,6 +33,7 @@ __all__ = [
     "binning_to_spec",
     "find_index",
     "sanitized_flat_indices",
+    "lookup_indices_flat",
     "histogram",
     "histogram_matmul",
     "histogram_matmul_stacked",
@@ -97,6 +99,17 @@ def sanitized_flat_indices(sample, binning_or_spec):
     spec = _as_spec(binning_or_spec)
     flat, under, over = _flat_indices(sample, spec)
     return torch.where(under | over, _size(spec), flat)
+
+
+def lookup_indices_flat(sample, binning_or_spec):
+    """Flat bin index per event (int32): -1 for an underflow in any
+    dimension (checked first), the binning's size for an overflow
+    (``pisa_tpu/core/translation.py:106``; reference
+    ``bin_indexing.py:104``)."""
+    spec = _as_spec(binning_or_spec)
+    flat, under, over = _flat_indices(sample, spec)
+    return torch.where(under, -1, torch.where(over, _size(spec), flat)).to(
+        torch.int32)
 
 
 def histogram(sample, weights, binning_or_spec, averaged=False, idx=None):

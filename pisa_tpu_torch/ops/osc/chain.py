@@ -42,7 +42,9 @@ What carries over from the JAX package is the math and its interfaces:
 - the gradient boundary at the six oscillation scalars
   (:func:`osc_probs`, the counterpart of ``_probs_pallas_fwdgrad_prep``):
   its backward forms the pack's Jacobian once and runs one tangent launch
-  per active theta, or one multitangent launch for all of them.
+  per active theta, or one multitangent launch for all of them; its jvp
+  runs one tangent launch, and under ``torch.func.jacfwd`` (its vmap rule)
+  one multitangent launch serves every direction.
 """
 
 from __future__ import annotations
@@ -496,10 +498,13 @@ def _jvps_reference(pvec, dpvecs, e, dens, dist, nl):
     transforms of the layer loop run its complex ops through Python
     decompositions, two reverse passes per direction take a third of the
     time: with the cotangent u a free variable, g(u) = J^T u is linear, and
-    the gradient of <g(u), d> in u is J d."""
+    the gradient of <g(u), d> in u is J d. Inside a ``torch.func``
+    transform (``jacrev`` runs the backward under ``vmap``), where autograd
+    cannot be called, forward mode serves on the CPU too."""
     dpvecs = dpvecs.to(pvec.dtype)
     lanes_axis = pvec.dim() - 1  # where the directions' axis goes
-    if pvec.device.type != "cpu":
+    if (pvec.device.type != "cpu"
+            or torch._C._are_functorch_transforms_active()):
         primals, tangents = torch.func.vmap(
             lambda d: torch.func.jvp(
                 lambda p: chain_probs_reference(p, e, dens, dist, nl),
@@ -525,7 +530,8 @@ def chain_tangent_reference(pvec, dpvec, e, dens, dist, nl):
     derivative of :func:`chain_probs_reference` in its pack. Same inputs as
     the primal plus `dpvec` (57,) (lanes: (B, 57)); returns (2, 3, N)
     ((B, 2, 3, N))."""
-    if pvec.device.type != "cpu":
+    if (pvec.device.type != "cpu"
+            or torch._C._are_functorch_transforms_active()):
         return torch.func.jvp(
             lambda p: chain_probs_reference(p, e, dens, dist, nl),
             (pvec,), (dpvec.to(pvec.dtype),),
@@ -802,14 +808,52 @@ def osc_probs_prepared(pvec, geom):
 
 
 # -- the gradient boundary ------------------------------------------------------------
+def _probs_tangents(theta, dthetas, p2, pvec, geom, pack_args, active,
+                    multitangent):
+    """The probabilities' tangents (..., K, N, 3, 3), in the original point
+    order, along the K directions `dthetas` (..., K, 6) of theta (..., 6),
+    whose primal `p2` and pack `pvec` are given. A direction's inactive
+    components count as zero. One direction is one tangent launch along
+    the pack Jacobian's product with it. More are one multitangent launch:
+    along the directions themselves where they are fewer than the active
+    components, else along the active columns of the Jacobian, whose
+    tangents the directions then combine (the tangent is linear in its
+    direction). With `multitangent` off, one tangent launch per direction
+    taken."""
+    ks = list(active)
+    k = dthetas.shape[-2]
+    if not ks:
+        n = geom["e"].shape[0]
+        return dthetas.new_zeros(dthetas.shape[:-1] + (n, 3, 3))
+    jac = pack_jacobian(theta, *pack_args)[..., ks].to(pvec.dtype)  # (.., 57, A)
+    d_act = dthetas[..., ks].to(pvec.dtype)  # (..., K, A)
+    combine = 1 < k and len(ks) <= k
+    if combine:
+        dpvecs = jac.transpose(-1, -2)  # (..., A, 57): the active columns
+    else:
+        dpvecs = d_act @ jac.transpose(-1, -2)  # (..., K, 57)
+    args = (geom["e"], geom["dens"], geom["dist"], geom["nl"])
+    if multitangent and dpvecs.shape[-2] > 1:
+        dp2s = chain_multitangent(pvec, dpvecs.contiguous(), *args,
+                                  geom["tiles"])[1]
+    else:
+        dp2s = torch.stack(
+            [chain_tangent(pvec, d.contiguous(), *args, geom["tiles"])
+             for d in dpvecs.unbind(-2)], dim=-4)  # (..., K|A, 2, 3, N)
+    dprobs = torch.cat([dp2s, _tau_row_tangent(p2, dp2s).unsqueeze(-3)],
+                       dim=-3)  # (..., K|A, 3, 3, N)
+    if combine:
+        dprobs = torch.einsum("...ka,...afbn->...kfbn", d_act, dprobs)
+    return dprobs.movedim(-1, -3).index_select(-3, geom["inv"])
+
+
 class OscProbs(torch.autograd.Function):
     """theta (6,) -> (N, 3, 3) probabilities over prepared geometry, with the
-    forward-mode gradient of ``pallas_chain._probs_pallas_fwdgrad_prep``
-    (:1227-1324); (B, 6) lanes of theta -> (B, N, 3, 3), through the same
+    gradient of ``pallas_chain._probs_pallas_fwdgrad_prep`` (:1227-1324) in
+    both modes; (B, 6) lanes of theta -> (B, N, 3, 3), through the same
     launches as one theta. Everything happens on the geometry's device,
-    where `theta` must lie: nothing is copied from or to the host, so
-    neither pass waits for the card and both can be captured in a CUDA
-    graph.
+    where `theta` must lie: nothing is copied from or to the host, so no
+    pass waits for the card and each can be captured in a CUDA graph.
 
     forward: the pack from theta (float64, cast to the geometry's type), one
     primal launch, the tau row and the unsort. backward: the pack's 57x6
@@ -817,11 +861,14 @@ class OscProbs(torch.autograd.Function):
     cross-lane blocks), one tangent launch per active theta component or
     one multitangent launch for all of them; each tangent goes through the
     tau row's derivative and is contracted with the cotangent in sorted
-    order. Inactive components get zero gradient. The geometry gets
-    none."""
+    order. jvp: the tangent along one direction of theta, by
+    :class:`_OscProbsTangent` (one tangent launch), whose vmap rule makes K
+    directions (``torch.func.jacfwd``) one multitangent launch. vmap: a
+    batch of thetas runs as lanes. Inactive components get zero gradient
+    and zero tangent. The geometry gets none."""
 
     @staticmethod
-    def forward(ctx, theta, geom, nubar, reparam, nlo_factor, active,
+    def forward(theta, geom, nubar, reparam, nlo_factor, active,
                 multitangent):
         e = geom["e"]
         if theta.device != e.device:
@@ -830,15 +877,22 @@ class OscProbs(torch.autograd.Function):
         pvec = theta_to_pvec(theta, nubar, reparam, nlo_factor).to(e.dtype)
         p2 = chain_probs(pvec, e, geom["dens"], geom["dist"], geom["nl"],
                          geom["tiles"])
+        return tau_epilogue(p2).index_select(-3, geom["inv"]), p2, pvec
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        theta, geom, nubar, reparam, nlo_factor, active, multitangent = inputs
+        _, p2, pvec = output
+        ctx.mark_non_differentiable(p2, pvec)
         ctx.save_for_backward(theta, p2, pvec)
+        ctx.save_for_forward(theta, p2, pvec)
         ctx.geom = geom
         ctx.pack_args = (nubar, reparam, nlo_factor)
         ctx.active = active
         ctx.multitangent = multitangent
-        return tau_epilogue(p2).index_select(-3, geom["inv"])
 
     @staticmethod
-    def backward(ctx, g):
+    def backward(ctx, g, _g_p2, _g_pvec):
         theta, p2, pvec = ctx.saved_tensors
         geom = ctx.geom
         ks = ctx.active
@@ -868,6 +922,71 @@ class OscProbs(torch.autograd.Function):
         ], dim=-1)
         return (dtheta,) + (None,) * 6
 
+    @staticmethod
+    def jvp(ctx, dtheta, *_):
+        theta, p2, pvec = ctx.saved_tensors
+        dprobs = _OscProbsTangent.apply(theta, dtheta, p2, pvec, ctx.geom,
+                                        ctx.pack_args, ctx.active,
+                                        ctx.multitangent)
+        return dprobs, None, None
+
+    @staticmethod
+    def vmap(info, in_dims, theta, geom, nubar, reparam, nlo_factor, active,
+             multitangent):
+        # a batch of thetas (each (6,) or (B, 6) lanes) is one run of lanes
+        theta = theta.movedim(in_dims[0], 0)
+        lead = tuple(theta.shape[:-1])
+        outputs = OscProbs.apply(theta.reshape(-1, 6), geom, nubar, reparam,
+                                 nlo_factor, active, multitangent)
+        return tuple(x.reshape(lead + tuple(x.shape[1:]))
+                     for x in outputs), (0, 0, 0)
+
+
+class _OscProbsTangent(torch.autograd.Function):
+    """The tangent of :class:`OscProbs`'s probabilities along one direction
+    `dtheta` of theta (one tangent launch); its vmap rule takes a batch of
+    directions at one theta (``torch.func.jacfwd``) as one multitangent
+    launch (:func:`_probs_tangents`), and a batch of thetas as lanes. It is
+    a forward-mode rule and has no backward."""
+
+    @staticmethod
+    def forward(theta, dtheta, p2, pvec, geom, pack_args, active,
+                multitangent):
+        return _probs_tangents(theta, dtheta.unsqueeze(-2), p2, pvec, geom,
+                               pack_args, active, multitangent).squeeze(-4)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def vmap(info, in_dims, theta, dtheta, p2, pvec, geom, pack_args, active,
+             multitangent):
+        t_dim, d_dim, p2_dim, pv_dim = in_dims[:4]
+        args = (geom, pack_args, active, multitangent)
+        if t_dim is None and p2_dim is None and pv_dim is None:
+            # K directions at one theta: (..., K, 6)
+            dthetas = dtheta.movedim(d_dim, -2)
+            out = _probs_tangents(theta, dthetas, p2, pvec, *args)
+            return out, out.dim() - 4
+        # a batch of thetas, each with its direction: lanes of one launch
+        size = info.batch_size
+
+        def lanes(x, dim):
+            if dim is None:
+                return x.expand((size,) + tuple(x.shape))
+            return x.movedim(dim, 0)
+
+        theta, dtheta, p2, pvec = (
+            lanes(x, dim) for x, dim in zip((theta, dtheta, p2, pvec),
+                                            in_dims[:4]))
+        if theta.dim() != 2:
+            raise NotImplementedError(
+                "vmap over thetas that already carry lanes")
+        out = _probs_tangents(theta, dtheta.unsqueeze(-2), p2.contiguous(),
+                              pvec.contiguous(), *args)
+        return out.squeeze(-4), 0
+
 
 def osc_probs(theta, nubar, geom, reparam=False, nlo_factor=1.0,
               active=None, multitangent=True):
@@ -888,4 +1007,4 @@ def osc_probs(theta, nubar, geom, reparam=False, nlo_factor=1.0,
     theta = theta_tensor(theta, device=geom["e"].device)
     active = tuple(range(6)) if active is None else tuple(int(i) for i in active)
     return OscProbs.apply(theta, geom, int(nubar), bool(reparam),
-                          float(nlo_factor), active, bool(multitangent))
+                          float(nlo_factor), active, bool(multitangent))[0]
