@@ -71,7 +71,23 @@ oscillation grid, 15 free parameters) on the card through its two paths:
   fits through ``Analysis``, the Fisher matrix (``jacfwd``: its launches
   against the vmap rule's count, its Jacobian against central differences
   of the captured template, one jvp's tangent launches), and
-  ``mcmc_sampling`` with 32 walkers (wall and host waits per step).
+  ``mcmc_sampling`` with 32 walkers (wall and host waits per step);
+- prob3's physics options, this slice's main path: the three kernels held
+  against their plain versions at general packs (NSI's complex
+  off-diagonal matter term, LRI's), then in float64 (a child process), card
+  against CPU, the value_and_grad of (a) NSI with eps_mutau_magn free and
+  (b) decay with decay_alpha3 free on the 20x20-grid flagship and (c) the
+  per-event calc mode at 5% of the events; then at full width in float32
+  through the entry points: (a) ``nsi_type = standard`` with the 9 eps_*
+  and eps_mutau_magn free (16 free params): the captured value_and_grad
+  and a ``device`` fit through ``Analysis`` that recovers eps_mutau_magn
+  and theta23; (b) ``neutrino_decay`` with decay_alpha3 free: the template
+  and the captured value_and_grad, finite at float32; (c) prob3 and
+  barr_simple at ``calc_mode = events``, stacked, at 240k events: the
+  template and the captured value_and_grad; (d) LRI, the three tomography
+  types and ``layer_dedup``: the template. Each value_and_grad with its
+  wall, back-to-back time, kernels per replay, busy share, peak memory and
+  launches.
 
 It times the kernels (device-only, from a CUDA graph of 200 launches, and
 host-inclusive, from back-to-back launches between CUDA events; the
@@ -88,8 +104,10 @@ for the card anywhere but at the read of its result fails the run. It exits
 non-zero on any failed check; the last line of a passing run is
 ``{"ok": true, "device": {...}}``. With ``--kernels-only`` it stops after
 the kernel checks and timings, with ``--release-only`` it builds the
-kernels and runs the release phases alone, and with ``--analysis-only`` the
-phases of the rest of the analysis layer alone; none prints a status line.
+kernels and runs the release phases alone, with ``--analysis-only`` the
+phases of the rest of the analysis layer alone, and with
+``--osc-options-only`` the phases of prob3's options alone; none prints a
+status line.
 
 The float64 runs (CPU reference and card) happen in a child process, since
 the float type is chosen once per process (``PISA_TPU_FTYPE``); the main
@@ -233,6 +251,18 @@ FISHER_FD = {"step": 1e-2, "rtol": 1e-3, "noise": 1e-5}
 MCMC_WALKERS = 32
 MCMC_BURNIN = 20
 MCMC_STEPS = 50
+
+# prob3's options (NSI, decay, LRI, tomography, dedup, per-event calc
+# mode): the 9 NSI couplings of StdNSIParams and their nominal values in the
+# options phase (eps_mutau_magn free there); the event fraction of the
+# per-event mode's float64 card-vs-CPU check. A captured float32
+# value_and_grad is held against the eager one on the card within
+# STACKED_FP32 (the same kernels, sums in another order)
+NSI_NAMES = ("eps_ee", "eps_emu_magn", "eps_emu_phase", "eps_etau_magn",
+             "eps_etau_phase", "eps_mumu", "eps_mutau_magn",
+             "eps_mutau_phase", "eps_tautau")
+NSI_NOMINAL = dict.fromkeys(NSI_NAMES, 0.0) | {"eps_mutau_magn": 0.02}
+OPTIONS_FP64_FRACTION = 0.05
 
 # the routes of one value_and_grad: label, compile options, captured
 ROUTES = (
@@ -2804,6 +2834,527 @@ def mcmc_fp32(pipeline, chain, smi):
     return launches
 
 
+
+# -- prob3's physics options: NSI, decay, LRI, tomography, dedup, events ------
+def general_pack_cases(params):
+    """The general packs the kernels are held at: (label, theta, NSI
+    couplings (the 9 eps_* of StdNSIParams), v_lri of the mutau symmetry).
+    'moderate' is near the couplings IceCube probes; 'large' is ten times
+    beyond, where matter and NSI dominate the Hamiltonian."""
+    theta = flagship_thetas(params, 2)
+    moderate = dict(NSI_NOMINAL, eps_ee=0.1, eps_emu_magn=0.03,
+                    eps_emu_phase=0.4, eps_mutau_magn=0.05,
+                    eps_mutau_phase=0.7)
+    large = dict(NSI_NOMINAL, eps_ee=0.5, eps_emu_magn=0.3,
+                 eps_emu_phase=1.2, eps_etau_magn=0.3, eps_etau_phase=-0.8,
+                 eps_mutau_magn=0.5, eps_mutau_phase=2.1, eps_tautau=0.4)
+    return [("moderate", theta[0], moderate, 2e-14),
+            ("moderate", theta[1], moderate, -1e-14),
+            ("large", theta[0], large, 5e-14)]
+
+
+def general_pack(chain, theta, eps, v_lri, nubar):
+    """The float64 pack (57,) of the general physics (NSI couplings `eps`,
+    mutau LRI `v_lri`) and its derivatives along (theta13, theta23, dm31,
+    eps_mutau_magn, eps_mutau_phase, v_lri) as (6, 57), on the CPU."""
+    import torch
+
+    from pisa_tpu_torch.ops.osc.nonstandard import lri_potential, std_nsi_eps
+    from pisa_tpu_torch.ops.osc.pmns import dm_matrix, pmns_matrix
+
+    def pack(x):
+        t13, t23, dm31, magn, phase, v = x.unbind()
+        t12, dcp, dm21 = (torch.full((), float(theta[i]), dtype=torch.float64)
+                          for i in (0, 3, 4))
+        mix = pmns_matrix(torch.sin(t12), torch.sin(t13), torch.sin(t23), dcp)
+        U = mix if nubar > 0 else torch.complex(mix.real, -mix.imag)
+        couplings = [eps[n] for n in NSI_NAMES]
+        couplings[6], couplings[7] = magn, phase
+        mat_pot = torch.zeros((3, 3), dtype=torch.complex128)
+        mat_pot[0, 0] = 1.0
+        mat_pot = mat_pot + std_nsi_eps(*couplings)
+        # v_lri in units of 1e-14 eV, so that the directions are O(1)
+        lri = lri_potential(v * 1e-14, "mutau-symmetry")
+        return chain.pack_from_physics(dm_matrix(dm21, dm31), U, mat_pot, lri,
+                                       nubar)
+
+    x = torch.tensor([theta[1], theta[2], theta[5], eps["eps_mutau_magn"],
+                      eps["eps_mutau_phase"], v_lri / 1e-14],
+                     dtype=torch.float64)
+    return pack(x), torch.func.jacfwd(pack)(x).T.contiguous()
+
+
+def general_pack_kernels(chain):
+    """The three kernels against their plain versions at general packs
+    (complex off-diagonal M_eff from NSI, nonzero L_eff from LRI;
+    general_pack_cases), nu and nubar, float64 and float32, on the flagship
+    geometry: the primal (KERNEL_ATOL), the tangent along the 3 coupling
+    directions (TANGENT_RTOL, relative to each direction's largest) and the
+    multitangent at K = 3 over them and K = 6 over all six (primal
+    MULTI_PRIMAL_ATOL, tangents TANGENT_RTOL). Every case is held at the
+    bounds, except the float32 primal kernel's error at the 'large' case:
+    where that exceeds its bound, the error and couplings are printed and
+    the run goes on (PERF.md section 7). Returns {dtype: worst primal
+    error} over the held cases."""
+    import torch
+
+    worst_held = {}
+    for dtype in (torch.float64, torch.float32):
+        dname = str(dtype).split(".")[-1]
+        geom, params = flagship_geometry(dtype)
+        args = (geom["e"], geom["dens"], geom["dist"], geom["nl"])
+        tiles = geom["tiles"]
+        worst_held[dname] = 0.0
+        for label, theta, eps, v_lri in general_pack_cases(params):
+            for nubar in (1, -1):
+                pvec64, dirs64 = general_pack(chain, theta, eps, v_lri, nubar)
+                pvec = pvec64.to("cuda", dtype)
+                dirs = dirs64.to("cuda", dtype)
+                got = chain.chain_probs(pvec, *args, tiles)
+                ref = chain.chain_probs_reference(pvec, *args)
+                exact = chain.chain_probs_reference(pvec64.to("cuda"), *(
+                    a.double() if a.is_floating_point() else a for a in args))
+                t_errs = []
+                for d in dirs[3:]:
+                    tg = chain.chain_tangent(pvec, d.contiguous(), *args,
+                                             tiles)
+                    tr = chain.chain_tangent_reference(pvec, d, *args)
+                    t_errs.append(float((tg - tr).abs().max()
+                                        / tr.abs().max()))
+                m_errs = []
+                for pick in (dirs[3:].contiguous(), dirs):
+                    out, dout = chain.chain_multitangent(pvec, pick, *args,
+                                                         tiles)
+                    rp, rt = chain.chain_multitangent_reference(pvec, pick,
+                                                                *args)
+                    scale = rt.abs().amax(dim=(1, 2, 3), keepdim=True)
+                    m_errs.append((float((out - rp).abs().max()),
+                                   float(((dout - rt).abs() / scale).max())))
+                torch.cuda.synchronize()
+                finite = all(bool(torch.isfinite(x).all())
+                             for x in (got, out, dout))
+                p_err = float((got - ref).abs().max())
+                t_err = max(t_errs)
+                mp_err = max(e[0] for e in m_errs)
+                mt_err = max(e[1] for e in m_errs)
+                over = (p_err > KERNEL_ATOL[dname]
+                        or mp_err > MULTI_PRIMAL_ATOL[dname]
+                        or max(t_err, mt_err) > TANGENT_RTOL[dname])
+                print(f"general pack {label} (eps_mutau {eps['eps_mutau_magn']:g}"
+                      f" e^{eps['eps_mutau_phase']:g}i, eps_ee"
+                      f" {eps['eps_ee']:g}, v_lri {v_lri:g} eV), nubar"
+                      f" {nubar:+d}, {dname}: primal vs plain {p_err:.3e}"
+                      f" (bound {KERNEL_ATOL[dname]:g}; vs float64 plain"
+                      f" {float((got.double() - exact).abs().max()):.3e});"
+                      f" tangent {t_err:.3e}, multitangent K=3/6 primal"
+                      f" {mp_err:.3e}, tangents {mt_err:.3e} (bound"
+                      f" {TANGENT_RTOL[dname]:g} rel)"
+                      + (" EXCEEDS A BOUND" if over else ""))
+                check(finite, f"general pack {label}: kernel output not finite")
+                check(mp_err <= MULTI_PRIMAL_ATOL[dname]
+                      and max(t_err, mt_err) <= TANGENT_RTOL[dname],
+                      f"general pack {label}, {dname}: tangent or"
+                      f" multitangent kernel off its plain version ({t_err},"
+                      f" {mp_err}, {mt_err})")
+                worst_held[dname] = max(worst_held[dname], mp_err)
+                if p_err <= KERNEL_ATOL[dname]:
+                    worst_held[dname] = max(worst_held[dname], p_err)
+                elif label == "large" and dtype == torch.float32:
+                    print(f"  float32 primal at large couplings beyond its"
+                          f" bound: {p_err:.3e} at eps {eps}, v_lri"
+                          f" {v_lri:g} eV (not held)")
+                else:
+                    check(False, f"general pack {label}, {dname}: primal"
+                          f" kernel off its plain version by {p_err}")
+    return worst_held
+
+
+def options_config(option, small=False, fraction=None, earth_model=None):
+    """The flagship config with one of prob3's options: 'nsi' (standard,
+    the 9 eps_* at NSI_NOMINAL with eps_mutau_magn free: 16 free params),
+    'decay' (decay_alpha3 free at 0), 'events' (prob3 and barr_simple at
+    calc_mode = events), 'lri' (mutau, v_lri fixed), 'tomography-earth',
+    'tomography-core', 'tomography-core-free' (the latter two on the
+    5-layer model at `earth_model`), 'dedup'. `small`: the 20x20 grid;
+    `fraction`: the loader keeps that fraction of the events."""
+    from pisa_tpu_torch import ureg
+    from pisa_tpu_torch.config.parser import parse_pipeline_config
+    from pisa_tpu_torch.core.param import Param, ParamSet
+
+    config = small_grid_config() if small else parse_pipeline_config(CFG)
+    if fraction is not None:
+        config[("data", "csv_loader")]["fraction_events_to_keep"] = fraction
+    section = config[("osc", "prob3")]
+    extra = []
+    if option == "nsi":
+        section["nsi_type"] = "standard"
+        for name in NSI_NAMES:
+            unit = ureg.rad if name.endswith("phase") else ureg.dimensionless
+            extra.append(Param(name=name, value=NSI_NOMINAL[name] * unit,
+                               range=(-0.1, 0.1) * unit,
+                               is_fixed=name != "eps_mutau_magn"))
+    elif option == "decay":
+        section["neutrino_decay"] = True
+        extra.append(Param(name="decay_alpha3", value=0.0 * ureg.eV ** 2,
+                           range=(0.0, 1e-3) * ureg.eV ** 2, is_fixed=False))
+    elif option == "events":
+        for key in (("flux", "barr_simple"), ("osc", "prob3")):
+            config[key]["calc_mode"] = "events"
+    elif option == "lri":
+        section["lri_type"] = "mutau-symmetry"
+        extra.append(Param(name="v_lri", value=2e-14 * ureg.eV,
+                           range=(0.0, 1e-13) * ureg.eV, is_fixed=True))
+    elif option.startswith("tomography"):
+        kind, scales = {
+            "tomography-earth": ("mass_of_earth", {"density_scale": 1.02}),
+            "tomography-core": ("mass_of_core_w_constrain",
+                                {"core_density_scale": 1.05}),
+            "tomography-core-free": ("mass_of_core_wo_constrain",
+                                     {"core_density_scale": 1.05,
+                                      "innermantle_density_scale": 0.97,
+                                      "middlemantle_density_scale": 1.01}),
+        }[option]
+        section["tomography_type"] = kind
+        extra += [Param(name=n, value=v * ureg.dimensionless, is_fixed=True)
+                  for n, v in scales.items()]
+        if option != "tomography-earth":
+            extra.append(Param(name="earth_model", value=earth_model,
+                               is_fixed=True))
+    elif option == "dedup":
+        section["layer_dedup"] = True
+    else:
+        raise ValueError(f"unknown option {option!r}")
+    section["params"].update(ParamSet(extra))
+    return config
+
+
+def write_five_layer_model(directory):
+    """The 5-layer Earth model the core tomography types require, as a
+    PREM table in `directory`; returns its path."""
+    import numpy as np
+
+    from pisa_tpu_torch.ops.osc.nonstandard import (
+        FIVE_LAYER_RADII_KM,
+        FIVE_LAYER_RHOS,
+    )
+
+    path = os.path.join(directory, "PREM_5layer.dat")
+    np.savetxt(path, np.stack([FIVE_LAYER_RADII_KM, FIVE_LAYER_RHOS], axis=1))
+    return path
+
+
+def osc_options_fp64(smi):
+    """float64, card against CPU: the value_and_grad of mod_chi2 (Asimov
+    data at nominal, at gradient_point) for (a) NSI with eps_mutau_magn
+    free and (b) decay with decay_alpha3 free on the 20x20-grid flagship,
+    and (c) the per-event calc mode (stacked) at OPTIONS_FP64_FRACTION of
+    the events (the grid does not enter it; the CPU's plain tangents at
+    all 240k events would take minutes); the card's captured objective
+    within VG_FP64 of the CPU's."""
+    import numpy as np
+
+    from pisa_tpu_torch.core.pipeline import Pipeline
+
+    for option, fraction in (("nsi", None), ("decay", None),
+                             ("events", OPTIONS_FP64_FRACTION)):
+        results = {}
+        for device in ("cpu", "cuda"):
+            t0 = time.perf_counter()
+            ct = Pipeline(options_config(option, small=True,
+                                         fraction=fraction),
+                          device=device).compile()
+            data = ct.get_outputs(ct.current_rescaled_values())
+            _, vg = ct.build_objective(data, "mod_chi2")
+            value, grad = vg(gradient_point(ct))
+            results[device] = (float(value), grad.cpu().numpy(),
+                               time.perf_counter() - t0, ct.stacked)
+        (want, want_g, cpu_s, _), (got, got_g, card_s, stacked) = (
+            results["cpu"], results["cuda"])
+        rel = abs(got - want) / abs(want)
+        mism = grad_mismatch(got_g, want_g, VG_FP64["grad_rtol"],
+                             VG_FP64["grad_atol"])
+        print(f"float64 {option} ({'stacked' if stacked else 'per container'},"
+              f" {len(got_g)} free), card vs CPU: value {got!r} vs {want!r}"
+              f" ({rel:.3e} relative, bound {VG_FP64['value']:g}); gradient"
+              f" {rel_max(got_g, want_g):.3e} of max|g|, worst entry at"
+              f" {mism:.3e} of its bound (rtol {VG_FP64['grad_rtol']:g}); set-up"
+              f" and one value_and_grad {card_s:.1f} s on the card,"
+              f" {cpu_s:.1f} s on the CPU [{smi}]")
+        check(np.isfinite(got) and np.all(np.isfinite(got_g)),
+              f"{option}: not finite on the card")
+        check(rel <= VG_FP64["value"], f"{option}: card value vs CPU")
+        check(mism <= 1.0, f"{option}: card gradient vs CPU")
+
+
+def osc_options_worker():
+    """float64: osc_options_fp64 in a child process."""
+    from pisa_tpu_torch import FTYPE_NAME
+
+    check(FTYPE_NAME == "fp64", f"options worker runs {FTYPE_NAME}")
+    smi = card_line()
+    t0 = time.perf_counter()
+    osc_options_fp64(smi)
+    print(f"float64 options phase: {time.perf_counter() - t0:.1f} s [{smi}]")
+
+
+def measure_vg(label, ct, chain, smi):
+    """The compiled template's mod_chi2 at full width, float32 (Asimov data
+    at nominal, at gradient_point): the launches of one eager
+    value_and_grad, then the captured one's wall (median of 10 with its
+    read), back-to-back time, waits, kernels per replay, busy share and peak
+    memory. Returns the eager launches."""
+    import numpy as np
+    import torch
+
+    data = ct.get_outputs(ct.current_rescaled_values())
+    v = gradient_point(ct)
+    _, eager = ct.build_objective(data, "mod_chi2", capture=False)
+    reset_launch_counts(chain)
+    value, grad = eager(torch.as_tensor(v, device="cuda"))
+    torch.cuda.synchronize()
+    eager_launches = launch_counts(chain)
+    eager_vg = (float(value), grad.cpu().numpy())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    value_fn, vg = ct.build_objective(data, "mod_chi2")
+    got = read_back(vg(v))
+    capture_s = time.perf_counter() - t0
+    check(np.all(np.isfinite(got)), f"{label}: value_and_grad not finite")
+    check(abs(got[0] - eager_vg[0]) <= STACKED_FP32["value"] * abs(eager_vg[0])
+          and rel_max(got[1:], eager_vg[1]) <= STACKED_FP32["grad"],
+          f"{label}: the captured value_and_grad is off the eager one")
+    waits, _ = count_host_syncs(lambda: read_back(vg(v)))
+    wall, wall_min = median_wall(lambda: read_back(vg(v)), 10)
+    program = value_fn.program
+    bounds = ct._device_bounds()
+    vec = torch.as_tensor(v, device="cuda")
+    back_ms = cuda_time(lambda: program.value_and_grad(vec, *bounds), 20)
+    profiled = [profile_device_busy(
+        lambda: program.value_and_grad(vec, *bounds)) for _ in range(2)]
+    _, device_ms, top, _, kernels = profiled[-1]
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**20
+    print(f"float32 {label} ({len(ct.free_names)} free,"
+          f" {'stacked' if ct.stacked else 'per container'}), captured"
+          f" value_and_grad: wall {wall * 1e3:.3f} ms median of 10 (min"
+          f" {wall_min * 1e3:.3f}), {back_ms:.3f} ms back to back, {waits}"
+          f" wait(s); one replay: {kernels} kernels, {device_ms:.3f} ms of"
+          f" device time ({100 * device_ms / (wall * 1e3):.1f}% busy of the"
+          f" median wall); peak memory above what was resident {peak:.1f}"
+          f" MiB; capture with its first call {capture_s:.2f} s; launches"
+          f" (primal, tangent, multitangent) of one eager value_and_grad"
+          f" {eager_launches} [{smi}]")
+    for key, ms, count in top[:5]:
+        print(f"  {ms:8.3f} ms  {count:5d}x  {key[:80]}")
+    check(waits == 1, f"{label}: value_and_grad waited {waits} times")
+    return eager_launches
+
+
+def per_event_kernels(chain, pipeline, ct, smi):
+    """The primal and the multitangent kernel (K = 3) against their plain
+    versions at the shapes the per-event calc mode gives them: each nubar
+    group's (categories x padded events) geometry that prob3 built for the
+    compiled template's stacked container (the padded points' chains have
+    zero length), with the pack of the pipeline's theta and its 3 free
+    directions; primal KERNEL_ATOL, multitangent primal MULTI_PRIMAL_ATOL
+    and tangents TANGENT_RTOL (relative to each direction's largest). Then
+    each kernel's device-only time there beside its plain version's and its
+    bound. These launches are not the path's: the counts are reset after."""
+    import torch
+
+    prob3 = next(s for s in pipeline.stages if type(s).__name__ == "prob3")
+    static = prob3._stacked_events_geometry(ct._trace_data.containers[0])
+    params = {name: pipeline.params[name] for name in (
+        "theta12", "theta13", "theta23", "deltacp", "deltam21", "deltam31")}
+    theta = flagship_thetas(params, 1)[0]
+    for sign, geom in static["groups"]:
+        dtype = geom["e"].dtype
+        dname = str(dtype).split(".")[-1]
+        args = (geom["e"], geom["dens"], geom["dist"], geom["nl"])
+        tiles = geom["tiles"]
+        pvec, dirs = pack_and_directions(chain, theta, sign, dtype)
+        dpvecs = dirs[list(FREE_THETA)].contiguous()
+        got = chain.chain_probs(pvec, *args, tiles)
+        ref = chain.chain_probs_reference(pvec, *args)
+        out, dout = chain.chain_multitangent(pvec, dpvecs, *args, tiles)
+        ref_p, ref_t = chain.chain_multitangent_reference(pvec, dpvecs, *args)
+        torch.cuda.synchronize()
+        check(all(bool(torch.isfinite(x).all()) for x in (got, out, dout)),
+              f"per-event kernels, nubar {sign:+d}: output not finite")
+        scale = ref_t.abs().amax(dim=(1, 2, 3), keepdim=True)
+        p_err = float((got - ref).abs().max())
+        mp_err = float((out - ref_p).abs().max())
+        mt_err = float(((dout - ref_t).abs() / scale).max())
+        n = geom["e"].shape[0]
+        times = {
+            "primal": graph_time(lambda: chain.chain_probs(pvec, *args,
+                                                           tiles), 20),
+            "primal plain": cuda_time(
+                lambda: chain.chain_probs_reference(pvec, *args), 3),
+            "multitangent": graph_time(lambda: chain.chain_multitangent(
+                pvec, dpvecs, *args, tiles), 20),
+            "multitangent plain": cuda_time(
+                lambda: chain.chain_multitangent_reference(pvec, dpvecs,
+                                                           *args), 2),
+        }
+        bounds = (kernel_bound(chain, geom, 0, True),
+                  kernel_bound(chain, geom, 3, True))
+        print(f"per-event kernels, nubar {sign:+d}, {dname}, N={n} points"
+              f" ({int((geom['nl'] == 0).sum())} with no layer step), L="
+              f"{geom['dens'].shape[0]}, {tile_line(tiles)}: primal vs plain"
+              f" {p_err:.3e} (bound {KERNEL_ATOL[dname]:g}); multitangent"
+              f" K=3 primal {mp_err:.3e} (bound {MULTI_PRIMAL_ATOL[dname]:g}),"
+              f" tangents {mt_err:.3e} (bound {TANGENT_RTOL[dname]:g} rel);"
+              f" device-only primal {times['primal']:.5f} ms (plain"
+              f" {times['primal plain']:.3f} ms, bound"
+              f" {bounds[0]['bound_ms']:.5f} ms by {bounds[0]['bound_by']}),"
+              f" multitangent {times['multitangent']:.5f} ms (plain"
+              f" {times['multitangent plain']:.3f} ms, bound"
+              f" {bounds[1]['bound_ms']:.5f} ms by {bounds[1]['bound_by']})"
+              f" [{smi}]")
+        check(p_err <= KERNEL_ATOL[dname] and mp_err <= MULTI_PRIMAL_ATOL[dname]
+              and mt_err <= TANGENT_RTOL[dname],
+              f"per-event kernels, nubar {sign:+d}: off their plain versions"
+              f" ({p_err}, {mp_err}, {mt_err})")
+
+
+def osc_options_fp32(chain, smi):
+    """prob3's options on the card at full width, float32, through the
+    entry points a user calls (this slice's main path): (a) NSI with the 9
+    eps_* and eps_mutau_magn free: the captured value_and_grad, then a
+    `device` fit through Analysis from theta23 and eps_mutau_magn moved by
+    +0.10 rescaled off the Asimov truth; (b) decay with decay_alpha3 free:
+    the template and the captured value_and_grad (finite at float32); (c)
+    prob3 and barr_simple at calc_mode = events, stacked, at 240k events:
+    the template and the captured value_and_grad, then the kernels held
+    against their plain versions at its shapes (per_event_kernels); (d)
+    LRI, the three tomography types and layer dedup: the template. The
+    launch counts are set to 0 just before each path and read just after;
+    returns their sums."""
+    import numpy as np
+    import torch
+
+    from pisa_tpu_torch.analysis.analysis import Analysis, BasicAnalysis
+    from pisa_tpu_torch.core.distribution_maker import DistributionMaker
+    from pisa_tpu_torch.core.pipeline import Pipeline
+
+    total = [0, 0, 0]
+
+    def add(launches):
+        for i, n in enumerate(launches):
+            total[i] += n
+
+    expected = {"nsi": (2, 0, 0), "decay": (0, 0, 0),
+                "events": expected_vg_launches(True)}
+    with tempfile.TemporaryDirectory() as tmp:
+        earth = write_five_layer_model(tmp)
+        for option in ("nsi", "decay", "events", "lri", "tomography-earth",
+                       "tomography-core", "tomography-core-free", "dedup"):
+            reset_launch_counts(chain)
+            t0 = time.perf_counter()
+            pipeline = Pipeline(options_config(option, earth_model=earth),
+                                device="cuda")
+            setup_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            maps = pipeline.get_outputs()
+            totals = [float(m.hist.sum()) for m in maps]
+            torch.cuda.synchronize()
+            first_s = time.perf_counter() - t0
+            check(all(np.isfinite(t) and t > 0 for t in totals),
+                  f"{option}: template not finite")
+            walls = []
+            for _ in range(5):
+                pipeline.params["theta23"].value = (
+                    pipeline.params["theta23"].value * 1.001)
+                t0 = time.perf_counter()
+                pipeline.get_outputs()
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+            launches = launch_counts(chain)
+            print(f"float32 {option}: Pipeline set-up {setup_s:.2f} s, first"
+                  f" template {first_s:.2f} s, then get_outputs median"
+                  f" {np.median(walls) * 1e3:.2f} ms (5 runs), {sum(totals):.1f}"
+                  f" expected events; launches {launches} [{smi}]")
+            add(launches)
+            if option in expected:
+                ct = pipeline.compile()
+                check(ct.stacked, f"{option}: the template did not stack")
+                reset_launch_counts(chain)
+                vg_launches = measure_vg(option, ct, chain, smi)
+                check(vg_launches == expected[option],
+                      f"{option}: value_and_grad launches {vg_launches}")
+                add(launch_counts(chain))
+                if option == "events":
+                    per_event_kernels(chain, pipeline, ct, smi)
+                    reset_launch_counts(chain)
+                del ct
+            del pipeline, maps
+
+    # (a) the NSI fit through the analysis layer
+    reset_launch_counts(chain)
+    t0 = time.perf_counter()
+    dm = DistributionMaker([options_config("nsi")], device="cuda")
+    data = dm.get_outputs(return_sum=True)
+    print(f"NSI fit: DistributionMaker set-up and Asimov data"
+          f" {time.perf_counter() - t0:.2f} s")
+    truth = {n: dm.params[n]._rescaled_value
+             for n in ("theta23", "eps_mutau_magn")}
+
+    def fit():
+        dm.reset_free()
+        for name, value in truth.items():
+            dm.params[name]._rescaled_value = min(0.95, value + 0.10)
+        return Analysis().fit_recursively(data, dm, "mod_chi2", None,
+                                          "device", {}, None)
+
+    # one run, its objective's set-up and capture included (the fit's
+    # evaluations dominate: ~20 ms each)
+    t0 = time.perf_counter()
+    waits, result = count_host_syncs(fit)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    meta = result.minimizer_metadata
+    moved = {n: result.params[n]._rescaled_value - v for n, v in truth.items()}
+    print(f"Analysis fit, NSI (16 free), device, float32: wall {wall:.3f} s"
+          f" with the set-up and capture of its objective, nit"
+          f" {meta['nit']}, nfev {meta['nfev']}, {waits} waits for the card"
+          f" ({waits / meta['nfev']:.2f} per evaluation); off the truth by "
+          + ", ".join(f"{n} {d:.3e}" for n, d in moved.items())
+          + f" rescaled (bound {FIT_TOL:g}), metric {result.metric_val!r}"
+          f" [{smi}]")
+    check(all(abs(d) <= FIT_TOL for d in moved.values()),
+          "the NSI fit did not recover theta23 and eps_mutau_magn")
+    check(waits / meta["nfev"] <= DEVICE_FIT_WAITS,
+          f"the NSI fit waited {waits / meta['nfev']:.2f} times per"
+          " evaluation")
+    add(launch_counts(chain))
+    BasicAnalysis._compiled_cache.clear()
+    del dm
+    print(f"options path launches (primal, tangent, multitangent):"
+          f" {tuple(total)} [{smi}]")
+    check(total[0] > 0 and total[2] > 0, "a kernel of the options path never"
+          " ran")
+    return tuple(total)
+
+
+def osc_options_only_main(chain, smi):
+    """``--osc-options-only``: the kernels built, held at general packs,
+    then the options phases alone (the float64 child's and the main
+    process's); no status line."""
+    general_pack_kernels(chain)
+    t0 = time.perf_counter()
+    subprocess.run([sys.executable, os.path.abspath(__file__),
+                    "--osc-options-worker"],
+                   env=dict(os.environ, PISA_TPU_FTYPE="fp64"), check=True)
+    print(f"float64 child (options): {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    launches = osc_options_fp32(chain, smi)
+    print(f"float32 options phase: {time.perf_counter() - t0:.1f} s;"
+          f" launches {launches}")
+    return 0
+
+
 def print_kernel_times(kernels, smi):
     for name, k in kernels.items():
         for dname, t in k.items():
@@ -2855,7 +3406,8 @@ def analysis_only_main(chain, smi):
     return 0
 
 
-def main(kernels_only=False, release_only=False, analysis_only=False):
+def main(kernels_only=False, release_only=False, analysis_only=False,
+         options_only=False):
     if not os.path.isdir(os.path.join(ROOT, "pisa_tpu_torch")):
         print("chip_smoke.py must run from a checkout of the repository"
               " (pisa_tpu_torch/ not found beside it)", file=sys.stderr)
@@ -2881,12 +3433,15 @@ def main(kernels_only=False, release_only=False, analysis_only=False):
         return release_only_main(chain, smi)
     if analysis_only:
         return analysis_only_main(chain, smi)
+    if options_only:
+        return osc_options_only_main(chain, smi)
     kernels = {
         "osc_chain": kernel_vs_plain(chain),
         "osc_chain_tangent": tangent_vs_plain(chain),
         "osc_chain_multitangent": multitangent_vs_plain(chain),
     }
     lanes = lane_kernels(chain)
+    general_pack_kernels(chain)
     print_kernel_times(kernels, smi)
     if kernels_only:
         return 0
@@ -2997,6 +3552,16 @@ def main(kernels_only=False, release_only=False, analysis_only=False):
         t0 = time.perf_counter()
         extra_paths[label] = phase(pipeline, chain, smi)
         print(f"float32 {label} phase: {time.perf_counter() - t0:.1f} s")
+    # prob3's options: float64 card against CPU in a child, then float32 at
+    # full width through the entry points
+    t0 = time.perf_counter()
+    subprocess.run([sys.executable, os.path.abspath(__file__),
+                    "--osc-options-worker"],
+                   env=dict(os.environ, PISA_TPU_FTYPE="fp64"), check=True)
+    print(f"float64 child (options): {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    extra_paths["options"] = osc_options_fp32(chain, smi)
+    print(f"float32 options phase: {time.perf_counter() - t0:.1f} s")
     print(f"launches (primal, tangent, multitangent) by path: gradient and fit"
           f" {fit_path}, template {template_path}, analysis {analysis_path},"
           f" ensemble {ensemble_path}, release {release_path}, "
@@ -3046,10 +3611,11 @@ def main(kernels_only=False, release_only=False, analysis_only=False):
 
 
 if __name__ == "__main__":
-    if sys.argv[1:] == ["--analysis-worker"]:
+    if sys.argv[1:] in (["--analysis-worker"], ["--osc-options-worker"]):
         sys.path.insert(0, ROOT)
         os.chdir(ROOT)
-        analysis_worker()
+        (analysis_worker if sys.argv[1] == "--analysis-worker"
+         else osc_options_worker)()
         sys.exit(0)
     if len(sys.argv) == 3 and sys.argv[1] in ("--reference-worker",
                                               "--release-worker"):
@@ -3061,4 +3627,5 @@ if __name__ == "__main__":
         sys.exit(0)
     sys.exit(main(kernels_only=sys.argv[1:] == ["--kernels-only"],
                   release_only=sys.argv[1:] == ["--release-only"],
-                  analysis_only=sys.argv[1:] == ["--analysis-only"]))
+                  analysis_only=sys.argv[1:] == ["--analysis-only"],
+                  options_only=sys.argv[1:] == ["--osc-options-only"]))

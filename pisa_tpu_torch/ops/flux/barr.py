@@ -159,6 +159,16 @@ def mod_ratio_nubar_from_field(nubar, field, nubar_sys):
     return torch.clamp(1.0 + 0.5 * modfactor, min=0.0)
 
 
+def mod_ratio_nubar_from_field_signed(sign, field, nubar_sys):
+    """:func:`mod_ratio_nubar_from_field` with a tensor of nubar signs (one
+    +-1 per stacked category row, broadcast against the field), for the
+    category-stacked per-event flux."""
+    modfactor = nubar_sys * field
+    plus = torch.clamp(1.0 + 0.5 * modfactor, min=0.0)
+    minus = torch.clamp(1.0 / (1.0 + 0.5 * modfactor), min=0.0)
+    return torch.where(sign < 0, minus, plus)
+
+
 def uphor_mod_field(flav, true_energy, true_coszen):
     """Parameter-free field P_flav with
     ``mod_ratio_uphor == 1 - 0.3 * uphor * P`` (P = 0 for flav 1)."""

@@ -44,7 +44,13 @@ What carries over from the JAX package is the math and its interfaces:
   its backward forms the pack's Jacobian once and runs one tangent launch
   per active theta, or one multitangent launch for all of them; its jvp
   runs one tangent launch, and under ``torch.func.jacfwd`` (its vmap rule)
-  one multitangent launch serves every direction.
+  one multitangent launch serves every direction;
+- the general-pack route (:func:`osc_probs_general`, the counterpart of
+  ``_probs_pallas_vjp`` :1042): any complex matter potential (NSI) and LRI
+  potential, packed by :func:`pack_from_physics` and propagated by the
+  primal kernel; its backward is reverse mode through the general
+  formulation of ``kernels.py`` over the real layer steps, for the physics
+  inputs only, as the JAX package's ``_vjp_bwd`` :1070 does.
 """
 
 from __future__ import annotations
@@ -82,6 +88,8 @@ __all__ = [
     "osc_probs_prepared",
     "osc_probs",
     "OscProbs",
+    "osc_probs_general",
+    "OscProbsGeneral",
     "kernel_library",
     "launch_count",
     "tangent_launch_count",
@@ -224,7 +232,8 @@ def _theta_to_pvec(theta, nubar, reparam, nlo_factor):
 
 
 # -- geometry -------------------------------------------------------------------
-def prepare_chain_geometry(energy, densities, distances, *, dtype, device):
+def prepare_chain_geometry(energy, densities, distances, *, dtype, device,
+                           general=False):
     """Every parameter-independent kernel input, computed once from the
     static (numpy) geometry: points sorted by chain length
     (``stages/osc/prob3.py:257-260``), the per-point layer-loop bound ``nl``
@@ -235,10 +244,14 @@ def prepare_chain_geometry(energy, densities, distances, *, dtype, device):
     ----------
     energy : (N,) array, GeV
     densities, distances : (N, L) arrays (zero-length slots are identity)
+    general : also build ``slot_index``, which the general-pack route
+        (:func:`osc_probs_general`) takes for its backward
 
     Returns a dict of tensors on `device`: ``e`` (N,), ``dens``/``dist``
     (L, N) in `dtype`, ``nl`` (N,) int32, ``order``/``inv`` (N,) int64,
-    and ``tiles``, the kernels' :func:`tile_table` of the sorted points.
+    ``tiles``, the kernels' :func:`tile_table` of the sorted points, and,
+    with `general`, ``slot_index`` (the flat indices of the nonzero-length
+    slots of the sorted ``dist``, int64).
     """
     energy = np.asarray(energy, dtype=np.float64)
     densities = np.asarray(densities, dtype=np.float64)
@@ -253,7 +266,7 @@ def prepare_chain_geometry(energy, densities, distances, *, dtype, device):
     def put(x, dt):
         return torch.as_tensor(np.ascontiguousarray(x), dtype=dt, device=device)
 
-    return {
+    geom = {
         "e": put(energy[order], dtype),
         "dens": put(densities[order].T, dtype),
         "dist": put(distances[order].T, dtype),
@@ -263,6 +276,10 @@ def prepare_chain_geometry(energy, densities, distances, *, dtype, device):
         "tiles": tile_table(densities[order], distances[order], dtype=dtype,
                             device=device),
     }
+    if general:
+        geom["slot_index"] = put(
+            np.flatnonzero(distances[order].T.ravel() > 0.0), torch.int64)
+    return geom
 
 
 def tile_table(densities, distances, *, dtype, device, steps=TILE_STEPS):
@@ -1008,3 +1025,97 @@ def osc_probs(theta, nubar, geom, reparam=False, nlo_factor=1.0,
     active = tuple(range(6)) if active is None else tuple(int(i) for i in active)
     return OscProbs.apply(theta, geom, int(nubar), bool(reparam),
                           float(nlo_factor), active, bool(multitangent))[0]
+
+
+# -- the general-pack route -----------------------------------------------------
+#: the ROADMAP item that forward mode and lanes through the general-pack
+#: route wait for
+GENERAL_PACK_TODO = "ROADMAP queue 1, item 15"
+
+
+class OscProbsGeneral(torch.autograd.Function):
+    """(dm_vac, U, mat_pot, lri_pot) -> (N, 3, 3) probabilities over
+    ``prepare_chain_geometry(..., general=True)`` output, for any complex matter potential
+    (NSI) and LRI potential (``pallas_chain._probs_pallas_vjp`` :1042 with
+    ``_vjp_fwd``/``_vjp_bwd``). `U` is the already-conjugated (for nubar)
+    complex PMNS matrix, all four in float64 on the geometry's device.
+
+    forward: the pack (:func:`pack_from_physics`, cast to the geometry's
+    type), one primal launch, the tau row and the unsort. backward: the
+    propagation again by the general formulation
+    (``kernels._osc_probs``) over the real layer steps of the sorted
+    geometry (``geom["slot_index"]``), in the geometry's type, and reverse
+    mode through it for the physics inputs only; the geometry gets no
+    gradient. Nothing is read on the host, so a CUDA graph captures both.
+    Forward mode and lanes are not ported (:data:`GENERAL_PACK_TODO`)."""
+
+    @staticmethod
+    def forward(dm_vac, U, mat_pot, lri_pot, geom, nubar):
+        e = geom["e"]
+        if U.device != e.device:
+            raise ValueError(f"the physics inputs lie on {U.device}, the"
+                             f" geometry on {e.device}")
+        pvec = pack_from_physics(dm_vac, U, mat_pot, lri_pot, nubar).to(
+            e.dtype)
+        p2 = chain_probs(pvec, e, geom["dens"], geom["dist"], geom["nl"],
+                         geom["tiles"])
+        return tau_epilogue(p2).index_select(-3, geom["inv"])
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        dm_vac, U, mat_pot, lri_pot, geom, nubar = inputs
+        ctx.save_for_backward(dm_vac, U, mat_pot, lri_pot)
+        ctx.geom = geom
+        ctx.nubar = nubar
+
+    @staticmethod
+    def backward(ctx, g):
+        from pisa_tpu_torch.ops.osc.kernels import _osc_probs
+
+        geom = ctx.geom
+        e = geom["e"]
+        cplx = torch.complex64 if e.dtype == torch.float32 else torch.complex128
+        wanted = ctx.needs_input_grad[:4]
+        inputs = [x.detach().requires_grad_(w)
+                  for x, w in zip(ctx.saved_tensors, wanted)]
+        dm_vac, U, mat_pot, lri_pot = inputs
+        with torch.enable_grad():
+            probs = _osc_probs(
+                dm_vac.to(e.dtype), U.to(cplx), mat_pot.to(cplx), None,
+                lri_pot.to(e.dtype), ctx.nubar, e, geom["dens"].T,
+                geom["dist"].T, slot_index=geom["slot_index"])
+            # probs = probs_sorted[inv]  =>  the sorted cotangent is g[order]
+            grads = torch.autograd.grad(
+                probs, [x for x, w in zip(inputs, wanted) if w],
+                g.index_select(-3, geom["order"]))
+        grads = iter(grads)
+        return tuple(next(grads) if w else None for w in wanted) + (None, None)
+
+    @staticmethod
+    def jvp(ctx, *_):
+        raise NotImplementedError(
+            "forward mode (jvp, jacfwd) through the general-pack route is not"
+            f" ported yet ({GENERAL_PACK_TODO})")
+
+    @staticmethod
+    def vmap(info, in_dims, *args):
+        raise NotImplementedError(
+            "lanes (vmap) through the general-pack route are not ported yet"
+            f" ({GENERAL_PACK_TODO})")
+
+
+def osc_probs_general(dm_vac, mix, mat_pot, lri_pot, nubar, geom):
+    """General-pack propagation over ``prepare_chain_geometry(...,
+    general=True)`` output (the counterpart of ``osc_probs_layers_pallas``
+    :1468 with its custom VJP): (N, 3, 3) probabilities in the original
+    point order, differentiable in the physics inputs.
+
+    dm_vac real (3, 3), mix complex (3, 3) (the PMNS matrix, conjugated
+    here for nubar), mat_pot complex (3, 3), lri_pot real (3, 3); float64
+    (complex128) tensors on the geometry's device."""
+    if "slot_index" not in geom:
+        raise ValueError("the general-pack route takes a geometry prepared"
+                         " with prepare_chain_geometry(..., general=True)")
+    U = mix if nubar > 0 else torch.complex(mix.real, -mix.imag)
+    return OscProbsGeneral.apply(dm_vac, U, mat_pot, lri_pot, geom,
+                                 int(nubar))

@@ -1,7 +1,6 @@
 """
 Host copy of ``pisa_tpu/ops/osc/layers.py`` with its imports rewritten to
-``pisa_tpu_torch``; ``dedup_layers`` and ``layer_slot_index`` serve only the
-JAX package's layer-dedup and slot-compacted XLA paths and are left out.
+``pisa_tpu_torch``.
 
 Earth-layer geometry: chord segment lengths and electron/neutron-weighted
 densities per cos(zenith) through PREM shells.
@@ -30,7 +29,7 @@ import numpy as np
 
 from pisa_tpu_torch.utils.resources import find_resource
 
-__all__ = ["Layers", "calc_path_layers"]
+__all__ = ["Layers", "calc_path_layers", "dedup_layers", "layer_slot_index"]
 
 # Electron-fraction region boundaries (PREM, km); cf. reference
 # ``layers.py:419-421``; the crust shares the mantle's electron fraction.
@@ -298,3 +297,64 @@ class Layers:
     @property
     def distance(self):
         return self._distance
+
+
+def dedup_layers(densities, distances):
+    """Collapse each padded layer chain to its unique (density, distance)
+    pairs plus an index chain (the reference kernel's in-loop layer cache,
+    ``numba_osc_kernels.py:224-271``, done once at set-up): chords traverse
+    each shell twice (down/up) with identical segment properties, so only
+    ~half the transition matrices are distinct.
+
+    Parameters
+    ----------
+    densities, distances : (N, L) padded chains
+
+    Returns
+    -------
+    unique_densities, unique_distances : (N, Lu) with Lu = max unique count
+    chain_map : (N, L) int32 — chain slot -> unique slot
+    """
+    densities = np.asarray(densities)
+    distances = np.asarray(distances)
+    n, l = densities.shape
+
+    # lexicographic per-row sort of (density, distance) pairs via complex.
+    # Mirrored down/up segments of the same shell can differ by 1 ulp (their
+    # lengths come from differently-ordered subtractions), so the MATCHING
+    # key is quantized to float32; the stored values keep full precision.
+    key = (
+        densities.astype(np.float32).astype(np.complex128)
+        + 1j * distances.astype(np.float32)
+    )
+    order = np.argsort(key, axis=1)
+    sorted_key = np.take_along_axis(key, order, axis=1)
+    is_new = np.ones((n, l), dtype=bool)
+    is_new[:, 1:] = sorted_key[:, 1:] != sorted_key[:, :-1]
+    rank_sorted = np.cumsum(is_new, axis=1) - 1  # (N, L) rank in sorted order
+
+    # invert the sort: rank of each original slot
+    chain_map = np.empty((n, l), dtype=np.int32)
+    np.put_along_axis(chain_map, order, rank_sorted.astype(np.int32), axis=1)
+
+    lu = int(rank_sorted.max()) + 1
+    unique_densities = np.zeros((n, lu), dtype=densities.dtype)
+    unique_distances = np.zeros((n, lu), dtype=distances.dtype)
+    rows = np.repeat(np.arange(n), l).reshape(n, l)
+    unique_densities[rows[is_new], rank_sorted[is_new]] = np.take_along_axis(
+        densities, order, axis=1
+    )[is_new]
+    unique_distances[rows[is_new], rank_sorted[is_new]] = np.take_along_axis(
+        distances, order, axis=1
+    )[is_new]
+    return unique_densities, unique_distances, chain_map
+
+
+def layer_slot_index(distances):
+    """Flat layer-major indices (layer * n_points + point) of the real
+    (distance > 0) layer slots of an (N, L) chain array: the slot-compaction
+    convention of :func:`pisa_tpu_torch.ops.osc.kernels.osc_probs_layers`
+    (``slot_index=``)."""
+    return np.flatnonzero(
+        np.swapaxes(np.asarray(distances), 0, 1).ravel() > 0.0
+    ).astype(np.int32)

@@ -34,15 +34,23 @@ class csv_loader(Stage):  # noqa: N801
     output_names : sequence of str
         neutrino categories ('nue_cc', 'numubar_nc', ...), selected by PDG
         code and current type.
+    fraction_events_to_keep : float in (0, 1], optional
+        keep this fraction of each category's events, by a deterministic
+        stride (the JAX package's option, for fast tests).
 
     The JAX package's other options (``neutrinos=False``, ``dis_idx``,
-    ``scale_aeff``, ``fraction_events_to_keep``) are not ported yet (ROADMAP
-    queue 1, item 11).
+    ``scale_aeff``) are not ported yet (ROADMAP queue 1, item 11).
     """
 
-    def __init__(self, events_file, data_dict, output_names, **std_kwargs):
-        unported = {"neutrinos": True, "dis_idx": None, "scale_aeff": False,
-                    "fraction_events_to_keep": None}
+    def __init__(self, events_file, data_dict, output_names,
+                 fraction_events_to_keep=None, **std_kwargs):
+        self.fraction_events_to_keep = (
+            None if fraction_events_to_keep is None
+            else float(fraction_events_to_keep))
+        if self.fraction_events_to_keep is not None and not (
+                0.0 < self.fraction_events_to_keep <= 1.0):
+            raise ValueError("fraction_events_to_keep must be in (0, 1]")
+        unported = {"neutrinos": True, "dis_idx": None, "scale_aeff": False}
         for option, default in unported.items():
             if std_kwargs.pop(option, default) != default:
                 raise NotImplementedError(
@@ -105,6 +113,10 @@ class csv_loader(Stage):  # noqa: N801
             else:
                 mask &= raw["type"] == 0
             rows = np.flatnonzero(mask)
+            if self.fraction_events_to_keep is not None:
+                n_keep = max(1, int(round(self.fraction_events_to_keep
+                                          * rows.size)))
+                rows = rows[::max(1, rows.size // n_keep)][:n_keep]
 
             container["initial_weights"] = np.ones(rows.size, dtype=FTYPE)
             container["weights"] = np.ones(rows.size, dtype=FTYPE)

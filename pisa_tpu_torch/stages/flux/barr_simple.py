@@ -5,9 +5,11 @@ Barr-style flux-systematics stage (counterpart of
 ratio, spectral-index tilt, and Barr up/hor + nu/nubar parameterized
 modifications to the nominal (nue, numu) flux pair per point, as one set of
 torch ops per (linked) container, or, on a category-stacked container
-(``core/stacking.py``) in grid calc mode, as one chain that gives the
-(2, ngrid, 2) nu/nubar flux pair from fields precomputed on the grid. In an
-evaluation of lanes every flux gains a leading lane axis.
+(``core/stacking.py``), as one chain from fields precomputed at set-up: in
+grid calc mode it gives the (2, ngrid, 2) nu/nubar flux pair, in the
+per-event calc mode the (C, n_pad, 2) flux of every stacked event, with each
+category's nubar sign a (C, 1) select. In an evaluation of lanes every flux
+gains a leading lane axis.
 """
 
 from __future__ import annotations
@@ -71,23 +73,29 @@ class barr_simple(Stage):  # noqa: N801
     stacked_rate_defer_safe = True
 
     def stacked_ok(self):
-        """Grid calc mode only: there the grid is shared across categories
-        and the modified flux depends only on the nubar sign, so one
-        two-row chain serves all categories. (The JAX package also stacks
-        the per-event calc mode, ``barr_simple.py:195``; a pipeline with
-        that mode runs per container here.)"""
-        return self.is_map
+        """In grid calc mode the grid is shared across categories and the
+        modified flux depends only on the nubar sign, so one two-row chain
+        serves all categories; in the per-event calc mode the same math runs
+        over the (C, n_pad) stacked events."""
+        return self.is_map or self.calc_mode == "events"
 
     def prepare_stacked(self, data):
-        """The parameter-free Barr fields on the calc grid, once, so that a
-        template does only rational ops on them (the factored forms of
-        ``ops/flux/barr.py``)."""
+        """The parameter-free Barr fields on the calc grid or the stacked
+        events, once, so that a template does only rational ops on them (the
+        factored forms of ``ops/flux/barr.py``). The stacked events' padded
+        slots are sanitized here (energy 1 GeV, coszen 0): their weights are
+        0, but a NaN would still reach the parameters' gradients through
+        0 * NaN cotangent products."""
         for container in data.containers:
             prev = container.representation
             container.representation = self.calc_mode
             try:
                 energy = container["true_energy"]
                 coszen = container["true_coszen"]
+                if not self.is_map:
+                    valid = ~(torch.isnan(energy) | torch.isnan(coszen))
+                    energy = torch.where(valid, energy, 1.0)
+                    coszen = torch.where(valid, coszen, 0.0)
                 container["barr_nubar_field_e"] = barr.nubar_mod_field(
                     0, energy, coszen
                 )
@@ -101,18 +109,14 @@ class barr_simple(Stage):  # noqa: N801
             finally:
                 container.representation = prev
 
-    def _compute_stacked(self, container, params):
-        """One chain giving the (2, ngrid, 2) nu/nubar flux pair, with rows
-        mapping each category to its sign; the per-sign intermediates are
-        shared where the linked path computes them once per group."""
-        nue_numu_ratio, nu_nubar_ratio, delta_index, uphor, barr_nubar = params
+    @staticmethod
+    def _ratios_on_fields(container, params):
+        """The nue/numu ratio, spectral tilt and nu/nubar ratio applied to
+        the stacked container's nominal flux pairs, on the precomputed
+        log(E / E_pivot): (e_nu, e_nub, mu_nu, mu_nub)."""
+        nue_numu_ratio, nu_nubar_ratio, delta_index = params[:3]
         nu_flux = container["nu_flux_nominal"]
         nubar_flux = container["nubar_flux_nominal"]
-        if nu_flux.dim() != (2 if container.lanes is None else 3):
-            raise ValueError(
-                "stacked barr_simple expects a shared nominal flux on the"
-                f" calc grid; got shape {tuple(nu_flux.shape)}"
-            )
         nu_e, nu_mu = _apply_ratio_scale_sum_constant(
             nue_numu_ratio, nu_flux[..., 0], nu_flux[..., 1]
         )
@@ -130,6 +134,20 @@ class barr_simple(Stage):  # noqa: N801
         mu_nu, mu_nub = _apply_ratio_scale_sum_constant(
             nu_nubar_ratio, nu_mu, nub_mu
         )
+        return e_nu, e_nub, mu_nu, mu_nub
+
+    def _compute_stacked(self, container, params):
+        """One chain giving the (2, ngrid, 2) nu/nubar flux pair, with rows
+        mapping each category to its sign; the per-sign intermediates are
+        shared where the linked path computes them once per group."""
+        uphor, barr_nubar = params[3:]
+        nu_flux = container["nu_flux_nominal"]
+        if nu_flux.dim() != (2 if container.lanes is None else 3):
+            raise ValueError(
+                "stacked barr_simple expects a shared nominal flux on the"
+                f" calc grid; got shape {tuple(nu_flux.shape)}"
+            )
+        e_nu, e_nub, mu_nu, mu_nub = self._ratios_on_fields(container, params)
         field_e = container["barr_nubar_field_e"]
         field_mu = container["barr_nubar_field_mu"]
         uphor_e = barr.mod_ratio_uphor_from_field(
@@ -149,6 +167,28 @@ class barr_simple(Stage):  # noqa: N801
         container.set_stacked("nu_flux", torch.stack(out_rows, dim=-3),
                               rows=rows)
 
+    def _compute_stacked_events(self, container, params):
+        """The per-event flux over the (C, n_pad) stacked events
+        (``_compute_stacked_events`` :195 of the JAX package): the grid
+        chain over the stacked events, each category's nubar sign a (C, 1)
+        select."""
+        uphor, barr_nubar = params[3:]
+        e_nu, e_nub, mu_nu, mu_nub = self._ratios_on_fields(container, params)
+        sign = container.row_tensor(container.cat_aux("nubar")).to(
+            e_nu.dtype)[:, None]  # (C, 1)
+        out_e = torch.where(sign < 0, e_nub, e_nu)
+        out_mu = torch.where(sign < 0, mu_nub, mu_nu)
+        out_e = out_e * barr.mod_ratio_nubar_from_field_signed(
+            sign, container["barr_nubar_field_e"], barr_nubar
+        ) * barr.mod_ratio_uphor_from_field(
+            container["barr_uphor_field_e"], uphor
+        )
+        out_mu = out_mu * barr.mod_ratio_nubar_from_field_signed(
+            sign, container["barr_nubar_field_mu"], barr_nubar
+        )
+        container["nu_flux"] = torch.stack(
+            torch.broadcast_tensors(out_e, out_mu), dim=-1)
+
     def compute_function(self):
         p = self.params
         nue_numu_ratio, nu_nubar_ratio, delta_index, uphor, barr_nubar = (
@@ -157,12 +197,11 @@ class barr_simple(Stage):  # noqa: N801
                          "Barr_uphor_ratio", "Barr_nu_nubar_ratio"))
 
         if any(getattr(c, "is_stacked", False) for c in self.data.containers):
+            compute = (self._compute_stacked if self.is_map
+                       else self._compute_stacked_events)
             for container in self.data:
-                self._compute_stacked(
-                    container,
-                    (nue_numu_ratio, nu_nubar_ratio, delta_index, uphor,
-                     barr_nubar),
-                )
+                compute(container, (nue_numu_ratio, nu_nubar_ratio,
+                                    delta_index, uphor, barr_nubar))
             return
 
         # grid mode: the modified flux depends only on the shared grid, the

@@ -1,36 +1,58 @@
 """
 Three-flavour matter-oscillation service (counterpart of
 ``pisa_tpu/stages/osc/prob3.py``; reference ``pisa/stages/osc/prob3.py:37``):
-computes P(nu_e -> flav) and P(nu_mu -> flav) per grid point through
-Earth-layer chains and applies ``weights *= flux_e * P_e + flux_mu * P_mu``.
+computes P(nu_e -> flav) and P(nu_mu -> flav) per grid point or per event
+through Earth-layer chains and applies
+``weights *= flux_e * P_e + flux_mu * P_mu``.
 
-Only the standard three-flavour path on a binned calc grid is ported: the
-kernel geometry (chain-length sort, per-point bounds, layer-major slabs) is
-prepared once at setup, and each compute makes two launches of the CUDA
-chain kernel, one per nubar sign, through ``ops/osc/chain.py:osc_probs``.
-That function is differentiable in the six oscillation parameters: when a
-compiled template takes the gradient, its backward runs the multitangent
-kernel once per sign (the flagship frees theta13, theta23 and deltam31: 3
-tangents a launch), or, with ``multitangent=False``, the tangent kernel
-once per free oscillation parameter and sign (6 launches); the
-multitangent route takes less device time on the card (``PERF.md``).
+Options as in the reference: the NLO CC potential, NSI ('standard' /
+'vacuum-like'), the reparameterized mixing matrix, neutrino decay, Earth
+tomography, LRI, layer dedup, and the per-event calc mode. Each propagation
+takes one of three routes, as the JAX package routes them (its
+``prob3.py:437-446``):
 
-On a category-stacked container (``core/stacking.py``) the compute is the
-same two launches; the probabilities become 6 rows (nubar group x final
-flavour) that a rows map spreads over the categories, and the apply forms
-one (6, ngrid) flux x probability rate on the grid. That rate is gathered to
-the stacked events in one op, or, when the template that owns the container
-set up rate deferral (``container.rate_defer``), handed to the histogram
-stage as a grid-level factor (``container.deferred_rate``).
+- standard physics: ``ops/osc/chain.py:osc_probs``, one launch of the CUDA
+  primal kernel per nubar sign, differentiable in the six oscillation
+  parameters: when a compiled template takes the gradient, its backward
+  runs the multitangent kernel once per sign (the flagship frees theta13,
+  theta23 and deltam31: 3 tangents a launch), or, with
+  ``multitangent=False``, the tangent kernel once per free oscillation
+  parameter and sign (the multitangent route takes less device time on the
+  card, ``PERF.md``);
+- NSI and LRI: ``chain.py:osc_probs_general``, the same primal kernel on a
+  general pack (a complex matter potential, an LRI term), differentiable in
+  every coupling through the general formulation's reverse mode;
+- neutrino decay and layer dedup: ``ops/osc/kernels.py:propagate_layers``
+  alone, which no kernel computes (nor does the JAX package's Pallas path,
+  its ``kernels.py:607-618``).
 
-In an evaluation of lanes (``container.lanes``, the batched fits) theta is a
-(B, 6) tensor and every output gains a leading lane axis; the launches stay
-two per sign-pair, each serving all lanes.
+The layer geometry of each route (chain-length sort, per-point bounds,
+layer-major slabs and tile table; or the compacted slot indices; or the
+deduplicated chains) is prepared once at set-up, and again only when the
+electron fractions or the tomography scalings change; the tomography scale
+params therefore steer host-side work and cannot be free in a compiled
+template (``core/template.py:HOST_PARAM_NAMES``).
 
-NSI, neutrino decay, LRI, Earth tomography, layer dedup and per-event calc
-mode (with it the JAX package's stacked events-calc route, which needs the
-XLA formulation ``ops/osc/kernels.py``) are not ported yet (ROADMAP queue 1,
-items 2 and 11).
+On a binned calc grid the layers are flavour-independent and computed once;
+on a category-stacked container (``core/stacking.py``) the compute is two
+propagations, one per nubar sign; the probabilities become 6 rows (nubar
+group x final flavour) that a rows map spreads over the categories, and the
+apply forms one (6, ngrid) flux x probability rate on the grid. That rate is
+gathered to the stacked events in one op, or, when the template that owns
+the container set up rate deferral (``container.rate_defer``), handed to
+the histogram stage as a grid-level factor (``container.deferred_rate``).
+
+With ``calc_mode = events`` each container's events get their own chains; on
+a stacked container each nubar group's (categories x padded events) block is
+one propagation with its sign, over geometry prepared at set-up with the
+padded slots sanitized on their inputs (energy 1 GeV, zero-length chains),
+so that their values and gradients stay finite.
+
+In an evaluation of lanes (``container.lanes``, the batched fits) the
+standard route on a calc grid takes theta as a (B, 6) tensor and every
+output gains a leading lane axis; the launches stay two per sign-pair, each
+serving all lanes. Lanes under the other routes or the per-event calc mode
+are not ported (:data:`LANES_TODO`).
 """
 
 from __future__ import annotations
@@ -43,12 +65,56 @@ from pisa_tpu_torch.core.binning import MultiDimBinning
 from pisa_tpu_torch.core.stage import Stage
 from pisa_tpu_torch.ops.osc.chain import (
     osc_probs,
+    osc_probs_general,
     prepare_chain_geometry,
     theta_tensor,
 )
-from pisa_tpu_torch.ops.osc.layers import Layers
+from pisa_tpu_torch.ops.osc.kernels import check_slot_index, propagate_layers
+from pisa_tpu_torch.ops.osc.layers import Layers, dedup_layers, layer_slot_index
+from pisa_tpu_torch.ops.osc.nonstandard import (
+    FIVE_LAYER_RADII_KM,
+    FIVE_LAYER_RHOS,
+    TOMOGRAPHY_ERROR_MSG,
+    Core_scaling_w_constrain,
+    Core_scaling_wo_constrain,
+    Mass_scaling,
+    decay_matrix,
+    lri_potential,
+    std_nsi_eps,
+    vacuum_nsi_eps,
+)
+from pisa_tpu_torch.ops.osc.pmns import dm_matrix, pmns_matrix, pmns_matrix_reparam
 
-__all__ = ["prob3"]
+__all__ = ["prob3", "LRI_TYPES", "NSI_TYPES", "TOMOGRAPHY_TYPES"]
+
+LRI_TYPES = ["emu-symmetry", "etau-symmetry", "mutau-symmetry"]
+NSI_TYPES = ["standard", "vacuum-like"]
+TOMOGRAPHY_TYPES = [
+    "mass_of_earth",
+    "mass_of_core_w_constrain",
+    "mass_of_core_wo_constrain",
+]
+_NSI_PARAMS = {
+    "vacuum-like": (("eps_scale", "dimensionless"),
+                    ("eps_prime", "dimensionless"), ("phi12", "rad"),
+                    ("phi13", "rad"), ("phi23", "rad"), ("alpha1", "rad"),
+                    ("alpha2", "rad"), ("deltansi", "rad")),
+    "standard": (("eps_ee", "dimensionless"),
+                 ("eps_emu_magn", "dimensionless"), ("eps_emu_phase", "rad"),
+                 ("eps_etau_magn", "dimensionless"), ("eps_etau_phase", "rad"),
+                 ("eps_mumu", "dimensionless"),
+                 ("eps_mutau_magn", "dimensionless"),
+                 ("eps_mutau_phase", "rad"), ("eps_tautau", "dimensionless")),
+}
+_TOMOGRAPHY_PARAMS = {
+    "mass_of_earth": ("density_scale",),
+    "mass_of_core_w_constrain": ("core_density_scale",),
+    "mass_of_core_wo_constrain": ("core_density_scale",
+                                  "innermantle_density_scale",
+                                  "middlemantle_density_scale"),
+}
+#: the ROADMAP item that lanes under the non-standard options wait for
+LANES_TODO = "ROADMAP queue 1, item 16"
 
 _ALL_FLAVS = [
     "nue_cc", "numu_cc", "nutau_cc", "nue_nc", "numu_nc", "nutau_nc",
@@ -58,19 +124,29 @@ _ALL_FLAVS = [
 _NU_FLAVS = _ALL_FLAVS[:6]
 _NUBAR_FLAVS = _ALL_FLAVS[6:]
 
-_NOT_PORTED = "is not ported yet (ROADMAP queue 1, item 11)"
+
+def _choice(value, choices, option):
+    if value is None:
+        return None
+    value = value.strip().lower()
+    if value not in choices:
+        raise ValueError(f"{option} {value!r} invalid; choose from {choices}")
+    return value
 
 
 class prob3(Stage):  # noqa: N801
     """See module docstring; parameters as in the reference
-    (``prob3.py:124-161``), plus `multitangent` (the gradient's tangents in
-    one multitangent launch per sign, the default, or in one tangent launch
-    per free oscillation parameter and sign; settable on the instance)."""
+    (``prob3.py:124-161``), plus `multitangent` (the standard route's
+    gradient tangents in one multitangent launch per sign, the default, or
+    in one tangent launch per free oscillation parameter and sign; settable
+    on the instance)."""
 
-    # the Earth model and electron fractions shape the layer geometry, which
-    # is prepared on the host
+    # the Earth model, electron fractions and tomography scalings shape the
+    # layer geometry, which is prepared on the host
     host_param_names = (
         "earth_model", "detector_depth", "prop_height", "YeI", "YeO", "YeM",
+        "density_scale", "core_density_scale", "innermantle_density_scale",
+        "middlemantle_density_scale",
     )
     _THETA_NAMES = (
         "theta12", "theta13", "theta23", "deltacp", "deltam21", "deltam31",
@@ -89,78 +165,280 @@ class prob3(Stage):  # noqa: N801
         multitangent=True,
         **std_kwargs,
     ):
-        for option, value in (
-            ("nsi_type", nsi_type),
-            ("neutrino_decay", neutrino_decay),
-            ("tomography_type", tomography_type),
-            ("lri_type", lri_type),
-            ("layer_dedup", layer_dedup),
-        ):
-            if value:
-                raise NotImplementedError(f"prob3 {option}={value!r} {_NOT_PORTED}")
         self.include_nlo = include_nlo
+        self.nsi_type = _choice(nsi_type, NSI_TYPES, "nsi_type")
         self.reparam_mix_matrix = reparam_mix_matrix
+        self.neutrino_decay = bool(neutrino_decay)
+        self.lri_type = _choice(lri_type, LRI_TYPES, "lri_type")
+        self.tomography_type = _choice(tomography_type, TOMOGRAPHY_TYPES,
+                                       "tomography_type")
+        self.layer_dedup = bool(layer_dedup)
         self.multitangent = bool(multitangent)
+        expected = [
+            "detector_depth", "earth_model", "prop_height", "YeI", "YeO",
+            "YeM", "theta12", "theta13", "theta23", "deltam21", "deltam31",
+            "deltacp",
+        ]
+        if self.nsi_type is not None:
+            expected += [name for name, _ in _NSI_PARAMS[self.nsi_type]]
+        if self.neutrino_decay:
+            expected.append("decay_alpha3")
+        if self.lri_type is not None:
+            expected.append("v_lri")
+        if self.tomography_type is not None:
+            expected += _TOMOGRAPHY_PARAMS[self.tomography_type]
         super().__init__(
-            expected_params=(
-                "detector_depth", "earth_model", "prop_height", "YeI", "YeO",
-                "YeM", "theta12", "theta13", "theta23", "deltam21",
-                "deltam31", "deltacp",
-            ),
+            expected_params=tuple(expected),
             expected_container_keys=(
                 "true_energy", "true_coszen", "nubar", "flav", "nu_flux",
                 "weights",
             ),
             **std_kwargs,
         )
-        if not self.is_map:
-            raise NotImplementedError(
-                f"prob3 calc_mode={self.calc_mode!r} (per-event) {_NOT_PORTED}"
-            )
+        if self.neutrino_decay or self.layer_dedup:
+            self.route = "layers"
+        elif self.nsi_type is not None or self.lri_type is not None:
+            self.route = "general"
+        else:
+            self.route = "standard"
         self.layers = None
+        self.tomography_params = None
+        #: the layer state the geometry was prepared for
+        self._layer_state = None
+        #: the calc grid's geometry (binned calc mode)
         self.geom = None
-        self.YeI = self.YeO = self.YeM = None
+        #: per-event calc mode: per container name, (layer state, geometry);
+        #: per stacked container (name, categories, padded size), the
+        #: nubar groups' geometries (:meth:`_stacked_events_geometry`)
+        self.geoms = {}
 
     # -- setup ---------------------------------------------------------------
     def setup_function(self):
-        self.YeI = self.params.YeI.m_as("dimensionless")
-        self.YeO = self.params.YeO.m_as("dimensionless")
-        self.YeM = self.params.YeM.m_as("dimensionless")
         self.layers = Layers(
             self.params.earth_model.value,
             self.params.detector_depth.m_as("km"),
             self.params.prop_height.m_as("km"),
         )
-        self.layers.setElecFrac(self.YeI, self.YeO, self.YeM)
+        if self.tomography_type == "mass_of_earth":
+            self.tomography_params = Mass_scaling()
+        elif self.tomography_type is not None:
+            radii_ext = self.layers.radii[::-1][:-1]
+            rhos_ext = self.layers.rhos_unweighted[::-1][:-1]
+            if not (
+                len(radii_ext) == len(FIVE_LAYER_RADII_KM)
+                and np.allclose(radii_ext, FIVE_LAYER_RADII_KM)
+                and np.allclose(rhos_ext, FIVE_LAYER_RHOS)
+            ):
+                raise ValueError(TOMOGRAPHY_ERROR_MSG)
+            if self.tomography_type == "mass_of_core_w_constrain":
+                self.tomography_params = Core_scaling_w_constrain()
+            else:
+                self.tomography_params = Core_scaling_wo_constrain()
+        self._layer_state = None
+        self._update_layers()
+
+    def _current_layer_state(self):
+        ye = tuple(self.params[n].m_as("dimensionless")
+                   for n in ("YeI", "YeO", "YeM"))
+        scales = tuple(
+            self.params[n].m_as("dimensionless")
+            for n in _TOMOGRAPHY_PARAMS.get(self.tomography_type, ()))
+        return ye, scales
+
+    def _update_layers(self):
+        """Re-derive the layers and every geometry where the electron
+        fractions or the tomography scalings changed (the JAX package
+        re-derives them at every compute with tomography on)."""
+        state = self._current_layer_state()
+        if state == self._layer_state:
+            return
+        ye, scales = state
+        if self.tomography_type == "mass_of_earth":
+            self.tomography_params.density_scale = scales[0]
+            self.layers.scaling(self.tomography_params.density_scale)
+        elif self.tomography_type == "mass_of_core_w_constrain":
+            self.tomography_params.core_density_scale = scales[0]
+            self.layers.scaling(self.tomography_params.scaling_array)
+        elif self.tomography_type is not None:
+            tp = self.tomography_params
+            (tp.core_density_scale, tp.innermantle_density_scale,
+             tp.middlemantle_density_scale) = scales
+            self.layers.scaling(tp.scaling_factor_array)
+        self.layers.setElecFrac(*ye)
+        self._layer_state = state
         self._prepare_geometry()
 
+    def _chains(self, coszen):
+        """(densities, distances) of the layer chains at `coszen`, (N, L)."""
+        self.layers.calcLayers(np.asarray(coszen, dtype=np.float64))
+        shape = (len(coszen), self.layers.max_layers)
+        return (self.layers.density.reshape(shape),
+                self.layers.distance.reshape(shape))
+
+    def _make_geometry(self, energy, densities, distances):
+        """The route's static inputs for one propagation over these points:
+        the kernels' prepared geometry (standard and general routes), or
+        the general formulation's chains with their slot indices (or, with
+        layer dedup, their unique slots and chain map)."""
+        device = self.data.device
+        if self.route != "layers":
+            return prepare_chain_geometry(energy, densities, distances,
+                                          dtype=TORCH_FTYPE, device=device,
+                                          general=self.route == "general")
+
+        def put(x, dtype=TORCH_FTYPE):
+            return torch.as_tensor(np.ascontiguousarray(x), dtype=dtype,
+                                   device=device)
+
+        if self.layer_dedup:
+            dens, dist, chain_map = dedup_layers(densities, distances)
+            return {"e": put(energy), "dens": put(dens), "dist": put(dist),
+                    "chain_map": put(chain_map, torch.int64)}
+        geom = {"e": put(energy), "dens": put(densities),
+                "dist": put(distances),
+                "slot_index": put(layer_slot_index(distances), torch.int64)}
+        # checked here, once, so that the propagation reads nothing back
+        check_slot_index(geom["dist"], geom["slot_index"])
+        return geom
+
     def _prepare_geometry(self):
-        """Layer chains of the calc grid (flavour-independent, so computed
-        once for all categories) and the kernel's prepared geometry."""
-        binning = self.calc_mode
-        grid = binning.meshgrid(entity="weighted_centers", attach_units=False)
-        energy = grid[binning.index("true_energy")].ravel()
-        coszen = grid[binning.index("true_coszen")].ravel()
-        self.layers.calcLayers(coszen)
-        shape = (energy.size, self.layers.max_layers)
-        self.geom = prepare_chain_geometry(
-            energy,
-            self.layers.density.reshape(shape),
-            self.layers.distance.reshape(shape),
-            dtype=TORCH_FTYPE,
-            device=self.data.device,
-        )
+        """The geometry of every propagation, for the current layers: the
+        calc grid's (its chains are flavour-independent: computed once), or
+        each container's events'."""
+        if self.is_map:
+            binning = self.calc_mode
+            grid = binning.meshgrid(entity="weighted_centers",
+                                    attach_units=False)
+            energy = grid[binning.index("true_energy")].ravel()
+            coszen = grid[binning.index("true_coszen")].ravel()
+            self.geom = self._make_geometry(energy, *self._chains(coszen))
+            return
+        for container in self.data:
+            if getattr(container, "is_stacked", False):
+                self._stacked_events_geometry(container)
+            else:
+                self._events_geometry(container)
+
+    def _events_geometry(self, container):
+        """One container's per-event geometry, for the current layers."""
+        state, geom = self.geoms.get(container.name, (None, None))
+        if state != self._layer_state:
+            energy = container["true_energy"].detach().cpu().numpy()
+            coszen = container["true_coszen"].detach().cpu().numpy()
+            geom = self._make_geometry(energy, *self._chains(coszen))
+            self.geoms[container.name] = (self._layer_state, geom)
+        return geom
+
+    def _stacked_events_geometry(self, container):
+        """Per nubar group, one geometry over the group's (categories x
+        padded events) block, flattened; padded slots get energy 1 GeV and
+        zero-length chains (their inputs sanitized, so that values and
+        gradients stay finite). Kept in ``self.geoms`` for the current
+        layers, with the permutation that puts the groups' blocks back in
+        category order and each category's final flavour."""
+        key = (container.name, tuple(container.cat_names), container.n_pad)
+        static = self.geoms.get(key)
+        if static is not None and static["state"] == self._layer_state:
+            return static
+        prev = container.representation
+        container.representation = "events"
+        try:
+            energy = container["true_energy"].detach().cpu().numpy()
+            coszen = container["true_coszen"].detach().cpu().numpy()
+        finally:
+            container.representation = prev
+        pad = ~(np.isfinite(energy) & (energy > 0) & np.isfinite(coszen))
+        energy = np.where(pad, 1.0, energy)
+        coszen = np.where(pad, 1.0, coszen)
+        grp = (np.asarray(container.cat_aux("nubar")) < 0).astype(np.int32)
+        groups = []
+        for sign in (1, -1):
+            idx = np.flatnonzero(grp == (1 if sign < 0 else 0))
+            if idx.size == 0:
+                continue
+            dens, dist = self._chains(coszen[idx].reshape(-1))
+            keep = ~pad[idx].reshape(-1, 1)
+            geom = self._make_geometry(energy[idx].reshape(-1),
+                                       np.where(keep, dens, 0.0),
+                                       np.where(keep, dist, 0.0))
+            groups.append((sign, idx, geom))
+        order = np.concatenate([idx for _, idx, _ in groups])
+        device = self.data.device
+        static = self.geoms[key] = {
+            "state": self._layer_state,
+            "groups": [(sign, geom) for sign, _, geom in groups],
+            "inv": torch.as_tensor(np.argsort(order), device=device),
+            "flav": torch.as_tensor(
+                np.asarray(container.cat_aux("flav"), dtype=np.int64),
+                device=device)[:, None, None],
+        }
+        return static
 
     # -- compute --------------------------------------------------------------
-    def compute_function(self):
-        # re-derive the layers if the electron fractions changed
-        ye = tuple(
-            self.params[n].m_as("dimensionless") for n in ("YeI", "YeO", "YeM")
+    def _physics(self):
+        """The propagation's inputs from the params, on the data's device;
+        the magnitudes may be 0-d tensors that carry the autograd graph
+        (compiled template), or lanes of them. ``theta`` (6,) or (B, 6)
+        float64 for every route; for the general and layers routes also the
+        float64 (complex128) ``dm``, ``mix``, ``mat_pot``, ``mat_decay``
+        and ``lri_pot``."""
+        device = self.data.device
+        prms = [self.params[name] for name in self._THETA_NAMES]
+        theta = theta_tensor(
+            [p.m_as(u) for p, u in zip(prms, self._THETA_UNITS)],
+            device=device, lanes=self.data.lanes,
         )
-        if ye != (self.YeI, self.YeO, self.YeM):
-            self.YeI, self.YeO, self.YeM = ye
-            self.layers.setElecFrac(*ye)
-            self._prepare_geometry()
+        out = {"theta": theta,
+               # tangents only for the free oscillation parameters
+               "active": tuple(i for i, p in enumerate(prms) if not p.is_fixed)}
+        if self.route == "standard":
+            return out
+        t12, t13, t23, dcp, dm21, dm31 = theta.unbind(-1)
+        pmns = pmns_matrix_reparam if self.reparam_mix_matrix else pmns_matrix
+        out["mix"] = pmns(torch.sin(t12), torch.sin(t13), torch.sin(t23), dcp)
+        out["dm"] = dm_matrix(dm21, dm31)
+        # the generalized matter potential: the standard CC term (with the
+        # NLO factor) plus the NSI couplings
+        mat_pot = torch.zeros((3, 3), dtype=torch.complex128, device=device)
+        mat_pot[0, 0].fill_(1.020 if self.include_nlo else 1.0)
+        if self.nsi_type is not None:
+            build = (std_nsi_eps if self.nsi_type == "standard"
+                     else vacuum_nsi_eps)
+            mat_pot = mat_pot + build(
+                *[self.params[n].m_as(u) for n, u in _NSI_PARAMS[self.nsi_type]],
+                device=device)
+        out["mat_pot"] = mat_pot
+        out["mat_decay"] = (
+            decay_matrix(self.params.decay_alpha3.m_as("eV**2"), device=device)
+            if self.neutrino_decay else None)
+        out["lri_pot"] = (
+            lri_potential(self.params.v_lri.m_as("eV"), self.lri_type,
+                          device=device)
+            if self.lri_type is not None
+            else torch.zeros((3, 3), dtype=torch.float64, device=device))
+        return out
+
+    def _propagate(self, geom, nubar, physics):
+        """One propagation over `geom` with sign `nubar`: ([B,] N, 3, 3)."""
+        if self.route == "standard":
+            return osc_probs(
+                physics["theta"], nubar, geom,
+                reparam=self.reparam_mix_matrix,
+                nlo_factor=1.020 if self.include_nlo else 1.0,
+                active=physics["active"], multitangent=self.multitangent,
+            )
+        if self.route == "general":
+            return osc_probs_general(physics["dm"], physics["mix"],
+                                     physics["mat_pot"], physics["lri_pot"],
+                                     nubar, geom)
+        return propagate_layers(
+            physics["dm"], physics["mix"], physics["mat_pot"],
+            physics["mat_decay"], physics["lri_pot"], nubar, geom["e"],
+            geom["dens"], geom["dist"], decay_flag=self.neutrino_decay,
+            chain_map=geom.get("chain_map"), slot_index=geom.get("slot_index"))
+
+    def compute_function(self):
+        self._update_layers()
 
         # angles must carry units (reference prob3.py:480-482)
         for angle in (
@@ -171,21 +449,20 @@ class prob3(Stage):  # noqa: N801
         ):
             if angle.value.units == ureg.dimensionless:
                 raise ValueError(f"{angle.name} is dimensionless; give rad or deg")
-        # the parameter magnitudes may be 0-d tensors on the device that
-        # carry the autograd graph (compiled template): stacked, not
-        # converted; the numbers among them are filled in on the device
-        prms = [self.params[name] for name in self._THETA_NAMES]
-        lanes = self.data.lanes
-        theta = theta_tensor(
-            [p.m_as(u) for p, u in zip(prms, self._THETA_UNITS)],
-            device=self.data.device, lanes=lanes,
-        )  # (6,), or (B, 6) lanes
-        # tangents only for the free oscillation parameters (prob3.py:604-617
-        # of the JAX package); the flagship frees 3 of the 6
-        active = tuple(i for i, p in enumerate(prms) if not p.is_fixed)
-        nlo_factor = 1.020 if self.include_nlo else 1.0
+        if self.data.lanes is not None and (self.route != "standard"
+                                            or not self.is_map):
+            raise NotImplementedError(
+                "lanes under prob3's non-standard options or its per-event"
+                f" calc mode are not ported yet ({LANES_TODO})")
+        physics = self._physics()
 
-        if any(getattr(c, "is_stacked", False) for c in self.data.containers):
+        stacked = any(getattr(c, "is_stacked", False)
+                      for c in self.data.containers)
+        if stacked and not self.is_map:
+            for container in self.data:
+                self._compute_stacked_events(container, physics)
+            return
+        if stacked:
             # one propagation per nubar sign, as on the linked path, stacked
             # into 2 rows; the per-flavour projections become 6 rows (nubar
             # group x final flavour) that a rows map spreads over the
@@ -194,15 +471,9 @@ class prob3(Stage):  # noqa: N801
                 grp = (np.asarray(container.cat_aux("nubar")) < 0).astype(
                     np.int32)
                 flav = np.asarray(container.cat_aux("flav"), dtype=np.int32)
-                probability = torch.stack([
-                    osc_probs(
-                        theta, sign, self.geom,
-                        reparam=self.reparam_mix_matrix,
-                        nlo_factor=nlo_factor, active=active,
-                        multitangent=self.multitangent,
-                    )
-                    for sign in (1, -1)
-                ], dim=-4)  # ([B,] 2, n, 3, 3)
+                probability = torch.stack(
+                    [self._propagate(self.geom, sign, physics)
+                     for sign in (1, -1)], dim=-4)  # ([B,] 2, n, 3, 3)
                 container.set_stacked("probability", probability, rows=grp)
                 # rows = group * 3 + final flavour: P(e -> f), P(mu -> f)
                 lead = probability.shape[:-4]
@@ -214,14 +485,14 @@ class prob3(Stage):  # noqa: N801
                 container.set_stacked("prob_mu", pm, rows=grp * 3 + flav)
             return
 
-        self.data.link_containers("nu", _NU_FLAVS)
-        self.data.link_containers("nubar", _NUBAR_FLAVS)
+        if self.is_map:
+            self.data.link_containers("nu", _NU_FLAVS)
+            self.data.link_containers("nubar", _NUBAR_FLAVS)
         for container in self.data:
-            container["probability"] = osc_probs(
-                theta, int(container["nubar"]), self.geom,
-                reparam=self.reparam_mix_matrix, nlo_factor=nlo_factor,
-                active=active, multitangent=self.multitangent,
-            )
+            geom = (self.geom if self.is_map
+                    else self._events_geometry(container))
+            container["probability"] = self._propagate(
+                geom, int(container["nubar"]), physics)
         self.data.unlink_containers()
 
         # per-flavour projections: P(e -> flav), P(mu -> flav)
@@ -231,21 +502,46 @@ class prob3(Stage):  # noqa: N801
             container["prob_e"] = probs[..., 0, flav]
             container["prob_mu"] = probs[..., 1, flav]
 
+    def _compute_stacked_events(self, container, physics):
+        """Per-event calc on a stacked container (``_compute_stacked_events``
+        :727 of the JAX package): one fixed-sign propagation per nubar group
+        over its (categories x padded events) block, the blocks put back in
+        category order as (C, n_pad, 3, 3), and each category's
+        P(e -> flav), P(mu -> flav) as (C, n_pad)."""
+        static = self._stacked_events_geometry(container)
+        n_pad = container.n_pad
+        blocks = [self._propagate(geom, sign, physics).reshape(-1, n_pad, 3, 3)
+                  for sign, geom in static["groups"]]
+        probs = torch.cat(blocks).index_select(0, static["inv"])
+        container["probability"] = probs
+        fl = static["flav"].expand(-1, n_pad, 1)
+        container["prob_e"] = torch.gather(probs[:, :, 0, :], 2, fl)[..., 0]
+        container["prob_mu"] = torch.gather(probs[:, :, 1, :], 2, fl)[..., 0]
+
     def stacked_ok(self):
-        return not isinstance(self.apply_mode, MultiDimBinning)
+        return (self.is_map or self.calc_mode == "events") and not isinstance(
+            self.apply_mode, MultiDimBinning)
+
+    def prepare_stacked(self, data):
+        if not self.is_map:
+            for container in data.containers:
+                self._stacked_events_geometry(container)
 
     def _apply_stacked(self, container):
         """The (6, ngrid) rate (nubar group x final flavour; the flux does
         not depend on the flavour, so each of its 2 rows serves 3 rate
         rows) formed on the grid, then gathered to the stacked events in one
-        op or deferred to the histogram stage. With a per-event flux the
-        grid identity does not hold: the probabilities are gathered and the
-        product taken per event, as on the unstacked unfused branch."""
+        op or deferred to the histogram stage. With a per-event flux or
+        per-event probabilities (the per-event calc mode) the grid identity
+        does not hold: the product is taken per event, as on the unstacked
+        unfused branch."""
         rep = container.representation
         calc_h = hash(self.calc_mode)
         k = 0 if container.lanes is None else 1  # the lane axis, if any
-        if isinstance(rep, str) and container.validity.get(
-                "nu_flux", {}).get(hash(rep), False):
+        valid = container.validity
+        if isinstance(rep, str) and (
+                valid.get("nu_flux", {}).get(hash(rep), False)
+                or valid.get("prob_e", {}).get(hash(rep), False)):
             nu_flux = container["nu_flux"]  # (C, n_pad, 2) per event
             container["weights"] = container["weights"] * (
                 nu_flux[..., 0] * container["prob_e"]
