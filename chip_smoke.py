@@ -87,7 +87,22 @@ oscillation grid, 15 free parameters) on the card through its two paths:
   template and the captured value_and_grad; (d) LRI, the three tomography
   types and ``layer_dedup``: the template. Each value_and_grad with its
   wall, back-to-back time, kernels per replay, busy share, peak memory and
-  launches.
+  launches;
+- forward mode and lanes under the options, this slice's main path: the
+  three kernels over 16 lanes of general packs (each lane its own theta,
+  couplings and sign) against their plain versions and against each
+  lane's single launch; in float64 (a child process), card against CPU on
+  the 20x20-grid flagship, ``get_fisher_matrix`` under NSI and under LRI
+  (emu), each with 16 free params (its launches: one primal and ceil(16 /
+  6) multitangent launches per sign), and ``fit_batch_on_device`` with 4
+  lanes under NSI, decay and the per-event calc mode against each lane's
+  solo fit and the CPU; then at full width in float32 under NSI (16 free):
+  ``get_fisher_matrix`` (wall, launches), ``mcmc_sampling`` with 32
+  walkers (wall per step), and ``fit_pseudo_ensemble(cd, "mod_chi2",
+  n_trials=16)`` (wall per trial, evaluations, peak memory, the launches of
+  one 16-lane value_and_grad), then 64 trials where 4x the 16-trial peak
+  fits in the card's free memory (else the line "64-lane NSI ensemble:
+  does not fit"), and lane 0 beside its solo fit.
 
 It times the kernels (device-only, from a CUDA graph of 200 launches, and
 host-inclusive, from back-to-back launches between CUDA events; the
@@ -106,8 +121,10 @@ non-zero on any failed check; the last line of a passing run is
 the kernel checks and timings, with ``--release-only`` it builds the
 kernels and runs the release phases alone, with ``--analysis-only`` the
 phases of the rest of the analysis layer alone, and with
-``--osc-options-only`` the phases of prob3's options alone; none prints a
-status line.
+``--osc-options-only`` the phases of prob3's options alone, and with
+``--osc-lanes-only`` the phases of forward mode and lanes under the options
+alone; none prints a status line. It prints its total wall before the
+kernels line.
 
 The float64 runs (CPU reference and card) happen in a child process, since
 the float type is chosen once per process (``PISA_TPU_FTYPE``); the main
@@ -263,6 +280,23 @@ NSI_NAMES = ("eps_ee", "eps_emu_magn", "eps_emu_phase", "eps_etau_magn",
              "eps_mutau_phase", "eps_tautau")
 NSI_NOMINAL = dict.fromkeys(NSI_NAMES, 0.0) | {"eps_mutau_magn": 0.02}
 OPTIONS_FP64_FRACTION = 0.05
+
+# forward mode and lanes under the options: the general packs' lanes (one
+# launch against the plain version and against single launches), the
+# Fisher matrices' card-vs-CPU bound (float64, per entry: relative, and of
+# sqrt(F_ii F_jj) for entries that are round-off of a zero correlation),
+# the float64 phases' event fractions (the CPU's share of their wall), the
+# NSI ensemble's
+# trials and steps (its 64-trial run only where 4x the 16-trial peak fits
+# in the card's free memory) and the NSI sampler's walkers and steps
+GENERAL_LANES = 16
+FISHER_OPTIONS_RTOL = 1e-9
+FISHER_OPTIONS_ZERO = 1e-12
+OPTIONS_LANES_FP64_FRACTION = 0.25
+OPTIONS_BATCH_FRACTION = 0.0025
+OPTIONS_TRIALS = (16, 64)
+OPTIONS_ENSEMBLE_STEPS = 10
+OPTIONS_MCMC = {"walkers": 32, "burnin": 10, "steps": 40}
 
 # the routes of one value_and_grad: label, compile options, captured
 ROUTES = (
@@ -717,6 +751,18 @@ def batch_parity_fp64(smi):
     + 0.01 rescaled, lanes 2 and 3 seeded Poisson data of it from the
     nominal values and from theta23 + 0.05; at BATCH_FIT_GTOL they stop at
     different iterations, which the check requires."""
+    from pisa_tpu_torch.core.pipeline import Pipeline
+
+    batch_parity("20x20-grid flagship",
+                 {device: Pipeline(small_grid_config(), device=device)
+                  for device in ("cuda", "cpu")}, smi, require_spread=True)
+
+
+def batch_parity(label, pipelines, smi, require_spread):
+    """batch_parity_fp64's fits and checks on `pipelines` ({device:
+    Pipeline} of one config, on the card and on the CPU);
+    `require_spread`: the lanes must stop at different iterations (else
+    that is printed only)."""
     import numpy as np
 
     from pisa_tpu_torch.analysis.device_fit import (
@@ -724,10 +770,8 @@ def batch_parity_fp64(smi):
         minimize_on_device,
     )
     from pisa_tpu_torch.analysis.gradient import CompiledDistribution
-    from pisa_tpu_torch.core.pipeline import Pipeline
 
-    cds = {device: CompiledDistribution(Pipeline(small_grid_config(),
-                                                 device=device))
+    cds = {device: CompiledDistribution(pipelines[device])
            for device in ("cuda", "cpu")}
     x0 = cds["cpu"].current_rescaled_values()
     asimov = cds["cpu"].sum_hist(x0)
@@ -748,8 +792,8 @@ def batch_parity_fp64(smi):
             max_steps=BATCH_FIT_STEPS, gtol=BATCH_FIT_GTOL, device=device)
         fits[device] = (x.cpu().numpy(), fun.cpu().numpy(),
                         nit.cpu().numpy())
-        print(f"float64 batched fit, {BATCH_FIT_LANES} lanes, 20x20-grid"
-              f" flagship, {device}: nit {fits[device][2].tolist()}, fun"
+        print(f"float64 batched fit, {BATCH_FIT_LANES} lanes, {label},"
+              f" {device}: nit {fits[device][2].tolist()}, fun"
               f" {fits[device][1].tolist()}; wall"
               f" {time.perf_counter() - t0:.2f} s (with the capture) [{smi}]")
     solo_nit, solo_dx = [], 0.0
@@ -764,22 +808,24 @@ def batch_parity_fp64(smi):
         solo_dx = max(solo_dx, float(np.abs(fit["x"]
                                             - fits["cuda"][0][b]).max()))
     cpu_dx = float(np.abs(fits["cuda"][0] - fits["cpu"][0]).max())
-    print(f"float64 batched fit on the card vs each lane's solo card fit:"
-          f" nit {fits['cuda'][2].tolist()} vs {solo_nit}, max |dx|"
-          f" {solo_dx:.3e} (bound {BATCH_SOLO_X_ATOL:g}); solo fits"
+    print(f"float64 batched fit ({label}) on the card vs each lane's solo"
+          f" card fit: nit {fits['cuda'][2].tolist()} vs {solo_nit}, max"
+          f" |dx| {solo_dx:.3e} (bound {BATCH_SOLO_X_ATOL:g}); solo fits"
           f" {time.perf_counter() - t0:.2f} s [{smi}]")
-    print(f"float64 batched fit, card vs CPU: nit"
+    print(f"float64 batched fit ({label}), card vs CPU: nit"
           f" {fits['cuda'][2].tolist()} vs {fits['cpu'][2].tolist()}, max"
           f" |dx| {cpu_dx:.3e} (bound {BATCH_CPU_X_ATOL:g}) [{smi}]")
-    check(len(set(solo_nit)) > 1,
-          f"the lanes all stopped at iteration {solo_nit[0]}")
+    if require_spread:
+        check(len(set(solo_nit)) > 1,
+              f"the lanes all stopped at iteration {solo_nit[0]}")
     check(fits["cuda"][2].tolist() == solo_nit,
-          "a batched lane took other iterations than its solo fit")
+          f"{label}: a batched lane took other iterations than its solo fit")
     check(solo_dx <= BATCH_SOLO_X_ATOL,
-          "a batched lane's best fit is off its solo fit")
+          f"{label}: a batched lane's best fit is off its solo fit")
     check(np.array_equal(fits["cuda"][2], fits["cpu"][2]),
-          "card and CPU batched fits took different iterations")
-    check(cpu_dx <= BATCH_CPU_X_ATOL, "card and CPU batched fits differ")
+          f"{label}: card and CPU batched fits took different iterations")
+    check(cpu_dx <= BATCH_CPU_X_ATOL, f"{label}: card and CPU batched fits"
+          " differ")
 
 
 def release_hypothesis(device):
@@ -1575,28 +1621,37 @@ def lane_kernels(chain):
                       f" {vs_single}")
             times = {}
             for lanes in KERNEL_TIME_LANES:
-                p_l = pvec[:lanes].contiguous()
-                d_l = None if d is None else d[:lanes].contiguous()
-                batched_ms = graph_time(lambda: run(p_l, d_l),
-                                        launches=max(3, 200 // lanes))
-                singles_ms = graph_time(
-                    lambda: [run(p_l[b], None if d_l is None else d_l[b])
-                             for b in range(lanes)],
-                    launches=max(2, 200 // lanes))
-                bound = kernel_bound(chain, geom, k, not tangent[0], lanes)
-                times[lanes] = {"ms": batched_ms, "singles_ms": singles_ms,
-                                "bound_ms": bound["bound_ms"],
-                                "bound_by": bound["bound_by"]}
-                print(f"time, {name} {dname}, {lanes} lanes: one launch"
-                      f" {batched_ms:.5f} ms device-only (CUDA graph),"
-                      f" {lanes} single launches {singles_ms:.5f} ms; bound"
-                      f" {bound['bound_ms']:.5f} ms by {bound['bound_by']}"
-                      f" ({bound['ops']} operations, {bound['bytes']} bytes):"
-                      f" {100 * bound['bound_ms'] / batched_ms:.1f}% of it")
+                times[lanes] = time_lanes(
+                    f"{name} {dname}, {lanes} lanes", chain, geom, run,
+                    pvec[:lanes].contiguous(),
+                    None if d is None else d[:lanes].contiguous(), k,
+                    not tangent[0])
             summary[name][dname] = {"max_abs_err": err_abs,
                                     "max_rel_err": err_rel,
                                     "vs_single": vs_single, "lanes": times}
     return summary
+
+
+def time_lanes(label, chain, geom, run, pvec, d, k, with_primal):
+    """`run(pvec, d)`'s device-only time (a CUDA graph) over the lanes of
+    `pvec` (and of the directions `d`, or None) in one launch, beside as
+    many single launches, with the launch's bound (kernel_bound); printed
+    and returned."""
+    lanes = pvec.shape[0]
+    batched_ms = graph_time(lambda: run(pvec, d),
+                            launches=max(3, 200 // lanes))
+    singles_ms = graph_time(
+        lambda: [run(pvec[b], None if d is None else d[b])
+                 for b in range(lanes)],
+        launches=max(2, 200 // lanes))
+    bound = kernel_bound(chain, geom, k, with_primal, lanes)
+    print(f"time, {label}: one launch {batched_ms:.5f} ms device-only (CUDA"
+          f" graph), {lanes} single launches {singles_ms:.5f} ms; bound"
+          f" {bound['bound_ms']:.5f} ms by {bound['bound_by']}"
+          f" ({bound['ops']} operations, {bound['bytes']} bytes):"
+          f" {100 * bound['bound_ms'] / batched_ms:.1f}% of it")
+    return {"ms": batched_ms, "singles_ms": singles_ms,
+            "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"]}
 
 
 def tile_line(tiles):
@@ -2973,7 +3028,8 @@ def options_config(option, small=False, fraction=None, earth_model=None):
     """The flagship config with one of prob3's options: 'nsi' (standard,
     the 9 eps_* at NSI_NOMINAL with eps_mutau_magn free: 16 free params),
     'decay' (decay_alpha3 free at 0), 'events' (prob3 and barr_simple at
-    calc_mode = events), 'lri' (mutau, v_lri fixed), 'tomography-earth',
+    calc_mode = events), 'lri' (mutau, v_lri fixed), 'lri-emu' (emu,
+    v_lri free: 16 free params), 'tomography-earth',
     'tomography-core', 'tomography-core-free' (the latter two on the
     5-layer model at `earth_model`), 'dedup'. `small`: the 20x20 grid;
     `fraction`: the loader keeps that fraction of the events."""
@@ -3004,6 +3060,10 @@ def options_config(option, small=False, fraction=None, earth_model=None):
         section["lri_type"] = "mutau-symmetry"
         extra.append(Param(name="v_lri", value=2e-14 * ureg.eV,
                            range=(0.0, 1e-13) * ureg.eV, is_fixed=True))
+    elif option == "lri-emu":
+        section["lri_type"] = "emu-symmetry"
+        extra.append(Param(name="v_lri", value=2e-14 * ureg.eV,
+                           range=(0.0, 1e-13) * ureg.eV, is_fixed=False))
     elif option.startswith("tomography"):
         kind, scales = {
             "tomography-earth": ("mass_of_earth", {"density_scale": 1.02}),
@@ -3338,6 +3398,423 @@ def osc_options_fp32(chain, smi):
     return tuple(total)
 
 
+def general_lane_kernels(chain):
+    """The three kernels over GENERAL_LANES lanes of general packs, the
+    shapes the NSI and LRI lanes give them (each lane its own theta,
+    couplings from general_pack_cases in turn and sign; the flagship
+    geometry), float64 and float32: the primal, the tangent along
+    eps_mutau_magn, and the multitangent at K = 3 (eps_mutau_magn,
+    eps_mutau_phase, v_lri) and K = 6 (also theta13, theta23, dm31). One
+    launch over the lanes is held against the plain version in float64
+    (primal KERNEL_ATOL, multitangent primal MULTI_PRIMAL_ATOL, tangents
+    TANGENT_RTOL of each lane's and direction's largest; the float32 primal
+    kernel at the 'large' couplings is printed, not held, as in
+    general_pack_kernels), and each lane against its own single launch,
+    which it must equal exactly. Then each launch's device-only time (a
+    CUDA graph) beside as many single launches, with its bound. Returns
+    per kernel and dtype the errors and, by K, the times."""
+    import torch
+
+    summary = {name: {} for name in KERNELS}
+    for dtype in (torch.float64, torch.float32):
+        dname = str(dtype).split(".")[-1]
+        geom, params = flagship_geometry(dtype)
+        args = (geom["e"], geom["dens"], geom["dist"], geom["nl"])
+        args64 = tuple(a.double() for a in args[:3]) + args[3:]
+        tiles = geom["tiles"]
+        cases = general_pack_cases(params)
+        thetas = flagship_thetas(params, GENERAL_LANES)
+        packs, dirs, large = [], [], []
+        for b in range(GENERAL_LANES):
+            label, _, eps, v_lri = cases[b % len(cases)]
+            pack, d = general_pack(chain, thetas[b], eps, v_lri,
+                                   1 if b % 2 == 0 else -1)
+            packs.append(pack)
+            dirs.append(d)
+            large.append(label == "large")
+        pvec = torch.stack(packs).to("cuda", dtype).contiguous()
+        d6 = torch.stack(dirs).to("cuda", dtype).contiguous()  # (B, 6, 57)
+        runs = {
+            "osc_chain": [(0, None,
+                           lambda p, d: (chain.chain_probs(p, *args, tiles),),
+                           lambda p, d, a: (chain.chain_probs_reference(
+                               p, *a),))],
+            "osc_chain_tangent": [(1, d6[:, 3].contiguous(),
+                                   lambda p, d: (chain.chain_tangent(
+                                       p, d, *args, tiles),),
+                                   lambda p, d, a: (
+                                       chain.chain_tangent_reference(
+                                           p, d, *a),))],
+            "osc_chain_multitangent": [
+                (k, dk, lambda p, d: chain.chain_multitangent(p, d, *args,
+                                                              tiles),
+                 lambda p, d, a: chain.chain_multitangent_reference(p, d, *a))
+                for k, dk in ((3, d6[:, 3:].contiguous()), (6, d6))],
+        }
+        for name, variants in runs.items():
+            summary[name][dname] = {"max_abs_err": 0.0, "times": {}}
+            for k, d, run, plain in variants:
+                t0 = time.perf_counter()
+                got = run(pvec, d)
+                ref = plain(pvec.double(), None if d is None else d.double(),
+                            args64)
+                torch.cuda.synchronize()
+                check(all(bool(torch.isfinite(g).all()) for g in got),
+                      f"general lanes, {name} K={k} {dname}: not finite")
+                tangent = (k > 0,) if len(got) == 1 else (False, True)
+                primal_err = torch.zeros(GENERAL_LANES, dtype=torch.float64)
+                tangent_err = 0.0
+                abs_err = 0.0
+                for g, r, is_tangent in zip(got, ref, tangent):
+                    diff = (g.double() - r).abs()
+                    abs_err = max(abs_err, float(diff.max()))
+                    if is_tangent:
+                        scale = r.abs().amax(dim=(-3, -2, -1), keepdim=True)
+                        tangent_err = max(tangent_err,
+                                          float((diff / scale).max()))
+                    else:
+                        primal_err = diff.flatten(1).amax(1).cpu()
+                del ref
+                vs_single = 0.0
+                for b in range(GENERAL_LANES):
+                    single = run(pvec[b], None if d is None else d[b])
+                    for g, one in zip(got, single):
+                        vs_single = max(vs_single,
+                                        float((g[b] - one).abs().max()))
+                bound_abs = MULTI_PRIMAL_ATOL[dname] if k else KERNEL_ATOL[dname]
+                # the float32 primal kernel at the large couplings: printed
+                exempt = torch.tensor(large) & (dtype == torch.float32) & (k == 0)
+                held = float(primal_err[~exempt].max())
+                over = float(primal_err[exempt].max()) if exempt.any() else 0.0
+                print(f"general lanes, {name} K={k} {dname}:"
+                      f" {GENERAL_LANES} lanes of general packs in one launch"
+                      f" vs plain (float64): primal {held:.3e} abs (bound"
+                      f" {bound_abs:g})"
+                      + (f", at the large couplings {over:.3e} (not held)"
+                         if exempt.any() else "")
+                      + f", tangents {tangent_err:.3e} rel (bound"
+                      f" {TANGENT_RTOL[dname]:g}); vs {GENERAL_LANES} single"
+                      f" launches {vs_single!r} (must be 0.0);"
+                      f" {time.perf_counter() - t0:.1f} s")
+                check(held <= bound_abs
+                      and tangent_err <= TANGENT_RTOL[dname],
+                      f"general lanes, {name} K={k} {dname}: off the plain"
+                      " version")
+                check(vs_single == 0.0,
+                      f"general lanes, {name} K={k} {dname}: a lane differs"
+                      f" from its single launch by {vs_single}")
+                entry = summary[name][dname]
+                entry["max_abs_err"] = max(entry["max_abs_err"], abs_err)
+                entry["times"][k] = time_lanes(
+                    f"general lanes, {name} K={k} {dname}, {GENERAL_LANES}"
+                    " lanes", chain, geom, run, pvec, d, k, not tangent[0])
+    return summary
+
+
+def fisher_options_fp64(smi, pipelines):
+    """float64, the 20x20-grid flagship (`pipelines`, {option: {device:
+    Pipeline}}) under NSI (standard, eps_mutau_magn free) and under LRI
+    (emu, v_lri free), 16 free params each: get_fisher_matrix on the card
+    against the CPU, per entry within
+    FISHER_OPTIONS_RTOL relative (and FISHER_OPTIONS_ZERO of sqrt(F_ii
+    F_jj) for an entry that is round-off of a zero correlation); the
+    card's launches must be one primal and ceil(16 / 6) multitangent
+    launches per sign (the general packs' tangents)."""
+    import numpy as np
+
+    from pisa_tpu_torch.analysis.fisher import get_fisher_matrix
+    from pisa_tpu_torch.ops.osc import chain
+
+    for option in ("nsi", "lri-emu"):
+        results = {}
+        for device in ("cpu", "cuda"):
+            ct = pipelines[option][device].compile()
+            reset_launch_counts(chain)
+            t0 = time.perf_counter()
+            fm = get_fisher_matrix(ct)
+            wall = time.perf_counter() - t0
+            results[device] = (fm.matrix, wall, launch_counts(chain))
+        (want, cpu_wall, _), (got, wall, launches) = (results["cpu"],
+                                                      results["cuda"])
+        n = want.shape[0]
+        expected = (2, 0, 2 * -(-n // chain.MAX_TANGENTS))
+        diag = np.sqrt(np.abs(np.diag(want)))
+        scale = np.outer(diag, diag)
+        mism = float((np.abs(got - want) / (FISHER_OPTIONS_RTOL
+                                             * np.abs(want)
+                                             + FISHER_OPTIONS_ZERO
+                                             * scale)).max())
+        nonzero = np.abs(want) > 1e-6 * scale
+        rel = float((np.abs(got - want)[nonzero]
+                     / np.abs(want)[nonzero]).max())
+        print(f"float64 Fisher matrix, 20x20-grid flagship, {option} ({n}"
+              f" params), card vs CPU: worst entry {rel:.3e} relative (of"
+              f" the entries above 1e-6 of sqrt(F_ii F_jj)), worst at"
+              f" {mism:.3e} of its bound (rtol {FISHER_OPTIONS_RTOL:g},"
+              f" {FISHER_OPTIONS_ZERO:g} of sqrt(F_ii F_jj)); launches"
+              f" {launches} (expected {expected}); wall {wall:.2f} s on the"
+              f" card, {cpu_wall:.2f} s on the CPU [{smi}]")
+        check(np.all(np.isfinite(got)), f"{option}: Fisher matrix not finite")
+        check(mism <= 1.0, f"{option}: Fisher matrix, card vs CPU")
+        check(launches == expected, f"{option}: Fisher launches {launches}")
+
+
+def options_batch_fp64(smi, pipelines):
+    """float64, batch_parity's fits and checks under prob3's options on the
+    20x20-grid flagship (`pipelines`, {option: {device: Pipeline}}): NSI
+    (standard, eps_mutau_magn free), decay (decay_alpha3 free) and
+    calc_mode = events. Whether the lanes stop at different iterations is
+    printed, not required."""
+    for option in ("nsi", "decay", "events"):
+        t0 = time.perf_counter()
+        batch_parity(f"20x20-grid flagship, {option}", pipelines[option],
+                     smi, require_spread=False)
+        print(f"float64 batch parity, {option}: {time.perf_counter() - t0:.1f}"
+              f" s [{smi}]")
+
+
+def options_lanes_worker():
+    """float64: fisher_options_fp64 and options_batch_fp64 in a child
+    process, over one pipeline per option and device (the 20x20-grid
+    flagship at OPTIONS_LANES_FP64_FRACTION of the events, the per-event
+    mode at OPTIONS_BATCH_FRACTION: the CPU's plain tangents at all of them
+    would take minutes)."""
+    from pisa_tpu_torch import FTYPE_NAME
+    from pisa_tpu_torch.core.pipeline import Pipeline
+
+    check(FTYPE_NAME == "fp64", f"options lanes worker runs {FTYPE_NAME}")
+    smi = card_line()
+    t0 = time.perf_counter()
+    pipelines = {
+        option: {device: Pipeline(options_config(
+            option, small=True, fraction=OPTIONS_BATCH_FRACTION
+            if option == "events" else OPTIONS_LANES_FP64_FRACTION),
+            device=device) for device in ("cuda", "cpu")}
+        for option in ("nsi", "lri-emu", "decay", "events")}
+    print(f"float64 options lanes set-up (8 pipelines):"
+          f" {time.perf_counter() - t0:.1f} s [{smi}]")
+    for label, phase in (("Fisher", fisher_options_fp64),
+                         ("batch", options_batch_fp64)):
+        t0 = time.perf_counter()
+        phase(smi, pipelines)
+        print(f"float64 options {label} phase: {time.perf_counter() - t0:.1f}"
+              f" s [{smi}]")
+
+
+def options_lanes_fp32(chain, smi):
+    """Forward mode and lanes under NSI at full width, float32, through the
+    entry points (this slice's main path): the NSI flagship
+    (options_config('nsi'), 16 free) (1) get_fisher_matrix: its wall and
+    launches (one primal and ceil(16 / 6) multitangent launches per sign);
+    (2) fit_pseudo_ensemble(cd, 'mod_chi2', 16 trials, OPTIONS_ENSEMBLE_STEPS
+    steps): wall per trial, evaluations, peak memory, the launches of one
+    eager 16-lane value_and_grad and the captured one's wall, back-to-back
+    and device time; then 64 trials where 4x the 16-trial
+    peak fits in the card's free memory (torch.cuda.mem_get_info), else
+    both numbers and the line '64-lane NSI ensemble: does not fit'; (3)
+    lane 0 beside its solo minimize_on_device fit (a report: the lane
+    program and the solo one may round differently in float32); (4)
+    mcmc_sampling with OPTIONS_MCMC's walkers: wall per step. The counts
+    are set to 0 just before each path and read just after; returns their
+    sums."""
+    import numpy as np
+    import torch
+
+    from pisa_tpu_torch import TORCH_FTYPE
+    from pisa_tpu_torch.analysis.bayesian import mcmc_sampling
+    from pisa_tpu_torch.analysis.device_fit import (
+        fit_pseudo_ensemble,
+        minimize_on_device,
+    )
+    from pisa_tpu_torch.analysis.fisher import get_fisher_matrix
+    from pisa_tpu_torch.analysis.gradient import CompiledDistribution
+    from pisa_tpu_torch.core.distribution_maker import DistributionMaker
+    from pisa_tpu_torch.core.pipeline import Pipeline
+
+    total = [0, 0, 0]
+
+    def add(launches):
+        for i, n in enumerate(launches):
+            total[i] += n
+
+    # (1) the Fisher matrix
+    ct = Pipeline(options_config("nsi"), device="cuda").compile()
+    n = len(ct.free_names)
+    get_fisher_matrix(ct)  # the first call builds the lazily cached tensors
+    walls = []
+    for _ in range(3):
+        reset_launch_counts(chain)
+        t0 = time.perf_counter()
+        fm = get_fisher_matrix(ct)
+        walls.append(time.perf_counter() - t0)
+        launches = launch_counts(chain)
+    expected = (2, 0, 2 * -(-n // chain.MAX_TANGENTS))
+    print(f"float32 Fisher matrix, NSI flagship ({n} free), jacfwd of the"
+          f" eager template: wall median {np.median(walls) * 1e3:.2f} ms of 3"
+          f" (min {min(walls) * 1e3:.2f}); launches {launches} (expected"
+          f" {expected}) [{smi}]")
+    check(np.all(np.isfinite(fm.matrix)) and np.all(np.diag(fm.matrix) > 0),
+          "NSI Fisher matrix not finite or not positive")
+    check(launches == expected, f"NSI Fisher launches {launches}")
+    add(launches)
+
+    # (4) the sampler, on the same template
+    data = ct.get_outputs(ct.current_rescaled_values())
+    kwargs = dict(metric="llh", n_walkers=OPTIONS_MCMC["walkers"], seed=0,
+                  init_spread=0.01)
+    # a first call builds what the lanes' first evaluation caches
+    mcmc_sampling(ct, data, n_burnin=0, n_steps=1, **kwargs)
+    runs = {}
+    for label, burn, steps in (("one step", 0, 1),
+                               ("run", OPTIONS_MCMC["burnin"],
+                                OPTIONS_MCMC["steps"])):
+        if label == "run":
+            reset_launch_counts(chain)
+        t0 = time.perf_counter()
+        waits, out = count_host_syncs(lambda: mcmc_sampling(
+            ct, data, n_burnin=burn, n_steps=steps, **kwargs))
+        runs[label] = (time.perf_counter() - t0, waits, out)
+    launches = launch_counts(chain)
+    (wall0, waits0, _), (wall, waits, (samples, logp, acceptance)) = (
+        runs["one step"], runs["run"])
+    steps = OPTIONS_MCMC["burnin"] + OPTIONS_MCMC["steps"] - 1
+    per_step = (wall - wall0) / steps
+    print(f"float32 MCMC, NSI flagship, {OPTIONS_MCMC['walkers']} walkers,"
+          f" {OPTIONS_MCMC['burnin']} burn-in + {OPTIONS_MCMC['steps']}"
+          f" steps: {per_step * 1e3:.2f} ms per step (the standard route's:"
+          f" mcmc_fp32), acceptance {acceptance:.3f},"
+          f" {(waits - waits0) / steps:g} host waits per step; launches"
+          f" {launches} [{smi}]")
+    check(np.all(np.isfinite(samples)) and np.all(np.isfinite(logp)),
+          "NSI MCMC chain not finite")
+    check((waits - waits0) == 0, "the NSI sampler waited within its steps")
+    check(launches[0] > 0, "the primal kernel never ran for the walkers")
+    add(launches)
+    del ct, data, runs
+
+    # (2) the pseudo-ensembles
+    dm = DistributionMaker([options_config("nsi")], device="cuda")
+    cd = CompiledDistribution(dm)
+    x_nom = cd.current_rescaled_values()
+    asimov = cd.sum_hist(x_nom)
+    los, his = cd._device_bounds()
+    eager = cd._objective(asimov, "mod_chi2")
+    lam = torch.as_tensor(asimov, dtype=TORCH_FTYPE, device="cuda")
+    data = torch.poisson(lam.expand(OPTIONS_TRIALS[0], -1).contiguous())
+    reset_launch_counts(chain)
+    vec = torch.as_tensor(np.tile(x_nom, (OPTIONS_TRIALS[0], 1)),
+                          device="cuda").requires_grad_(True)
+    eager(vec, los, his, data).sum().backward()
+    torch.cuda.synchronize()
+    vg_launches = launch_counts(chain)
+    print(f"float32 NSI batched value_and_grad, {OPTIONS_TRIALS[0]} lanes,"
+          f" eager: launches {vg_launches} (expected (2, 0, 0)) [{smi}]")
+    check(vg_launches == (2, 0, 0), f"NSI lanes' launches {vg_launches}")
+    del vec, data
+    peak = {}
+    ens = None
+    for trials in OPTIONS_TRIALS:
+        if trials != OPTIONS_TRIALS[0]:
+            torch.cuda.empty_cache()
+            free, _ = torch.cuda.mem_get_info()
+            need = trials // OPTIONS_TRIALS[0] * peak[OPTIONS_TRIALS[0]]
+            print(f"{trials}-lane NSI ensemble: {need / 2**30:.2f} GiB"
+                  f" predicted ({trials // OPTIONS_TRIALS[0]}x the"
+                  f" {OPTIONS_TRIALS[0]}-lane peak), {free / 2**30:.2f} GiB"
+                  f" free on the card [{smi}]")
+            if need > free:
+                print(f"{trials}-lane NSI ensemble: does not fit")
+                continue
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        reset_launch_counts(chain)
+        t0 = time.perf_counter()
+        out = fit_pseudo_ensemble(cd, "mod_chi2", n_trials=trials, seed=0,
+                                  max_steps=OPTIONS_ENSEMBLE_STEPS)
+        wall = time.perf_counter() - t0
+        launches = launch_counts(chain)
+        peak[trials] = torch.cuda.max_memory_allocated() - base
+        nit = out["nit"]
+        print(f"fit_pseudo_ensemble, NSI flagship, {trials} trials,"
+              f" mod_chi2, {OPTIONS_ENSEMBLE_STEPS} steps, float32: wall"
+              f" {wall:.3f} s with its capture ({wall / trials * 1e3:.2f} ms"
+              f" a trial), nit median {float(np.median(nit))} max"
+              f" {int(nit.max())}, {out['nfev']} evaluations, {out['reads']}"
+              f" flag reads; peak memory above what was resident"
+              f" {peak[trials] / 2**20:.1f} MiB"
+              f" ({peak[trials] / trials / 2**20:.1f} MiB a lane); launches"
+              f" {launches} [{smi}]")
+        check(np.all(np.isfinite(out["fun"])) and np.all(nit > 0),
+              f"the {trials}-trial NSI ensemble's fits are not all finite")
+        check(launches[0] > 0, "the NSI ensemble launched no primal kernel")
+        add(launches)
+        if ens is None:
+            ens = out
+            # the captured lanes' value_and_grad the ensemble ran, at its
+            # best fits: wall (with the read), back to back, device time
+            value_fn, _ = cd.build_objective(asimov, "mod_chi2")
+            program = value_fn.raw_with_data.programs[(trials, True)]
+            program.load_extra(torch.as_tensor(out["data"], device="cuda",
+                                               dtype=TORCH_FTYPE))
+            vec = torch.as_tensor(out["x"], device="cuda")
+
+            def vg():
+                value, grad = program.value_and_grad(vec, los, his)
+                return torch.cat([value.reshape(-1), grad.reshape(-1)]).cpu()
+
+            vg_wall, vg_min = median_wall(vg, 5)
+            back_ms = cuda_time(lambda: program.value_and_grad(vec, los, his),
+                                5)
+            _, device_ms, _, _, kernels = profile_device_busy(
+                lambda: program.value_and_grad(vec, los, his))
+            print(f"float32 NSI captured value_and_grad, {trials} lanes:"
+                  f" wall {vg_wall * 1e3:.2f} ms median of 5 (min"
+                  f" {vg_min * 1e3:.2f}), {back_ms:.2f} ms back to back"
+                  f" ({back_ms / trials:.2f} ms a lane); one replay:"
+                  f" {kernels} kernels, {device_ms:.2f} ms of device time"
+                  f" [{smi}]")
+
+    # (3) lane 0 beside its solo fit
+    value_0, _ = cd.build_objective(ens["data"][0], "mod_chi2")
+    bounds = cd._current_bounds()
+    reset_launch_counts(chain)
+    t0 = time.perf_counter()
+    solo = minimize_on_device(value_0.raw, x_nom, *bounds,
+                              max_steps=OPTIONS_ENSEMBLE_STEPS, device="cuda")
+    solo_wall = time.perf_counter() - t0
+    add(launch_counts(chain))
+    print(f"solo minimize_on_device, NSI, trial 0's data, same start,"
+          f" float32: wall {solo_wall:.3f} s with its capture, nit"
+          f" {solo['nit']} (lane 0: {int(ens['nit'][0])}), {solo['nfev']}"
+          f" evaluations; max |x - lane 0's| "
+          f"{float(np.abs(solo['x'] - ens['x'][0]).max()):.3e} rescaled"
+          f" [{smi}]")
+    del dm, cd
+    print(f"options lanes path launches (primal, tangent, multitangent):"
+          f" {tuple(total)} [{smi}]")
+    return tuple(total)
+
+
+def osc_lanes_only_main(chain, smi):
+    """``--osc-lanes-only``: the kernels built, then this slice's phases
+    alone (general_lane_kernels, the float64 child's Fisher and batch
+    parity, then options_lanes_fp32); no status line."""
+    t0 = time.perf_counter()
+    general_lane_kernels(chain)
+    print(f"general lanes kernels: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    subprocess.run([sys.executable, os.path.abspath(__file__),
+                    "--osc-lanes-worker"],
+                   env=dict(os.environ, PISA_TPU_FTYPE="fp64"), check=True)
+    print(f"float64 child (options lanes): {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    launches = options_lanes_fp32(chain, smi)
+    print(f"float32 options lanes phase: {time.perf_counter() - t0:.1f} s;"
+          f" launches {launches}")
+    return 0
+
+
 def osc_options_only_main(chain, smi):
     """``--osc-options-only``: the kernels built, held at general packs,
     then the options phases alone (the float64 child's and the main
@@ -3407,7 +3884,8 @@ def analysis_only_main(chain, smi):
 
 
 def main(kernels_only=False, release_only=False, analysis_only=False,
-         options_only=False):
+         options_only=False, lanes_only=False):
+    started = time.perf_counter()
     if not os.path.isdir(os.path.join(ROOT, "pisa_tpu_torch")):
         print("chip_smoke.py must run from a checkout of the repository"
               " (pisa_tpu_torch/ not found beside it)", file=sys.stderr)
@@ -3435,6 +3913,8 @@ def main(kernels_only=False, release_only=False, analysis_only=False,
         return analysis_only_main(chain, smi)
     if options_only:
         return osc_options_only_main(chain, smi)
+    if lanes_only:
+        return osc_lanes_only_main(chain, smi)
     kernels = {
         "osc_chain": kernel_vs_plain(chain),
         "osc_chain_tangent": tangent_vs_plain(chain),
@@ -3442,6 +3922,7 @@ def main(kernels_only=False, release_only=False, analysis_only=False,
     }
     lanes = lane_kernels(chain)
     general_pack_kernels(chain)
+    general_lanes = general_lane_kernels(chain)
     print_kernel_times(kernels, smi)
     if kernels_only:
         return 0
@@ -3562,6 +4043,16 @@ def main(kernels_only=False, release_only=False, analysis_only=False,
     t0 = time.perf_counter()
     extra_paths["options"] = osc_options_fp32(chain, smi)
     print(f"float32 options phase: {time.perf_counter() - t0:.1f} s")
+    # forward mode and lanes under the options: float64 card against CPU in
+    # a child, then float32 at full width through the entry points
+    t0 = time.perf_counter()
+    subprocess.run([sys.executable, os.path.abspath(__file__),
+                    "--osc-lanes-worker"],
+                   env=dict(os.environ, PISA_TPU_FTYPE="fp64"), check=True)
+    print(f"float64 child (options lanes): {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    extra_paths["options lanes"] = options_lanes_fp32(chain, smi)
+    print(f"float32 options lanes phase: {time.perf_counter() - t0:.1f} s")
     print(f"launches (primal, tangent, multitangent) by path: gradient and fit"
           f" {fit_path}, template {template_path}, analysis {analysis_path},"
           f" ensemble {ensemble_path}, release {release_path}, "
@@ -3599,7 +4090,15 @@ def main(kernels_only=False, release_only=False, analysis_only=False,
             # beside as many single launches, with its bound
             "lanes_max_abs_err": lane["max_abs_err"],
             "lanes": {str(b): t for b, t in lane["lanes"].items()},
+            # GENERAL_LANES lanes of general (NSI, LRI) packs in one
+            # launch, by K
+            "general_lanes_max_abs_err":
+                general_lanes[name]["float32"]["max_abs_err"],
+            "general_lanes": {str(k): t for k, t in
+                              general_lanes[name]["float32"]["times"].items()},
         })
+    print(f"chip_smoke.py total wall: {time.perf_counter() - started:.1f} s"
+          f" [{smi}]")
     print(json.dumps({"kernels": lines}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
@@ -3611,11 +4110,13 @@ def main(kernels_only=False, release_only=False, analysis_only=False,
 
 
 if __name__ == "__main__":
-    if sys.argv[1:] in (["--analysis-worker"], ["--osc-options-worker"]):
+    workers = {"--analysis-worker": analysis_worker,
+               "--osc-options-worker": osc_options_worker,
+               "--osc-lanes-worker": options_lanes_worker}
+    if len(sys.argv) == 2 and sys.argv[1] in workers:
         sys.path.insert(0, ROOT)
         os.chdir(ROOT)
-        (analysis_worker if sys.argv[1] == "--analysis-worker"
-         else osc_options_worker)()
+        workers[sys.argv[1]]()
         sys.exit(0)
     if len(sys.argv) == 3 and sys.argv[1] in ("--reference-worker",
                                               "--release-worker"):
@@ -3628,4 +4129,5 @@ if __name__ == "__main__":
     sys.exit(main(kernels_only=sys.argv[1:] == ["--kernels-only"],
                   release_only=sys.argv[1:] == ["--release-only"],
                   analysis_only=sys.argv[1:] == ["--analysis-only"],
-                  options_only=sys.argv[1:] == ["--osc-options-only"]))
+                  options_only=sys.argv[1:] == ["--osc-options-only"],
+                  lanes_only=sys.argv[1:] == ["--osc-lanes-only"]))

@@ -50,7 +50,12 @@ What carries over from the JAX package is the math and its interfaces:
   potential, packed by :func:`pack_from_physics` and propagated by the
   primal kernel; its backward is reverse mode through the general
   formulation of ``kernels.py`` over the real layer steps, for the physics
-  inputs only, as the JAX package's ``_vjp_bwd`` :1070 does.
+  inputs only, as the JAX package's ``_vjp_bwd`` :1070 does; its jvp is
+  the pack's tangent (:func:`pack_tangents`) through one tangent launch,
+  and under ``torch.func.jacfwd`` K directions take ceil(K / 6)
+  multitangent launches (the JAX package differentiates its XLA
+  formulation in forward mode there); lanes of physics inputs are lanes of
+  the launches.
 """
 
 from __future__ import annotations
@@ -62,6 +67,7 @@ import types
 import numpy as np
 import torch
 
+from pisa_tpu_torch.ops.osc.kernels import _conj, _osc_probs
 from pisa_tpu_torch.ops.osc.pmns import (
     dm_matrix,
     pmns_matrix,
@@ -90,6 +96,7 @@ __all__ = [
     "OscProbs",
     "osc_probs_general",
     "OscProbsGeneral",
+    "pack_tangents",
     "kernel_library",
     "launch_count",
     "tangent_launch_count",
@@ -152,18 +159,23 @@ def pack_from_physics(dm_vac, U, mat_pot, lri_pot, nubar):
     (``pallas_chain._pack_from_physics`` :1015 and ``_pack_params`` :622):
     U (re, im) | M_eff (re, im) | L_eff (re, im) | dm_vac[:, 0], with the
     matter and LRI terms rotated to the mass basis and the nubar sign folded
-    in. `U` is the already-conjugated (for nubar) complex PMNS matrix."""
+    in. `U` is the already-conjugated (for nubar) complex PMNS matrix. The
+    inputs may carry leading lane axes ((B, 3, 3) each, or broadcastable
+    against each other), which give (B, 57) packs."""
     sign = 1.0 if nubar > 0 else -1.0
-    mp_eff = mat_pot if nubar > 0 else -mat_pot.conj()
-    Ud = U.conj().transpose(0, 1)
+    mp_eff = mat_pot if nubar > 0 else -_conj(mat_pot)
+    Ud = _conj(U).transpose(-1, -2)
     M_eff = (Ud @ mp_eff) @ U
     lri = ((sign * 1e9) * lri_pot).to(U.dtype)
     L_eff = (Ud @ lri) @ U
+    lead = torch.broadcast_shapes(M_eff.shape[:-2], L_eff.shape[:-2],
+                                  dm_vac.shape[:-2])
     parts = [
-        U.real, U.imag, M_eff.real, M_eff.imag, L_eff.real, L_eff.imag,
-        dm_vac[:, 0],
+        x.expand(lead + (3, 3)).reshape(lead + (9,)) for x in (
+            U.real, U.imag, M_eff.real, M_eff.imag, L_eff.real, L_eff.imag)
     ]
-    return torch.cat([x.reshape(-1) for x in parts])
+    return torch.cat(parts + [dm_vac[..., :, 0].expand(lead + (3,))], dim=-1)
+
 
 
 def theta_tensor(theta, device=None, lanes=None):
@@ -987,22 +999,17 @@ class _OscProbsTangent(torch.autograd.Function):
             out = _probs_tangents(theta, dthetas, p2, pvec, *args)
             return out, out.dim() - 4
         # a batch of thetas, each with its direction: lanes of one launch
+        # (merged with the lanes the thetas carry already, if any)
         size = info.batch_size
-
-        def lanes(x, dim):
-            if dim is None:
-                return x.expand((size,) + tuple(x.shape))
-            return x.movedim(dim, 0)
-
-        theta, dtheta, p2, pvec = (
-            lanes(x, dim) for x, dim in zip((theta, dtheta, p2, pvec),
-                                            in_dims[:4]))
-        if theta.dim() != 2:
-            raise NotImplementedError(
-                "vmap over thetas that already carry lanes")
-        out = _probs_tangents(theta, dtheta.unsqueeze(-2), p2.contiguous(),
-                              pvec.contiguous(), *args)
-        return out.squeeze(-4), 0
+        lead = tuple(theta.shape[:-1] if t_dim is None
+                     else theta.movedim(t_dim, 0).shape[1:-1])
+        n = p2.shape[-1]
+        theta, dtheta, p2, pvec = _as_lanes(
+            [(theta, (6,)), (dtheta, (6,)), (p2, (2, 3, n)),
+             (pvec, (N_PACK,))], in_dims[:4], size, lead)
+        out = _probs_tangents(theta, dtheta.unsqueeze(-2), p2, pvec,
+                              *args).squeeze(-4)
+        return out.reshape((size,) + lead + tuple(out.shape[1:])), 0
 
 
 def osc_probs(theta, nubar, geom, reparam=False, nlo_factor=1.0,
@@ -1028,9 +1035,57 @@ def osc_probs(theta, nubar, geom, reparam=False, nlo_factor=1.0,
 
 
 # -- the general-pack route -----------------------------------------------------
-#: the ROADMAP item that forward mode and lanes through the general-pack
-#: route wait for
-GENERAL_PACK_TODO = "ROADMAP queue 1, item 15"
+def pack_tangents(physics, tangents, nubar):
+    """The pack's tangent along the physics inputs' tangents: the jvp of
+    :func:`pack_from_physics` (``torch.func.jvp``; the pack is bilinear in
+    U and the potentials). `physics` and `tangents` are the four inputs and
+    their tangents (None: zero), broadcastable against each other; every
+    leading axis of either is the result's: (..., 57), float64."""
+    lead = torch.broadcast_shapes(*(x.shape[:-2] for x in physics + tuple(
+        t for t in tangents if t is not None)))
+    # dual tensors need their own memory: the broadcasts are copied
+    primals = tuple(x.expand(lead + (3, 3)).contiguous() for x in physics)
+    dirs = tuple(torch.zeros_like(x) if t is None
+                 else t.expand(lead + (3, 3)).contiguous()
+                 for x, t in zip(primals, tangents))
+    return torch.func.jvp(
+        lambda *p: pack_from_physics(*p, nubar), primals, dirs)[1]
+
+
+def _general_tangents(p2, pvec, dpvecs, geom):
+    """The probabilities' tangents (..., K, N, 3, 3), in the original point
+    order, along the K pack directions `dpvecs` (..., K, 57) at the pack
+    `pvec` (..., 57) with primal `p2`: one direction is one tangent launch,
+    more are ceil(K / MAX_TANGENTS) multitangent launches."""
+    args = (geom["e"], geom["dens"], geom["dist"], geom["nl"])
+    dpvecs = dpvecs.to(pvec.dtype)
+    if dpvecs.shape[-2] == 1:
+        dp2s = chain_tangent(pvec, dpvecs[..., 0, :].contiguous(), *args,
+                             geom["tiles"]).unsqueeze(-4)
+    else:
+        dp2s = torch.cat([
+            chain_multitangent(pvec, chunk.contiguous(), *args,
+                               geom["tiles"])[1]
+            for chunk in dpvecs.split(MAX_TANGENTS, dim=-2)], dim=-4)
+    dprobs = torch.cat([dp2s, _tau_row_tangent(p2, dp2s).unsqueeze(-3)],
+                       dim=-3)  # (..., K, 3, 3, N)
+    return dprobs.movedim(-1, -3).index_select(-3, geom["inv"])
+
+
+def _as_lanes(tensors, dims, size, lead):
+    """Each tensor (or None) with its vmap axis `dim` first, expanded to
+    (size,) + `lead` + its trailing `tail` and merged into one lane axis;
+    `tensors` holds (tensor, tail) pairs."""
+    out = []
+    for (x, tail), dim in zip(tensors, dims):
+        if x is None:
+            out.append(None)
+            continue
+        x = x.movedim(dim, 0) if dim is not None else x.expand(
+            (size,) + tuple(x.shape))
+        out.append(x.expand((size,) + lead + tail).reshape((-1,) + tail)
+                   .contiguous())
+    return out
 
 
 class OscProbsGeneral(torch.autograd.Function):
@@ -1038,16 +1093,22 @@ class OscProbsGeneral(torch.autograd.Function):
     ``prepare_chain_geometry(..., general=True)`` output, for any complex matter potential
     (NSI) and LRI potential (``pallas_chain._probs_pallas_vjp`` :1042 with
     ``_vjp_fwd``/``_vjp_bwd``). `U` is the already-conjugated (for nubar)
-    complex PMNS matrix, all four in float64 on the geometry's device.
+    complex PMNS matrix, all four in float64 on the geometry's device, each
+    (3, 3) or (B, 3, 3) lanes, which give (B, N, 3, 3) from one launch.
 
     forward: the pack (:func:`pack_from_physics`, cast to the geometry's
     type), one primal launch, the tau row and the unsort. backward: the
     propagation again by the general formulation
     (``kernels._osc_probs``) over the real layer steps of the sorted
-    geometry (``geom["slot_index"]``), in the geometry's type, and reverse
-    mode through it for the physics inputs only; the geometry gets no
-    gradient. Nothing is read on the host, so a CUDA graph captures both.
-    Forward mode and lanes are not ported (:data:`GENERAL_PACK_TODO`)."""
+    geometry (``geom["slot_index"]``), in the geometry's type, over the same
+    lanes, and reverse mode through it for the physics inputs only; the
+    geometry gets no gradient. jvp: the pack's tangent
+    (:func:`pack_tangents`) and one tangent launch, by
+    :class:`_OscProbsGeneralTangent`, whose vmap rule makes K directions
+    (``torch.func.jacfwd``) ceil(K / 6) multitangent launches, the
+    counterpart of ``jax.jacfwd`` through ``_osc_probs_xla``. vmap: a batch
+    of physics inputs runs as lanes of one launch. Nothing is read on the
+    host, so a CUDA graph captures each of them."""
 
     @staticmethod
     def forward(dm_vac, U, mat_pot, lri_pot, geom, nubar):
@@ -1059,49 +1120,117 @@ class OscProbsGeneral(torch.autograd.Function):
             e.dtype)
         p2 = chain_probs(pvec, e, geom["dens"], geom["dist"], geom["nl"],
                          geom["tiles"])
-        return tau_epilogue(p2).index_select(-3, geom["inv"])
+        return tau_epilogue(p2).index_select(-3, geom["inv"]), p2, pvec
 
     @staticmethod
     def setup_context(ctx, inputs, output):
         dm_vac, U, mat_pot, lri_pot, geom, nubar = inputs
+        _, p2, pvec = output
+        ctx.mark_non_differentiable(p2, pvec)
         ctx.save_for_backward(dm_vac, U, mat_pot, lri_pot)
+        ctx.save_for_forward(dm_vac, U, mat_pot, lri_pot, p2, pvec)
         ctx.geom = geom
         ctx.nubar = nubar
 
     @staticmethod
-    def backward(ctx, g):
-        from pisa_tpu_torch.ops.osc.kernels import _osc_probs
-
+    def backward(ctx, g, _g_p2, _g_pvec):
         geom = ctx.geom
         e = geom["e"]
         cplx = torch.complex64 if e.dtype == torch.float32 else torch.complex128
         wanted = ctx.needs_input_grad[:4]
-        inputs = [x.detach().requires_grad_(w)
-                  for x, w in zip(ctx.saved_tensors, wanted)]
-        dm_vac, U, mat_pot, lri_pot = inputs
-        with torch.enable_grad():
-            probs = _osc_probs(
+        saved = ctx.saved_tensors
+
+        def propagate(*free):
+            # the wanted inputs from `free`, the others as saved
+            free = iter(free)
+            dm_vac, U, mat_pot, lri_pot = (
+                next(free) if w else x for x, w in zip(saved, wanted))
+            return _osc_probs(
                 dm_vac.to(e.dtype), U.to(cplx), mat_pot.to(cplx), None,
                 lri_pot.to(e.dtype), ctx.nubar, e, geom["dens"].T,
                 geom["dist"].T, slot_index=geom["slot_index"])
-            # probs = probs_sorted[inv]  =>  the sorted cotangent is g[order]
-            grads = torch.autograd.grad(
-                probs, [x for x, w in zip(inputs, wanted) if w],
-                g.index_select(-3, geom["order"]))
-        grads = iter(grads)
+
+        # torch.func.vjp, not autograd.grad: torch.func.jacrev runs this
+        # backward under vmap
+        _, pullback = torch.func.vjp(
+            propagate, *(x for x, w in zip(saved, wanted) if w))
+        # probs = probs_sorted[inv]  =>  the sorted cotangent is g[order]
+        grads = iter(pullback(g.index_select(-3, geom["order"])))
         return tuple(next(grads) if w else None for w in wanted) + (None, None)
 
     @staticmethod
-    def jvp(ctx, *_):
-        raise NotImplementedError(
-            "forward mode (jvp, jacfwd) through the general-pack route is not"
-            f" ported yet ({GENERAL_PACK_TODO})")
+    def jvp(ctx, ddm_vac, dU, dmat_pot, dlri_pot, *_):
+        dprobs = _OscProbsGeneralTangent.apply(
+            *ctx.saved_tensors, ddm_vac, dU, dmat_pot, dlri_pot, ctx.geom,
+            ctx.nubar)
+        return dprobs, None, None
 
     @staticmethod
-    def vmap(info, in_dims, *args):
-        raise NotImplementedError(
-            "lanes (vmap) through the general-pack route are not ported yet"
-            f" ({GENERAL_PACK_TODO})")
+    def vmap(info, in_dims, dm_vac, U, mat_pot, lri_pot, geom, nubar):
+        # a batch of physics inputs (each (3, 3) or (B, 3, 3) lanes) is one
+        # run of lanes
+        physics = (dm_vac, U, mat_pot, lri_pot)
+        lead = torch.broadcast_shapes(*(
+            x.shape[:-2] if d is None else tuple(x.movedim(d, 0).shape[1:-2])
+            for x, d in zip(physics, in_dims)))
+        outputs = OscProbsGeneral.apply(
+            *_as_lanes([(x, (3, 3)) for x in physics], in_dims[:4],
+                       info.batch_size, lead), geom, nubar)
+        shape = (info.batch_size,) + lead
+        return tuple(x.reshape(shape + tuple(x.shape[1:]))
+                     for x in outputs), (0, 0, 0)
+
+
+class _OscProbsGeneralTangent(torch.autograd.Function):
+    """The tangent of :class:`OscProbsGeneral`'s probabilities along one
+    direction of its physics inputs (the pack's tangent, one tangent
+    launch). Its vmap rule takes a batch of directions at one point
+    (``torch.func.jacfwd``) as ceil(K / 6) multitangent launches, and a
+    batch of points, each with its direction, as lanes of one tangent
+    launch. It is a forward-mode rule and has no backward."""
+
+    @staticmethod
+    def forward(dm_vac, U, mat_pot, lri_pot, p2, pvec, ddm_vac, dU, dmat_pot,
+                dlri_pot, geom, nubar):
+        dpvec = pack_tangents((dm_vac, U, mat_pot, lri_pot),
+                              (ddm_vac, dU, dmat_pot, dlri_pot), nubar)
+        return _general_tangents(p2, pvec, dpvec.unsqueeze(-2),
+                                 geom).squeeze(-4)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def vmap(info, in_dims, dm_vac, U, mat_pot, lri_pot, p2, pvec, ddm_vac,
+             dU, dmat_pot, dlri_pot, geom, nubar):
+        physics = (dm_vac, U, mat_pot, lri_pot)
+        tangents = (ddm_vac, dU, dmat_pot, dlri_pot)
+        size = info.batch_size
+        if all(d is None for d in in_dims[:6]):
+            # K directions at one point: the directions' axis goes before
+            # each matrix's, and the pack's tangents are (..., K, 57)
+            dirs = tuple(
+                None if t is None
+                else t.unsqueeze(-3) if d is None else t.movedim(d, -3)
+                for t, d in zip(tangents, in_dims[6:10]))
+            dpvecs = pack_tangents(tuple(x.unsqueeze(-3) for x in physics),
+                                   dirs, nubar)
+            lead = tuple(pvec.shape[:-1])
+            dpvecs = dpvecs.expand(lead + (size, N_PACK))
+            out = _general_tangents(p2, pvec, dpvecs, geom)
+            return out, len(lead)
+        # a batch of points, each with its direction: lanes of one launch
+        # (merged with the lanes the points carry already, if any)
+        pv_dim = in_dims[5]
+        lead = tuple(pvec.shape[:-1] if pv_dim is None
+                     else pvec.movedim(pv_dim, 0).shape[1:-1])
+        n = p2.shape[-1]
+        lanes = _as_lanes(
+            [(x, (3, 3)) for x in physics] + [(p2, (2, 3, n)), (pvec, (N_PACK,))]
+            + [(t, (3, 3)) for t in tangents], in_dims[:10], size, lead)
+        out = _OscProbsGeneralTangent.forward(*lanes, geom, nubar)
+        return out.reshape((size,) + lead + tuple(out.shape[1:])), 0
 
 
 def osc_probs_general(dm_vac, mix, mat_pot, lri_pot, nubar, geom):
@@ -1112,10 +1241,14 @@ def osc_probs_general(dm_vac, mix, mat_pot, lri_pot, nubar, geom):
 
     dm_vac real (3, 3), mix complex (3, 3) (the PMNS matrix, conjugated
     here for nubar), mat_pot complex (3, 3), lri_pot real (3, 3); float64
-    (complex128) tensors on the geometry's device."""
+    (complex128) tensors on the geometry's device. Each may carry a leading
+    lane axis, (B, 3, 3), which gives (B, N, 3, 3) from the launches of one
+    point. Differentiable in reverse and forward mode
+    (``torch.func.jacfwd``), and ``torch.func.vmap`` runs a batch as
+    lanes."""
     if "slot_index" not in geom:
         raise ValueError("the general-pack route takes a geometry prepared"
                          " with prepare_chain_geometry(..., general=True)")
-    U = mix if nubar > 0 else torch.complex(mix.real, -mix.imag)
+    U = mix if nubar > 0 else _conj(mix)
     return OscProbsGeneral.apply(dm_vac, U, mat_pot, lri_pot, geom,
-                                 int(nubar))
+                                 int(nubar))[0]

@@ -6,8 +6,15 @@ potential, deduplicated layer chains.
 Counterpart of ``pisa_tpu/ops/osc/kernels.py`` (the JAX package's XLA
 formulation; reference ``pisa/stages/osc/prob3numba/numba_osc_kernels.py``),
 in complex torch tensors with the batch axes leading: a batch of 3x3
-matrices is ``(..., 3, 3)``. This is not the plain version of a CUDA kernel
-(those are ``chain.py:chain_*_reference``): it is the route that
+matrices is ``(..., 3, 3)``. The physics inputs (``dm_vac``, the mixing
+matrix, the matter, decay and LRI potentials) may carry a leading lane axis,
+``(B, 3, 3)``, B independent parameter points over the same geometry (the
+batched fits' lanes, what ``jax.vmap`` adds to the JAX package's); every
+output then has it too. Nothing writes in place into a tensor that depends
+on the physics inputs, so ``torch.func.jacfwd`` (forward mode) and
+``torch.func.vmap`` run through every function here. This is not the plain
+version of a CUDA kernel (those are ``chain.py:chain_*_reference``): it is
+the route that
 ``stages/osc/prob3.py`` takes for neutrino decay and layer dedup, which no
 kernel computes, and the backward of the general-pack route
 (``chain.py:OscProbsGeneral``).
@@ -17,7 +24,10 @@ transition amplitude at once, over the flat (layer, point) batch compacted
 to the real slots by a host-precomputed ``slot_index`` (or over the unique
 slots of a deduplicated chain, expanded by ``chain_map``), then takes the
 ordered chain product. Nothing in it reads a tensor on the host, so a
-CUDA-graph capture takes it forward and backward.
+CUDA-graph capture takes it forward and backward. The real slots' amplitudes
+are put into the full stack by a gather (an index of every slot into them or
+into a trailing identity, built on the device from ``slot_index``), not by
+a scatter, which forward mode and vmap take as any other op.
 
 Eigenvalues: the Hermitian case by the closed trigonometric form, ordered by
 vacuum matching (``_dms``); the decay case by Cardano's closed form
@@ -62,8 +72,15 @@ TWO_SQRT2_GF = 1.52588e-4  # 2*sqrt(2)*G_F in (eV^2 cm^3)/(mole GeV)
 HBAR_C_FACTOR = 2.534  # (1/2)/(hbar c) in GeV/(eV^2 km)
 
 
+def _conj(z):
+    """The conjugate built explicitly: a lazily conjugated view has no vmap
+    rule for ``.imag``, nor its backward (``aten::_neg_view``), which
+    ``torch.func`` transforms of the formulation and the pack need."""
+    return torch.complex(z.real, -z.imag)
+
+
 def _dagger(a):
-    return a.conj().transpose(-1, -2)
+    return _conj(a).transpose(-1, -2)
 
 
 def _abs2(z):
@@ -88,10 +105,11 @@ def _complex_dtype(dtype):
 # ---------------------------------------------------------------------------
 def get_H_vac(mix_nubar, dm_vac):
     """Vacuum Hamiltonian in the flavour basis, without the 1/2E factor:
-    U diag(0, dm21, dm31) U^dagger (``numba_osc_kernels.py:535``)."""
-    d = torch.stack([torch.zeros_like(dm_vac[1, 0]), dm_vac[1, 0],
-                     dm_vac[2, 0]]).to(mix_nubar.dtype)
-    return (mix_nubar * d) @ _dagger(mix_nubar)
+    U diag(0, dm21, dm31) U^dagger (``numba_osc_kernels.py:535``); (3, 3),
+    or (B, 3, 3) for lanes."""
+    d = torch.stack([torch.zeros_like(dm_vac[..., 1, 0]), dm_vac[..., 1, 0],
+                     dm_vac[..., 2, 0]], dim=-1).to(mix_nubar.dtype)
+    return (mix_nubar * d[..., None, :]) @ _dagger(mix_nubar)
 
 
 def get_H_decay(mix_nubar, mat_decay):
@@ -104,13 +122,16 @@ def get_H_mat(rho, mat_pot, nubar):
     """Matter Hamiltonian in the flavour basis: a*mat_pot (nu) or
     -a*conj(mat_pot) (nubar), a = 0.5*rho*2sqrt2*G_F
     (``numba_osc_kernels.py:606``). `rho` is a number or an (N,) tensor,
-    which gives (N, 3, 3)."""
+    which gives (N, 3, 3) (lanes of `mat_pot`, (B, 3, 3), give (B, N, 3,
+    3))."""
     a = 0.5 * torch.as_tensor(rho, dtype=mat_pot.real.dtype,
                               device=mat_pot.device) * TWO_SQRT2_GF
     a = a[..., None, None]
+    if a.dim() > 2:
+        mat_pot = mat_pot[..., None, :, :]
     if nubar > 0:
         return mat_pot * a
-    return mat_pot.conj() * (-a)
+    return _conj(mat_pot) * (-a)
 
 
 # ---------------------------------------------------------------------------
@@ -129,9 +150,10 @@ def _dms(energy, H, dm_vac):
     """Matter mass-squared eigenvalues (2E*lambda) of the Hermitian
     flavour-basis Hamiltonian H (..., 3, 3) by the analytic trigonometric
     solution, vacuum-match ordered (``numba_osc_kernels.py:688``;
-    ``_dms_soa_scalars`` :207 of the JAX package). Returns [m0, m1, m2],
-    real tensors of the batch shape."""
-    dm00, dm10, dm20 = dm_vac[0, 0], dm_vac[1, 0], dm_vac[2, 0]
+    ``_dms_soa_scalars`` :207 of the JAX package). `dm_vac` (..., 3, 3)
+    broadcasts against H's batch shape. Returns [m0, m1, m2], real tensors
+    of the batch shape."""
+    dm00, dm10, dm20 = dm_vac[..., 0, 0], dm_vac[..., 1, 0], dm_vac[..., 2, 0]
     Hs, scale = _normalized(H)
 
     def el(i, j):
@@ -209,7 +231,8 @@ def _dms(energy, H, dm_vac):
 
 def get_dms(energy, H_full, dm_vac):
     """Real matter mass-squared eigenvalues of the Hermitian H_full (3, 3)
-    (or (..., 3, 3)): (3,) (or (3, ...))."""
+    (or (..., 3, 3), with `dm_vac` (3, 3) or of H's batch shape): (3,) (or
+    (3, ...))."""
     energy = torch.as_tensor(energy, dtype=H_full.real.dtype,
                              device=H_full.device)
     return torch.stack(_dms(energy, H_full, dm_vac))
@@ -302,10 +325,17 @@ def _layer_transition(nubar, energy, rho, baseline, U, mat_pot, H_vac,
     (``_layer_transition_stacked`` :471 of the JAX package).
 
     energy/rho/baseline: (M,); U/mat_pot/H_vac/H_decay: complex (3, 3);
-    lri_pot/dm_vac: real (3, 3). Returns complex (M, 3, 3)."""
+    lri_pot/dm_vac: real (3, 3); or each of these (B, 3, 3) lanes. Returns
+    complex (M, 3, 3), or (B, M, 3, 3)."""
     sign = 1.0 if nubar > 0 else -1.0
+
+    def per_step(x):  # (..., 3, 3) -> (..., 1, 3, 3): broadcast over M
+        return None if x is None else x[..., None, :, :]
+
+    U, mat_pot, H_vac, H_decay, lri_pot, dm_vac = map(
+        per_step, (U, mat_pot, H_vac, H_decay, lri_pot, dm_vac))
     a = (0.5 * TWO_SQRT2_GF) * rho
-    mp = mat_pot if nubar > 0 else -mat_pot.conj()
+    mp = mat_pot if nubar > 0 else -_conj(mat_pot)
     # H_mat = a*mat_pot (nu) / -a*conj(mat_pot) (nubar), + LRI (real)
     H_mat = mp * a[:, None, None] + ((sign * 1e9) * lri_pot).to(mp.dtype)
     one_over_two_e = (0.5 / energy)[:, None, None]
@@ -324,7 +354,8 @@ def get_transition_matrix(nubar, energy, rho, baseline, mix_nubar, mat_pot,
                           H_vac, H_decay, lri_pot, dm_vac, decay_flag=False):
     """Transition amplitude matrix (mass basis) for one layer
     (``numba_osc_kernels.py:349``): complex (3, 3) for scalar energy, rho
-    and baseline, (N, 3, 3) for (N,) ones."""
+    and baseline, (N, 3, 3) for (N,) ones; lanes of the physics inputs,
+    (B, 3, 3), give (B, 3, 3) or (B, N, 3, 3)."""
     real = mix_nubar.real.dtype
     device = mix_nubar.device
 
@@ -335,7 +366,7 @@ def get_transition_matrix(nubar, energy, rho, baseline, mix_nubar, mat_pot,
     T = _layer_transition(
         nubar, flat(energy), flat(rho), flat(baseline), mix_nubar, mat_pot,
         H_vac, H_decay, lri_pot, dm_vac, decay_flag)
-    return T[0] if energy_t.dim() == 0 else T
+    return T[..., 0, :, :] if energy_t.dim() == 0 else T
 
 
 # ---------------------------------------------------------------------------
@@ -345,7 +376,8 @@ def _osc_probs(dm_vac, U, mat_pot, mat_decay, lri_pot, nubar, energy,
                densities, distances, decay_flag=False, chain_map=None,
                slot_index=None):
     """The propagation over already-conjugated `U` (``_osc_probs_xla`` :766
-    of the JAX package): (N, 3, 3) probabilities.
+    of the JAX package): (N, 3, 3) probabilities, or (B, N, 3, 3) for
+    (B, 3, 3) lanes of the physics inputs.
 
     Every layer step's transition is built at once over the flat
     layer-major (layer, point) batch: compacted to the real slots by
@@ -372,7 +404,15 @@ def _osc_probs(dm_vac, U, mat_pot, mat_decay, lri_pot, nubar, energy,
         T_s = transition(e_flat.index_select(0, slot_index),
                          rho_flat.index_select(0, slot_index),
                          dist_flat.index_select(0, slot_index))
-        T = eye.expand(n_layers * n_pts, 3, 3).index_copy(0, slot_index, T_s)
+        # every slot's row of [T_s; identity]: its real step's, or the
+        # identity's (the last)
+        n_real = slot_index.shape[0]
+        rows = torch.full((n_layers * n_pts,), n_real, dtype=torch.int64,
+                          device=slot_index.device)
+        rows = rows.index_copy(0, slot_index, torch.arange(
+            n_real, dtype=torch.int64, device=slot_index.device))
+        T = torch.cat([T_s, eye.expand(T_s.shape[:-3] + (1, 3, 3))],
+                      dim=-3).index_select(-3, rows)
     else:
         T = transition(e_flat, rho_flat, dist_flat)
         T = torch.where((dist_flat > 0.0)[:, None, None], T, eye)
@@ -381,12 +421,13 @@ def _osc_probs(dm_vac, U, mat_pot, mat_decay, lri_pot, nubar, energy,
         n_chain = chain_map.shape[1]
         points = torch.arange(n_pts, device=chain_map.device)
         sel = chain_map.transpose(0, 1).to(torch.int64) * n_pts + points
-        T = T.index_select(0, sel.reshape(-1))
+        T = T.index_select(-3, sel.reshape(-1))
         n_layers = n_chain
-    T = T.reshape(n_layers, n_pts, 3, 3)
+    T = T.reshape(T.shape[:-3] + (n_layers, n_pts, 3, 3))
     product = eye.expand(n_pts, 3, 3)
     for layer in range(n_layers):
-        product = _mm(T[layer], product)
+        product = _mm(T[..., layer, :, :, :], product)
+    U = U[..., None, :, :]
     product = _mm(_mm(U, product), _dagger(U))
     # probs[n, a, b] = |T_flavour[n, b, a]|^2
     return _abs2(product).transpose(-1, -2)
@@ -432,6 +473,7 @@ def osc_probs_layers(dm_vac, mix, mat_pot, mat_decay, lri_pot, nubar, energy,
     mat_decay : complex (3, 3) decay matrix (-i*alpha3 at [2,2]), read only
         with `decay_flag`
     lri_pot : real (3, 3) LRI potential
+        (each of these five may instead be (B, 3, 3), one per lane)
     nubar : +1 nu / -1 nubar
     energy : (N,) GeV
     densities, distances : (N, L) electron densities (mol/cm^3) and layer
@@ -446,7 +488,8 @@ def osc_probs_layers(dm_vac, mix, mat_pot, mat_decay, lri_pot, nubar, energy,
         first (:func:`check_slot_index`).
 
     Returns (N, 3, 3) probabilities, ``probs[i, a, b] = P(nu_a -> nu_b)``,
-    in the energy's real dtype (the physics inputs are cast to it).
+    in the energy's real dtype (the physics inputs are cast to it); (B, N,
+    3, 3) with lanes.
     """
     if slot_index is not None and chain_map is None:
         check_slot_index(distances, slot_index)

@@ -8,10 +8,14 @@ with the same math and conventions. The matrix functions (:func:`std_nsi_eps`,
 :func:`vacuum_nsi_eps`, :func:`decay_matrix`, :func:`lri_potential`) return
 complex (or, for the LRI potential, real) ``(3, 3)`` torch tensors; their
 scalar inputs may be numbers or 0-d tensors that carry the autograd graph,
-so a compiled template takes analytic gradients in the couplings. A number
-is filled in on the device of the first tensor input (or on `device`), not
-copied from the host. The JAX package's split (re, im) ``C`` type is a TPU
-workaround and has no counterpart here.
+so a compiled template takes analytic gradients in the couplings, or lanes
+of them ((B,) or (B, 1) tensors, the batched fits' magnitudes), which give
+``(B, 3, 3)``. A number is filled in on the device of the first tensor input
+(or on `device`), not copied from the host. Nothing is written in place
+into an input's function, so ``torch.func.jacfwd`` and ``torch.func.vmap``
+run through them (as the JAX package's functions run under ``vmap``).
+The JAX package's split (re, im) ``C`` type is a TPU workaround and has no
+counterpart here.
 
 The numpy parameter classes and the tomography scalings are copies of the
 JAX package's.
@@ -41,22 +45,30 @@ __all__ = [
 
 
 def _scalars(values, device=None):
-    """`values` as 0-d float64 tensors on one device: tensors keep their
-    graph, numbers are filled in on the device of the first tensor (or
-    `device`, or the CPU)."""
+    """`values` as float64 tensors of one shape on one device: () for one
+    point, (B,) for lanes (a tensor of more than one element is one value
+    per lane, a (B,) or (B, 1) magnitude). Tensors keep their graph,
+    numbers are filled in on the device of the first tensor (or `device`,
+    or the CPU) and spread over the lanes."""
+    tensors = [v for v in values if isinstance(v, torch.Tensor)]
     if device is None:
-        device = next((v.device for v in values if isinstance(v, torch.Tensor)),
-                      "cpu")
+        device = tensors[0].device if tensors else "cpu"
+    shape = ()
+    for v in tensors:
+        if v.dim() > 0:
+            shape = (v.numel(),)
+            break
     return [
-        v.to(torch.float64).reshape(()) if isinstance(v, torch.Tensor)
-        else torch.full((), float(v), dtype=torch.float64, device=device)
+        v.to(torch.float64).reshape(-1 if v.dim() > 0 else ()).expand(shape)
+        if isinstance(v, torch.Tensor)
+        else torch.full(shape, float(v), dtype=torch.float64, device=device)
         for v in values
     ]
 
 
 def _matrix(rows):
-    """A (3, 3) tensor from a 3x3 nest of 0-d tensors."""
-    return torch.stack([torch.stack(list(r)) for r in rows])
+    """A (..., 3, 3) tensor from a 3x3 nest of tensors of the lanes' shape."""
+    return torch.stack([torch.stack(list(r), dim=-1) for r in rows], dim=-2)
 
 
 def _cis(re_scale, angle):
@@ -70,7 +82,8 @@ def _cis(re_scale, angle):
 def std_nsi_eps(eps_ee, eps_emu_magn, eps_emu_phase, eps_etau_magn,
                 eps_etau_phase, eps_mumu, eps_mutau_magn, eps_mutau_phase,
                 eps_tautau, device=None):
-    """Hermitian standard-parameterization eps matrix, complex (3, 3), with
+    """Hermitian standard-parameterization eps matrix, complex (3, 3) (lanes:
+    (B, 3, 3)), with
     the diagonal shifted by -eps_mumu (the trace is irrelevant), as
     ``StdNSIParams.eps_matrix`` (``nonstandard.py:44`` of the JAX
     package)."""
@@ -94,7 +107,8 @@ def std_nsi_eps(eps_ee, eps_emu_magn, eps_emu_phase, eps_etau_magn,
 
 def vacuum_nsi_eps(eps_scale, eps_prime, phi12, phi13, phi23, alpha1, alpha2,
                    deltansi, device=None):
-    """Vacuum-like NSI eps matrix (JHEP08(2018)180), complex (3, 3), with
+    """Vacuum-like NSI eps matrix (JHEP08(2018)180), complex (3, 3) (lanes:
+    (B, 3, 3)), with
     the diagonal shifted by the mumu entry and the standard CC term, as
     ``VacuumLikeNSIParams.eps_matrix`` (``nonstandard.py:75`` of the JAX
     package)."""
@@ -122,19 +136,21 @@ def vacuum_nsi_eps(eps_scale, eps_prime, phi12, phi13, phi23, alpha1, alpha2,
                    [cz, _cis(-s23, dnsi), cr(c23)]])
     D = _matrix([[cr(scale), cz, cz], [cz, cr(prime), cz], [cz, cz, cz]])
     U = R12 @ R13 @ R23
-    full = Qrel @ U @ D @ U.conj().transpose(0, 1) @ Qrel.conj().transpose(0, 1)
+    full = (Qrel @ U @ D @ U.conj().transpose(-1, -2)
+            @ Qrel.conj().transpose(-1, -2))
     # subtract the mumu entry from the diagonal, the CC term from ee, and
     # force real diagonals (Hermitian by construction up to roundoff)
     eye = torch.eye(3, dtype=torch.float64, device=scale.device)
     e00 = torch.zeros((3, 3), dtype=torch.float64, device=scale.device)
-    e00[0, 0] = 1.0
-    re = full.real - full.real[1, 1] * eye - e00
+    e00[0, 0] = 1.0  # a constant, not a function of the couplings
+    re = full.real - full.real[..., 1:2, 1:2] * eye - e00
     im = full.imag * (1.0 - eye)
     return torch.complex(re, im)
 
 
 def decay_matrix(decay_alpha3, device=None):
-    """Invisible-nu3-decay matrix, complex (3, 3): -i*alpha3 at [2, 2]
+    """Invisible-nu3-decay matrix, complex (3, 3) (lanes: (B, 3, 3)):
+    -i*alpha3 at [2, 2]
     (``nonstandard.py:150`` of the JAX package)."""
     (alpha3,) = _scalars((decay_alpha3,), device)
     z = torch.zeros_like(alpha3)
@@ -143,20 +159,20 @@ def decay_matrix(decay_alpha3, device=None):
 
 
 def lri_potential(v_lri, lri_type, device=None):
-    """Long-range-interaction flavour potential, real diagonal (3, 3), for
-    the given symmetry; differentiable in `v_lri` (``nonstandard.py:157`` of
-    the JAX package)."""
+    """Long-range-interaction flavour potential, real diagonal (3, 3) (lanes:
+    (B, 3, 3)), for the given symmetry; differentiable in `v_lri`
+    (``nonstandard.py:157`` of the JAX package)."""
     (v,) = _scalars((v_lri,), device)
     z = torch.zeros_like(v)
     if lri_type == "emu-symmetry":
-        d = torch.stack([v, -v, z])
+        d = (v, -v, z)
     elif lri_type == "etau-symmetry":
-        d = torch.stack([v, z, -v])
+        d = (v, z, -v)
     elif lri_type == "mutau-symmetry":
-        d = torch.stack([z, v, -v])
+        d = (z, v, -v)
     else:
         raise ValueError(f"unknown lri_type {lri_type!r}")
-    return torch.diag(d)
+    return _matrix([[d[0], z, z], [z, d[1], z], [z, z, d[2]]])
 
 
 # ---------------------------------------------------------------------------

@@ -25,39 +25,29 @@ DEGENERACY_DELTA = 5.0e-9  # eV^2, cf. reference osc_params.py:270
 
 def pmns_matrix(sin12, sin13, sin23, deltacp):
     """Standard-parameterization PMNS matrix (complex (3, 3)) from 0-d real
-    tensors: sines of the mixing angles and the CPV phase (radians)."""
+    tensors: sines of the mixing angles and the CPV phase (radians); (B,)
+    lanes of them give (B, 3, 3)."""
     c12 = torch.sqrt(1.0 - sin12**2)
     c13 = torch.sqrt(1.0 - sin13**2)
     c23 = torch.sqrt(1.0 - sin23**2)
     s12, s13, s23 = sin12, sin13, sin23
     cd, sd = torch.cos(deltacp), torch.sin(deltacp)
     zero = torch.zeros_like(s12)
-    re = torch.stack(
-        [
-            torch.stack([c12 * c13, s12 * c13, s13 * cd]),
-            torch.stack(
-                [
-                    -s12 * c23 - c12 * s23 * s13 * cd,
-                    c12 * c23 - s12 * s23 * s13 * cd,
-                    s23 * c13,
-                ]
-            ),
-            torch.stack(
-                [
-                    s12 * s23 - c12 * c23 * s13 * cd,
-                    -c12 * s23 - s12 * c23 * s13 * cd,
-                    c23 * c13,
-                ]
-            ),
-        ]
-    )
-    im = torch.stack(
-        [
-            torch.stack([zero, zero, -s13 * sd]),
-            torch.stack([-c12 * s23 * s13 * sd, -s12 * s23 * s13 * sd, zero]),
-            torch.stack([-c12 * c23 * s13 * sd, -s12 * c23 * s13 * sd, zero]),
-        ]
-    )
+    def matrix(rows):
+        return torch.stack([torch.stack(r, dim=-1) for r in rows], dim=-2)
+
+    re = matrix([
+        [c12 * c13, s12 * c13, s13 * cd],
+        [-s12 * c23 - c12 * s23 * s13 * cd, c12 * c23 - s12 * s23 * s13 * cd,
+         s23 * c13],
+        [s12 * s23 - c12 * c23 * s13 * cd, -c12 * s23 - s12 * c23 * s13 * cd,
+         c23 * c13],
+    ])
+    im = matrix([
+        [zero, zero, -s13 * sd],
+        [-c12 * s23 * s13 * sd, -s12 * s23 * s13 * sd, zero],
+        [-c12 * c23 * s13 * sd, -s12 * c23 * s13 * sd, zero],
+    ])
     return torch.complex(re, im)
 
 
@@ -67,16 +57,17 @@ def pmns_matrix_reparam(sin12, sin13, sin23, deltacp):
     u = pmns_matrix(sin12, sin13, sin23, deltacp)
     one = torch.ones_like(deltacp)
     phase = torch.polar(one, deltacp)
-    left = torch.stack([phase, one.to(phase.dtype), one.to(phase.dtype)])
-    return left[:, None] * u * left.conj()[None, :]
+    left = torch.stack([phase, one.to(phase.dtype), one.to(phase.dtype)],
+                       dim=-1)
+    return left[..., :, None] * u * left.conj()[..., None, :]
 
 
 def dm_matrix(dm21, dm31):
     """Antisymmetric vacuum mass-splitting matrix dm[i,j] = m_i^2 - m_j^2
     with degeneracy-breaking (cf. reference ``osc_params.py:266``); 0-d real
-    tensors in, real (3, 3) out."""
+    tensors in, real (3, 3) out; (B,) lanes give (B, 3, 3)."""
     zero = torch.zeros_like(dm21)
     m0 = torch.where(dm21 == 0.0, zero - DEGENERACY_DELTA, zero)
     m2 = torch.where(dm31 == 0.0, zero + DEGENERACY_DELTA, dm31)
-    m = torch.stack([m0, dm21, m2])
-    return m[:, None] - m[None, :]
+    m = torch.stack([m0, dm21, m2], dim=-1)
+    return m[..., :, None] - m[..., None, :]

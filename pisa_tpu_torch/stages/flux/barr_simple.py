@@ -171,7 +171,10 @@ class barr_simple(Stage):  # noqa: N801
         """The per-event flux over the (C, n_pad) stacked events
         (``_compute_stacked_events`` :195 of the JAX package): the grid
         chain over the stacked events, each category's nubar sign a (C, 1)
-        select."""
+        select. In an evaluation of lanes a (B, 1) magnitude gets the
+        categories' axis, (B, 1, 1), against the (B, C, n_pad) events."""
+        params = [p[..., None] if isinstance(p, torch.Tensor) and p.dim()
+                  else p for p in params]
         uphor, barr_nubar = params[3:]
         e_nu, e_nub, mu_nu, mu_nub = self._ratios_on_fields(container, params)
         sign = container.row_tensor(container.cat_aux("nubar")).to(

@@ -48,11 +48,18 @@ one propagation with its sign, over geometry prepared at set-up with the
 padded slots sanitized on their inputs (energy 1 GeV, zero-length chains),
 so that their values and gradients stay finite.
 
-In an evaluation of lanes (``container.lanes``, the batched fits) the
-standard route on a calc grid takes theta as a (B, 6) tensor and every
-output gains a leading lane axis; the launches stay two per sign-pair, each
-serving all lanes. Lanes under the other routes or the per-event calc mode
-are not ported (:data:`LANES_TODO`).
+In an evaluation of lanes (``container.lanes``, the batched fits, the MCMC
+walkers) every route takes its inputs with a leading lane axis: theta as a
+(B, 6) tensor, and the general and layers routes' matrices as (B, 3, 3)
+ones; every output gains the lane axis. The kernels launch as often as for
+one point, each launch serving all lanes; the layers route builds each
+lane's transitions in one batch. The per-event calc mode carries the lane
+axis through its groups' blocks. In forward mode (``torch.func.jacfwd``,
+the Fisher matrices) the standard route's tangents come from the
+multitangent kernel (``chain.py:OscProbs``), the general route's from the
+tangent and multitangent kernels at general packs
+(``chain.py:OscProbsGeneral``), and the layers route's from forward mode
+through the general formulation.
 """
 
 from __future__ import annotations
@@ -113,8 +120,6 @@ _TOMOGRAPHY_PARAMS = {
                                   "innermantle_density_scale",
                                   "middlemantle_density_scale"),
 }
-#: the ROADMAP item that lanes under the non-standard options wait for
-LANES_TODO = "ROADMAP queue 1, item 16"
 
 _ALL_FLAVS = [
     "nue_cc", "numu_cc", "nutau_cc", "nue_nc", "numu_nc", "nutau_nc",
@@ -398,7 +403,8 @@ class prob3(Stage):  # noqa: N801
         out["mix"] = pmns(torch.sin(t12), torch.sin(t13), torch.sin(t23), dcp)
         out["dm"] = dm_matrix(dm21, dm31)
         # the generalized matter potential: the standard CC term (with the
-        # NLO factor) plus the NSI couplings
+        # NLO factor; a constant, filled in on the device) plus the NSI
+        # couplings, (3, 3) or (B, 3, 3) lanes
         mat_pot = torch.zeros((3, 3), dtype=torch.complex128, device=device)
         mat_pot[0, 0].fill_(1.020 if self.include_nlo else 1.0)
         if self.nsi_type is not None:
@@ -449,11 +455,6 @@ class prob3(Stage):  # noqa: N801
         ):
             if angle.value.units == ureg.dimensionless:
                 raise ValueError(f"{angle.name} is dimensionless; give rad or deg")
-        if self.data.lanes is not None and (self.route != "standard"
-                                            or not self.is_map):
-            raise NotImplementedError(
-                "lanes under prob3's non-standard options or its per-event"
-                f" calc mode are not ported yet ({LANES_TODO})")
         physics = self._physics()
 
         stacked = any(getattr(c, "is_stacked", False)
@@ -507,16 +508,19 @@ class prob3(Stage):  # noqa: N801
         :727 of the JAX package): one fixed-sign propagation per nubar group
         over its (categories x padded events) block, the blocks put back in
         category order as (C, n_pad, 3, 3), and each category's
-        P(e -> flav), P(mu -> flav) as (C, n_pad)."""
+        P(e -> flav), P(mu -> flav) as (C, n_pad); with lanes, (B, C, n_pad,
+        3, 3) and (B, C, n_pad)."""
         static = self._stacked_events_geometry(container)
         n_pad = container.n_pad
-        blocks = [self._propagate(geom, sign, physics).reshape(-1, n_pad, 3, 3)
-                  for sign, geom in static["groups"]]
-        probs = torch.cat(blocks).index_select(0, static["inv"])
+        lead = physics["theta"].shape[:-1]
+        k = len(lead)  # the categories' axis
+        blocks = [self._propagate(geom, sign, physics).reshape(
+            lead + (-1, n_pad, 3, 3)) for sign, geom in static["groups"]]
+        probs = torch.cat(blocks, dim=k).index_select(k, static["inv"])
         container["probability"] = probs
-        fl = static["flav"].expand(-1, n_pad, 1)
-        container["prob_e"] = torch.gather(probs[:, :, 0, :], 2, fl)[..., 0]
-        container["prob_mu"] = torch.gather(probs[:, :, 1, :], 2, fl)[..., 0]
+        fl = static["flav"].expand(lead + (-1, n_pad, 1))
+        container["prob_e"] = torch.gather(probs[..., 0, :], -1, fl)[..., 0]
+        container["prob_mu"] = torch.gather(probs[..., 1, :], -1, fl)[..., 0]
 
     def stacked_ok(self):
         return (self.is_map or self.calc_mode == "events") and not isinstance(

@@ -23,6 +23,7 @@ import sys
 
 import numpy as np
 import pytest
+import torch
 
 from pisa_tpu import ureg as jax_ureg
 from pisa_tpu.config.parser import parse_pipeline_config as jax_parse
@@ -35,6 +36,7 @@ from pisa_tpu_torch.core.param import Param as TorchParam
 from pisa_tpu_torch.core.param import ParamSet as TorchParamSet
 from pisa_tpu_torch.core.pipeline import Pipeline as TorchPipeline
 from pisa_tpu_torch.ops.osc.nonstandard import FIVE_LAYER_RADII_KM, FIVE_LAYER_RHOS
+from pisa_tpu_torch.utils.resources import find_resource
 from pisa_tpu_torch.utils.interop import (
     template_inputs_from_jax,
     to_template_order,
@@ -100,9 +102,13 @@ OPTIONS = {
         ("innermantle_density_scale", 1.05)),
     "dedup": ({"layer_dedup": True}, {}, ("theta23", 45.0)),
 }
+# the coupling each option can free (tomography scales steer host-side
+# work and stay fixed; dedup has none)
+COUPLING = {"nsi-standard": "eps_mutau_magn", "nsi-vacuum-like": "eps_scale",
+            "decay": "decay_alpha3", "lri-emu": "v_lri", "lri-etau": "v_lri",
+            "lri-mutau": "v_lri"}
 # the compiled gradients: the option and its free coupling
-GRADIENTS = {"nsi-standard": "eps_mutau_magn", "decay": "decay_alpha3",
-             "lri-mutau": "v_lri"}
+GRADIENTS = {o: COUPLING[o] for o in ("nsi-standard", "decay", "lri-mutau")}
 
 
 @pytest.fixture(scope="module")
@@ -113,15 +119,26 @@ def five_layer_model(tmp_path_factory):
     return str(path)
 
 
-def _toy(option, package, earth_model=None, free=None):
-    """The toy config with `option`'s settings and params for `package`
-    ("jax" or "torch"), `free` the one coupling left free."""
+@pytest.fixture(scope="module")
+def tiny_toy(tmp_path_factory):
+    """The toy config with its grids cut to tiny_grid (8x8): the forward-mode
+    and lanes tests' size."""
+    src = open(find_resource(TOY)).read()
+    path = tmp_path_factory.mktemp("options") / "osc_tiny.cfg"
+    path.write_text(src.replace("calc_grid_coarse", "tiny_grid"))
+    return str(path)
+
+
+def _toy(option, package, earth_model=None, free=None, path=TOY):
+    """The toy config (or the one at `path`) with `option`'s settings and
+    params for `package` ("jax" or "torch"), `free` the one coupling left
+    free."""
     parse, Param, ParamSet, ureg = {
         "jax": (jax_parse, JaxParam, JaxParamSet, jax_ureg),
         "torch": (torch_parse, TorchParam, TorchParamSet, torch_ureg),
     }[package]
     settings, params, _ = OPTIONS[option]
-    config = parse(TOY)
+    config = parse(path)
     section = config[("osc", "prob3")]
     section.update(settings)
     units = {"rad": ureg.rad, "dimensionless": ureg.dimensionless,
@@ -207,14 +224,36 @@ def test_compiled_gradient_in_the_coupling_matches_jax(option):
 
 
 def test_lanes_under_options_raise():
+    """Lanes under NSI no longer raise: prob3's compute with
+    ``container.lanes`` = 2 (the general route, (2, 3, 3) physics inputs)
+    gives each lane the probabilities of its own single point, here the
+    pipeline's values in lane 0 and eps_mutau_magn moved in lane 1 (1e-12
+    relative)."""
     p = TorchPipeline(_toy("nsi-standard", "torch"), device="cpu")
     p.get_outputs()
+    stage = p["osc.prob3"]
+    prm = p.params["eps_mutau_magn"]
+    nominal = prm.value
+    singles = []
+    for value in (nominal.m, 0.2):
+        prm.value = value * torch_ureg.dimensionless
+        stage.compute_function()
+        singles.append({c.name: c["probability"].clone() for c in p.data})
+    lanes = torch.tensor([[nominal.m], [0.2]], dtype=torch.float64)
+    prm._value = torch_ureg.Quantity(lanes, "dimensionless")
     p.data.lanes = 2
     try:
-        with pytest.raises(NotImplementedError, match="item 16"):
-            p["osc.prob3"].compute_function()
+        stage.compute_function()
+        got = {c.name: c["probability"].clone() for c in p.data}
     finally:
         p.data.lanes = None
+        prm.value = nominal
+    for name, probs in got.items():
+        assert probs.shape[0] == 2
+        for b in range(2):
+            np.testing.assert_allclose(probs[b].numpy(),
+                                       singles[b][name].numpy(), rtol=1e-12,
+                                       atol=1e-15, err_msg=name)
 
 
 # -- the per-event calc mode ------------------------------------------------------
@@ -280,6 +319,38 @@ def test_events_mode_gradient_matches_jax(events):
     scale = np.abs(want_g).max()
     np.testing.assert_allclose(got_g.numpy(), want_g, rtol=1e-7,
                                atol=1e-9 * scale)
+
+
+def _lanes_match_single_points(ct):
+    """mod_chi2's batched value and gradient at 3 seeded points (lanes)
+    against each point's own, 1e-12 relative (the gradient: of its
+    largest)."""
+    v0 = ct.current_rescaled_values()
+    value_fn, _ = ct.build_objective(ct.get_outputs(v0), "mod_chi2")
+    los, his = ct._device_bounds()
+    x = np.clip(v0 + np.random.RandomState(8).uniform(-0.1, 0.1,
+                                                      (3, v0.size)),
+                0.05, 0.95)
+    vec = torch.tensor(x, requires_grad=True)
+    values = value_fn.raw_with_data(vec, los, his, None)
+    assert values.shape == (3,)
+    values.sum().backward()
+    for b in range(3):
+        xb = torch.tensor(x[b], requires_grad=True)
+        value = value_fn.raw(xb, los, his)
+        value.backward()
+        np.testing.assert_allclose(float(values[b].detach()),
+                                   float(value.detach()), rtol=1e-12)
+        scale = float(xb.grad.abs().max())
+        assert scale > 0
+        assert float((vec.grad[b] - xb.grad).abs().max()) <= 1e-12 * scale
+
+
+def test_events_mode_lanes_match_single_points(events):
+    """The stacked per-event template's batched objective: its groups'
+    blocks and barr_simple's per-event flux carry the lane axis."""
+    _, _, stacked, _ = events
+    _lanes_match_single_points(stacked)
 
 
 @pytest.mark.parametrize("dedup", [False, True], ids=["standard", "dedup"])
