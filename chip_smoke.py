@@ -6,8 +6,9 @@ Run from the root of a checkout, with no arguments:
 
     python3 chip_smoke.py
 
-It builds the port's three CUDA kernels (the oscillation chain, its tangent
-and its multitangent) from the sources in the checkout, checks each against
+It builds the port's four CUDA kernels (the oscillation chain, its tangent
+and its multitangent, and the 4x4 Hermitian eigenvalues of the 3+1 layer
+step) from the sources in the checkout, checks each against
 its plain PyTorch version on the card at the flagship's shapes, and drives
 the flagship IceCube 3-year pipeline
 (``settings/pipeline/IceCube_3y_neutrinos.cfg``: 240k events, 200x200
@@ -102,7 +103,23 @@ oscillation grid, 15 free parameters) on the card through its two paths:
   n_trials=16)`` (wall per trial, evaluations, peak memory, the launches of
   one 16-lane value_and_grad), then 64 trials where 4x the 16-trial peak
   fits in the card's free memory (else the line "64-lane NSI ensemble:
-  does not fit"), and lane 0 beside its solo fit.
+  does not fit"), and lane 0 beside its solo fit;
+- the remaining oscillation services, this slice's main path: the
+  herm4_eig kernel (the 3+1 layer step's 4x4 Hermitian eigenvalues,
+  ``csrc/herm4_eig.cu``) against its plain version at the 3+1 flagship's
+  279,600 layer steps (nu and nubar, nominal and 3 seeded points, float64
+  and float32), its float64 jvp and backward against central differences,
+  its time beside the plain version's and one torch.linalg.eigvalsh call's;
+  in float64 (a child process), card against CPU, sterile_example.cfg and
+  the 20x20-grid 3+1 flagship in the low-pass and the amplitude pictures
+  (maps and the captured value_and_grad), and 3-flavour nusquids against
+  prob3 on the card; then the 3+1 flagship at full width in float32
+  (``testing/sterile_flagship.py``, 17 free, per container): the template,
+  the captured value_and_grad (no wait inside the replay), the Fisher
+  matrix, a ``device`` fit through Analysis from theta24 moved off its
+  truth, an 8-trial pseudo-ensemble with its per-lane peak memory; and the
+  3-flavour nusquids flagship's template, value_and_grad and Fisher matrix
+  on the chain kernels. It prints early whether ``h5py`` imports.
 
 It times the kernels (device-only, from a CUDA graph of 200 launches, and
 host-inclusive, from back-to-back launches between CUDA events; the
@@ -123,12 +140,16 @@ kernels and runs the release phases alone, with ``--analysis-only`` the
 phases of the rest of the analysis layer alone, and with
 ``--osc-options-only`` the phases of prob3's options alone, and with
 ``--osc-lanes-only`` the phases of forward mode and lanes under the options
-alone; none prints a status line. It prints its total wall before the
+alone, and with ``--sterile-only`` the 3+1 and nusquids phases alone;
+none prints a status line. It prints its total wall before the
 kernels line.
 
-The float64 runs (CPU reference and card) happen in a child process, since
+The float64 runs (CPU reference and card) happen in child processes, since
 the float type is chosen once per process (``PISA_TPU_FTYPE``); the main
-process runs float32, the port's default.
+process runs float32, the port's default. The five children of a full run
+start together, after the kernel checks and before the float32 phases
+(``run_children``): their CPU sides dominate them and none depends on
+another, and the float32 phases' timings then run alone.
 """
 
 import contextlib
@@ -297,6 +318,44 @@ OPTIONS_BATCH_FRACTION = 0.0025
 OPTIONS_TRIALS = (16, 64)
 OPTIONS_ENSEMBLE_STEPS = 10
 OPTIONS_MCMC = {"walkers": 32, "burnin": 10, "steps": 40}
+
+# 3+1 sterile oscillations (osc.nusquids with 4 flavours on the flagship,
+# testing/sterile_flagship.py) and the kernel of their layer step's
+# eigenvalues, which is no port of a Pallas kernel: it replaces the XLA
+# eigvalsh of the JAX package's 3+1 engine
+HERM4_SOURCE = "pisa_tpu_torch/csrc/herm4_eig.cu"
+HERM4_REPLACES = "pisa_tpu/ops/osc/sterile.py:125 _eigvals_hermitian4"
+# herm4_eig vs its plain version (torch.linalg.eigh) on the same matrices,
+# eigenvalues relative to the matrix's norm: float64 to its round-off,
+# float32 within a few of its epsilons (both versions round)
+HERM4_TOL = {"float64": 1e-12, "float32": 2e-6}
+# cuSOLVER's batched Hermitian eigensolver refuses 32,768 4x4 matrices and
+# more in one call on the card machine (CUSOLVER_STATUS_INVALID_VALUE; 4,096
+# run): the plain version runs in chunks of this size there
+HERM4_CHUNK = 4096
+# the float64 jvp and backward vs central differences of the kernel along a
+# direction of the size of each matrix's smallest eigenvalue gap, relative
+# to that gap: truncation ~step^2 / 6, rounding ~eps |H| / (gap step)
+HERM4_FD = {"step": 1e-3, "tol": 1e-5, "min_gap": 1e-7, "matrices": 20000}
+STERILE_CFG = "settings/pipeline/sterile_example.cfg"
+STERILE_ANGLES = ("theta12", "theta13", "theta23", "theta14", "theta24",
+                  "theta34", "deltacp", "deltacp14", "deltacp24")
+STERILE_FREE = 17  # the flagship's 15 and theta24, theta34
+STERILE_MOVE = 0.10  # the 3+1 fit starts from theta24 moved by this, rescaled
+# the 3+1 device fit's most L-BFGS iterations: its evaluations cost ~0.13 s
+# each (the per-container 3+1 value_and_grad); at 200 iterations the fit
+# took 793 of them and 104 s, most at the float32 noise floor, and at 40
+# it stopped 5.5e-3 rescaled off theta24's truth
+STERILE_FIT_STEPS = 80
+STERILE_TRIALS = 8
+STERILE_ENSEMBLE_STEPS = 10
+# osc.nusquids with 3 flavours (the general-pack route) vs prob3 (the
+# standard route) on the 20x20-grid flagship, float64 on the card: each bin
+# within this of its map's largest (the same physics, two packs)
+NUSQUIDS3_TOL = 1e-11
+# float32 row sums of the 3+1 engine at the TeV resonance
+# (tests/test_sterile.py:304-341, the JAX package's bound)
+STERILE_ROW_SUM = 2e-5
 
 # the routes of one value_and_grad: label, compile options, captured
 ROUTES = (
@@ -1177,6 +1236,37 @@ def analysis_worker():
 
 
 # -- the main (float32) process ------------------------------------------------
+def run_children(children):
+    """Runs the float64 child processes `children` ([(label, arguments of
+    this script)]) at once, each with its output in a file of its own;
+    when all have ended, prints each one's output and wall in turn, and
+    fails if one failed."""
+    started = []
+    for label, args in children:
+        out = tempfile.TemporaryFile(mode="w+")
+        proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), *args],
+            env=dict(os.environ, PISA_TPU_FTYPE="fp64"), stdout=out,
+            stderr=subprocess.STDOUT, text=True)
+        started.append((label, proc, out, time.perf_counter()))
+    walls = {}
+    while len(walls) < len(started):
+        for label, proc, _, t0 in started:
+            if label not in walls and proc.poll() is not None:
+                walls[label] = time.perf_counter() - t0
+        time.sleep(0.2)
+    failed = []
+    for label, proc, out, _ in started:
+        out.seek(0)
+        sys.stdout.write(out.read())
+        out.close()
+        print(f"float64 child ({label}): {walls[label]:.1f} s, beside the"
+              f" others{'' if proc.returncode == 0 else f'; exit code {proc.returncode}'}")
+        if proc.returncode != 0:
+            failed.append(label)
+    check(not failed, f"float64 children failed: {failed}")
+
+
 def card_line():
     """The card's name and power limit as nvidia-smi gives them."""
     return subprocess.run(
@@ -1198,13 +1288,23 @@ def device_lines():
 
 
 def build_kernel(chain):
-    """Build (or load) the kernel library; print the compiler's report."""
+    """Build (or load) the kernel libraries, one nvcc for each, all started
+    together (the chain kernels' three parts of osc_chain.cu and
+    herm4_eig.cu); print the compiler's report."""
+    from pisa_tpu_torch.utils.cuda_build import build_libraries
+
+    from pisa_tpu_torch.ops.osc import herm4
     log = io.StringIO()
     t0 = time.perf_counter()
     with contextlib.redirect_stderr(log):
+        specs = {name: ([chain._CSRC], [flag])
+                 for name, flag in chain._PARTS.items()}
+        specs["herm4_eig"] = ([herm4._CSRC], [])
+        build_libraries(specs)
         chain.kernel_library()
+        herm4.kernel_library()
     print(f"kernel build/load: {time.perf_counter() - t0:.1f} s"
-          f" (from {KERNEL_SOURCE}, sm_90a)")
+          f" (from {KERNEL_SOURCE} and {HERM4_SOURCE}, sm_90a)")
     for line in log.getvalue().splitlines():
         print(f"  {line}")
 
@@ -3190,6 +3290,9 @@ def measure_vg(label, ct, chain, smi):
     program = value_fn.program
     bounds = ct._device_bounds()
     vec = torch.as_tensor(v, device="cuda")
+    # the replay alone, without the read of its result
+    replay_waits, _ = count_host_syncs(
+        lambda: program.value_and_grad(vec, *bounds))
     back_ms = cuda_time(lambda: program.value_and_grad(vec, *bounds), 20)
     profiled = [profile_device_busy(
         lambda: program.value_and_grad(vec, *bounds)) for _ in range(2)]
@@ -3204,10 +3307,13 @@ def measure_vg(label, ct, chain, smi):
           f" median wall); peak memory above what was resident {peak:.1f}"
           f" MiB; capture with its first call {capture_s:.2f} s; launches"
           f" (primal, tangent, multitangent) of one eager value_and_grad"
-          f" {eager_launches} [{smi}]")
+          f" {eager_launches}; waits inside one replay {replay_waits}"
+          f" [{smi}]")
     for key, ms, count in top[:5]:
         print(f"  {ms:8.3f} ms  {count:5d}x  {key[:80]}")
     check(waits == 1, f"{label}: value_and_grad waited {waits} times")
+    check(replay_waits == 0, f"{label}: the replay waited {replay_waits}"
+          " times")
     return eager_launches
 
 
@@ -3832,6 +3938,618 @@ def osc_options_only_main(chain, smi):
     return 0
 
 
+# -- 3+1 sterile oscillations (nusquids, globes) and the herm4_eig kernel ------
+def sterile_config(tmp, grid_bins=None, fraction=None, num_neutrinos=4,
+                   lowpass=True):
+    """The flagship with osc.nusquids (testing/sterile_flagship.py): the 3+1
+    search (17 free) or, with `num_neutrinos` = 3, the 3-flavour route;
+    `lowpass` False sets prop_lowpass_cutoff = 0 (the amplitude picture)."""
+    from pisa_tpu_torch.testing.sterile_flagship import (
+        sterile_flagship_config,
+    )
+
+    config = sterile_flagship_config(tmp, grid_bins, fraction,
+                                     num_neutrinos=num_neutrinos)
+    if not lowpass:
+        config[("osc", "nusquids")]["prop_lowpass_cutoff"] = 0.0
+    return config
+
+
+def sterile_steps(dtype):
+    """The 3+1 engine's prepared layer steps on the 3+1 flagship's 200x200
+    grid and Earth model, on the card, and its oscillation params."""
+    from pisa_tpu_torch.ops.osc.layers import Layers
+    from pisa_tpu_torch.ops.osc.sterile import prepare_4nu_geometry
+    from pisa_tpu_torch.stages.osc.nusquids import grid_points
+
+    with tempfile.TemporaryDirectory() as tmp:
+        config = sterile_config(tmp)
+    settings = config[("osc", "nusquids")]
+    selector = settings["params"]
+    selector.select_params(config["pipeline"]["param_selections"])
+    params = {p.name: p for p in selector.params}
+    layers = Layers(params["earth_model"].value,
+                    params["detector_depth"].m_as("km"),
+                    params["prop_height"].m_as("km"))
+    layers.setElecFrac(*(params[n].m_as("dimensionless")
+                         for n in ("YeI", "YeO", "YeM")))
+    energy, coszen = grid_points(settings["calc_mode"])
+    layers.calcLayers(coszen)
+    shape = (energy.size, layers.max_layers)
+    return prepare_4nu_geometry(
+        energy, layers.density.reshape(shape),
+        layers.density_neutron_weighted.reshape(shape),
+        layers.distance.reshape(shape), dtype=dtype, device="cuda"), params
+
+
+def sterile_points(params, count=4):
+    """(the 9 mixing angles, the 4 splittings) at the 3+1 flagship's nominal
+    and at `count` - 1 seeded points."""
+    import numpy as np
+
+    angles = [params[n].m_as("rad") for n in STERILE_ANGLES]
+    dms = [0.0] + [params[n].m_as("eV**2")
+                   for n in ("deltam21", "deltam31", "deltam41")]
+    rng = np.random.RandomState(20261017)
+    points = [(angles, dms)]
+    for _ in range(count - 1):
+        a = list(angles)
+        a[2] = np.radians(rng.uniform(38, 52))   # theta23
+        a[3] = np.radians(rng.uniform(0, 10))    # theta14
+        a[4] = np.radians(rng.uniform(0, 30))    # theta24
+        a[5] = np.radians(rng.uniform(0, 30))    # theta34
+        points.append((a, [0.0, dms[1], dms[2], rng.uniform(0.3, 3.0)]))
+    return points
+
+
+def herm4_plain(herm4, H):
+    """The plain version on the card, in chunks that cuSOLVER takes."""
+    import torch
+
+    parts = [herm4.herm4_eig_reference(x) for x in H.split(HERM4_CHUNK)]
+    return torch.cat([w for w, _ in parts]), torch.cat([v for _, v in parts])
+
+
+def herm4_library_ms(H):
+    """One torch.linalg.eigvalsh call on the whole batch, device time of
+    one of 2 after a warm-up: with the default backend where it takes the
+    batch, else with MAGMA's. Returns (ms, backend)."""
+    import torch
+
+    backend = "default"
+    try:
+        torch.linalg.eigvalsh(H)
+        torch.cuda.synchronize()
+    except RuntimeError as exc:
+        print(f"torch.linalg.eigvalsh on {H.shape[0]} matrices, default"
+              f" backend: {str(exc).splitlines()[0][:100]}")
+        backend = "magma"
+    torch.backends.cuda.preferred_linalg_library(backend)
+    try:
+        torch.linalg.eigvalsh(H)
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(2):
+            torch.linalg.eigvalsh(H)
+        stop.record()
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cuda.preferred_linalg_library("default")
+    return start.elapsed_time(stop) / 2, backend
+
+
+def herm4_derivatives(herm4, H, smi):
+    """float64: the Function's jvp and backward against central differences
+    of the kernel, on the first HERM4_FD['matrices'] matrices of H, along a
+    random Hermitian direction scaled per matrix to its smallest eigenvalue
+    gap (the active cluster's gaps are ~1e-4 of |H|: a step scaled to |H|
+    would cross them), with a step of HERM4_FD['step'] of it; errors
+    relative to the gap. Matrices whose smallest gap is below
+    HERM4_FD['min_gap'] of |H| (the mu/tau pair at the highest energies)
+    are left out: there the differences' rounding exceeds the bound."""
+    import numpy as np
+    import torch
+
+    H = H[:HERM4_FD["matrices"]]
+    norm = torch.linalg.matrix_norm(H)
+    gap = torch.diff(herm4.herm4_eig(H)[0], dim=-1).amin(-1)
+    keep = gap > HERM4_FD["min_gap"] * norm
+    H, gap = H[keep], gap[keep]
+    rng = np.random.RandomState(7)
+    a = rng.normal(size=(H.shape[0], 4, 4)) + 1j * rng.normal(
+        size=(H.shape[0], 4, 4))
+    dH = torch.as_tensor(0.5 * (a + np.conj(np.swapaxes(a, -1, -2))),
+                         device="cuda")
+    dH = dH * (gap / torch.linalg.matrix_norm(dH))[:, None, None]
+    h = HERM4_FD["step"]
+    fd = (herm4.herm4_eig(H + h * dH)[0] - herm4.herm4_eig(H - h * dH)[0]) / (
+        2 * h)
+    _, jvp = torch.func.jvp(herm4.eigvalsh4, (H,), (dH,))
+    g = torch.as_tensor(rng.normal(size=(H.shape[0], 4)), device="cuda")
+    Hr = H.clone().requires_grad_(True)
+    gH = torch.autograd.grad((herm4.eigvalsh4(Hr) * g).sum(), Hr)[0]
+    back = (gH.real * dH.real + gH.imag * dH.imag).sum((-2, -1))
+    err_jvp = float(((jvp - fd).abs() / gap[:, None]).max())
+    err_back = float(((back - (g * fd).sum(-1)).abs()
+                      / (gap * g.abs().sum(-1))).max())
+    print(f"herm4_eig float64 derivatives, {H.shape[0]} of"
+          f" {HERM4_FD['matrices']} matrices (the rest have a gap below"
+          f" {HERM4_FD['min_gap']:g} of |H|): jvp vs central differences"
+          f" {err_jvp:.3e}, backward vs them {err_back:.3e} of the smallest"
+          f" gap (a step of {h:g} of it, bound {HERM4_FD['tol']:g}) [{smi}]")
+    check(H.shape[0] > HERM4_FD["matrices"] // 2,
+          "herm4_eig derivatives: too few matrices with a resolvable gap")
+    check(err_jvp <= HERM4_FD["tol"] and err_back <= HERM4_FD["tol"],
+          "herm4_eig's derivatives are off the finite differences")
+
+
+def herm4_vs_plain(smi):
+    """herm4_eig against its plain version (torch.linalg.eigh, on the card
+    in chunks of HERM4_CHUNK) and against torch.linalg.eigvalsh (the same
+    chunks) at the 3+1 flagship's layer steps (nu and
+    nubar, nominal and 3 seeded points), float64 and float32; the float64
+    derivatives; the kernel's device-only time (a CUDA graph of 20
+    launches), the plain version's, one torch.linalg.eigvalsh call's (the
+    library time), the bound and the registers. Returns {dtype: line}."""
+    import torch
+
+    from pisa_tpu_torch.ops.osc import herm4, sterile
+
+    geom, params = sterile_steps(torch.float64)
+    points = sterile_points(params)
+    n = geom["e"].shape[0]
+    out = {}
+    for dname, cdt in (("float64", torch.complex128),
+                       ("float32", torch.complex64)):
+        worst_abs = worst_rel = 0.0
+        nominal = None
+        for nubar in (1, -1):
+            for i, (angles, dms) in enumerate(points):
+                U = sterile.pmns4_matrix(*angles, device="cuda")
+                if nubar < 0:
+                    U = torch.complex(U.real, -U.imag)
+                H = sterile.layer_hamiltonians(
+                    U, torch.tensor(dms, dtype=torch.float64, device="cuda"),
+                    nubar, geom["e"], geom["rho_e"], geom["rho_n"]).to(cdt)
+                w, _, sweeps = herm4.herm4_eig(H, sweeps=True)
+                norm = torch.linalg.matrix_norm(H.to(torch.complex128))
+                # the plain version's eigenvalues, and eigvalsh's
+                for want in (herm4_plain(herm4, H)[0], torch.cat([
+                        torch.linalg.eigvalsh(x)
+                        for x in H.split(HERM4_CHUNK)])):
+                    err = (w.double() - want.double()).abs()
+                    worst_abs = max(worst_abs, float(err.max()))
+                    worst_rel = max(worst_rel,
+                                    float((err / norm[:, None]).max()))
+                if nubar > 0 and i == 0:
+                    nominal = (H, sweeps)
+        H, sweeps = nominal
+        check(worst_rel <= HERM4_TOL[dname],
+              f"herm4_eig {dname}: {worst_rel:.3e} of |H| off the plain"
+              " version")
+        if dname == "float64":
+            herm4_derivatives(herm4, H, smi)
+        ms = graph_time(lambda: herm4.herm4_eig(H), launches=20, replays=5)
+        plain_ms = cuda_time(lambda: herm4_plain(herm4, H), 3)
+        library_ms, backend = herm4_library_ms(H)
+        chunked_ms = cuda_time(lambda: [torch.linalg.eigvalsh(x)
+                                        for x in H.split(HERM4_CHUNK)], 3)
+        size = torch.finfo(torch.float64 if dname == "float64"
+                           else torch.float32).bits // 8
+        nbytes = n * (32 + 4 + 32) * size
+        ops = herm4.herm4_operations(sweeps.cpu())
+        t_ops = ops / PEAK_FLOPS[dname] * 1e3
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        attrs = herm4.kernel_attributes(cdt)
+        out[dname] = dict(
+            max_abs_err=worst_abs, max_rel_err=worst_rel, ms=ms,
+            plain_ms=plain_ms, library_ms=library_ms,
+            library_backend=backend, bound_ms=max(t_ops, t_bytes),
+            bound_by="operations" if t_ops >= t_bytes else "bytes",
+            sweeps_mean=float(sweeps.float().mean()), **attrs)
+        print(f"herm4_eig {dname}, {n} matrices (the 3+1 flagship's layer"
+              f" steps of one sign), 8 batches (2 signs x 4 points): max"
+              f" |w - plain| (torch.linalg.eigh and eigvalsh)"
+              f" {worst_abs:.3e}, {worst_rel:.3e} of |H| (bound"
+              f" {HERM4_TOL[dname]:g}); device-only {ms:.4f} ms, plain"
+              f" (torch.linalg.eigh in chunks of {HERM4_CHUNK}) {plain_ms:.3f}"
+              f" ms, torch.linalg.eigvalsh in one call ({backend} backend)"
+              f" {library_ms:.3f} ms, in chunks of {HERM4_CHUNK}"
+              f" {chunked_ms:.3f} ms; bound {max(t_ops, t_bytes):.4f} ms by"
+              f" {out[dname]['bound_by']} ({ops} operations over"
+              f" {out[dname]['sweeps_mean']:.2f} sweeps a matrix, {nbytes}"
+              f" bytes; {100 * max(t_ops, t_bytes) / ms:.1f}% of bound);"
+              f" {attrs['registers']} registers, {attrs['local_bytes']} local"
+              f" bytes, {attrs['blocks_per_sm']} blocks of"
+              f" {attrs['threads']} per SM [{smi}]")
+    return out
+
+
+def maps_mismatch(got, want):
+    """Worst |got - want| per bin over each map's largest |want|."""
+    import numpy as np
+
+    worst = 0.0
+    for m in want:
+        ref = np.asarray(m.hist)
+        worst = max(worst, float(np.abs(np.asarray(got[m.name].hist) - ref)
+                                 .max() / np.abs(ref).max()))
+    return worst
+
+
+def sterile_card_vs_cpu(label, make_config, smi):
+    """float64: the pipeline of make_config() on the card against the CPU:
+    the eager maps (each bin within TEMPLATE_RTOL of its map's largest),
+    and the compiled mod_chi2 value_and_grad (the card's captured) at
+    gradient_point with the CPU's maps as data, within VG_FP64."""
+    import numpy as np
+
+    from pisa_tpu_torch.core.pipeline import Pipeline
+
+    from pisa_tpu_torch.ops.osc import herm4
+    results = {}
+    data = None
+    for device in ("cpu", "cuda"):
+        herm4.launch_count = 0
+        t0 = time.perf_counter()
+        pipeline = Pipeline(make_config(), device=device)
+        maps = pipeline.get_outputs()
+        if data is None:
+            data = {m.name: np.asarray(m.hist) for m in maps}
+        ct = pipeline.compile()
+        _, vg = ct.build_objective(data, "mod_chi2")
+        value, grad = vg(gradient_point(ct))
+        results[device] = (maps, float(value), grad.cpu().numpy(),
+                           time.perf_counter() - t0, herm4.launch_count,
+                           ct.stacked)
+    (cpu_maps, want, want_g, cpu_s, _, _), (maps, got, got_g, card_s,
+                                            launches, stacked) = (
+        results["cpu"], results["cuda"])
+    worst = maps_mismatch(maps, cpu_maps)
+    rel = abs(got - want) / abs(want)
+    mism = grad_mismatch(got_g, want_g, VG_FP64["grad_rtol"],
+                         VG_FP64["grad_atol"])
+    print(f"float64 {label} ({'stacked' if stacked else 'per container'},"
+          f" {len(got_g)} free), card vs CPU: maps {worst:.3e} of each map's"
+          f" largest bin (bound {TEMPLATE_RTOL['float64']:g}); captured"
+          f" value {got!r} vs {want!r} ({rel:.3e} relative, bound"
+          f" {VG_FP64['value']:g}); gradient {rel_max(got_g, want_g):.3e} of"
+          f" max|g|, worst entry at {mism:.3e} of its bound; herm4_eig"
+          f" launches {launches}; set-up, template and value_and_grad"
+          f" {card_s:.1f} s on the card, {cpu_s:.1f} s on the CPU [{smi}]")
+    check(np.isfinite(got) and np.all(np.isfinite(got_g)),
+          f"{label}: not finite on the card")
+    check(worst <= TEMPLATE_RTOL["float64"], f"{label}: card maps vs CPU")
+    check(rel <= VG_FP64["value"], f"{label}: card value vs CPU")
+    check(mism <= 1.0, f"{label}: card gradient vs CPU")
+
+
+def sterile_fp64(smi):
+    """float64, card against CPU: sterile_example.cfg; the 20x20-grid 3+1
+    flagship in the low-pass picture and in the amplitude picture; then, on
+    the card, the 3-flavour nusquids flagship against the prob3 flagship on
+    the 20x20 grid (the same physics: NUSQUIDS3_TOL of each map's largest
+    bin)."""
+    from pisa_tpu_torch.core.pipeline import Pipeline
+    from pisa_tpu_torch.ops.osc import chain
+
+    with tempfile.TemporaryDirectory() as tmp:
+        for label, make in (
+                ("sterile_example.cfg", lambda: STERILE_CFG),
+                ("3+1 flagship, 20x20 grid, low-pass",
+                 lambda: sterile_config(tmp, 20)),
+                ("3+1 flagship, 20x20 grid, amplitude picture",
+                 lambda: sterile_config(tmp, 20, lowpass=False))):
+            t0 = time.perf_counter()
+            sterile_card_vs_cpu(label, make, smi)
+            print(f"float64 {label}: {time.perf_counter() - t0:.1f} s")
+        reset_launch_counts(chain)
+        got = Pipeline(sterile_config(tmp, 20, num_neutrinos=3),
+                       device="cuda").get_outputs()
+        launches = launch_counts(chain)
+        want = Pipeline(small_grid_config(), device="cuda").get_outputs()
+    worst = maps_mismatch(got, want)
+    print(f"float64 nusquids (3 flavours, the general-pack route) vs prob3"
+          f" (the standard route), 20x20-grid flagship on the card: maps"
+          f" {worst:.3e} of each map's largest bin (bound"
+          f" {NUSQUIDS3_TOL:g}); nusquids launches {launches} [{smi}]")
+    check(worst <= NUSQUIDS3_TOL, "nusquids (3 flavours) vs prob3")
+    check(launches == (2, 0, 0), f"nusquids (3 flavours) launches {launches}")
+
+
+def sterile_worker():
+    """float64: sterile_fp64 in a child process."""
+    from pisa_tpu_torch import FTYPE_NAME
+
+    check(FTYPE_NAME == "fp64", f"sterile worker runs {FTYPE_NAME}")
+    smi = card_line()
+    t0 = time.perf_counter()
+    sterile_fp64(smi)
+    print(f"float64 sterile phase: {time.perf_counter() - t0:.1f} s [{smi}]")
+
+
+def sterile_resonance_fp32(smi):
+    """The 3+1 engine in float32 on the card, with herm4_eig for the
+    eigenvalues, at the resonance set of tests/test_sterile.py:304-341
+    (PREM-12 chains at coszen -1..-0.3, 100, 500 and 2000 GeV, both signs):
+    every row sum within STERILE_ROW_SUM of 1, the JAX package's own
+    bound."""
+    import numpy as np
+    import torch
+
+    from pisa_tpu_torch.ops.osc import sterile
+    from pisa_tpu_torch.ops.osc.layers import Layers
+
+    layers = Layers("osc/PREM_12layer.dat", 2.0, 20.0)
+    layers.setElecFrac(0.4656, 0.4656, 0.4957)
+    cz = np.linspace(-1.0, -0.3, 8)
+    layers.calcLayers(cz)
+    n = int(np.max(layers.n_layers))
+    dens = layers.density.reshape(len(cz), -1)[:, :n]
+    dist = layers.distance.reshape(len(cz), -1)[:, :n]
+    U = sterile.pmns4_matrix(0.5839, 0.1496, 0.7854, 0.12, 0.15, 0.0, 1.2,
+                             0.0, 0.0, device="cuda")
+    dms = torch.tensor([0.0, 7.42e-5, 2.514e-3, 1.0], dtype=torch.float64,
+                       device="cuda")
+    worst = 0.0
+    for energy in (100.0, 500.0, 2000.0):
+        for nubar in (1, -1):
+            e = torch.full((len(cz),), energy, dtype=torch.float32,
+                           device="cuda")
+            p = sterile.osc_probs_layers_4nu(dms, U, nubar, e, dens,
+                                             dens * 0.468, dist).cpu().numpy()
+            worst = max(worst, float(np.abs(p.sum(axis=2) - 1.0).max()),
+                        float(-p.min()))
+    print(f"float32 3+1 engine on the card at the TeV resonance set: worst"
+          f" |row sum - 1| {worst:.3e} (bound {STERILE_ROW_SUM:g}) [{smi}]")
+    check(worst <= STERILE_ROW_SUM,
+          "the float32 3+1 engine's rows do not sum to 1 at the resonance")
+
+
+def sterile_fp32(chain, smi):
+    """The 3+1 flagship at full width, float32, through the entry points
+    (this slice's main path): the eager template; the captured
+    value_and_grad (measure_vg: wall, kernels, busy share, peak memory; no
+    wait inside the replay); Analysis().fit_recursively(..., 'device',
+    {'max_steps': STERILE_FIT_STEPS}, ...) from theta24 moved by
+    STERILE_MOVE rescaled; get_fisher_matrix on its
+    17 free params; fit_pseudo_ensemble with STERILE_TRIALS lanes (fewer
+    only where the lanes' peak memory measured at B = 1 says they cannot
+    fit); then the 3-flavour nusquids flagship (the chain kernels): its
+    template, captured value_and_grad and Fisher matrix. The counts are set
+    to 0 just before each path and read just after; returns the sums of
+    the chain kernels' and of herm4_eig's."""
+    import numpy as np
+    import torch
+
+    from pisa_tpu_torch import TORCH_FTYPE, ureg
+    from pisa_tpu_torch.analysis.analysis import Analysis, BasicAnalysis
+    from pisa_tpu_torch.analysis.device_fit import fit_pseudo_ensemble
+    from pisa_tpu_torch.analysis.fisher import get_fisher_matrix
+    from pisa_tpu_torch.analysis.gradient import CompiledDistribution
+    from pisa_tpu_torch.core.distribution_maker import DistributionMaker
+    from pisa_tpu_torch.core.pipeline import Pipeline
+    from pisa_tpu_torch.testing.sterile_flagship import write_sterile_flagship
+
+    from pisa_tpu_torch.ops.osc import herm4
+    total, total_h4 = [0, 0, 0], 0
+
+    def reset():
+        reset_launch_counts(chain)
+        herm4.launch_count = 0
+
+    def add():
+        nonlocal total_h4
+        for i, n in enumerate(launch_counts(chain)):
+            total[i] += n
+        total_h4 += herm4.launch_count
+        return launch_counts(chain), herm4.launch_count
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = write_sterile_flagship(tmp)
+        # the eager template
+        reset()
+        t0 = time.perf_counter()
+        pipeline = Pipeline(cfg, device="cuda")
+        setup_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        maps = pipeline.get_outputs()
+        totals = [float(m.hist.sum()) for m in maps]
+        first_s = time.perf_counter() - t0
+        check(all(np.isfinite(t) and t > 0 for t in totals),
+              "3+1 flagship: template not finite")
+        walls = []
+        for i in range(5):
+            pipeline.params["theta24"].value = (8.0 + 0.1 * (i + 1)) * ureg.degree
+            t0 = time.perf_counter()
+            pipeline.get_outputs()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        launches, h4 = add()
+        print(f"float32 3+1 flagship: Pipeline set-up {setup_s:.2f} s, first"
+              f" template {first_s:.2f} s, then get_outputs median"
+              f" {np.median(walls) * 1e3:.2f} ms (5 runs), {sum(totals):.1f}"
+              f" expected events; herm4_eig launches {h4} (2 a template),"
+              f" chain launches {launches} [{smi}]")
+        check(h4 == 12, f"3+1 flagship templates: {h4} herm4_eig launches")
+        pipeline.params["theta24"].value = 8.0 * ureg.degree
+
+        # the captured value_and_grad
+        ct = pipeline.compile()
+        check(not ct.stacked and len(ct.free_names) == STERILE_FREE,
+              f"3+1 flagship template: stacked {ct.stacked},"
+              f" {len(ct.free_names)} free")
+        reset()
+        measure_vg("3+1 flagship", ct, chain, smi)
+        launches, h4 = add()
+        print(f"3+1 flagship value_and_grad path: herm4_eig launches {h4}"
+              f" [{smi}]")
+        check(h4 > 0, "the 3+1 value_and_grad launched no herm4_eig")
+
+        # the Fisher matrix of its 17 free params
+        get_fisher_matrix(ct)  # the first call builds the cached tensors
+        reset()
+        t0 = time.perf_counter()
+        fm = get_fisher_matrix(ct)
+        wall = time.perf_counter() - t0
+        launches, h4 = add()
+        print(f"float32 Fisher matrix, 3+1 flagship ({len(fm.parameters)}"
+              f" params), jacfwd of the eager template: wall"
+              f" {wall * 1e3:.2f} ms; herm4_eig launches {h4} (one a sign:"
+              f" the jvp rule is torch ops); sigma(theta24)"
+              f" {fm.get_sigma('theta24')!r} [{smi}]")
+        check(np.all(np.isfinite(fm.matrix)) and np.all(np.diag(fm.matrix)
+                                                        > 0),
+              "3+1 Fisher matrix not finite or not positive")
+        check(h4 == 2, f"3+1 Fisher: {h4} herm4_eig launches")
+        del ct, pipeline, maps
+
+        # the device fit through the analysis layer
+        reset()
+        dm = DistributionMaker([cfg], device="cuda")
+        data = dm.get_outputs(return_sum=True)
+        truth = dm.params["theta24"]._rescaled_value
+
+        def fit():
+            dm.reset_free()
+            dm.params["theta24"]._rescaled_value = min(0.95,
+                                                       truth + STERILE_MOVE)
+            return Analysis().fit_recursively(
+                data, dm, "mod_chi2", None, "device",
+                {"max_steps": STERILE_FIT_STEPS}, None)
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        waits, result = count_host_syncs(fit)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        meta = result.minimizer_metadata
+        moved = result.params["theta24"]._rescaled_value - truth
+        launches, h4 = add()
+        print(f"Analysis fit, 3+1 flagship ({STERILE_FREE} free), device"
+              f" (max_steps {STERILE_FIT_STEPS}), float32: wall {wall:.3f} s"
+              f" with the set-up and capture of"
+              f" its objective, nit {meta['nit']}, nfev {meta['nfev']},"
+              f" {waits} waits for the card ({waits / meta['nfev']:.2f} per"
+              f" evaluation), theta24 off the truth by {moved:.3e} rescaled"
+              f" (bound {FIT_TOL:g}), metric {result.metric_val!r}; peak"
+              f" memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB;"
+              f" herm4_eig launches {h4} [{smi}]")
+        check(abs(moved) <= FIT_TOL, "the 3+1 fit did not recover theta24")
+        check(waits / meta["nfev"] <= DEVICE_FIT_WAITS,
+              f"the 3+1 fit waited {waits / meta['nfev']:.2f} times per"
+              " evaluation")
+        BasicAnalysis._compiled_cache.clear()
+
+        # the pseudo-ensemble
+        cd = CompiledDistribution(dm)
+        x_nom = cd.current_rescaled_values()
+        asimov = cd.sum_hist(x_nom)
+        los, his = cd._device_bounds()
+        lam = torch.as_tensor(asimov, dtype=TORCH_FTYPE, device="cuda")
+        eager = cd._objective(asimov, "mod_chi2")
+        reset()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        vec = torch.as_tensor(x_nom[None], device="cuda").requires_grad_(True)
+        eager(vec, los, his, torch.poisson(lam[None])).sum().backward()
+        torch.cuda.synchronize()
+        per_lane = torch.cuda.max_memory_allocated() - base
+        add()
+        del vec
+        torch.cuda.empty_cache()
+        free, _ = torch.cuda.mem_get_info()
+        trials = STERILE_TRIALS
+        if trials * per_lane > free:
+            trials = max(1, int(free // per_lane))
+        print(f"3+1 ensemble: one lane's eager value_and_grad peaks at"
+              f" {per_lane / 2**20:.1f} MiB; {STERILE_TRIALS} lanes need"
+              f" {STERILE_TRIALS * per_lane / 2**30:.2f} GiB, the card has"
+              f" {free / 2**30:.2f} GiB free: {trials} trials [{smi}]")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        reset()
+        t0 = time.perf_counter()
+        out = fit_pseudo_ensemble(cd, "mod_chi2", n_trials=trials, seed=0,
+                                  max_steps=STERILE_ENSEMBLE_STEPS)
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - base
+        launches, h4 = add()
+        nit = out["nit"]
+        print(f"fit_pseudo_ensemble, 3+1 flagship, {trials} trials,"
+              f" mod_chi2, {STERILE_ENSEMBLE_STEPS} steps, float32: wall"
+              f" {wall:.3f} s with its capture ({wall / trials * 1e3:.2f} ms"
+              f" a trial), nit median {float(np.median(nit))} max"
+              f" {int(nit.max())}, {out['nfev']} evaluations, {out['reads']}"
+              f" flag reads; peak memory above what was resident"
+              f" {peak / 2**20:.1f} MiB ({peak / trials / 2**20:.1f} MiB a"
+              f" lane); herm4_eig launches {h4} [{smi}]")
+        check(np.all(np.isfinite(out["fun"])) and np.all(nit > 0),
+              "the 3+1 ensemble's fits are not all finite")
+        del cd, dm, eager
+
+        # the 3-flavour nusquids flagship: the chain kernels
+        reset()
+        pipeline = Pipeline(sterile_config(tmp, num_neutrinos=3),
+                            device="cuda")
+        maps = pipeline.get_outputs()
+        check(all(np.isfinite(float(m.hist.sum())) for m in maps),
+              "3-flavour nusquids flagship: template not finite")
+        launches, _ = add()
+        check(launches == (2, 0, 0),
+              f"3-flavour nusquids template launches {launches}")
+        ct = pipeline.compile()
+        reset()
+        vg_launches = measure_vg("3-flavour nusquids flagship", ct, chain,
+                                 smi)
+        check(vg_launches == (2, 0, 0),
+              f"3-flavour nusquids value_and_grad launches {vg_launches}")
+        add()
+        get_fisher_matrix(ct)
+        reset()
+        t0 = time.perf_counter()
+        get_fisher_matrix(ct)
+        wall = time.perf_counter() - t0
+        launches, _ = add()
+        n = len(ct.free_names)
+        expected = (2, 0, 2 * -(-n // chain.MAX_TANGENTS))
+        print(f"float32 Fisher matrix, 3-flavour nusquids flagship ({n}"
+              f" free): wall {wall * 1e3:.2f} ms; launches {launches}"
+              f" (expected {expected}) [{smi}]")
+        check(launches == expected,
+              f"3-flavour nusquids Fisher launches {launches}")
+        del ct, pipeline, maps
+    print(f"sterile path launches (primal, tangent, multitangent):"
+          f" {tuple(total)}, herm4_eig {total_h4} [{smi}]")
+    check(total_h4 > 0, "herm4_eig never ran on the sterile path")
+    return tuple(total), total_h4
+
+
+def sterile_only_main(chain, smi):
+    """``--sterile-only``: the kernels built, herm4_eig held and timed, then
+    the 3+1 phases alone (the float64 child's and the main process's); no
+    status line."""
+    t0 = time.perf_counter()
+    herm4_vs_plain(smi)
+    sterile_resonance_fp32(smi)
+    print(f"herm4_eig checks: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    subprocess.run([sys.executable, os.path.abspath(__file__),
+                    "--sterile-worker"],
+                   env=dict(os.environ, PISA_TPU_FTYPE="fp64"), check=True)
+    print(f"float64 child (sterile): {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    launches = sterile_fp32(chain, smi)
+    print(f"float32 sterile phase: {time.perf_counter() - t0:.1f} s;"
+          f" launches {launches}")
+    return 0
+
+
 def print_kernel_times(kernels, smi):
     for name, k in kernels.items():
         for dname, t in k.items():
@@ -3884,7 +4602,7 @@ def analysis_only_main(chain, smi):
 
 
 def main(kernels_only=False, release_only=False, analysis_only=False,
-         options_only=False, lanes_only=False):
+         options_only=False, lanes_only=False, sterile_only=False):
     started = time.perf_counter()
     if not os.path.isdir(os.path.join(ROOT, "pisa_tpu_torch")):
         print("chip_smoke.py must run from a checkout of the repository"
@@ -3906,7 +4624,14 @@ def main(kernels_only=False, release_only=False, analysis_only=False,
     from pisa_tpu_torch.ops.osc import chain
 
     smi = device_lines()
+    try:
+        import h5py
+        print(f"h5py: imports, version {h5py.__version__}")
+    except ImportError as exc:
+        print(f"h5py: does not import ({exc})")
     build_kernel(chain)
+    if sterile_only:
+        return sterile_only_main(chain, smi)
     if release_only:
         return release_only_main(chain, smi)
     if analysis_only:
@@ -3925,17 +4650,21 @@ def main(kernels_only=False, release_only=False, analysis_only=False,
     general_lanes = general_lane_kernels(chain)
     print_kernel_times(kernels, smi)
     if kernels_only:
+        herm4_vs_plain(smi)
         return 0
 
-    # float64: CPU reference and card run, in a child process
+    # float64, card against CPU: every child process at once (their CPU
+    # sides dominate, and none depends on another), before the float32
+    # phases, whose timings then run alone
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "reference.npz")
-        env = dict(os.environ, PISA_TPU_FTYPE="fp64")
-        t0 = time.perf_counter()
-        subprocess.run([sys.executable, os.path.abspath(__file__),
-                        "--reference-worker", path], env=env, check=True)
-        print(f"float64 child (CPU reference + card run):"
-              f" {time.perf_counter() - t0:.1f} s")
+        run_children([
+            ("CPU reference + card run", ["--reference-worker", path]),
+            ("metrics, generalized, Fisher", ["--analysis-worker"]),
+            ("options", ["--osc-options-worker"]),
+            ("options lanes", ["--osc-lanes-worker"]),
+            ("sterile", ["--sterile-worker"]),
+        ])
         with np.load(path) as f:
             ref = {k: f[k] for k in f.files}
     print(f"CPU float64 reference, 3 templates: {float(ref['cpu_seconds']):.2f}"
@@ -4018,13 +4747,6 @@ def main(kernels_only=False, release_only=False, analysis_only=False,
     t0 = time.perf_counter()
     release_path = release_fp32(chain, ref, smi)
     print(f"float32 release phase: {time.perf_counter() - t0:.1f} s")
-    # float64: the rest of the analysis layer, card against CPU, in a child
-    t0 = time.perf_counter()
-    subprocess.run([sys.executable, os.path.abspath(__file__),
-                    "--analysis-worker"],
-                   env=dict(os.environ, PISA_TPU_FTYPE="fp64"), check=True)
-    print(f"float64 child (metrics, generalized, Fisher):"
-          f" {time.perf_counter() - t0:.1f} s")
     # float32: the MC-uncertainty metrics and the nlopt fits, the Fisher
     # matrix, the ensemble sampler
     extra_paths = {}
@@ -4033,26 +4755,27 @@ def main(kernels_only=False, release_only=False, analysis_only=False,
         t0 = time.perf_counter()
         extra_paths[label] = phase(pipeline, chain, smi)
         print(f"float32 {label} phase: {time.perf_counter() - t0:.1f} s")
-    # prob3's options: float64 card against CPU in a child, then float32 at
-    # full width through the entry points
-    t0 = time.perf_counter()
-    subprocess.run([sys.executable, os.path.abspath(__file__),
-                    "--osc-options-worker"],
-                   env=dict(os.environ, PISA_TPU_FTYPE="fp64"), check=True)
-    print(f"float64 child (options): {time.perf_counter() - t0:.1f} s")
+    # prob3's options at full width through the entry points
     t0 = time.perf_counter()
     extra_paths["options"] = osc_options_fp32(chain, smi)
     print(f"float32 options phase: {time.perf_counter() - t0:.1f} s")
-    # forward mode and lanes under the options: float64 card against CPU in
-    # a child, then float32 at full width through the entry points
-    t0 = time.perf_counter()
-    subprocess.run([sys.executable, os.path.abspath(__file__),
-                    "--osc-lanes-worker"],
-                   env=dict(os.environ, PISA_TPU_FTYPE="fp64"), check=True)
-    print(f"float64 child (options lanes): {time.perf_counter() - t0:.1f} s")
+    # forward mode and lanes under the options
     t0 = time.perf_counter()
     extra_paths["options lanes"] = options_lanes_fp32(chain, smi)
     print(f"float32 options lanes phase: {time.perf_counter() - t0:.1f} s")
+    # 3+1 sterile oscillations and the 3-flavour nusquids route: herm4_eig
+    # against its plain version, then float32 at full width. The kernel
+    # checks run here, after route_table, whose check counts the copies the
+    # profiler sees on the card: with them (and their switch to MAGMA and
+    # back) before it, one run's profiler saw no copy in a captured
+    # value_and_grad at all.
+    t0 = time.perf_counter()
+    herm4_kernel = herm4_vs_plain(smi)
+    sterile_resonance_fp32(smi)
+    print(f"herm4_eig checks: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    extra_paths["sterile"], herm4_launches = sterile_fp32(chain, smi)
+    print(f"float32 sterile phase: {time.perf_counter() - t0:.1f} s")
     print(f"launches (primal, tangent, multitangent) by path: gradient and fit"
           f" {fit_path}, template {template_path}, analysis {analysis_path},"
           f" ensemble {ensemble_path}, release {release_path}, "
@@ -4097,6 +4820,29 @@ def main(kernels_only=False, release_only=False, analysis_only=False,
             "general_lanes": {str(k): t for k, t in
                               general_lanes[name]["float32"]["times"].items()},
         })
+    k = herm4_kernel["float32"]
+    lines.append({
+        "name": "herm4_eig",
+        "route": "cuda",
+        "source": HERM4_SOURCE,
+        "replaces": HERM4_REPLACES,
+        "launches": herm4_launches,
+        "max_abs_err": k["max_abs_err"],
+        "ms": k["ms"],
+        "plain_ms": k["plain_ms"],
+        "bound_ms": k["bound_ms"],
+        "bound_by": k["bound_by"],
+        "library_ms": k["library_ms"],
+        "dtype": "float32",
+        "max_rel_err": k["max_rel_err"],
+        "library_call": f"torch.linalg.eigvalsh ({k['library_backend']}"
+                        " backend)",
+        "registers": k["registers"],
+        "local_bytes": k["local_bytes"],
+        "threads": k["threads"],
+        "blocks_per_sm": k["blocks_per_sm"],
+        "sweeps_mean": k["sweeps_mean"],
+    })
     print(f"chip_smoke.py total wall: {time.perf_counter() - started:.1f} s"
           f" [{smi}]")
     print(json.dumps({"kernels": lines}))
@@ -4112,7 +4858,8 @@ def main(kernels_only=False, release_only=False, analysis_only=False,
 if __name__ == "__main__":
     workers = {"--analysis-worker": analysis_worker,
                "--osc-options-worker": osc_options_worker,
-               "--osc-lanes-worker": options_lanes_worker}
+               "--osc-lanes-worker": options_lanes_worker,
+               "--sterile-worker": sterile_worker}
     if len(sys.argv) == 2 and sys.argv[1] in workers:
         sys.path.insert(0, ROOT)
         os.chdir(ROOT)
@@ -4130,4 +4877,5 @@ if __name__ == "__main__":
                   release_only=sys.argv[1:] == ["--release-only"],
                   analysis_only=sys.argv[1:] == ["--analysis-only"],
                   options_only=sys.argv[1:] == ["--osc-options-only"],
-                  lanes_only=sys.argv[1:] == ["--osc-lanes-only"]))
+                  lanes_only=sys.argv[1:] == ["--osc-lanes-only"],
+                  sterile_only=sys.argv[1:] == ["--sterile-only"]))

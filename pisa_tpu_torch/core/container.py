@@ -27,10 +27,11 @@ convention, ``(B, *shape)``. A written floating value is stored in
 ``TORCH_FTYPE``. A lane's magnitudes are (B, 1) float64 tensors, which,
 unlike the 0-d ones of a single point, would promote float32 data to
 float64: stages take them through ``core.stage.in_data_type``, so that a
-lane computes in the data's type as its single point does. A translation
-between representations of a laned value is supported on a
-category-stacked container (``core/stacking.py``), not on a plain one (it
-raises).
+lane computes in the data's type as its single point does. A laned value
+translates between events and a binning with its lane axis folded into the
+channels (a lookup or a histogram per container, or the stacked
+container's own ops, ``core/stacking.py``); a resampling between two
+binnings of a laned value raises.
 
 Variables are torch tensors on the container set's device. Host arrays
 (numpy) are uploaded when set, floating ones in ``TORCH_FTYPE`` (as the JAX
@@ -342,12 +343,17 @@ class Container:
         from_map = isinstance(src_representation, MultiDimBinning)
         to_map = isinstance(dest, MultiDimBinning)
         values = self._data[key][_rep_hash(src_representation)]
-        if key in self._laned:
-            raise NotImplementedError(
-                f"translating {key!r} with a lane axis ({src_representation}"
-                f" -> {dest}) needs a category-stacked container; this"
-                " template runs per container"
-            )
+        laned = key in self._laned
+        if laned:
+            if from_map and to_map:
+                raise NotImplementedError(
+                    f"resampling {key!r} with a lane axis"
+                    f" ({src_representation} -> {dest}) is not supported"
+                )
+            # the lane axis joins the trailing channels, (size, rest * B),
+            # and leaves them again after the translation
+            laned_shape = tuple(values.shape)
+            values = values.movedim(0, -1).reshape(laned_shape[1], -1)
 
         if mode == "average":
             if from_map and to_map:
@@ -380,6 +386,9 @@ class Container:
                 )
         else:
             raise ValueError(f"Unknown translation mode {mode!r}")
+        if laned:
+            out = out.reshape(out.shape[:1] + laned_shape[2:]
+                              + laned_shape[:1]).movedim(-1, 0)
 
         self._data[key][_rep_hash(dest)] = out
         self.validity[key][_rep_hash(dest)] = True
