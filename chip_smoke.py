@@ -6,9 +6,10 @@ Run from the root of a checkout, with no arguments:
 
     python3 chip_smoke.py
 
-It builds the port's four CUDA kernels (the oscillation chain, its tangent
-and its multitangent, and the 4x4 Hermitian eigenvalues of the 3+1 layer
-step) from the sources in the checkout, checks each against
+It builds the port's six CUDA kernels (the oscillation chain, its tangent
+and its multitangent, the 4x4 Hermitian eigenvalues of the 3+1 layer
+step, and the KDE's Gaussian sum and its vector-Jacobian product) from the
+sources in the checkout, checks each against
 its plain PyTorch version on the card at the flagship's shapes, and drives
 the flagship IceCube 3-year pipeline
 (``settings/pipeline/IceCube_3y_neutrinos.cfg``: 240k events, 200x200
@@ -101,9 +102,9 @@ oscillation grid, 15 free parameters) on the card through its two paths:
   ``get_fisher_matrix`` (wall, launches), ``mcmc_sampling`` with 32
   walkers (wall per step), and ``fit_pseudo_ensemble(cd, "mod_chi2",
   n_trials=16)`` (wall per trial, evaluations, peak memory, the launches of
-  one 16-lane value_and_grad), then 64 trials where 4x the 16-trial peak
-  fits in the card's free memory (else the line "64-lane NSI ensemble:
-  does not fit"), and lane 0 beside its solo fit;
+  one 16-lane value_and_grad), and lane 0 beside its solo fit (the
+  64-trial NSI ensemble was cut to keep the whole run in its time limit;
+  ``OPTIONS_TRIALS`` runs it again where 64 is added);
 - the remaining oscillation services, this slice's main path: the
   herm4_eig kernel (the 3+1 layer step's 4x4 Hermitian eigenvalues,
   ``csrc/herm4_eig.cu``) against its plain version at the 3+1 flagship's
@@ -117,9 +118,24 @@ oscillation grid, 15 free parameters) on the card through its two paths:
   (``testing/sterile_flagship.py``, 17 free, per container): the template,
   the captured value_and_grad (no wait inside the replay), the Fisher
   matrix, a ``device`` fit through Analysis from theta24 moved off its
-  truth, an 8-trial pseudo-ensemble with its per-lane peak memory; and the
+  truth, a 4-trial pseudo-ensemble with its per-lane peak memory; and the
   3-flavour nusquids flagship's template, value_and_grad and Fisher matrix
-  on the chain kernels. It prints early whether ``h5py`` imports.
+  on the chain kernels. It prints early whether ``h5py`` is installed;
+- the HDF5 event path and the KDE stage, this slice's main path: the two
+  KDE kernels (``csrc/kde_gauss.cu``) against their plain versions at the
+  full-width shapes (24 category x PID channels of 20,000 samples, the
+  pilot at the samples and the 1,320 points of kde_example's grid; float64
+  and float32; a channel without weight; the float64 density's backward
+  against central differences) with their times, bounds and registers; in
+  float64 (a child process, ``h5py`` made unimportable), card against
+  CPU, ``example``, ``fast_example``, ``varbin_example`` and
+  ``kde_example.cfg`` from the repo's HDF5 file through the port's reader,
+  kde_example's compiled value_and_grad, and the same path at 2,000 toy
+  events per category; then in float32 ``kde_example.cfg`` fed
+  ``make_toy_events`` (240,000 events): the eager and the stacked captured
+  template, the captured value_and_grad (no wait inside the replay), a
+  ``device`` fit through Analysis from theta23 moved by +0.10, and
+  ``example.cfg`` at the same events.
 
 It times the kernels (device-only, from a CUDA graph of 200 launches, and
 host-inclusive, from back-to-back launches between CUDA events; the
@@ -140,13 +156,14 @@ kernels and runs the release phases alone, with ``--analysis-only`` the
 phases of the rest of the analysis layer alone, and with
 ``--osc-options-only`` the phases of prob3's options alone, and with
 ``--osc-lanes-only`` the phases of forward mode and lanes under the options
-alone, and with ``--sterile-only`` the 3+1 and nusquids phases alone;
+alone, with ``--sterile-only`` the 3+1 and nusquids phases alone, and with
+``--events-only`` the KDE kernel checks and the HDF5 and KDE phases alone;
 none prints a status line. It prints its total wall before the
 kernels line.
 
 The float64 runs (CPU reference and card) happen in child processes, since
 the float type is chosen once per process (``PISA_TPU_FTYPE``); the main
-process runs float32, the port's default. The five children of a full run
+process runs float32, the port's default. The six children of a full run
 start together, after the kernel checks and before the float32 phases
 (``run_children``): their CPU sides dominate them and none depends on
 another, and the float32 phases' timings then run alone.
@@ -308,14 +325,16 @@ OPTIONS_FP64_FRACTION = 0.05
 # sqrt(F_ii F_jj) for entries that are round-off of a zero correlation),
 # the float64 phases' event fractions (the CPU's share of their wall), the
 # NSI ensemble's
-# trials and steps (its 64-trial run only where 4x the 16-trial peak fits
-# in the card's free memory) and the NSI sampler's walkers and steps
+# trials and steps (16 trials; a further count runs only where its multiple
+# of the 16-trial peak fits in the card's free memory; the 64-trial run was
+# cut to keep the whole script in its time limit) and the NSI sampler's
+# walkers and steps
 GENERAL_LANES = 16
 FISHER_OPTIONS_RTOL = 1e-9
 FISHER_OPTIONS_ZERO = 1e-12
 OPTIONS_LANES_FP64_FRACTION = 0.25
 OPTIONS_BATCH_FRACTION = 0.0025
-OPTIONS_TRIALS = (16, 64)
+OPTIONS_TRIALS = (16,)
 OPTIONS_ENSEMBLE_STEPS = 10
 OPTIONS_MCMC = {"walkers": 32, "burnin": 10, "steps": 40}
 
@@ -347,7 +366,9 @@ STERILE_MOVE = 0.10  # the 3+1 fit starts from theta24 moved by this, rescaled
 # took 793 of them and 104 s, most at the float32 noise floor, and at 40
 # it stopped 5.5e-3 rescaled off theta24's truth
 STERILE_FIT_STEPS = 80
-STERILE_TRIALS = 8
+# the 3+1 ensemble's trials (8 until the HDF5 and KDE phases joined the run:
+# cut to keep the whole script in its time limit)
+STERILE_TRIALS = 4
 STERILE_ENSEMBLE_STEPS = 10
 # osc.nusquids with 3 flavours (the general-pack route) vs prob3 (the
 # standard route) on the 20x20-grid flagship, float64 on the card: each bin
@@ -356,6 +377,38 @@ NUSQUIDS3_TOL = 1e-11
 # float32 row sums of the 3+1 engine at the TeV resonance
 # (tests/test_sterile.py:304-341, the JAX package's bound)
 STERILE_ROW_SUM = 2e-5
+
+# the HDF5 event path and the KDE stage: the four configs that read the
+# repo's HDF5 events file (card vs CPU in float64, read by the port's reader
+# with h5py unimportable), and the full-width KDE run. The two KDE kernels
+# are no port of a Pallas kernel: they replace the XLA contraction of the
+# JAX package's adaptive KDE (pisa_tpu/utils/kde.py:101-115)
+HDF5_CFGS = ("example", "fast_example", "varbin_example", "kde_example")
+KDE_CFG = "settings/pipeline/kde_example.cfg"
+EXAMPLE_CFG = "settings/pipeline/example.cfg"
+KDE_SOURCE = "pisa_tpu_torch/csrc/kde_gauss.cu"
+KDE_REPLACES = "pisa_tpu/utils/kde.py:53 adaptive_gaussian_kde"
+# make_toy_events' events per flavour and interaction at full width (12
+# categories: 240,000 events, the flagship's count) and in the float64
+# card-vs-CPU check of the same path, and its seed
+TOY_EVENTS = 20_000
+TOY_EVENTS_FP64 = 2_000
+TOY_SEED = 0
+# KDE kernel vs its plain version on the same inputs, max |difference| /
+# max |plain|: float64 to the round-off of 20,000-term sums; the float32
+# kernel against the float32 plain version (the same terms summed in
+# another order) and against the float64 one (float32's rounding of the
+# inputs and of the 20,000-term sums: 1.3e-5 measured)
+KDE_KERNEL_RTOL = {"float64": 1e-12, "float32": 1e-4}
+# the kde_example device fit's most L-BFGS iterations: at float32 the fit
+# meets no gtol and ran all 200 (2,579 evaluations, 69 s), and all 60 of a
+# cap at 60 (659 evaluations, 17 s), with theta23 within 1.5e-7 of its
+# truth at either
+KDE_FIT_STEPS = 30
+# the float64 density's directional derivative (its backward) against
+# central differences with steps of this size relative to w and h:
+# truncation ~step^2, rounding ~1e-16 / step
+KDE_FD = {"step": 1e-5, "rtol": 1e-6}
 
 # the routes of one value_and_grad: label, compile options, captured
 ROUTES = (
@@ -1293,6 +1346,7 @@ def build_kernel(chain):
     herm4_eig.cu); print the compiler's report."""
     from pisa_tpu_torch.utils.cuda_build import build_libraries
 
+    from pisa_tpu_torch.ops import kde
     from pisa_tpu_torch.ops.osc import herm4
     log = io.StringIO()
     t0 = time.perf_counter()
@@ -1300,11 +1354,14 @@ def build_kernel(chain):
         specs = {name: ([chain._CSRC], [flag])
                  for name, flag in chain._PARTS.items()}
         specs["herm4_eig"] = ([herm4._CSRC], [])
+        specs["kde_gauss"] = ([kde._CSRC], [])
         build_libraries(specs)
         chain.kernel_library()
         herm4.kernel_library()
+        kde.kernel_library()
     print(f"kernel build/load: {time.perf_counter() - t0:.1f} s"
-          f" (from {KERNEL_SOURCE} and {HERM4_SOURCE}, sm_90a)")
+          f" (from {KERNEL_SOURCE}, {HERM4_SOURCE} and {KDE_SOURCE},"
+          " sm_90a)")
     for line in log.getvalue().splitlines():
         print(f"  {line}")
 
@@ -3715,9 +3772,10 @@ def options_lanes_fp32(chain, smi):
     (2) fit_pseudo_ensemble(cd, 'mod_chi2', 16 trials, OPTIONS_ENSEMBLE_STEPS
     steps): wall per trial, evaluations, peak memory, the launches of one
     eager 16-lane value_and_grad and the captured one's wall, back-to-back
-    and device time; then 64 trials where 4x the 16-trial
-    peak fits in the card's free memory (torch.cuda.mem_get_info), else
-    both numbers and the line '64-lane NSI ensemble: does not fit'; (3)
+    and device time; then each further count of OPTIONS_TRIALS where its
+    multiple of the first's peak fits in the card's free memory
+    (torch.cuda.mem_get_info), else both numbers and the line 'N-lane NSI
+    ensemble: does not fit'; (3)
     lane 0 beside its solo minimize_on_device fit (a report: the lane
     program and the solo one may round differently in float32); (4)
     mcmc_sampling with OPTIONS_MCMC's walkers: wall per step. The counts
@@ -4550,6 +4608,488 @@ def sterile_only_main(chain, smi):
     return 0
 
 
+# -- the HDF5 event path and the KDE stage --------------------------------------
+def kde_stage_plan(dtype):
+    """kde_example's KDE stage as set up (its regularized binning: log
+    reco energy, reco coszen, pid) and the plan of its histograms on the
+    card: the 1,320 points of the oversampled, reflected grid."""
+    from pisa_tpu_torch.config.parser import parse_pipeline_config
+    from pisa_tpu_torch.stages.utils.kde import kde
+    from pisa_tpu_torch.utils.kde import KDEPlan
+
+    settings = dict(parse_pipeline_config(KDE_CFG)[("utils", "kde")])
+    stage = kde(**settings)
+    stage.setup_function()
+    return stage, KDEPlan(
+        stage.regularized_apply_mode, coszen_name=stage.coszen_name,
+        coszen_reflection=stage.coszen_reflection,
+        oversample=stage.oversample, stack_pid=True, device="cuda",
+        dtype=dtype)
+
+
+def kde_inputs(dtype):
+    """Full-width inputs of the KDE kernels, float64 on the card: 24
+    channels (12 categories x 2 PID channels) of TOY_EVENTS samples in (log
+    reco energy, reco coszen) from a seed, channel 1 without weight, their
+    bandwidths, the pilot's coefficients, the widths and coefficients of
+    the pass at kde_example's 1,320 grid points (utils/kde.py and
+    ops/kde.py form them so), and cotangents for both vjps."""
+    import numpy as np
+    import torch
+
+    from pisa_tpu_torch.ops import kde as ops_kde
+    from pisa_tpu_torch.utils.kde import kde_bandwidths
+
+    stage, plan = kde_stage_plan(torch.float64)
+    rng = np.random.RandomState(TOY_SEED)
+    B, N = 24, TOY_EVENTS
+    x = np.stack([rng.normal(3.0, 0.8, (B, N)), rng.uniform(-1, 1, (B, N))],
+                 axis=1)
+    w = rng.uniform(0.5, 1.5, (B, N))
+    w[1] = 0.0
+
+    def dev(a):
+        return torch.as_tensor(a, dtype=torch.float64, device="cuda")
+
+    x, wn, h = kde_bandwidths(dev(x), dev(w), stage.bw_method)
+    ih = 1.0 / h
+    ones = torch.ones_like(wn)
+    q = ops_kde._widths(x, wn, h, ones, False, stage.alpha)
+    pilot = ops_kde.gauss_sum_reference(x, x, ih, ones, q["c0"])
+    q = ops_kde._widths(x, wn, h, pilot, True, stage.alpha)
+    return {
+        "x": x.contiguous(), "w": wn, "h": h, "points": plan.points,
+        "ih": ih, "ones": ones, "c0": q["c0"], "il2": q["il2"], "c": q["c"],
+        "g_pilot": dev(rng.normal(size=(B, N))),
+        "g_grid": dev(rng.normal(size=(B, plan.points.shape[1]))),
+        "alpha": stage.alpha,
+    }
+
+
+def kde_kernel_cases(inp):
+    """The kernels' four calls of one adaptive KDE: (kernel, label,
+    points-shared flag, its arguments)."""
+    x = inp["x"]
+    return (
+        ("sum", "pilot", False, (x, x, inp["ih"], inp["ones"], inp["c0"])),
+        ("sum", "grid", True, (x, inp["points"], inp["ih"], inp["il2"],
+                               inp["c"])),
+        ("vjp", "pilot", False, (x, x, inp["ih"], inp["ones"],
+                                 inp["g_pilot"])),
+        ("vjp", "grid", True, (x, inp["points"], inp["ih"], inp["il2"],
+                               inp["g_grid"])),
+    )
+
+
+def kde_vs_plain(smi):
+    """kde_gauss_sum and kde_gauss_sum_vjp against their plain versions on
+    the card at the full-width shapes (B = 24, N = TOY_EVENTS, the pilot's
+    M = N and the grid's M = 1,320), float64 and float32 (the float32
+    kernel against the float32 and the float64 plain version), a channel
+    without weight (zeros and finite vjps), the float64 directional
+    derivative of the whole density (ops/kde.py:AdaptiveDensity) against
+    central differences; device-only times (a CUDA graph of 20 launches)
+    beside the plain versions', the bounds and their share, registers and
+    blocks per SM. Returns {kernel name: {dtype: line}}."""
+    import numpy as np
+    import torch
+
+    from pisa_tpu_torch.ops import kde as ops_kde
+
+    inp = kde_inputs(torch.float64)
+    B, D, N = inp["x"].shape
+    live = inp["w"].sum(-1) > 0  # the channels with weight
+    out = {"kde_gauss_sum": {}, "kde_gauss_sum_vjp": {}}
+    for dname, dtype in (("float64", torch.float64),
+                         ("float32", torch.float32)):
+        for kind, label, shared, args in kde_kernel_cases(inp):
+            name = "kde_gauss_sum" if kind == "sum" else "kde_gauss_sum_vjp"
+            kernel = ops_kde.gauss_sum if kind == "sum" \
+                else ops_kde.gauss_sum_vjp
+            plain = ops_kde.gauss_sum_reference if kind == "sum" \
+                else ops_kde.gauss_sum_vjp_reference
+            cast = tuple(a.to(dtype).contiguous() for a in args)
+            got = kernel(*cast)
+            want = plain(*cast)
+            want64 = plain(*args)
+            torch.cuda.synchronize()
+            got, want, want64 = ((t,) if kind == "sum" else t
+                                 for t in (got, want, want64))
+            err = max(float((g.double() - p.double()).abs().max()
+                            / p.double().abs().max())
+                      for g, p in zip(got, want))
+            # against float64 the channels with weight only: the empty
+            # channel's vjp (k and u^2 at h = 1e-30, which the chain rule
+            # multiplies by its zero coefficients) overflows in float32
+            err64 = max(float((g[live].double() - p[live]).abs().max()
+                              / p[live].abs().max())
+                        for g, p in zip(got, want64))
+            abs_err = max(float((g.double() - p.double()).abs().max())
+                          for g, p in zip(got, want))
+            finite = all(bool(torch.isfinite(g).all()) for g in got)
+            zero = float(got[0][1].abs().max()) if kind == "sum" else 0.0
+            check(finite, f"{name} {label} {dname}: not finite")
+            check(zero == 0.0, f"{name} {label} {dname}: the channel"
+                  " without weight is not zero")
+            check(err <= KDE_KERNEL_RTOL[dname] and
+                  err64 <= KDE_KERNEL_RTOL[dname],
+                  f"{name} {label} {dname}: {err:.3e} / {err64:.3e} off the"
+                  " plain version")
+            M = cast[1].shape[-1]
+            ms = graph_time(lambda: kernel(*cast), launches=20, replays=3)
+            plain_ms = cuda_time(lambda: plain(*cast), 2)
+            bound, by = ops_kde.kde_bound_ms(kind, B, D, N, M, dtype,
+                                             shared_points=shared)
+            attrs = ops_kde.kernel_attributes(kind, D, dtype)
+            ops = ops_kde.kde_operations(kind, B, D, N, M)
+            print(f"kernel {name} {dname}, {label} (B={B}, D={D}, N={N},"
+                  f" M={M}): max |kernel - plain| {err:.3e} of the largest"
+                  f" (vs plain float64 {err64:.3e} over the channels with"
+                  f" weight, bound"
+                  f" {KDE_KERNEL_RTOL[dname]:g}); device-only {ms:.4f} ms,"
+                  f" plain {plain_ms:.3f} ms, bound {bound:.4f} ms by {by}"
+                  f" ({ops['pairs']} pairs, {ops['flops']} operations and"
+                  f" {ops['exps']} exps; {100 * bound / ms:.1f}% of bound);"
+                  f" {attrs['registers']} registers,"
+                  f" {attrs['blocks_per_sm']} blocks of {attrs['threads']}"
+                  f" per SM [{smi}]")
+            if label == "pilot":
+                out[name][dname] = {
+                    "max_abs_err": abs_err, "max_rel_err": err,
+                    "max_rel_err_vs_float64": err64, "ms": ms,
+                    "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+                    "registers": attrs["registers"],
+                    "local_bytes": attrs["local_bytes"],
+                    "threads": attrs["threads"],
+                    "blocks_per_sm": attrs["blocks_per_sm"],
+                    "shape": [B, D, N, M],
+                }
+            else:
+                out[name][dname]["grid"] = {
+                    "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                    "bound_by": by, "max_rel_err": err, "shape": [B, D, N, M]}
+    # float64: the density's backward against central differences along a
+    # seeded direction in (w, h), for a seeded cotangent
+    rng = np.random.RandomState(1)
+    w = inp["w"].detach().clone().requires_grad_(True)
+    h = inp["h"].detach().clone().requires_grad_(True)
+    g = torch.as_tensor(rng.normal(size=(B, inp["points"].shape[1])),
+                        device="cuda")
+    dw = inp["w"] * torch.as_tensor(rng.uniform(-1, 1, (B, N)),
+                                    device="cuda")
+    dh = inp["h"] * torch.as_tensor(rng.uniform(-1, 1, (B, D)),
+                                    device="cuda")
+
+    def f(w_, h_):
+        return ops_kde.adaptive_density(inp["x"], w_, h_, inp["points"],
+                                        True, inp["alpha"])
+
+    (f(w, h) * g).sum().backward()
+    analytic = float((w.grad * dw).sum() + (h.grad * dh).sum())
+    eps = KDE_FD["step"]
+    with torch.no_grad():
+        numeric = float(((f(inp["w"] + eps * dw, inp["h"] + eps * dh)
+                          - f(inp["w"] - eps * dw, inp["h"] - eps * dh))
+                         * g).sum()) / (2 * eps)
+    fd = abs(analytic - numeric) / abs(numeric)
+    finite = bool(torch.isfinite(w.grad).all() and torch.isfinite(
+        h.grad).all())
+    print(f"float64 KDE density, directional derivative: backward"
+          f" {analytic!r}, central differences (step {eps:g} relative)"
+          f" {numeric!r}, relative difference {fd:.3e} (bound"
+          f" {KDE_FD['rtol']:g}); gradient finite with a channel without"
+          f" weight: {finite} [{smi}]")
+    check(fd <= KDE_FD["rtol"] and finite,
+          "the KDE density's backward is off its central differences")
+    return out
+
+
+def toy_config(cfg_path, events):
+    """`cfg_path` parsed, its loader's events_file the mapping `events` (or,
+    for an int, scripts/make_toy_events.py's events of that many per
+    flavour and interaction from TOY_SEED: 12 categories)."""
+    from pisa_tpu_torch.config.parser import parse_pipeline_config
+    from pisa_tpu_torch.scripts.make_toy_events import make_toy_events
+
+    if isinstance(events, int):
+        events = make_toy_events(num_events=events, seed=TOY_SEED)
+    cfg = parse_pipeline_config(cfg_path)
+    cfg[("data", "simple_data_loader")]["events_file"] = events
+    return cfg
+
+
+def maps_rel(got, want):
+    """Worst |got - want| over a map's bins, relative to that map's largest
+    bin, over every map (lists of MapSets for a VarBinning)."""
+    import numpy as np
+
+    if isinstance(want, list):
+        return max(maps_rel(g, w) for g, w in zip(got, want))
+    worst = 0.0
+    for m in want:
+        ref = np.asarray(m.hist)
+        scale = np.abs(ref).max()
+        if scale > 0:
+            worst = max(worst, float(np.abs(got[m.name].hist - ref).max()
+                                     / scale))
+    return worst
+
+
+def vg_card_vs_cpu(label, cpu_pipeline, gpu_pipeline, smi):
+    """The compiled mod_chi2 value_and_grad at gradient_point, on the card
+    (stacked and captured) against the CPU (float64), the CPU's eager maps
+    as data for both, within VG_FP64."""
+    import numpy as np
+    import torch
+
+    data = {m.name: m.hist for m in cpu_pipeline.get_outputs()}
+    cpu_ct = cpu_pipeline.compile()
+    gpu_ct = gpu_pipeline.compile()
+    check(cpu_ct.free_names == gpu_ct.free_names and gpu_ct.stacked,
+          f"{label}: the templates differ")
+    v = gradient_point(cpu_ct)
+    _, cpu_vg = cpu_ct.build_objective(data, "mod_chi2")
+    want = read_back(cpu_vg(v))
+    _, gpu_vg = gpu_ct.build_objective(data, "mod_chi2")
+    got = read_back(gpu_vg(v))
+    value_rel = abs(got[0] - want[0]) / abs(want[0])
+    grad = grad_mismatch(got[1:], want[1:], VG_FP64["grad_rtol"],
+                         VG_FP64["grad_atol"])
+    print(f"float64 {label}, captured value_and_grad ({len(gpu_ct.free_names)}"
+          f" free, stacked) card vs CPU: value {value_rel:.3e} relative"
+          f" (bound {VG_FP64['value']:g}), gradient at {grad:.3e} of its"
+          f" bound [{smi}]")
+    check(value_rel <= VG_FP64["value"] and grad <= 1.0
+          and np.all(np.isfinite(got)),
+          f"{label}: the card's value_and_grad is off the CPU's")
+    del cpu_ct, gpu_ct
+    torch.cuda.empty_cache()
+
+
+def events_worker():
+    """float64: the four configs that read the repo's HDF5 events file,
+    card against CPU, read by the port's reader with h5py made unimportable
+    in this process; kde_example's compiled value_and_grad card vs CPU,
+    and the full-width path's at TOY_EVENTS_FP64 events per category."""
+    import importlib.util
+
+    installed = importlib.util.find_spec("h5py") is not None
+    sys.modules["h5py"] = None  # whatever the machine has: the port's reader
+    from pisa_tpu_torch import FTYPE_NAME
+    from pisa_tpu_torch.core.pipeline import Pipeline
+    from pisa_tpu_torch.utils import hdf5_reader
+
+    check(FTYPE_NAME == "fp64", f"events worker runs {FTYPE_NAME}")
+    smi = card_line()
+    t0 = time.perf_counter()
+    print(f"HDF5 reader: {hdf5_reader.__name__}"
+          f" ({os.path.relpath(hdf5_reader.__file__, ROOT)}); h5py installed"
+          f" on this machine: {installed}, importable in this process:"
+          f" False")
+    pipelines = {}
+    for name in HDF5_CFGS:
+        path = f"settings/pipeline/{name}.cfg"
+        cpu = Pipeline(path, device="cpu")
+        gpu = Pipeline(path, device="cuda")
+        rel = maps_rel(gpu.get_outputs(), cpu.get_outputs())
+        print(f"float64 {name}.cfg from the repo's HDF5 file, card vs CPU:"
+              f" worst bin {rel:.3e} of its map's largest (bound"
+              f" {TEMPLATE_RTOL['float64']:g}) [{smi}]")
+        check(rel <= TEMPLATE_RTOL["float64"],
+              f"{name}.cfg: the card's maps are off the CPU's")
+        pipelines[name] = (cpu, gpu)
+    check("h5py" not in [m for m, v in sys.modules.items() if v is not None],
+          "h5py was imported")
+    vg_card_vs_cpu("kde_example", *pipelines["kde_example"], smi)
+    del pipelines
+    cfg = toy_config(KDE_CFG, TOY_EVENTS_FP64)
+    cpu, gpu = Pipeline(cfg, device="cpu"), Pipeline(cfg, device="cuda")
+    rel = maps_rel(gpu.get_outputs(), cpu.get_outputs())
+    print(f"float64 kde_example at {TOY_EVENTS_FP64} toy events per"
+          f" category, card vs CPU: worst bin {rel:.3e} of its map's largest"
+          f" (bound {TEMPLATE_RTOL['float64']:g}) [{smi}]")
+    check(rel <= TEMPLATE_RTOL["float64"],
+          "kde_example (toy events): the card's maps are off the CPU's")
+    vg_card_vs_cpu(f"kde_example at {TOY_EVENTS_FP64} toy events per"
+                   " category", cpu, gpu, smi)
+    print(f"float64 events phase: {time.perf_counter() - t0:.1f} s [{smi}]")
+
+
+def kde_launches():
+    from pisa_tpu_torch.ops import kde as ops_kde
+
+    return ops_kde.sum_launch_count, ops_kde.vjp_launch_count
+
+
+def reset_kde_launches():
+    from pisa_tpu_torch.ops import kde as ops_kde
+
+    ops_kde.sum_launch_count = ops_kde.vjp_launch_count = 0
+
+
+def events_fp32(chain, smi):
+    """kde_example.cfg at full width in float32: its loader fed
+    make_toy_events(TOY_EVENTS, TOY_SEED) (240,000 events, 12 categories,
+    the 200x200 calc grid). The eager template, the stacked captured
+    template, the captured value_and_grad of mod_chi2 (wall, device time,
+    kernels, busy share, peak memory, waits), a ``device`` fit through
+    Analysis from theta23 moved by +0.10 rescaled on the Asimov data; then
+    example.cfg at the same events: template and value_and_grad. Returns
+    the launches of the path: ((primal, tangent, multitangent), (KDE sum,
+    KDE vjp))."""
+    import numpy as np
+    import torch
+
+    from pisa_tpu_torch.analysis.analysis import Analysis, BasicAnalysis
+    from pisa_tpu_torch.core.distribution_maker import DistributionMaker
+    from pisa_tpu_torch.core.pipeline import Pipeline
+
+    total, total_kde = [0, 0, 0], [0, 0]
+
+    def reset():
+        reset_launch_counts(chain)
+        reset_kde_launches()
+
+    def add():
+        launches, kde = launch_counts(chain), kde_launches()
+        for i, n in enumerate(launches):
+            total[i] += n
+        for i, n in enumerate(kde):
+            total_kde[i] += n
+        reset()
+        return launches, kde
+
+    from pisa_tpu_torch.scripts.make_toy_events import make_toy_events
+
+    t0 = time.perf_counter()
+    toy = make_toy_events(num_events=TOY_EVENTS, seed=TOY_SEED)
+    make_s = time.perf_counter() - t0
+    cfg = toy_config(KDE_CFG, toy)
+    reset()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    pipeline = Pipeline(cfg, device="cuda")
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    n_events = sum(len(cat["true_energy"]) for cat in
+                   pipeline["data.simple_data_loader"].evts.values())
+    t0 = time.perf_counter()
+    maps = pipeline.get_outputs()
+    first_s = time.perf_counter() - t0
+    wall, _ = median_wall(pipeline.get_outputs, 3)
+    launches, kde = add()
+    totals = [float(m.hist.sum()) for m in maps]
+    print(f"float32 kde_example, {n_events} toy events"
+          f" (make_toy_events {make_s:.2f} s): Pipeline set-up {setup_s:.2f}"
+          f" s, first template {first_s:.2f} s, then get_outputs median"
+          f" {wall * 1e3:.2f} ms (3 runs, the KDE in each),"
+          f" {sum(totals):.1f} expected events; launches (primal, tangent,"
+          f" multitangent) {launches}, KDE (sum, vjp) {kde}; peak memory"
+          f" {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB [{smi}]")
+    check(n_events == 12 * TOY_EVENTS and all(np.isfinite(totals)),
+          "kde_example at full width: template not finite")
+    check(kde[0] > 0, "the eager KDE template launched no kde_gauss_sum")
+    ct = pipeline.compile()
+    check(ct.stacked, "kde_example's template is not stacked")
+    t0 = time.perf_counter()
+    stacked = ct.get_outputs(ct.current_rescaled_values())
+    capture_s = time.perf_counter() - t0
+    rel = maps_rel(stacked, maps)
+    cwall, _ = median_wall(lambda: ct.get_outputs(
+        ct.current_rescaled_values()), 10)
+    launches, kde = add()
+    print(f"float32 kde_example, stacked captured template: {rel:.3e} of the"
+          f" eager maps' largest bins (bound {TEMPLATE_RTOL['float32']:g});"
+          f" capture with its first call {capture_s:.2f} s, then"
+          f" {cwall * 1e3:.3f} ms a call with its read (median of 10);"
+          f" launches at the capture {launches}, KDE {kde} [{smi}]")
+    check(rel <= TEMPLATE_RTOL["float32"],
+          "kde_example: the captured template is off the eager one")
+    vg_launches = measure_vg("kde_example at 240k toy events", ct, chain,
+                             smi)
+    _, kde = add()
+    print(f"kde_example value_and_grad: KDE launches (sum, vjp) of the eager"
+          f" run, the warm-up and the capture {kde} [{smi}]")
+    check(kde[0] > 0 and kde[1] > 0, "the KDE kernels did not run in the"
+          " value_and_grad")
+    check(vg_launches[0] > 0, "kde_example's value_and_grad launched no"
+          " primal kernel")
+    del ct, pipeline
+    torch.cuda.empty_cache()
+
+    # the device fit through the analysis layer
+    dm = DistributionMaker([cfg], device="cuda")
+    data = dm.get_outputs(return_sum=True)
+    truth = dm.params["theta23"]._rescaled_value
+    add()
+
+    def fit():
+        dm.reset_free()
+        dm.params["theta23"]._rescaled_value = min(0.95, truth + 0.10)
+        return Analysis().fit_recursively(
+            data, dm, "mod_chi2", None, "device",
+            {"max_steps": KDE_FIT_STEPS}, None)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    waits, result = count_host_syncs(fit)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    meta = result.minimizer_metadata
+    moved = result.params["theta23"]._rescaled_value - truth
+    launches, kde = add()
+    print(f"Analysis fit, kde_example at 240k toy events"
+          f" ({len(dm.params.free)} free), device (max_steps"
+          f" {KDE_FIT_STEPS}), float32: wall {wall:.3f} s"
+          f" with the set-up and capture of its objective, nit {meta['nit']},"
+          f" nfev {meta['nfev']}, {waits} waits for the card"
+          f" ({waits / meta['nfev']:.2f} per evaluation), theta23 off the"
+          f" truth by {moved:.3e} rescaled (bound {FIT_TOL:g}), metric"
+          f" {result.metric_val!r}; launches {launches}, KDE {kde} [{smi}]")
+    check(abs(moved) <= FIT_TOL, "the kde_example fit did not recover"
+          " theta23")
+    check(waits / meta["nfev"] <= DEVICE_FIT_WAITS,
+          f"the kde_example fit waited {waits / meta['nfev']:.2f} times per"
+          " evaluation")
+    BasicAnalysis._compiled_cache.clear()
+    del dm
+    torch.cuda.empty_cache()
+
+    # example.cfg (the histogram instead of the KDE) at the same events
+    cfg = toy_config(EXAMPLE_CFG, toy)
+    pipeline = Pipeline(cfg, device="cuda")
+    maps = pipeline.get_outputs()
+    wall, _ = median_wall(pipeline.get_outputs, 3)
+    launches, _ = add()
+    print(f"float32 example.cfg at 240k toy events: get_outputs median"
+          f" {wall * 1e3:.2f} ms (3 runs), {sum(float(m.hist.sum()) for m in maps):.1f}"
+          f" expected events; launches {launches} [{smi}]")
+    ct = pipeline.compile()
+    measure_vg("example.cfg at 240k toy events", ct, chain, smi)
+    add()
+    del ct, pipeline
+    torch.cuda.empty_cache()
+    print(f"events path launches (primal, tangent, multitangent):"
+          f" {tuple(total)}, KDE (sum, vjp) {tuple(total_kde)} [{smi}]")
+    check(all(n > 0 for n in total_kde), "a KDE kernel never ran on the"
+          " events path")
+    return tuple(total), tuple(total_kde)
+
+
+def events_only_main(chain, smi):
+    """``--events-only``: the kernels built, the KDE kernels held and
+    timed, then the events phases alone (the float64 child's and the main
+    process's); no status line."""
+    t0 = time.perf_counter()
+    kde_vs_plain(smi)
+    print(f"KDE kernel checks: {time.perf_counter() - t0:.1f} s")
+    run_children([("events", ["--events-worker"])])
+    t0 = time.perf_counter()
+    launches = events_fp32(chain, smi)
+    print(f"float32 events phase: {time.perf_counter() - t0:.1f} s;"
+          f" launches {launches}")
+    return 0
+
 def print_kernel_times(kernels, smi):
     for name, k in kernels.items():
         for dname, t in k.items():
@@ -4602,7 +5142,8 @@ def analysis_only_main(chain, smi):
 
 
 def main(kernels_only=False, release_only=False, analysis_only=False,
-         options_only=False, lanes_only=False, sterile_only=False):
+         options_only=False, lanes_only=False, sterile_only=False,
+         events_only=False):
     started = time.perf_counter()
     if not os.path.isdir(os.path.join(ROOT, "pisa_tpu_torch")):
         print("chip_smoke.py must run from a checkout of the repository"
@@ -4624,14 +5165,16 @@ def main(kernels_only=False, release_only=False, analysis_only=False,
     from pisa_tpu_torch.ops.osc import chain
 
     smi = device_lines()
-    try:
-        import h5py
-        print(f"h5py: imports, version {h5py.__version__}")
-    except ImportError as exc:
-        print(f"h5py: does not import ({exc})")
+    # whether h5py is installed, without importing it: the port reads HDF5
+    # with its own reader (utils/hdf5_reader.py)
+    import importlib.util
+
+    print(f"h5py installed: {importlib.util.find_spec('h5py') is not None}")
     build_kernel(chain)
     if sterile_only:
         return sterile_only_main(chain, smi)
+    if events_only:
+        return events_only_main(chain, smi)
     if release_only:
         return release_only_main(chain, smi)
     if analysis_only:
@@ -4649,6 +5192,9 @@ def main(kernels_only=False, release_only=False, analysis_only=False,
     general_pack_kernels(chain)
     general_lanes = general_lane_kernels(chain)
     print_kernel_times(kernels, smi)
+    t0 = time.perf_counter()
+    kde_kernels = kde_vs_plain(smi)
+    print(f"KDE kernel checks: {time.perf_counter() - t0:.1f} s")
     if kernels_only:
         herm4_vs_plain(smi)
         return 0
@@ -4664,6 +5210,7 @@ def main(kernels_only=False, release_only=False, analysis_only=False,
             ("options", ["--osc-options-worker"]),
             ("options lanes", ["--osc-lanes-worker"]),
             ("sterile", ["--sterile-worker"]),
+            ("events", ["--events-worker"]),
         ])
         with np.load(path) as f:
             ref = {k: f[k] for k in f.files}
@@ -4776,6 +5323,11 @@ def main(kernels_only=False, release_only=False, analysis_only=False,
     t0 = time.perf_counter()
     extra_paths["sterile"], herm4_launches = sterile_fp32(chain, smi)
     print(f"float32 sterile phase: {time.perf_counter() - t0:.1f} s")
+    # the HDF5 event path and the KDE stage at full width (this slice's
+    # main path)
+    t0 = time.perf_counter()
+    extra_paths["events"], kde_path = events_fp32(chain, smi)
+    print(f"float32 events phase: {time.perf_counter() - t0:.1f} s")
     print(f"launches (primal, tangent, multitangent) by path: gradient and fit"
           f" {fit_path}, template {template_path}, analysis {analysis_path},"
           f" ensemble {ensemble_path}, release {release_path}, "
@@ -4843,6 +5395,36 @@ def main(kernels_only=False, release_only=False, analysis_only=False,
         "blocks_per_sm": k["blocks_per_sm"],
         "sweeps_mean": k["sweeps_mean"],
     })
+    for name, launches in zip(("kde_gauss_sum", "kde_gauss_sum_vjp"),
+                              kde_path):
+        k = kde_kernels[name]["float32"]
+        lines.append({
+            "name": name,
+            "route": "cuda",
+            "source": KDE_SOURCE,
+            "replaces": KDE_REPLACES,
+            "launches": launches,
+            "max_abs_err": k["max_abs_err"],
+            "ms": k["ms"],
+            "plain_ms": k["plain_ms"],
+            "bound_ms": k["bound_ms"],
+            "bound_by": k["bound_by"],
+            # no single PyTorch call computes a weighted sum of Gaussian
+            # kernels with per-sample widths
+            "library_ms": None,
+            "dtype": "float32",
+            "shape_BDNM": k["shape"],
+            "max_rel_err": k["max_rel_err"],
+            "max_rel_err_vs_float64": k["max_rel_err_vs_float64"],
+            "registers": k["registers"],
+            "local_bytes": k["local_bytes"],
+            "threads": k["threads"],
+            "blocks_per_sm": k["blocks_per_sm"],
+            "grid_pass": k["grid"],
+            "float64": {key: kde_kernels[name]["float64"][key]
+                        for key in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                    "max_rel_err")},
+        })
     print(f"chip_smoke.py total wall: {time.perf_counter() - started:.1f} s"
           f" [{smi}]")
     print(json.dumps({"kernels": lines}))
@@ -4859,7 +5441,8 @@ if __name__ == "__main__":
     workers = {"--analysis-worker": analysis_worker,
                "--osc-options-worker": osc_options_worker,
                "--osc-lanes-worker": options_lanes_worker,
-               "--sterile-worker": sterile_worker}
+               "--sterile-worker": sterile_worker,
+               "--events-worker": events_worker}
     if len(sys.argv) == 2 and sys.argv[1] in workers:
         sys.path.insert(0, ROOT)
         os.chdir(ROOT)
@@ -4878,4 +5461,5 @@ if __name__ == "__main__":
                   analysis_only=sys.argv[1:] == ["--analysis-only"],
                   options_only=sys.argv[1:] == ["--osc-options-only"],
                   lanes_only=sys.argv[1:] == ["--osc-lanes-only"],
-                  sterile_only=sys.argv[1:] == ["--sterile-only"]))
+                  sterile_only=sys.argv[1:] == ["--sterile-only"],
+                  events_only=sys.argv[1:] == ["--events-only"]))

@@ -41,6 +41,8 @@ than moved.
 
 from __future__ import annotations
 
+import re
+
 import numpy as np
 import torch
 
@@ -440,6 +442,22 @@ class Container:
         return translation.histogram(
             None, values, dest_binning, averaged=averaged, idx=idx
         )
+
+    def get_keep_mask(self, cut_expression):
+        """Boolean mask (a tensor on the container's device) of a cut
+        expression over the variables and aux data in the current
+        representation, e.g. ``"(pid >= -3) & (true_energy > 1)"``
+        (``pisa_tpu/core/container.py:440``; reference
+        ``container.py:1014``): evaluated on the tensors, in a namespace of
+        them and ``np``; only the keys the expression names are read."""
+        used = set(re.findall(r"[A-Za-z_]\w*", cut_expression))
+        names = {key: self[key] for key in self.all_keys_incl_aux_data
+                 if key in used}
+        names["np"] = np
+        mask = eval(  # noqa: S307 - namespace restricted to event arrays
+            cut_expression, {"__builtins__": {}}, names
+        )
+        return torch.as_tensor(mask, device=self.device).to(torch.bool)
 
     # -- outputs --------------------------------------------------------------
     def get_hist(self, key):

@@ -127,12 +127,23 @@ class DistributionMaker:
 
     # -- evaluation -------------------------------------------------------------
     def get_outputs(self, return_sum=False, **kwargs):
-        """Every pipeline's MapSet; with `return_sum`, all maps of all
-        pipelines summed into a one-map MapSet (reference
-        ``distribution_maker.py:251``)."""
+        """Every pipeline's MapSet (a list of per-selection MapSets for a
+        VarBinning output); with `return_sum`, all maps of all pipelines
+        summed into a one-map MapSet, per selection for a VarBinning
+        (reference ``distribution_maker.py:251``)."""
         outputs = [p.get_outputs(**kwargs) for p in self._pipelines]
         if not return_sum:
             return outputs
+        if isinstance(outputs[0], list):
+            # VarBinning: a list (one per selection) of MapSets
+            summed = []
+            for i in range(len(outputs[0])):
+                total = None
+                for out in outputs:
+                    s = out[i].sum()
+                    total = s if total is None else total + s
+                summed.append(MapSet([total], name=self.label))
+            return summed
         total = None
         for out in outputs:
             s = out.sum()

@@ -15,7 +15,8 @@ The data lives on one explicit device: ``device="cuda"`` (the default) or
 ``device="cpu"``. A CUDA device without a card raises; nothing falls back to
 the CPU. ``compile()`` gives the pipeline as one differentiable function of
 its free parameters (:class:`pisa_tpu_torch.core.template.CompiledTemplate`).
-Per-selection ``VarBinning`` outputs are not ported yet.
+A ``VarBinning`` output binning gives a list of per-selection MapSets, eagerly,
+as in the JAX package.
 """
 
 from __future__ import annotations
@@ -24,10 +25,12 @@ import importlib
 import time
 
 import numpy as np
+import torch
 
-from pisa_tpu_torch.core.binning import VarBinning
+from pisa_tpu_torch.core import translation
+from pisa_tpu_torch.core.binning import OneDimBinning, VarBinning
 from pisa_tpu_torch.core.container import ContainerSet, resolve_device
-from pisa_tpu_torch.core.map import MapSet
+from pisa_tpu_torch.core.map import Map, MapSet
 from pisa_tpu_torch.core.param import ParamSet
 from pisa_tpu_torch.utils.log import logging
 
@@ -219,28 +222,68 @@ class Pipeline:
                     return_sum=False):
         """Evaluate the template: run all stages and read the output keys in
         the output binning (reference ``pipeline.py:360-483``). Returns a
-        host MapSet; with `return_sum`, its maps summed into a one-map
-        MapSet (so that a lone Pipeline serves as a hypo maker)."""
+        host MapSet, or for a ``VarBinning`` a list of per-selection
+        MapSets; with `return_sum`, the maps summed into a one-map MapSet
+        (per selection), so that a lone Pipeline serves as a hypo maker."""
         if return_sum:
             out = self.get_outputs(output_binning, output_key)
+            if isinstance(out, list):
+                return [MapSet([ms.sum()], name=self.name) for ms in out]
             return MapSet([out.sum()], name=self.name)
         t0 = time.perf_counter()
         output_binning = output_binning or self._output_binning
         output_key = output_key or self._output_key
         if output_binning is None:
             raise ValueError("No output binning defined")
-        if isinstance(output_binning, VarBinning):
-            raise NotImplementedError(
-                "VarBinning outputs are ported with ROADMAP queue 1 item 11"
-            )
         self.run()
         if isinstance(output_key, (tuple, list)):
             key, error_key = output_key[0], output_key[1]
         else:
             key, error_key = output_key, None
-        self.data.representation = output_binning
-        outputs = self.data.get_mapset(key, error=error_key)
+        if isinstance(output_binning, VarBinning):
+            outputs = self._get_outputs_varbinning(output_binning, key,
+                                                   error_key)
+        else:
+            self.data.representation = output_binning
+            outputs = self.data.get_mapset(key, error=error_key)
         self._get_outputs_times.append(time.perf_counter() - t0)
+        return outputs
+
+    def _get_outputs_varbinning(self, output_binning, key, error_key):
+        """Per-selection MapSets: each selection's events (a bin of the
+        split dimension, or a cut string) histogrammed under its own binning,
+        with sumw2 errors where an error key is asked for (reference
+        ``pipeline.py:389``; ``pisa_tpu/core/pipeline.py:262``)."""
+        selections = output_binning.selections
+        outputs = []
+        for i, binning in enumerate(output_binning.binnings):
+            maps = []
+            for container in self.data.containers:
+                container.representation = "events"
+                if isinstance(selections, OneDimBinning):
+                    var = container[selections.name]
+                    edges = selections.edge_magnitudes
+                    upper = (var < edges[i + 1]
+                             if i < selections.num_bins - 1
+                             else var <= edges[i + 1])
+                    mask = (var >= edges[i]) & upper
+                else:
+                    mask = container.get_keep_mask(selections[i])
+                sample = [container[n][mask] for n in binning.names]
+                weights = container[key][mask]
+                hist = translation.histogram(sample, weights, binning)
+                err = None
+                if error_key is not None:
+                    err = torch.sqrt(translation.histogram(
+                        sample, torch.square(weights), binning))
+                maps.append(Map(
+                    name=container.name,
+                    hist=hist.detach().cpu().numpy().reshape(binning.shape),
+                    binning=binning,
+                    error_hist=None if err is None else
+                    err.detach().cpu().numpy().reshape(binning.shape),
+                ))
+            outputs.append(MapSet(maps, name=f"{self.name}_sel{i}"))
         return outputs
 
     def compile(self, output_binning=None, output_key=None, **options):

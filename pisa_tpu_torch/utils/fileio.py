@@ -1,11 +1,12 @@
 """
 Host copy of ``pisa_tpu/utils/fileio.py`` with its imports rewritten to
 ``pisa_tpu_torch``. CSV files are read with numpy (plain or ``.bz2``
-compressed) into ``{column: array}`` dicts, and HDF5 is not handled.
+compressed) into ``{column: array}`` dicts; HDF5 files are read by the
+port's own reader (``utils/hdf.py``) and written with ``h5py``.
 
 Generic file I/O dispatch by extension (cf. reference
 ``pisa/utils/fileio.py:486,542``): .json(.bz2), .csv(.bz2), .pkl,
-.dat/.txt (whitespace tables).
+.hdf5/.h5/.hdf, .dat/.txt (whitespace tables).
 """
 
 from __future__ import annotations
@@ -59,6 +60,10 @@ def from_file(fname, fmt=None, **kwargs):
     if ext in ("pkl", "pckl", "pickle"):
         with open(path, "rb") as f:
             return pickle.load(f)
+    if ext in ("hdf5", "h5", "hdf"):
+        from pisa_tpu_torch.utils.hdf import from_hdf
+
+        return from_hdf(path, **kwargs)
     if ext in ("dat", "txt"):
         return np.loadtxt(path, **kwargs)
     raise ValueError(f"Unhandled extension {ext!r} for file {fname!r}")
@@ -77,4 +82,8 @@ def to_file(obj, fname, fmt=None, **kwargs):
         with open(path, "wb") as f:
             pickle.dump(obj, f, protocol=4)
         return None
+    if ext in ("hdf5", "h5", "hdf"):
+        from pisa_tpu_torch.utils.hdf import to_hdf
+
+        return to_hdf(obj, path, **kwargs)
     raise ValueError(f"Unhandled extension {ext!r} for file {fname!r}")
