@@ -135,7 +135,24 @@ oscillation grid, 15 free parameters) on the card through its two paths:
   ``make_toy_events`` (240,000 events): the eager and the stacked captured
   template, the captured value_and_grad (no wait inside the replay), a
   ``device`` fit through Analysis from theta23 moved by +0.10, and
-  ``example.cfg`` at the same events.
+  ``example.cfg`` at the same events;
+- hypersurfaces fitted on the flagship and applied to it, this slice's
+  main path: in float64 (a child process), card against CPU, the fit of
+  the 13 datasets (delta_index linear, Barr_uphor_ratio quadratic,
+  nu_nc_norm linear; a nominal and 12 systematic points, bench.py:656-671's
+  design) combined into the hypersurfaces stage's four groups, the
+  flagship with the fit applied (uncertainty propagated: maps, errors, the
+  compiled value_and_grad), and the interpolated workflow over Delta
+  m^2_31 at 5% of the events; then in float32 at full width:
+  ``fit_hypersurfaces_from_pipeline``, the fit alone timed warm as
+  bench.py times ``hypersurface_fit_wall_s`` (its kernels, its waits, none
+  inside the Gauss-Newton loop, float32 against a float64 fit of the same
+  inputs), the fit as JSON applied with its uncertainty (the eager and
+  captured template, the captured value_and_grad, a ``device`` fit
+  through Analysis from theta23 + 0.10), the interpolated workflow
+  (prepare, one job, the resume, assemble) and its template between grid
+  values, and ``discr_sys.csv_hypersurfaces`` from the grid's fits with
+  Delta m^2_31 free in a captured value_and_grad.
 
 It times the kernels (device-only, from a CUDA graph of 200 launches, and
 host-inclusive, from back-to-back launches between CUDA events; the
@@ -157,7 +174,8 @@ phases of the rest of the analysis layer alone, and with
 ``--osc-options-only`` the phases of prob3's options alone, and with
 ``--osc-lanes-only`` the phases of forward mode and lanes under the options
 alone, with ``--sterile-only`` the 3+1 and nusquids phases alone, and with
-``--events-only`` the KDE kernel checks and the HDF5 and KDE phases alone;
+``--events-only`` the KDE kernel checks and the HDF5 and KDE phases alone,
+with ``--hypersurfaces-only`` the hypersurfaces phases alone;
 none prints a status line. It prints its total wall before the
 kernels line.
 
@@ -409,6 +427,50 @@ KDE_FIT_STEPS = 30
 # central differences with steps of this size relative to w and h:
 # truncation ~step^2, rounding ~1e-16 / step
 KDE_FD = {"step": 1e-5, "rtol": 1e-6}
+
+# hypersurfaces on the flagship (bench.py:640-720's 13-dataset, 3-param
+# design): the forms of three free pipeline params, the nominal point and 12
+# systematic points, the regexes that combine the 12 maps into the
+# hypersurfaces stage's four link groups (and those groups' names), the
+# Delta m^2_31 grid of the interpolated fits and csv_hypersurfaces (it holds
+# gradient_point's Delta m^2_31), and the point between grid values where
+# the interpolated fits are applied
+HS_PARAMS = {"delta_index": "linear", "Barr_uphor_ratio": "quadratic",
+             "nu_nc_norm": "linear"}
+HS_NOMINAL = {"delta_index": 0.0, "Barr_uphor_ratio": 0.0, "nu_nc_norm": 1.0}
+HS_POINTS = [
+    {"delta_index": d, "Barr_uphor_ratio": b, "nu_nc_norm": n}
+    for d, b, n in ((-0.10, 0.0, 1.0), (0.10, 0.0, 1.0), (0.0, -1.0, 1.0),
+                    (0.0, 1.0, 1.0), (0.0, 0.0, 0.8), (0.0, 0.0, 1.2),
+                    (-0.05, -0.5, 0.9), (0.05, 0.5, 1.1), (-0.08, 0.8, 1.15),
+                    (0.08, -0.8, 0.85), (0.03, -0.3, 0.95), (-0.03, 0.3, 1.05))
+]
+HS_GROUPS = {"nue(bar)?_cc": "nue_cc+nuebar_cc",
+             "numu(bar)?_cc": "numu_cc+numubar_cc",
+             "nutau(bar)?_cc": "nutau_cc+nutaubar_cc",
+             "nu.*_nc": "nu_nc+nubar_nc"}
+HS_DM31 = [1.8e-3, 2.5e-3, 3.2e-3]
+HS_DM31_POINT = 2.457e-3
+# card vs CPU, float64: the applied templates' maps (worst bin over each
+# map's largest), the fitted coefficients from the same maps and their
+# covariances (valid bins; each relative to its bin's largest: the
+# intercept, ~1, for the coefficients); float32 coefficients against a
+# float64 fit of the same float32 maps (the same measure)
+HS_MAPS_FP64 = 1e-12
+HS_COEFF_FP64 = 1e-10
+HS_COV_FP64 = 1e-8
+HS_COEFF_FP32 = 1e-4
+# the applied flagship's device fit: its most L-BFGS iterations (float32
+# meets no gtol; the kde_example fit's cap)
+HS_FIT_STEPS = 30
+# the interpolated workflow's events in the float64 child (a fraction of
+# the flagship's, by the loader's deterministic stride), and the child's
+# CPU threads: it runs beside the other children (on the H100 80GB HBM3
+# machine at 700 W, alone 89 s; beside them with torch's default threads
+# 406 s, the reference child, the longest, then 478 s; with 2 threads 214
+# and 282 s)
+HS_FP64_FRACTION = 0.05
+HS_FP64_THREADS = 2
 
 # the routes of one value_and_grad: label, compile options, captured
 ROUTES = (
@@ -5090,6 +5152,565 @@ def events_only_main(chain, smi):
           f" launches {launches}")
     return 0
 
+# -- hypersurfaces: fit on the flagship, then apply ---------------------------
+def hs_fit_config(pipeline_cfg=CFG):
+    """The fit configuration of scripts/fit_hypersurfaces.py (and of the
+    interpolated workflow) for HS_PARAMS on the config file `pipeline_cfg`:
+    13 datasets (HS_NOMINAL and HS_POINTS), the maps combined into
+    HS_GROUPS."""
+    return {"pipeline_cfg": pipeline_cfg, "params": dict(HS_PARAMS),
+            "nominal_dataset": {"param_values": dict(HS_NOMINAL)},
+            "sys_datasets": [{"param_values": dict(p)}
+                             for p in [HS_NOMINAL] + HS_POINTS],
+            "combine_regex": list(HS_GROUPS), "norm": True}
+
+
+def hs_group_names(surfaces):
+    """`surfaces` keyed by the link groups' names (a fit of combined maps is
+    keyed by the regexes)."""
+    return {HS_GROUPS.get(k, k): v for k, v in surfaces.items()}
+
+
+def hs_rename_file(path):
+    """The assembled interpolated fits at `path`, keyed by the link groups'
+    names, written back."""
+    from pisa_tpu_torch.utils.jsons import from_json, to_json
+
+    to_json(hs_group_names(from_json(path)), path)
+
+
+def hs_datasets(pipeline):
+    """(nominal MapSet, the HS_POINTS MapSets) of `pipeline`, combined into
+    HS_GROUPS, as fit_hypersurfaces_from_pipeline makes them; the params
+    are left at HS_NOMINAL."""
+    def at(values):
+        for name, value in values.items():
+            prm = pipeline.params[name]
+            prm.value = value * prm.value.units
+        return pipeline.get_outputs().combine_re(list(HS_GROUPS))
+
+    systematic = [at(p) for p in HS_POINTS]
+    return at(HS_NOMINAL), systematic
+
+
+def hs_fit_maps(nominal, systematic, binning, device):
+    """fit_hypersurfaces_from_maps over the 13 datasets, as bench.py:700-704
+    calls it."""
+    from pisa_tpu_torch.utils import hypersurface as hs
+
+    return hs.fit_hypersurfaces_from_maps(
+        nominal_mapset=nominal, nominal_param_values=HS_NOMINAL,
+        sys_mapsets=systematic, sys_param_values=HS_POINTS, binning=binning,
+        params=HS_PARAMS, include_nominal=True, device=device)
+
+
+def hs_config(path=None, interpolated=False, csv_paths=None, base=CFG):
+    """The flagship config (`base`) with its hypersurfaces stage on the
+    fitted JSON `path` (uncertainty propagated into 'errors'), or with
+    `interpolated` on the assembled interpolated fits at `path` (deltam31
+    fixed at HS_DM31_POINT), or with `csv_paths` replaced by
+    discr_sys.csv_hypersurfaces over deltam31 (free); the stage's params are
+    the upstream stages' HS_PARAMS (and deltam31), shared with them."""
+    from pisa_tpu_torch import ureg
+    from pisa_tpu_torch.config.parser import parse_pipeline_config
+    from pisa_tpu_torch.core.param import ParamSet
+
+    cfg = parse_pipeline_config(base)
+    key = ("discr_sys", "hypersurfaces")
+
+    def find(name, selector=None):
+        for k, settings in cfg.items():
+            if isinstance(k, tuple) and k != key:
+                try:
+                    return settings["params"].get(name, selector)
+                except (KeyError, AttributeError):
+                    pass
+        raise KeyError(name)
+
+    params = [find(name) for name in HS_PARAMS]
+    dm31 = find("deltam31", "nh")
+    section = cfg[key]
+    if csv_paths is not None:
+        del cfg[key]
+        cfg[("discr_sys", "csv_hypersurfaces")] = {
+            "calc_mode": section["calc_mode"],
+            "apply_mode": section["apply_mode"], "error_method": "sumw2",
+            "links": section["links"],
+            "fit_results_file": ",".join(csv_paths),
+            "nominal_systematics": dict(HS_NOMINAL),
+            "inter_param": "deltam31", "params": ParamSet(params + [dm31])}
+        return cfg
+    section.update(fit_results_file=path, propagate_uncertainty=True,
+                   error_method="sumw2", interpolated=interpolated)
+    if interpolated:
+        dm31.value = HS_DM31_POINT * ureg.eV**2
+        dm31.is_fixed = True
+        params.append(dm31)
+    section["params"] = ParamSet(params)
+    return cfg
+
+
+def hs_write_csv(path, directory):
+    """csv_hypersurfaces files (one per link group, ``hs_<group>.csv``) from
+    the assembled interpolated fits at `path`: at each deltam31 grid value
+    the intercept, its sigma and each param's linear coefficient."""
+    import numpy as np
+
+    from pisa_tpu_torch.utils.hypersurface import Hypersurface
+    from pisa_tpu_torch.utils.jsons import from_json
+
+    paths = []
+    for group, state in from_json(path).items():
+        values = state["interp_param_spec"]["deltam31"]["values"]
+        rows = []
+        for value, fit in zip(values, state["hs_fits"]):
+            surface = Hypersurface.from_state(fit)
+            theta = surface._packed_theta()
+            _, blocks = surface._unpack(theta)
+            rows.append(np.column_stack(
+                [theta[:, 0], np.sqrt(surface.fit_cov_mat[:, 0, 0])]
+                + [blocks[name][:, 0] for name in HS_PARAMS]
+                + [np.full(len(theta), value)]))
+        paths.append(os.path.join(directory, f"hs_{group}.csv"))
+        np.savetxt(paths[-1], np.concatenate(rows), delimiter=",",
+                   comments="", header=",".join(
+                       ["intercept", "intercept_sigma", *HS_PARAMS,
+                        "deltam31"]))
+    return paths
+
+
+def hs_mismatch(got, want):
+    """(worst coefficient difference relative to its bin's largest
+    coefficient (the intercept, ~1), worst elementwise relative coefficient
+    difference, worst covariance difference relative to its bin's largest
+    entry) over the valid bins of every map, and whether the valid bins and
+    the NaNs agree."""
+    import numpy as np
+
+    worst = [0.0, 0.0, 0.0]
+    same = True
+    for name, w in want.items():
+        g = got[name]
+        valid = w.fit_valid
+        wt, gt = w._packed_theta(), g._packed_theta()
+        same &= bool(np.array_equal(valid, g.fit_valid)
+                     and np.array_equal(np.isnan(wt), np.isnan(gt)))
+        wt, gt = wt[valid], gt[valid]
+        diff = np.abs(gt - wt)
+        worst[0] = max(worst[0], float(np.max(
+            diff / np.abs(wt).max(axis=1, keepdims=True))))
+        worst[1] = max(worst[1], float(np.max(diff / np.abs(wt))))
+        wc, gc = w.fit_cov_mat[valid], g.fit_cov_mat[valid]
+        worst[2] = max(worst[2], float(np.max(
+            np.abs(gc - wc) / np.abs(wc).max(axis=(1, 2), keepdims=True))))
+    return (*worst, same)
+
+
+def hs_maps_rel(got, want):
+    """maps_rel over the maps and their errors."""
+    import numpy as np
+
+    worst = maps_rel(got, want)
+    for m in want:
+        ref = np.asarray(m.error_hist)
+        worst = max(worst, float(np.abs(got[m.name].error_hist - ref).max()
+                                 / np.abs(ref).max()))
+    return worst
+
+
+def hypersurfaces_worker():
+    """float64 (``--hypersurfaces-worker``), card against CPU: the fit of
+    the flagship's 13 datasets at full width (made on the card; the CPU's
+    templates are the reference child's) on both; the applied flagship (the
+    CPU's fit as JSON, uncertainty propagated): maps with errors and the
+    compiled value_and_grad; the interpolated workflow at
+    HS_FP64_FRACTION of the events (prepare, a job, the resume, assemble)
+    on each device, and the interpolated template at HS_DM31_POINT. Torch
+    runs HS_FP64_THREADS CPU threads here: this child's CPU work runs
+    beside the other children's."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from pisa_tpu_torch import FTYPE_NAME
+    from pisa_tpu_torch.core.pipeline import Pipeline
+    from pisa_tpu_torch.utils import hypersurface as hs
+    from pisa_tpu_torch.utils.resources import find_resource
+
+    check(FTYPE_NAME == "fp64", f"hypersurfaces worker runs {FTYPE_NAME}")
+    torch.set_num_threads(HS_FP64_THREADS)
+    smi = card_line()
+    started = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="hypersurfaces_fp64_")
+    try:
+        pipeline = Pipeline(CFG, device="cuda")
+        datasets = hs_datasets(pipeline)
+        binning = pipeline.output_binning
+        del pipeline
+        fits = {device: hs_fit_maps(*datasets, binning, device)
+                for device in ("cpu", "cuda")}
+        same = hs_mismatch(fits["cuda"], fits["cpu"])
+        n_valid = sum(int(s.fit_valid.sum()) for s in fits["cpu"].values())
+        print(f"float64 fit of the flagship's 13 datasets (made on the card,"
+              f" combined into 4 groups), card vs CPU: coefficients"
+              f" {same[0]:.3e} of their bin's largest ({same[1]:.3e}"
+              f" elementwise; bound {HS_COEFF_FP64:g}), covariances"
+              f" {same[2]:.3e} of their bin's largest (bound"
+              f" {HS_COV_FP64:g}), valid bins and NaNs equal: {same[3]}"
+              f" ({n_valid} valid bins) [{smi}]")
+        check(same[3] and same[0] <= HS_COEFF_FP64
+              and same[2] <= HS_COV_FP64,
+              "the card's float64 fit is off the CPU's")
+
+        path = os.path.join(tmp, "hypersurfaces.json")
+        hs.save_hypersurfaces(hs_group_names(fits["cpu"]), path)
+        cpu = Pipeline(hs_config(path), device="cpu")
+        gpu = Pipeline(hs_config(path), device="cuda")
+        rel = hs_maps_rel(gpu.get_outputs(), cpu.get_outputs())
+        print(f"float64 flagship with the fitted hypersurfaces (uncertainty"
+              f" propagated), card vs CPU: worst bin {rel:.3e} of its map's"
+              f" largest, errors included (bound {HS_MAPS_FP64:g}) [{smi}]")
+        check(rel <= HS_MAPS_FP64,
+              "the applied hypersurfaces' maps are off the CPU's")
+        vg_card_vs_cpu("flagship with the fitted hypersurfaces", cpu, gpu,
+                       smi)
+        del cpu, gpu
+
+        with open(find_resource(CFG)) as f:
+            text = f.read()
+        small = os.path.join(tmp, "flagship_fraction.cfg")
+        with open(small, "w") as f:
+            f.write(text.replace(
+                "[data.csv_loader]\n", "[data.csv_loader]\n"
+                f"fraction_events_to_keep = {HS_FP64_FRACTION}\n", 1))
+        spec = {"deltam31": {"values": HS_DM31, "scales_log": False}}
+        maps = {}
+        for device in ("cpu", "cuda"):
+            fit_dir = os.path.join(tmp, f"interpolated_{device}")
+            n_jobs = hs.prepare_interpolated_fit(fit_dir, spec,
+                                                 hs_fit_config(small))
+            hs.run_interpolated_fit(fit_dir, 0, device=device)
+            for job in range(n_jobs):
+                hs.run_interpolated_fit(fit_dir, job, skip_successful=True,
+                                        device=device)
+            check(hs.get_incomplete_job_idx(fit_dir) == [],
+                  "interpolated jobs left")
+            out = os.path.join(tmp, f"interpolated_{device}.json.bz2")
+            hs.assemble_interpolated_fits(fit_dir, out)
+            hs_rename_file(out)
+            maps[device] = Pipeline(hs_config(out, interpolated=True,
+                                              base=small),
+                                    device=device).get_outputs()
+        rel = hs_maps_rel(maps["cuda"], maps["cpu"])
+        print(f"float64 interpolated workflow ({HS_FP64_FRACTION:g} of the"
+              f" events; prepare, one job, the resume, assemble, each"
+              f" device's own), the template at deltam31 = {HS_DM31_POINT:g}"
+              f" eV^2, card vs CPU: worst bin {rel:.3e} of its map's"
+              f" largest, errors included (bound {HS_MAPS_FP64:g}) [{smi}]")
+        check(rel <= HS_MAPS_FP64,
+              "the interpolated template is off the CPU's")
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"float64 hypersurfaces phase: {time.perf_counter() - started:.1f}"
+          f" s [{smi}]")
+
+
+def hypersurfaces_fp32(chain, pipeline, smi):
+    """Float32 at full width: fit_hypersurfaces_from_pipeline on the
+    flagship (HS_PARAMS, 13 datasets, the maps combined into HS_GROUPS);
+    the fit alone, warm, as bench.py:697-704 times it, with its kernels and
+    waits (none inside the Gauss-Newton loop) and its float32 coefficients
+    against a float64 fit of the same inputs; the fit saved as JSON and
+    applied with its uncertainty propagated: the eager and the stacked
+    captured template, the captured value_and_grad (measure_vg) and a
+    ``device`` fit through Analysis from theta23 + 0.10; the interpolated
+    workflow over HS_DM31 (prepare, one job, the resume, assemble) and its
+    template at HS_DM31_POINT, eager and captured; csv_hypersurfaces from
+    the grid's fits with deltam31 free in a captured value_and_grad.
+    `pipeline` is the float32 flagship on the card. Returns the path's
+    (primal, tangent, multitangent) launches."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from pisa_tpu_torch.analysis.analysis import Analysis, BasicAnalysis
+    from pisa_tpu_torch.core.distribution_maker import DistributionMaker
+    from pisa_tpu_torch.core.pipeline import Pipeline
+    from pisa_tpu_torch.scripts.fit_hypersurfaces import (
+        fit_hypersurfaces_from_pipeline,
+    )
+    from pisa_tpu_torch.utils import hypersurface as hs
+
+    total = [0, 0, 0]
+
+    def add():
+        launches = launch_counts(chain)
+        for i, n in enumerate(launches):
+            total[i] += n
+        reset_launch_counts(chain)
+        return launches
+
+    reset_launch_counts(chain)
+    tmp = tempfile.mkdtemp(prefix="hypersurfaces_fp32_")
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        surfaces = fit_hypersurfaces_from_pipeline(
+            pipeline_cfg=CFG, params=HS_PARAMS,
+            nominal_param_values=HS_NOMINAL,
+            sys_param_values=[HS_NOMINAL] + HS_POINTS,
+            combine_regex=list(HS_GROUPS), device="cuda")
+        entry_s = time.perf_counter() - t0
+        launches = add()
+        n_valid = sum(int(s.fit_valid.sum()) for s in surfaces.values())
+        print(f"float32 fit_hypersurfaces_from_pipeline on the flagship"
+              f" (Pipeline set-up, 13 datasets, the fit of {n_valid} valid"
+              f" bins of {sum(s.binning.size for s in surfaces.values())}):"
+              f" {entry_s:.2f} s; launches {launches} [{smi}]")
+        check(n_valid > 0 and all(
+            np.isfinite(s._packed_theta()[s.fit_valid]).all()
+            for s in surfaces.values()), "the flagship fit is not finite")
+
+        # the fit alone, warm, as bench.py times it, on the datasets of
+        # `pipeline` at its nominal values
+        pipeline.params.reset_all()
+        nominal, systematic = hs_datasets(pipeline)
+        datasets_launches = add()
+        binning = pipeline.output_binning
+        hs_fit_maps(nominal, systematic, binning, "cuda")  # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fits = hs_fit_maps(nominal, systematic, binning, "cuda")
+        wall = time.perf_counter() - t0
+        median, least = median_wall(
+            lambda: hs_fit_maps(nominal, systematic, binning, "cuda"), 5)
+        same = hs_mismatch(fits, surfaces)
+        fit_waits, _ = count_host_syncs(
+            lambda: hs_fit_maps(nominal, systematic, binning, "cuda"))
+        _, fit_device_ms, top, _, fit_kernels = profile_device_busy(
+            lambda: hs_fit_maps(nominal, systematic, binning, "cuda"))
+        groups, preps, _, y_all, w_all = hs.prepare_fit_from_maps(
+            nominal, HS_NOMINAL, systematic, HS_POINTS, binning, HS_PARAMS)
+        fitter = groups[0]._fitter()
+        inputs = hs._fit_inputs(preps[0], "cuda", y_all, w_all)
+        torch.cuda.synchronize()
+        loop_waits, _ = count_host_syncs(lambda: fitter(*inputs))
+        _, loop_device_ms, _, _, loop_kernels = profile_device_busy(
+            lambda: fitter(*inputs))
+        loop_ms = cuda_time(lambda: fitter(*inputs), 5)
+        print(f"float32 hypersurface fit alone (bench.py's"
+              f" hypersurface_fit_wall_s: 13 datasets, {y_all.shape[1]}"
+              f" bins, warm): {wall:.4f} s, median of 5 {median:.4f} s (min"
+              f" {least:.4f}); {fit_kernels} kernels and copies on the card"
+              f" ({fit_device_ms:.3f} ms of device time), {fit_waits}"
+              f" wait(s) for the card in a fit; the Gauss-Newton loop"
+              f" (30 steps and the covariance, inputs on the card):"
+              f" {loop_kernels} kernels, {loop_device_ms:.3f} ms of device"
+              f" time, {loop_ms:.3f} ms back to back, {loop_waits} waits;"
+              f" against the entry point's fit of its own Pipeline's"
+              f" datasets: {same[0]:.3e} of a bin's largest coefficient"
+              f" [{smi}]")
+        for key, ms, count in top[:5]:
+            print(f"  {ms:8.3f} ms  {count:5d}x  {key[:80]}")
+        check(loop_waits == 0, f"the Gauss-Newton loop waited {loop_waits}"
+              " times for the card")
+        check(same[0] <= HS_COEFF_FP32 and same[3],
+              "the fit of the same datasets differs from the entry point's")
+        theta32, _ = fitter(*inputs)
+        theta64, _ = fitter(inputs[0].double(), inputs[1].double(),
+                            inputs[2].double(),
+                            tuple(s.double() for s in inputs[3]))
+        valid = np.concatenate([p["valid"] for p in preps])
+        t32 = theta32.double().cpu().numpy()[valid]
+        t64 = theta64.cpu().numpy()[valid]
+        diff = np.abs(t32 - t64)
+        gap = float(np.max(diff / np.abs(t64).max(axis=1, keepdims=True)))
+        elementwise = float(np.max(diff / np.abs(t64)))
+        print(f"float32 fit against a float64 fit of the same float32 inputs"
+              f" on the card: {gap:.3e} of their bin's largest coefficient"
+              f" ({elementwise:.3e} elementwise; bound {HS_COEFF_FP32:g})"
+              f" over {int(valid.sum())} valid bins [{smi}]")
+        check(gap <= HS_COEFF_FP32, "the float32 fit is off the float64 one")
+        add()
+
+        # the fit as JSON, applied with its uncertainty
+        path = os.path.join(tmp, "hypersurfaces.json")
+        hs.save_hypersurfaces(hs_group_names(surfaces), path)
+        cfg = hs_config(path)
+        applied = Pipeline(cfg, device="cuda")
+        t0 = time.perf_counter()
+        maps = applied.get_outputs()
+        eager_s = time.perf_counter() - t0
+        launches = add()
+        totals = [float(m.hist.sum()) for m in maps]
+        check(all(np.isfinite(m.hist).all() and np.isfinite(
+            m.error_hist).all() for m in maps),
+            "the applied template is not finite")
+        ct = applied.compile()
+        check(ct.stacked, "the applied template is not stacked")
+        rel = maps_rel(ct.get_outputs(ct.current_rescaled_values()), maps)
+        launches_c = add()
+        print(f"float32 flagship with the fitted hypersurfaces (uncertainty"
+              f" propagated): eager template {eager_s * 1e3:.1f} ms,"
+              f" {sum(totals):.1f} expected events, launches {launches};"
+              f" stacked captured template {rel:.3e} of the eager maps'"
+              f" largest bins (bound {TEMPLATE_RTOL['float32']:g}), launches"
+              f" at its capture {launches_c} [{smi}]")
+        check(rel <= TEMPLATE_RTOL["float32"],
+              "the applied captured template is off the eager one")
+        vg_launches = measure_vg("flagship with the fitted hypersurfaces",
+                                 ct, chain, smi)
+        check(vg_launches == expected_vg_launches(True),
+              f"the applied value_and_grad launched {vg_launches}")
+        add()
+        del ct, applied
+        torch.cuda.empty_cache()
+
+        dm = DistributionMaker([cfg], device="cuda")
+        data = dm.get_outputs(return_sum=True)
+        truth = dm.params["theta23"]._rescaled_value
+        add()
+
+        def fit():
+            dm.reset_free()
+            dm.params["theta23"]._rescaled_value = min(0.95, truth + 0.10)
+            return Analysis().fit_recursively(
+                data, dm, "mod_chi2", None, "device",
+                {"max_steps": HS_FIT_STEPS}, None)
+
+        # the first fit sets up and captures its objective, the second
+        # reuses it (Analysis._compiled_cache): its waits are the loop's
+        walls, waits, sources = [], [], {}
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            n, result = count_host_syncs(fit, sources if not walls else None)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            waits.append(n)
+            meta = result.minimizer_metadata
+            moved = result.params["theta23"]._rescaled_value - truth
+            launches = add()
+            which = ("first: wall with the set-up and capture of its"
+                     " objective" if len(walls) == 1 else "again: wall")
+            print(f"Analysis fit, flagship with the fitted hypersurfaces"
+                  f" ({len(dm.params.free)} free), device (max_steps"
+                  f" {HS_FIT_STEPS}), float32, {which} {walls[-1]:.3f} s,"
+                  f" nit {meta['nit']}, nfev {meta['nfev']}, {n} waits for"
+                  f" the card ({n / meta['nfev']:.2f} per evaluation), theta23"
+                  f" off the truth by {moved:.3e} rescaled (bound"
+                  f" {FIT_TOL:g}), metric {result.metric_val!r}; launches"
+                  f" {launches} [{smi}]")
+            check(abs(moved) <= FIT_TOL, "the applied fit did not recover"
+                  " theta23")
+        print("  the first fit's waits by source line:")
+        for where, count in sorted(sources.items(), key=lambda x: -x[1])[:8]:
+            print(f"  {count:5d}x  {where}")
+        check(waits[1] / meta["nfev"] <= DEVICE_FIT_WAITS,
+              f"the applied fit waited {waits[1] / meta['nfev']:.2f} times"
+              " per evaluation")
+        BasicAnalysis._compiled_cache.clear()
+        del dm
+        torch.cuda.empty_cache()
+
+        # the interpolated workflow over deltam31
+        fit_dir = os.path.join(tmp, "interpolated")
+        spec = {"deltam31": {"values": HS_DM31, "scales_log": False}}
+        t0 = time.perf_counter()
+        n_jobs = hs.prepare_interpolated_fit(fit_dir, spec, hs_fit_config())
+        hs.run_interpolated_fit(fit_dir, 0, device="cuda")
+        for job in range(n_jobs):  # job 0 resumed: skipped
+            hs.run_interpolated_fit(fit_dir, job, skip_successful=True,
+                                    device="cuda")
+        check(hs.get_incomplete_job_idx(fit_dir) == [],
+              "interpolated jobs left")
+        out = os.path.join(tmp, "interpolated.json.bz2")
+        hs.assemble_interpolated_fits(fit_dir, out)
+        hs_rename_file(out)
+        jobs_s = time.perf_counter() - t0
+        launches = add()
+        interp = Pipeline(hs_config(out, interpolated=True), device="cuda")
+        maps = interp.get_outputs()
+        check(all(np.isfinite(m.hist).all() for m in maps),
+              "the interpolated template is not finite")
+        ct = interp.compile()
+        check(ct.stacked and "deltam31" not in ct.free_names,
+              "the interpolated template")
+        rel = maps_rel(ct.get_outputs(ct.current_rescaled_values()), maps)
+        cwall, _ = median_wall(lambda: ct.get_outputs(
+            ct.current_rescaled_values()), 10)
+        launches_t = add()
+        print(f"float32 interpolated workflow over deltam31 {HS_DM31}"
+              f" (prepare, one job, the resume, assemble; {n_jobs} Pipeline"
+              f" set-ups and fits): {jobs_s:.2f} s, launches {launches};"
+              f" its template at deltam31 = {HS_DM31_POINT:g} eV^2 (fixed),"
+              f" stacked captured: {rel:.3e} of the eager maps' largest"
+              f" bins (bound {TEMPLATE_RTOL['float32']:g}), {cwall * 1e3:.3f}"
+              f" ms a call with its read (median of 10), launches"
+              f" {launches_t} [{smi}]")
+        check(rel <= TEMPLATE_RTOL["float32"],
+              "the interpolated captured template is off the eager one")
+        del ct, interp
+
+        # csv_hypersurfaces from the grid's fits, deltam31 free
+        csv_pipeline = Pipeline(hs_config(csv_paths=hs_write_csv(out, tmp)),
+                                device="cuda")
+        maps = csv_pipeline.get_outputs()
+        check(all(np.isfinite(m.hist).all() for m in maps),
+              "the csv_hypersurfaces template is not finite")
+        ct = csv_pipeline.compile()
+        check(ct.stacked and "deltam31" in ct.free_names,
+              "the csv_hypersurfaces template")
+        data = {m.name: m.hist for m in maps}
+        _, eager_vg = ct.build_objective(data, "mod_chi2", capture=False)
+        got = read_back(eager_vg(torch.as_tensor(gradient_point(ct),
+                                                 device=ct.device)))
+        d_dm31 = float(got[1 + ct.free_names.index("deltam31")])
+        add()
+        print(f"float32 flagship with csv_hypersurfaces over deltam31"
+              f" (free): d mod_chi2 / d deltam31 (rescaled) {d_dm31:.6e} at"
+              f" gradient_point, gradient finite:"
+              f" {bool(np.isfinite(got).all())} [{smi}]")
+        check(np.isfinite(got).all() and d_dm31 != 0,
+              "the csv_hypersurfaces gradient")
+        vg_launches = measure_vg("flagship with csv_hypersurfaces, deltam31"
+                                 " free", ct, chain, smi)
+        check(vg_launches == expected_vg_launches(True),
+              f"the csv_hypersurfaces value_and_grad launched {vg_launches}")
+        add()
+        del ct, csv_pipeline
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"hypersurfaces path launches (primal, tangent, multitangent):"
+          f" {tuple(total)}, the datasets' of the timed fit"
+          f" {datasets_launches} [{smi}]")
+    check(total[0] >= 2 and total[2] >= 2, "the hypersurfaces path did not"
+          " launch the primal and the multitangent")
+    return tuple(total)
+
+
+def hypersurfaces_only_main(chain, smi):
+    """``--hypersurfaces-only``: the kernels built, then the hypersurfaces
+    phases alone (the float64 child's and the main process's); no status
+    line."""
+    from pisa_tpu_torch.core.pipeline import Pipeline
+
+    run_children([("hypersurfaces", ["--hypersurfaces-worker"])])
+    t0 = time.perf_counter()
+    pipeline = Pipeline(CFG, device="cuda")
+    print(f"float32 Pipeline(...) setup on the card:"
+          f" {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    launches = hypersurfaces_fp32(chain, pipeline, smi)
+    print(f"float32 hypersurfaces phase: {time.perf_counter() - t0:.1f} s;"
+          f" launches {launches}")
+    return 0
+
+
 def print_kernel_times(kernels, smi):
     for name, k in kernels.items():
         for dname, t in k.items():
@@ -5143,7 +5764,7 @@ def analysis_only_main(chain, smi):
 
 def main(kernels_only=False, release_only=False, analysis_only=False,
          options_only=False, lanes_only=False, sterile_only=False,
-         events_only=False):
+         events_only=False, hypersurfaces_only=False):
     started = time.perf_counter()
     if not os.path.isdir(os.path.join(ROOT, "pisa_tpu_torch")):
         print("chip_smoke.py must run from a checkout of the repository"
@@ -5175,6 +5796,8 @@ def main(kernels_only=False, release_only=False, analysis_only=False,
         return sterile_only_main(chain, smi)
     if events_only:
         return events_only_main(chain, smi)
+    if hypersurfaces_only:
+        return hypersurfaces_only_main(chain, smi)
     if release_only:
         return release_only_main(chain, smi)
     if analysis_only:
@@ -5211,6 +5834,7 @@ def main(kernels_only=False, release_only=False, analysis_only=False,
             ("options lanes", ["--osc-lanes-worker"]),
             ("sterile", ["--sterile-worker"]),
             ("events", ["--events-worker"]),
+            ("hypersurfaces", ["--hypersurfaces-worker"]),
         ])
         with np.load(path) as f:
             ref = {k: f[k] for k in f.files}
@@ -5328,6 +5952,11 @@ def main(kernels_only=False, release_only=False, analysis_only=False,
     t0 = time.perf_counter()
     extra_paths["events"], kde_path = events_fp32(chain, smi)
     print(f"float32 events phase: {time.perf_counter() - t0:.1f} s")
+    # hypersurfaces fitted on the flagship and applied to it (this slice's
+    # main path)
+    t0 = time.perf_counter()
+    extra_paths["hypersurfaces"] = hypersurfaces_fp32(chain, pipeline, smi)
+    print(f"float32 hypersurfaces phase: {time.perf_counter() - t0:.1f} s")
     print(f"launches (primal, tangent, multitangent) by path: gradient and fit"
           f" {fit_path}, template {template_path}, analysis {analysis_path},"
           f" ensemble {ensemble_path}, release {release_path}, "
@@ -5442,7 +6071,8 @@ if __name__ == "__main__":
                "--osc-options-worker": osc_options_worker,
                "--osc-lanes-worker": options_lanes_worker,
                "--sterile-worker": sterile_worker,
-               "--events-worker": events_worker}
+               "--events-worker": events_worker,
+               "--hypersurfaces-worker": hypersurfaces_worker}
     if len(sys.argv) == 2 and sys.argv[1] in workers:
         sys.path.insert(0, ROOT)
         os.chdir(ROOT)
@@ -5462,4 +6092,5 @@ if __name__ == "__main__":
                   options_only=sys.argv[1:] == ["--osc-options-only"],
                   lanes_only=sys.argv[1:] == ["--osc-lanes-only"],
                   sterile_only=sys.argv[1:] == ["--sterile-only"],
-                  events_only=sys.argv[1:] == ["--events-only"]))
+                  events_only=sys.argv[1:] == ["--events-only"],
+                  hypersurfaces_only=sys.argv[1:] == ["--hypersurfaces-only"]))

@@ -29,15 +29,21 @@ def expand(path):
 
 def read_csv(fname):
     """Numeric CSV with a header row -> ``{column: float64 array}``, in the
-    file's column order. ``.bz2`` files are decompressed on the fly."""
+    file's column order. ``.bz2`` files are decompressed on the fly. An
+    empty field reads as NaN (pandas writes NaN so)."""
     path = find_resource(fname)
     opener = bz2.open if path.endswith(".bz2") else open
     with opener(path, "rt") as f:
         header = f.readline().strip().split(",")
         body = f.read()
-    table = np.loadtxt(
-        io.StringIO(body), delimiter=",", dtype=np.float64, ndmin=2
-    )
+    try:
+        table = np.loadtxt(
+            io.StringIO(body), delimiter=",", dtype=np.float64, ndmin=2
+        )
+    except ValueError:
+        table = np.atleast_2d(np.genfromtxt(
+            io.StringIO(body), delimiter=",", dtype=np.float64,
+            filling_values=np.nan))
     if table.shape[1] != len(header):
         raise ValueError(
             f"{fname}: {table.shape[1]} columns under a header of"
