@@ -6,9 +6,10 @@ Run from the root of a checkout, with no arguments:
 
     python3 chip_smoke.py
 
-It builds the port's six CUDA kernels (the oscillation chain, its tangent
-and its multitangent, the 4x4 Hermitian eigenvalues of the 3+1 layer
-step, and the KDE's Gaussian sum and its vector-Jacobian product) from the
+It builds the port's seven CUDA kernels (the oscillation chain, its
+tangent and its multitangent, the 4x4 Hermitian eigenvalues of the 3+1
+layer step, and the KDE's Gaussian sum, its vector-Jacobian product and
+its Jacobian-vector product) from the
 sources in the checkout, checks each against
 its plain PyTorch version on the card at the flagship's shapes, and drives
 the flagship IceCube 3-year pipeline
@@ -133,9 +134,21 @@ oscillation grid, 15 free parameters) on the card through its two paths:
   kde_example's compiled value_and_grad, and the same path at 2,000 toy
   events per category; then in float32 ``kde_example.cfg`` fed
   ``make_toy_events`` (240,000 events): the eager and the stacked captured
-  template, the captured value_and_grad (no wait inside the replay), a
-  ``device`` fit through Analysis from theta23 moved by +0.10, and
-  ``example.cfg`` at the same events;
+  template, the captured value_and_grad (no wait inside the replay), its
+  Fisher matrix (``jacfwd`` through the density's forward mode on
+  ``kde_gauss_sum_jvp``, whose check beside the other KDE kernels'
+  comes first; float64 card against CPU at 2,000 toy events per category
+  in the child), a ``device`` fit through Analysis from theta23 moved by
+  +0.10, and ``example.cfg`` at the same events;
+- the MCEq-Barr flagship (``testing/mceq_flagship.py``: mceq_barr on
+  honda_ip's flux, earth_absorption and nutau_xsec after prob3, 31 free
+  parameters, per container): in float64 (a child process) card against
+  CPU on a 20x20 grid, maps and the captured value_and_grad, and the
+  cross-section services dis_sys, genie_sys and correct_charm_y at 240,000
+  synthetic events; then in float32 at full width the template, the
+  captured value_and_grad and a ``device`` fit through Analysis from
+  theta23 + 0.10. The analysis child also holds the generalized
+  likelihood's host C route (``use_c=True``) against the torch route;
 - hypersurfaces fitted on the flagship and applied to it, this slice's
   main path: in float64 (a child process), card against CPU, the fit of
   the 13 datasets (delta_index linear, Barr_uphor_ratio quadratic,
@@ -175,7 +188,8 @@ phases of the rest of the analysis layer alone, and with
 ``--osc-lanes-only`` the phases of forward mode and lanes under the options
 alone, with ``--sterile-only`` the 3+1 and nusquids phases alone, and with
 ``--events-only`` the KDE kernel checks and the HDF5 and KDE phases alone,
-with ``--hypersurfaces-only`` the hypersurfaces phases alone;
+with ``--hypersurfaces-only`` the hypersurfaces phases alone, with
+``--mceq-only`` the MCEq-Barr flagship's phases alone;
 none prints a status line. It prints its total wall before the
 kernels line.
 
@@ -427,6 +441,33 @@ KDE_FIT_STEPS = 30
 # central differences with steps of this size relative to w and h:
 # truncation ~step^2, rounding ~1e-16 / step
 KDE_FD = {"step": 1e-5, "rtol": 1e-6}
+# kde_gauss_sum_jvp's tangents in its check against the plain version:
+# seeded directions of up to this fraction of ih, il2 and c (the kernels'
+# tolerance is the sum's, KDE_KERNEL_RTOL); the Fisher matrix of the toy
+# kde_example, card against CPU in float64, max |difference| / max |F|
+KDE_JVP_DIRECTION = 0.1
+KDE_FISHER_RTOL = 1e-9
+# the host C route of the generalized likelihood against the torch route
+# on the generalized toy's bins: the reference test's tolerances
+# (tests/test_generalized_llh.py: two summation orders of one recursion)
+C_ROUTE_TOL = {"rtol": 1e-10, "atol": 1e-12}
+
+# the MCEq-Barr flagship (pisa_tpu_torch/testing/mceq_flagship.py): its
+# free params (the flagship's 11 besides barr_simple's, mceq_barr's 18 Barr
+# params and delta_index, nutau_xsec_scale), the device fit's most L-BFGS
+# iterations (the fit runs at each cap; the last one is held to FIT_TOL:
+# with 31 free parameters 30 iterations need not bring theta23 that close,
+# and the first run prints where they leave it), and the synthetic events (two containers, the service
+# matrix's) of the three cross-section services whose keys the flagship's
+# CSV lacks, held card against CPU in float64 (1e-12 of the largest
+# weight and gradient entry: the same arithmetic) at these parameter values
+MCEQ_FREE = 31
+MCEQ_FIT_STEPS = (30, 60)
+MCEQ_XSEC_EVENTS = 240_000
+MCEQ_XSEC = {"dis_sys": {"dis_csms": 0.6},
+             "genie_sys": {"Genie_Ma_QE": -0.4, "Genie_Ma_RES": 0.7},
+             "correct_charm_y": {}}
+XSEC_RTOL = 1e-12
 
 # hypersurfaces on the flagship (bench.py:640-720's 13-dataset, 3-param
 # design): the forms of three free pipeline params, the nominal point and 12
@@ -1268,6 +1309,7 @@ def generalized_fp64(smi):
           "generalized: not finite on the card")
     check(rel <= VG_FP64["value"], "generalized: card value vs CPU")
     check(mism <= 1.0, "generalized: card gradient vs CPU")
+    generalized_c_route(ct, v, total, k_max, smi)
 
     # the recursion alone, at the length the JAX package takes here
     k_full = int(np.ceil(total.max()))
@@ -1294,6 +1336,82 @@ def generalized_fp64(smi):
               f" bins x {alphas.shape[1]} sources, eager on the card: k_max"
               f" {k}: forward {fwd_wall * 1e3:.2f} ms, forward and backward"
               f" {mix_wall * 1e3:.2f} ms [{smi}]")
+
+
+def generalized_c_route(ct, v, total, k_max, smi):
+    """float64: generalized_poisson_llh(use_c=True), the host C library
+    built from the port's copy of poisson_gamma.c with this machine's
+    compiler, against the torch route on the card, on the generalized toy's
+    bins (the card template's outputs at `v`, the counts `total`), within
+    C_ROUTE_TOL."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from pisa_tpu_torch.utils import stats
+    from pisa_tpu_torch.utils.llh_defs import native
+    from pisa_tpu_torch.utils.llh_defs.poisson import (
+        generalized_pg_log_mixture,
+        mixture_bins,
+    )
+
+    cc = os.environ.get("CC", "cc")
+    version = subprocess.run([cc, "--version"], capture_output=True,
+                             text=True).stdout.splitlines()
+    t0 = time.perf_counter()
+    lib = native.library()
+    build_s = time.perf_counter() - t0
+    out = ct(v)
+    names = list(out["hist"])
+    expected = {"weights": torch.stack([out["hist"][n] for n in names])}
+    for key in ("llh_alphas", "llh_betas", "n_mc_events"):
+        expected[key] = torch.stack([out[key][n] for n in names])
+    actual = torch.as_tensor(total, device="cuda")
+    t0 = time.perf_counter()
+    via_c = stats.generalized_poisson_llh(actual, expected, use_c=True)
+    torch.cuda.synchronize()
+    c_s = time.perf_counter() - t0
+    via_torch = stats.generalized_poisson_llh(actual, expected, k_max=k_max)
+    got, want = via_c.cpu().numpy(), via_torch.cpu().numpy()
+    excess = np.abs(got - want) - (C_ROUTE_TOL["atol"]
+                                   + C_ROUTE_TOL["rtol"] * np.abs(want))
+    # none of the toy's bins takes the mixture (every source holds more than
+    # 100 MC events there, and at its alphas of ~2,000 the recursion
+    # overflows in both routes), so the mixture itself is held on the
+    # reference test's inputs (tests/test_generalized_llh.py): 40 bins of 3
+    # sources, k below 30, one NaN alpha and one zero beta (masked)
+    rng = np.random.RandomState(4)
+    counts = rng.randint(0, 30, 40)
+    alphas = rng.uniform(0.5, 20.0, (40, 3))
+    betas = rng.uniform(0.2, 5.0, (40, 3))
+    alphas[3, 1] = np.nan
+    betas[7, 2] = 0.0
+    k_full = int(counts.max())
+    t0 = time.perf_counter()
+    mix_c = native.pg_log_mixture_c(counts, alphas, betas)
+    mix_s = time.perf_counter() - t0
+    mix_torch = generalized_pg_log_mixture(
+        *(torch.as_tensor(a, device="cuda") for a in (counts, alphas, betas)),
+        k_max=k_full).cpu().numpy()
+    mix_excess = np.abs(mix_c - mix_torch) - (
+        C_ROUTE_TOL["atol"] + C_ROUTE_TOL["rtol"] * np.abs(mix_torch))
+    print(f"float64 generalized_poisson_llh(use_c=True), {got.size} bins:"
+          f" the C library ({os.path.relpath(lib._name, ROOT)}, built with"
+          f" {shutil.which(cc) or cc}: {version[0] if version else '?'}) in"
+          f" {build_s:.2f} s; one call {c_s * 1e3:.2f} ms on the host;"
+          f" against the torch route on the card max |difference|"
+          f" {np.abs(got - want).max():.3e} (rtol {C_ROUTE_TOL['rtol']:g},"
+          f" atol {C_ROUTE_TOL['atol']:g}); result on {via_c.device};"
+          f" {int(mixture_bins(expected['n_mc_events']).sum())} bins take the"
+          f" mixture there. The mixture on the reference test's {mix_c.size}"
+          f" bins (k up to {k_full}): C {mix_s * 1e3:.2f} ms on the host, max"
+          f" |C - torch on the card| {np.abs(mix_c - mix_torch).max():.3e}"
+          f" [{smi}]")
+    check(via_c.device.type == "cuda" and np.all(np.isfinite(got))
+          and np.all(excess <= 0), "the C route is off the torch route")
+    check(np.all(np.isfinite(mix_c)) and np.all(mix_excess <= 0),
+          "the C library's mixture is off the torch recursion")
 
 
 def fisher_fp64(smi):
@@ -4298,7 +4416,7 @@ def maps_mismatch(got, want):
     return worst
 
 
-def sterile_card_vs_cpu(label, make_config, smi):
+def pipeline_card_vs_cpu(label, make_config, smi):
     """float64: the pipeline of make_config() on the card against the CPU:
     the eager maps (each bin within TEMPLATE_RTOL of its map's largest),
     and the compiled mod_chi2 value_and_grad (the card's captured) at
@@ -4362,7 +4480,7 @@ def sterile_fp64(smi):
                 ("3+1 flagship, 20x20 grid, amplitude picture",
                  lambda: sterile_config(tmp, 20, lowpass=False))):
             t0 = time.perf_counter()
-            sterile_card_vs_cpu(label, make, smi)
+            pipeline_card_vs_cpu(label, make, smi)
             print(f"float64 {label}: {time.perf_counter() - t0:.1f} s")
         reset_launch_counts(chain)
         got = Pipeline(sterile_config(tmp, 20, num_neutrinos=3),
@@ -4650,6 +4768,270 @@ def sterile_fp32(chain, smi):
     return tuple(total), total_h4
 
 
+def xsec_service(name, device, n_events):
+    """The xsec service `name` from its init_test at MCEQ_XSEC's values,
+    on the service matrix's two containers with `n_events` synthetic
+    events in all (the same for every device), set up."""
+    import importlib
+
+    import numpy as np
+
+    from pisa_tpu_torch.testing import service_matrix as TSM
+
+    service = importlib.import_module(
+        f"pisa_tpu_torch.stages.xsec.{name}").init_test()
+    for pname, value in MCEQ_XSEC[name].items():
+        p = service.params[pname]
+        p.value = value * p.units
+    service.data = TSM.make_events_data(service, np.random.RandomState(0),
+                                        device=device,
+                                        n_events=n_events // 2)
+    service.setup()
+    return service
+
+
+def xsec_card_vs_cpu(smi):
+    """float64: dis_sys, genie_sys and correct_charm_y at MCEQ_XSEC_EVENTS
+    synthetic events, card against CPU: the weights, and the gradient of
+    a seeded weighted sum of them in the parameters (as tensors, the
+    service in template mode); then on the card the apply captured in a
+    CUDA graph (no host read) and replayed, against the eager weights."""
+    import numpy as np
+    import torch
+
+    from pisa_tpu_torch import ureg
+
+    for name, values in MCEQ_XSEC.items():
+        results = {}
+        for device in ("cpu", "cuda"):
+            t0 = time.perf_counter()
+            service = xsec_service(name, device, MCEQ_XSEC_EVENTS)
+            setup_s = time.perf_counter() - t0
+            service._template_mode = True
+            names = sorted(values)
+            vec = torch.tensor([values[n] for n in names],
+                               dtype=torch.float64, device=device,
+                               requires_grad=True)
+            for pname, x in zip(names, vec.unbind()):
+                p = service.params[pname]
+                p._value = ureg.Quantity(x, p.units)
+            start = {c.name: c["weights"] for c in service.data}
+            service.run()
+            weights = {c.name: c["weights"] for c in service.data}
+            rng = np.random.RandomState(7)
+            loss = sum((w * torch.as_tensor(rng.uniform(0.5, 1.5, tuple(
+                w.shape)), device=device)).sum() for w in weights.values())
+            grad = (torch.autograd.grad(loss, vec)[0].cpu().numpy() if names
+                    else np.zeros(0))
+            results[device] = ({k: w.detach().cpu().numpy()
+                                for k, w in weights.items()}, grad, setup_s)
+            if device == "cuda":
+                # the apply captured: it reads nothing on the host
+                for c in service.data:
+                    c["weights"] = start[c.name]
+                with torch.no_grad():
+                    graph = torch.cuda.CUDAGraph()
+                    stream = torch.cuda.Stream()
+                    stream.wait_stream(torch.cuda.current_stream())
+                    with torch.cuda.stream(stream):
+                        service.apply_function()
+                    torch.cuda.current_stream().wait_stream(stream)
+                    for c in service.data:
+                        c["weights"] = start[c.name]
+                    with torch.cuda.graph(graph):
+                        service.apply_function()
+                    graph.replay()
+                    torch.cuda.synchronize()
+                replay = {c.name: c["weights"].cpu().numpy()
+                          for c in service.data}
+        (want, want_g, cpu_s), (got, got_g, card_s) = (results["cpu"],
+                                                         results["cuda"])
+        n = sum(w.size for w in got.values())
+        err = max(float(np.abs(got[k] - want[k]).max()
+                        / np.abs(want[k]).max()) for k in want)
+        replay_err = max(float(np.abs(replay[k] - got[k]).max()
+                               / np.abs(got[k]).max()) for k in got)
+        gerr = (float(np.abs(got_g - want_g).max() / np.abs(want_g).max())
+                if names else 0.0)
+        moved = any(not np.allclose(w, 1.0) for w in got.values())
+        print(f"float64 xsec.{name} at {n} synthetic events, card vs CPU:"
+              f" weights {err:.3e} of the largest, gradient in {names}"
+              f" {got_g.tolist()} at {gerr:.3e} of the largest (bound"
+              f" {XSEC_RTOL:g}); the captured apply's replay {replay_err:.3e}"
+              f" off the eager weights; set-up {card_s:.2f} s on the card,"
+              f" {cpu_s:.2f} s on the CPU [{smi}]")
+        check(n == MCEQ_XSEC_EVENTS and moved and err <= XSEC_RTOL
+              and gerr <= XSEC_RTOL and replay_err <= XSEC_RTOL
+              and np.all(np.isfinite(got_g)),
+              f"xsec.{name}: the card is off the CPU")
+
+
+def mceq_fp64(smi):
+    """float64, card against CPU: the 20x20-grid MCEq flagship at full
+    events (maps within TEMPLATE_RTOL, the captured mod_chi2 value_and_grad
+    within VG_FP64), then the three cross-section services at
+    MCEQ_XSEC_EVENTS synthetic events (xsec_card_vs_cpu)."""
+    from pisa_tpu_torch.testing.mceq_flagship import mceq_flagship_config
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        pipeline_card_vs_cpu("MCEq flagship, 20x20 grid",
+                             lambda: mceq_flagship_config(tmp, 20), smi)
+        print(f"float64 MCEq flagship: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    xsec_card_vs_cpu(smi)
+    print(f"float64 xsec services: {time.perf_counter() - t0:.1f} s")
+
+
+def mceq_worker():
+    """float64 (``--mceq-worker``): mceq_fp64 in a child process, torch on
+    HS_FP64_THREADS CPU threads (it runs beside the other children)."""
+    import torch
+
+    from pisa_tpu_torch import FTYPE_NAME
+
+    check(FTYPE_NAME == "fp64", f"mceq worker runs {FTYPE_NAME}")
+    torch.set_num_threads(HS_FP64_THREADS)
+    smi = card_line()
+    t0 = time.perf_counter()
+    mceq_fp64(smi)
+    print(f"float64 MCEq phase: {time.perf_counter() - t0:.1f} s [{smi}]")
+
+
+def mceq_fp32(chain, smi):
+    """The MCEq-Barr flagship at full width, float32, through the entry
+    points (this slice's main path): the eager template; the compiled
+    template's captured value_and_grad (measure_vg: wall, kernels per
+    replay, busy share, peak memory, no wait inside the replay);
+    Analysis().fit_recursively(..., 'device', {'max_steps': n}, ...) on the
+    DistributionMaker's Asimov data from theta23 moved by +0.10 rescaled,
+    for each n of MCEQ_FIT_STEPS. The counts are set to 0 just before
+    each part and read just after; returns the sums of the chain kernels'
+    launches."""
+    import numpy as np
+    import torch
+
+    from pisa_tpu_torch import ureg
+    from pisa_tpu_torch.analysis.analysis import Analysis, BasicAnalysis
+    from pisa_tpu_torch.core.distribution_maker import DistributionMaker
+    from pisa_tpu_torch.core.pipeline import Pipeline
+    from pisa_tpu_torch.testing.mceq_flagship import write_mceq_flagship
+
+    total = [0, 0, 0]
+
+    def add():
+        launches = launch_counts(chain)
+        for i, n in enumerate(launches):
+            total[i] += n
+        reset_launch_counts(chain)
+        return launches
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = write_mceq_flagship(tmp)
+        reset_launch_counts(chain)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        pipeline = Pipeline(cfg, device="cuda")
+        setup_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        maps = pipeline.get_outputs()
+        totals = [float(m.hist.sum()) for m in maps]
+        first_s = time.perf_counter() - t0
+        walls = []
+        theta23 = pipeline.params["theta23"].value
+        for i in range(5):
+            pipeline.params["theta23"].value = theta23 + 0.1 * (i + 1) \
+                * ureg.degree
+            t0 = time.perf_counter()
+            pipeline.get_outputs()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        pipeline.params["theta23"].value = theta23
+        launches = add()
+        print(f"float32 MCEq flagship: Pipeline set-up {setup_s:.2f} s, first"
+              f" template {first_s:.2f} s, then get_outputs with an"
+              f" oscillation recompute median {np.median(walls) * 1e3:.2f} ms"
+              f" (5 runs), {sum(totals):.1f} expected events; launches"
+              f" {launches}; peak memory"
+              f" {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB [{smi}]")
+        check(all(np.isfinite(t) and t > 0 for t in totals),
+              "MCEq flagship: template not finite")
+        check(launches == (12, 0, 0), f"MCEq flagship templates: launches"
+              f" {launches}")
+        del maps
+
+        ct = pipeline.compile()
+        check(not ct.stacked and len(ct.free_names) == MCEQ_FREE,
+              f"MCEq flagship template: stacked {ct.stacked},"
+              f" {len(ct.free_names)} free")
+        vg_launches = measure_vg("MCEq flagship", ct, chain, smi)
+        launches = add()
+        print(f"MCEq flagship value_and_grad path: launches {launches} (the"
+              f" eager run, the warm-ups and the capture) [{smi}]")
+        check(vg_launches == (2, 0, 2), f"MCEq flagship value_and_grad"
+              f" launches {vg_launches}")
+        del ct, pipeline
+        torch.cuda.empty_cache()
+
+        # the device fit through the analysis layer
+        dm = DistributionMaker([cfg], device="cuda")
+        data = dm.get_outputs(return_sum=True)
+        truth = dm.params["theta23"]._rescaled_value
+        add()
+
+        def fit(steps):
+            dm.reset_free()
+            dm.params["theta23"]._rescaled_value = min(0.95, truth + 0.10)
+            return Analysis().fit_recursively(
+                data, dm, "mod_chi2", None, "device", {"max_steps": steps},
+                None)
+
+        for steps in MCEQ_FIT_STEPS:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            waits, result = count_host_syncs(lambda: fit(steps))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            meta = result.minimizer_metadata
+            moved = result.params["theta23"]._rescaled_value - truth
+            launches = add()
+            print(f"Analysis fit, MCEq flagship ({len(dm.params.free)} free),"
+                  f" device (max_steps {steps}), float32: wall {wall:.3f} s"
+                  f" with the set-up and capture of its objective (the first"
+                  f" fit's), nit {meta['nit']}, nfev {meta['nfev']}, {waits}"
+                  f" waits for the card ({waits / meta['nfev']:.2f} per"
+                  f" evaluation), theta23 off the truth by {moved:.3e}"
+                  f" rescaled (bound {FIT_TOL:g} at max_steps"
+                  f" {MCEQ_FIT_STEPS[-1]}), metric {result.metric_val!r}; peak"
+                  f" memory {torch.cuda.max_memory_allocated() / 2**20:.1f}"
+                  f" MiB; launches {launches} [{smi}]")
+        check(abs(moved) <= FIT_TOL, "the MCEq fit did not recover theta23")
+        check(waits / meta["nfev"] <= DEVICE_FIT_WAITS,
+              f"the MCEq fit waited {waits / meta['nfev']:.2f} times per"
+              " evaluation")
+        BasicAnalysis._compiled_cache.clear()
+        del dm
+        torch.cuda.empty_cache()
+    print(f"MCEq path launches (primal, tangent, multitangent):"
+          f" {tuple(total)} [{smi}]")
+    check(total[0] > 0 and total[2] > 0, "the MCEq path launched no primal"
+          " or no multitangent kernel")
+    return tuple(total)
+
+
+def mceq_only_main(chain, smi):
+    """``--mceq-only``: the kernels built, then the MCEq-Barr flagship's
+    phases alone (the float64 child's and the main process's); no status
+    line."""
+    run_children([("MCEq", ["--mceq-worker"])])
+    t0 = time.perf_counter()
+    launches = mceq_fp32(chain, smi)
+    print(f"float32 MCEq phase: {time.perf_counter() - t0:.1f} s; launches"
+          f" {launches}")
+    return 0
+
+
 def sterile_only_main(chain, smi):
     """``--sterile-only``: the kernels built, herm4_eig held and timed, then
     the 3+1 phases alone (the float64 child's and the main process's); no
@@ -4866,6 +5248,140 @@ def kde_vs_plain(smi):
     return out
 
 
+def kde_jvp_vs_plain(smi):
+    """kde_gauss_sum_jvp against its plain version (gauss_sum_jvp_reference)
+    on the card at the full-width shapes (B = 24, N = TOY_EVENTS; the
+    pilot at the samples with il2 = 1 and dil2 = 0, and the 1,320 grid
+    points), float64 and float32 (against the float32 and the float64
+    plain version), seeded tangents (KDE_JVP_DIRECTION), a channel without
+    weight (zeros); device-only times (a CUDA graph of 20 launches) beside
+    the plain version's, the bound and its share, registers and blocks per
+    SM. Then the float64 density's forward mode (AdaptiveDensity's jvp, two
+    jvp launches) against central differences and against its backward
+    (<g, J t> = <J^T g, t>). Returns {dtype: line} of the pilot's pass, with
+    the grid's under "grid"."""
+    import numpy as np
+    import torch
+
+    from pisa_tpu_torch.ops import kde as ops_kde
+
+    inp = kde_inputs(torch.float64)
+    x = inp["x"]
+    B, D, N = x.shape
+    live = inp["w"].sum(-1) > 0
+    rng = np.random.RandomState(2)
+
+    def direction(t):
+        return t * torch.as_tensor(
+            rng.uniform(-KDE_JVP_DIRECTION, KDE_JVP_DIRECTION, tuple(t.shape)),
+            device="cuda")
+
+    dih = direction(inp["ih"])
+    cases = (
+        ("pilot", False, (x, x, inp["ih"], dih, inp["ones"],
+                          torch.zeros_like(inp["ones"]), inp["c0"],
+                          direction(inp["c0"]))),
+        ("grid", True, (x, inp["points"], inp["ih"], dih, inp["il2"],
+                        direction(inp["il2"]), inp["c"],
+                        direction(inp["c"]))),
+    )
+    out = {}
+    for dname, dtype in (("float64", torch.float64),
+                         ("float32", torch.float32)):
+        for label, shared, args in cases:
+            cast = tuple(a.to(dtype).contiguous() for a in args)
+            got = ops_kde.gauss_sum_jvp(*cast)
+            want = ops_kde.gauss_sum_jvp_reference(*cast)
+            want64 = ops_kde.gauss_sum_jvp_reference(*args)
+            torch.cuda.synchronize()
+            err = max(float((g.double() - p.double()).abs().max()
+                            / p.double().abs().max())
+                      for g, p in zip(got, want))
+            err64 = max(float((g[live].double() - p[live]).abs().max()
+                              / p[live].abs().max())
+                        for g, p in zip(got, want64))
+            abs_err = max(float((g.double() - p.double()).abs().max())
+                          for g, p in zip(got, want))
+            finite = all(bool(torch.isfinite(g).all()) for g in got)
+            zero = max(float(g[1].abs().max()) for g in got)
+            check(finite, f"kde_gauss_sum_jvp {label} {dname}: not finite")
+            check(zero == 0.0, f"kde_gauss_sum_jvp {label} {dname}: the"
+                  " channel without weight is not zero")
+            check(err <= KDE_KERNEL_RTOL[dname]
+                  and err64 <= KDE_KERNEL_RTOL[dname],
+                  f"kde_gauss_sum_jvp {label} {dname}: {err:.3e} /"
+                  f" {err64:.3e} off the plain version")
+            M = cast[1].shape[-1]
+            ms = graph_time(lambda: ops_kde.gauss_sum_jvp(*cast), launches=20,
+                            replays=3)
+            plain_ms = cuda_time(
+                lambda: ops_kde.gauss_sum_jvp_reference(*cast), 2)
+            bound, by = ops_kde.kde_bound_ms("jvp", B, D, N, M, dtype,
+                                             shared_points=shared)
+            attrs = ops_kde.kernel_attributes("jvp", D, dtype)
+            ops = ops_kde.kde_operations("jvp", B, D, N, M)
+            print(f"kernel kde_gauss_sum_jvp {dname}, {label} (B={B}, D={D},"
+                  f" N={N}, M={M}): max |kernel - plain| {err:.3e} of the"
+                  f" largest, value and tangent (vs plain float64"
+                  f" {err64:.3e} over the channels with weight, bound"
+                  f" {KDE_KERNEL_RTOL[dname]:g}); device-only {ms:.4f} ms,"
+                  f" plain {plain_ms:.3f} ms, bound {bound:.4f} ms by {by}"
+                  f" ({ops['pairs']} pairs, {ops['flops']} operations and"
+                  f" {ops['exps']} exps; {100 * bound / ms:.1f}% of bound);"
+                  f" {attrs['registers']} registers, {attrs['local_bytes']}"
+                  f" local bytes, {attrs['blocks_per_sm']} blocks of"
+                  f" {attrs['threads']} per SM [{smi}]")
+            line = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                    "bound_by": by, "max_rel_err": err,
+                    "shape": [B, D, N, M]}
+            if label == "pilot":
+                out[dname] = dict(line, max_abs_err=abs_err,
+                                  max_rel_err_vs_float64=err64,
+                                  registers=attrs["registers"],
+                                  local_bytes=attrs["local_bytes"],
+                                  threads=attrs["threads"],
+                                  blocks_per_sm=attrs["blocks_per_sm"])
+            else:
+                out[dname]["grid"] = line
+    # float64: the density's forward mode along a seeded direction in (w, h)
+    w, h = inp["w"], inp["h"]
+    dw = w * torch.as_tensor(rng.uniform(-1, 1, (B, N)), device="cuda")
+    dh = h * torch.as_tensor(rng.uniform(-1, 1, (B, D)), device="cuda")
+    g = torch.as_tensor(rng.normal(size=(B, inp["points"].shape[1])),
+                        device="cuda")
+
+    def f(w_, h_):
+        return ops_kde.adaptive_density(x, w_, h_, inp["points"], True,
+                                        inp["alpha"])
+
+    before = ops_kde.jvp_launch_count
+    _, tangent = torch.func.jvp(f, (w, h), (dw, dh))
+    jvp_launches = ops_kde.jvp_launch_count - before
+    forward = float((tangent * g).sum())
+    w_, h_ = (t.detach().clone().requires_grad_(True) for t in (w, h))
+    (f(w_, h_) * g).sum().backward()
+    reverse = float((w_.grad * dw).sum() + (h_.grad * dh).sum())
+    eps = KDE_FD["step"]
+    with torch.no_grad():
+        numeric = float(((f(w + eps * dw, h + eps * dh)
+                          - f(w - eps * dw, h - eps * dh)) * g).sum()) / (
+                              2 * eps)
+    fd = abs(forward - numeric) / abs(numeric)
+    transpose = abs(forward - reverse) / abs(reverse)
+    print(f"float64 KDE density, forward mode: <g, J t> {forward!r} against"
+          f" central differences (step {eps:g} relative) {numeric!r}"
+          f" ({fd:.3e}, bound {KDE_FD['rtol']:g}) and the backward's"
+          f" <J^T g, t> {reverse!r} ({transpose:.3e}); jvp launches"
+          f" {jvp_launches} [{smi}]")
+    check(fd <= KDE_FD["rtol"] and transpose <= KDE_KERNEL_RTOL["float64"]
+          and bool(torch.isfinite(tangent).all()),
+          "the KDE density's jvp is off its central differences or its"
+          " backward")
+    check(jvp_launches == 2, f"the density's jvp launched {jvp_launches}"
+          " jvp kernels")
+    return out
+
+
 def toy_config(cfg_path, events):
     """`cfg_path` parsed, its loader's events_file the mapping `events` (or,
     for an int, scripts/make_toy_events.py's events of that many per
@@ -4974,19 +5490,49 @@ def events_worker():
           "kde_example (toy events): the card's maps are off the CPU's")
     vg_card_vs_cpu(f"kde_example at {TOY_EVENTS_FP64} toy events per"
                    " category", cpu, gpu, smi)
+    kde_fisher_card_vs_cpu(cpu, gpu, smi)
     print(f"float64 events phase: {time.perf_counter() - t0:.1f} s [{smi}]")
+
+
+def kde_fisher_card_vs_cpu(cpu_pipeline, gpu_pipeline, smi):
+    """float64: get_fisher_matrix (jacfwd through the KDE density's forward
+    mode) of the compiled template on the card against the CPU's, within
+    KDE_FISHER_RTOL of the largest entry; the card's KDE launches."""
+    import numpy as np
+
+    from pisa_tpu_torch.analysis.fisher import get_fisher_matrix
+
+    want = get_fisher_matrix(cpu_pipeline.compile())
+    gpu_ct = gpu_pipeline.compile()
+    get_fisher_matrix(gpu_ct)  # the first call builds the cached tensors
+    reset_kde_launches()
+    got = get_fisher_matrix(gpu_ct)
+    kde = kde_launches()
+    rel = float(np.abs(got.matrix - want.matrix).max()
+                / np.abs(want.matrix).max())
+    print(f"float64 kde_example Fisher matrix at {TOY_EVENTS_FP64} toy events"
+          f" per category ({len(got.parameters)} params), card vs CPU:"
+          f" {rel:.3e} of the largest entry (bound {KDE_FISHER_RTOL:g}); card"
+          f" KDE launches (sum, vjp, jvp) {kde} [{smi}]")
+    check(got.parameters == want.parameters and rel <= KDE_FISHER_RTOL
+          and np.all(np.isfinite(got.matrix)),
+          "kde_example Fisher matrix: the card's is off the CPU's")
+    check(kde == (2, 0, 2), f"kde_example Fisher (float64): KDE launches"
+          f" {kde}")
 
 
 def kde_launches():
     from pisa_tpu_torch.ops import kde as ops_kde
 
-    return ops_kde.sum_launch_count, ops_kde.vjp_launch_count
+    return (ops_kde.sum_launch_count, ops_kde.vjp_launch_count,
+            ops_kde.jvp_launch_count)
 
 
 def reset_kde_launches():
     from pisa_tpu_torch.ops import kde as ops_kde
 
     ops_kde.sum_launch_count = ops_kde.vjp_launch_count = 0
+    ops_kde.jvp_launch_count = 0
 
 
 def events_fp32(chain, smi):
@@ -4995,10 +5541,11 @@ def events_fp32(chain, smi):
     the 200x200 calc grid). The eager template, the stacked captured
     template, the captured value_and_grad of mod_chi2 (wall, device time,
     kernels, busy share, peak memory, waits), a ``device`` fit through
-    Analysis from theta23 moved by +0.10 rescaled on the Asimov data; then
-    example.cfg at the same events: template and value_and_grad. Returns
-    the launches of the path: ((primal, tangent, multitangent), (KDE sum,
-    KDE vjp))."""
+    Analysis from theta23 moved by +0.10 rescaled on the Asimov data, its
+    Fisher matrix (jacfwd of the eager template: wall and KDE launches);
+    then example.cfg at the same events: template and value_and_grad.
+    Returns the launches of the path: ((primal, tangent, multitangent),
+    (KDE sum, KDE vjp, KDE jvp))."""
     import numpy as np
     import torch
 
@@ -5006,7 +5553,7 @@ def events_fp32(chain, smi):
     from pisa_tpu_torch.core.distribution_maker import DistributionMaker
     from pisa_tpu_torch.core.pipeline import Pipeline
 
-    total, total_kde = [0, 0, 0], [0, 0]
+    total, total_kde = [0, 0, 0], [0, 0, 0]
 
     def reset():
         reset_launch_counts(chain)
@@ -5076,6 +5623,30 @@ def events_fp32(chain, smi):
           " value_and_grad")
     check(vg_launches[0] > 0, "kde_example's value_and_grad launched no"
           " primal kernel")
+
+    # the Fisher matrix: jacfwd of the eager template, the density's
+    # tangents from kde_gauss_sum_jvp (all directions as rows of one launch
+    # at the samples and one at the points)
+    from pisa_tpu_torch.analysis.fisher import get_fisher_matrix
+
+    get_fisher_matrix(ct)  # the first call builds the cached tensors
+    add()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    fm = get_fisher_matrix(ct)
+    wall = time.perf_counter() - t0
+    launches, kde = add()
+    n = len(fm.parameters)
+    print(f"float32 Fisher matrix, kde_example at 240k toy events ({n}"
+          f" params), jacfwd of the eager template: wall {wall * 1e3:.2f} ms"
+          f" (second call); launches {launches}, KDE (sum, vjp, jvp) {kde}"
+          f" (jvp: the pilot's and the points', the {n} directions as rows);"
+          f" peak memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB;"
+          f" diagonal {np.diag(fm.matrix).tolist()} [{smi}]")
+    check(np.all(np.isfinite(fm.matrix)) and np.all(np.diag(fm.matrix) > 0),
+          "kde_example Fisher matrix not finite or not positive")
+    check(kde == (2, 0, 2), f"kde_example Fisher: KDE launches {kde}")
     del ct, pipeline
     torch.cuda.empty_cache()
 
@@ -5132,7 +5703,7 @@ def events_fp32(chain, smi):
     del ct, pipeline
     torch.cuda.empty_cache()
     print(f"events path launches (primal, tangent, multitangent):"
-          f" {tuple(total)}, KDE (sum, vjp) {tuple(total_kde)} [{smi}]")
+          f" {tuple(total)}, KDE (sum, vjp, jvp) {tuple(total_kde)} [{smi}]")
     check(all(n > 0 for n in total_kde), "a KDE kernel never ran on the"
           " events path")
     return tuple(total), tuple(total_kde)
@@ -5144,6 +5715,7 @@ def events_only_main(chain, smi):
     process's); no status line."""
     t0 = time.perf_counter()
     kde_vs_plain(smi)
+    kde_jvp_vs_plain(smi)
     print(f"KDE kernel checks: {time.perf_counter() - t0:.1f} s")
     run_children([("events", ["--events-worker"])])
     t0 = time.perf_counter()
@@ -5764,7 +6336,7 @@ def analysis_only_main(chain, smi):
 
 def main(kernels_only=False, release_only=False, analysis_only=False,
          options_only=False, lanes_only=False, sterile_only=False,
-         events_only=False, hypersurfaces_only=False):
+         events_only=False, hypersurfaces_only=False, mceq_only=False):
     started = time.perf_counter()
     if not os.path.isdir(os.path.join(ROOT, "pisa_tpu_torch")):
         print("chip_smoke.py must run from a checkout of the repository"
@@ -5798,6 +6370,8 @@ def main(kernels_only=False, release_only=False, analysis_only=False,
         return events_only_main(chain, smi)
     if hypersurfaces_only:
         return hypersurfaces_only_main(chain, smi)
+    if mceq_only:
+        return mceq_only_main(chain, smi)
     if release_only:
         return release_only_main(chain, smi)
     if analysis_only:
@@ -5817,6 +6391,7 @@ def main(kernels_only=False, release_only=False, analysis_only=False,
     print_kernel_times(kernels, smi)
     t0 = time.perf_counter()
     kde_kernels = kde_vs_plain(smi)
+    kde_kernels["kde_gauss_sum_jvp"] = kde_jvp_vs_plain(smi)
     print(f"KDE kernel checks: {time.perf_counter() - t0:.1f} s")
     if kernels_only:
         herm4_vs_plain(smi)
@@ -5835,6 +6410,7 @@ def main(kernels_only=False, release_only=False, analysis_only=False,
             ("sterile", ["--sterile-worker"]),
             ("events", ["--events-worker"]),
             ("hypersurfaces", ["--hypersurfaces-worker"]),
+            ("MCEq", ["--mceq-worker"]),
         ])
         with np.load(path) as f:
             ref = {k: f[k] for k in f.files}
@@ -5957,6 +6533,10 @@ def main(kernels_only=False, release_only=False, analysis_only=False,
     t0 = time.perf_counter()
     extra_paths["hypersurfaces"] = hypersurfaces_fp32(chain, pipeline, smi)
     print(f"float32 hypersurfaces phase: {time.perf_counter() - t0:.1f} s")
+    # the MCEq-Barr flagship at full width (this slice's main path)
+    t0 = time.perf_counter()
+    extra_paths["MCEq"] = mceq_fp32(chain, smi)
+    print(f"float32 MCEq phase: {time.perf_counter() - t0:.1f} s")
     print(f"launches (primal, tangent, multitangent) by path: gradient and fit"
           f" {fit_path}, template {template_path}, analysis {analysis_path},"
           f" ensemble {ensemble_path}, release {release_path}, "
@@ -6024,8 +6604,8 @@ def main(kernels_only=False, release_only=False, analysis_only=False,
         "blocks_per_sm": k["blocks_per_sm"],
         "sweeps_mean": k["sweeps_mean"],
     })
-    for name, launches in zip(("kde_gauss_sum", "kde_gauss_sum_vjp"),
-                              kde_path):
+    for name, launches in zip(("kde_gauss_sum", "kde_gauss_sum_vjp",
+                               "kde_gauss_sum_jvp"), kde_path):
         k = kde_kernels[name]["float32"]
         lines.append({
             "name": name,
@@ -6053,6 +6633,7 @@ def main(kernels_only=False, release_only=False, analysis_only=False,
             "float64": {key: kde_kernels[name]["float64"][key]
                         for key in ("ms", "plain_ms", "bound_ms", "bound_by",
                                     "max_rel_err")},
+            "float64_grid_pass": kde_kernels[name]["float64"]["grid"],
         })
     print(f"chip_smoke.py total wall: {time.perf_counter() - started:.1f} s"
           f" [{smi}]")
@@ -6072,7 +6653,8 @@ if __name__ == "__main__":
                "--osc-lanes-worker": options_lanes_worker,
                "--sterile-worker": sterile_worker,
                "--events-worker": events_worker,
-               "--hypersurfaces-worker": hypersurfaces_worker}
+               "--hypersurfaces-worker": hypersurfaces_worker,
+               "--mceq-worker": mceq_worker}
     if len(sys.argv) == 2 and sys.argv[1] in workers:
         sys.path.insert(0, ROOT)
         os.chdir(ROOT)
@@ -6093,4 +6675,5 @@ if __name__ == "__main__":
                   lanes_only=sys.argv[1:] == ["--osc-lanes-only"],
                   sterile_only=sys.argv[1:] == ["--sterile-only"],
                   events_only=sys.argv[1:] == ["--events-only"],
-                  hypersurfaces_only=sys.argv[1:] == ["--hypersurfaces-only"]))
+                  hypersurfaces_only=sys.argv[1:] == ["--hypersurfaces-only"],
+                  mceq_only=sys.argv[1:] == ["--mceq-only"]))

@@ -1,5 +1,6 @@
-// Weighted sums of Gaussian kernels for the adaptive KDE, and their
-// vector-Jacobian product, for NVIDIA Hopper (sm_90a), float32 and float64.
+// Weighted sums of Gaussian kernels for the adaptive KDE, their
+// vector-Jacobian product and their Jacobian-vector product, for NVIDIA
+// Hopper (sm_90a), float32 and float64.
 //
 // Not a port of a Pallas kernel. It replaces the XLA contraction of
 // pisa_tpu/utils/kde.py:101-115 (density_at in adaptive_gaussian_kde), which
@@ -15,22 +16,33 @@
 //   kde_gauss_sum:      out[b, j] = sum_i c[b,i] exp(-1/2 il2[b,i] z_ij)
 //   kde_gauss_sum_vjp:  A[b, i]    = sum_j g[b,j] k_ij
 //                       C[b, d, i] = sum_j g[b,j] k_ij u_dij^2
+//   kde_gauss_sum_jvp:  out[b, j] as the sum, and its tangent
+//                       dout[b, j] = sum_i k_ij (dc[b,i] - 1/2 c[b,i]
+//                                    (dil2[b,i] z_ij + il2[b,i] dz_ij))
 //
 // with u_dij = p[d,j] ih[b,d] - x[b,d,i] ih[b,d] (the difference scaled by
 // the inverse bandwidth ih), z_ij = sum_d u_dij^2, k_ij the exponential and
 // il2 = 1 / lambda^2 the adaptive widths. pisa_tpu_torch/ops/kde.py forms
-// the gradients of c, lambda and h from A and C with torch ops.
+// the gradients of c, lambda and h from A and C with torch ops. The jvp
+// takes the tangents dc, dil2 and dih of c, il2 and ih (x and the points
+// are data); dz_ij = sum_d 2 ih_d dih_d (p_dj - x_di)^2 = sum_d 2 r_d
+// u_dij^2 with r_d = dih_d / ih_d, which each thread forms once.
 //
 // The sum: one thread per (b, j) output point. A block stages kThreads
 // samples at a time in shared memory, already multiplied by ih (so the
 // inner loop is D subtractions, D multiply-adds, one multiply and one exp
 // per pair), and keeps the sum in a register. The vjp: one thread per (b, i)
-// sample, over tiles of points staged the same way with g.
+// sample, over tiles of points staged the same way with g. The jvp is the
+// sum's loop with the tangents staged beside each sample (dc and -1/2
+// dil2) and a second register sum: one pass gives the value and its
+// tangent from the same k. It takes one direction a launch; several
+// directions (a Jacobian) come as more batch rows (ops/kde.py).
 //
 // A channel without weight (every c zero) has its bandwidth clamped to
 // 1e-30 (utils/kde.py), so ih = 1e30 and u^2 overflows to inf: the sum then
 // takes 0 * exp(-inf) = 0, and the vjp skips every term whose k is zero,
-// where g k u^2 would be 0 * inf = NaN. Its adaptive widths lambda are
+// where g k u^2 would be 0 * inf = NaN; the jvp skips such terms of its
+// tangent sum for the same reason (k z). Its adaptive widths lambda are
 // huge (its pilot is 0), so il2 may underflow to 0 as well, and the
 // exponent would be 0 * inf = NaN: both kernels floor il2 at the type's
 // smallest normal number as they stage it (once a sample, not in the inner
@@ -38,7 +50,8 @@
 // whose il2 is normal.
 //
 // What bounds it on the card: operations, not bytes. Each pair costs one
-// exp and 3D + 2 (sum) or 5D + 2 (vjp) floating-point operations, against
+// exp and 3D + 2 (sum), 5D + 2 (vjp) or 5D + 9 (jvp) floating-point
+// operations, against
 // (D + 2) (N + M) values read once. In float32 the exp's MUFU.EX2 (16 a
 // clock per SM) is the slower pipe; in float64 the exp is a polynomial on
 // the FMA pipe (ops/kde.py:kde_operations counts both). Built without
@@ -182,6 +195,69 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// out[b, j] and dout[b, j] for j of this block (layouts as sum_kernel).
+template <typename S, int D>
+__global__ void __launch_bounds__(kThreads)
+    jvp_kernel(const S* __restrict__ x, const S* __restrict__ p,
+               long long p_bstride, const S* __restrict__ ih,
+               const S* __restrict__ dih, const S* __restrict__ il2,
+               const S* __restrict__ dil2, const S* __restrict__ c,
+               const S* __restrict__ dc, S* __restrict__ out,
+               S* __restrict__ dout, int n, int m) {
+  __shared__ S sx[D][kThreads];
+  __shared__ S sl[kThreads];
+  __shared__ S sdl[kThreads];
+  __shared__ S sc[kThreads];
+  __shared__ S sdc[kThreads];
+  const int b = blockIdx.y;
+  const int j = blockIdx.x * kThreads + threadIdx.x;
+  S h[D], r[D], pj[D];
+  const S* pb = p + b * p_bstride;
+#pragma unroll
+  for (int d = 0; d < D; ++d) {
+    h[d] = ih[b * D + d];
+    r[d] = S(2) * dih[b * D + d] / h[d];
+    pj[d] = j < m ? pb[static_cast<long long>(d) * m + j] * h[d] : S(0);
+  }
+  const long long nb = static_cast<long long>(b) * n;
+  const S* xb = x + nb * D;
+  S acc = S(0), dacc = S(0);
+  for (int i0 = 0; i0 < n; i0 += kThreads) {
+    const int i = i0 + threadIdx.x;
+    if (i < n) {
+#pragma unroll
+      for (int d = 0; d < D; ++d)
+        sx[d][threadIdx.x] = xb[static_cast<long long>(d) * n + i] * h[d];
+      sl[threadIdx.x] = S(-0.5) * fmax(il2[nb + i], tiny<S>());
+      sdl[threadIdx.x] = S(-0.5) * dil2[nb + i];
+      sc[threadIdx.x] = c[nb + i];
+      sdc[threadIdx.x] = dc[nb + i];
+    }
+    __syncthreads();
+    const int cnt = min(kThreads, n - i0);
+#pragma unroll 2
+    for (int t = 0; t < cnt; ++t) {
+      S z = S(0), dz = S(0);
+#pragma unroll
+      for (int d = 0; d < D; ++d) {
+        const S u = pj[d] - sx[d][t];
+        const S u2 = u * u;
+        z += u2;
+        dz += r[d] * u2;
+      }
+      const S k = kexp(sl[t] * z);
+      acc += sc[t] * k;
+      if (k != S(0))
+        dacc += k * (sdc[t] + sc[t] * (sdl[t] * z + sl[t] * dz));
+    }
+    __syncthreads();
+  }
+  if (j < m) {
+    out[static_cast<long long>(b) * m + j] = acc;
+    dout[static_cast<long long>(b) * m + j] = dacc;
+  }
+}
+
 inline bool bad_shape(int batch, int n, int m) {
   return batch <= 0 || batch > 65535 || n < 0 || m < 0;
 }
@@ -240,6 +316,36 @@ int vjp(const S* x, const S* p, long long p_bstride, const S* ih,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename S>
+int jvp(const S* x, const S* p, long long p_bstride, const S* ih,
+        const S* dih, const S* il2, const S* dil2, const S* c, const S* dc,
+        S* out, S* dout, int batch, int dims, int n, int m, void* stream) {
+  if (bad_shape(batch, n, m)) return static_cast<int>(cudaErrorInvalidValue);
+  if (m == 0) return 0;
+  const dim3 grid((m + kThreads - 1) / kThreads, batch);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dims) {
+    case 1:
+      jvp_kernel<S, 1><<<grid, kThreads, 0, s>>>(x, p, p_bstride, ih, dih,
+                                                 il2, dil2, c, dc, out, dout,
+                                                 n, m);
+      break;
+    case 2:
+      jvp_kernel<S, 2><<<grid, kThreads, 0, s>>>(x, p, p_bstride, ih, dih,
+                                                 il2, dil2, c, dc, out, dout,
+                                                 n, m);
+      break;
+    case 3:
+      jvp_kernel<S, 3><<<grid, kThreads, 0, s>>>(x, p, p_bstride, ih, dih,
+                                                 il2, dil2, c, dc, out, dout,
+                                                 n, m);
+      break;
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename F>
 int attributes(F* kernel, int* info) {
   cudaFuncAttributes a;
@@ -262,10 +368,14 @@ int attributes_of(int which, int dims, int* info) {
     if (dims == 1) return attributes(sum_kernel<S, 1>, info);
     if (dims == 2) return attributes(sum_kernel<S, 2>, info);
     if (dims == 3) return attributes(sum_kernel<S, 3>, info);
-  } else {
+  } else if (which == 1) {
     if (dims == 1) return attributes(vjp_kernel<S, 1>, info);
     if (dims == 2) return attributes(vjp_kernel<S, 2>, info);
     if (dims == 3) return attributes(vjp_kernel<S, 3>, info);
+  } else if (which == 2) {
+    if (dims == 1) return attributes(jvp_kernel<S, 1>, info);
+    if (dims == 2) return attributes(jvp_kernel<S, 2>, info);
+    if (dims == 3) return attributes(jvp_kernel<S, 3>, info);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -274,10 +384,11 @@ int attributes_of(int which, int dims, int* info) {
 
 // All pointers are device pointers, launched on `stream`, contiguous:
 // x (B, D, N), p (D, M) with p_bstride 0 or (B, D, M) with p_bstride D * M,
-// ih (B, D), il2 and c (B, N), out and g (B, M), A (B, N), C (B, D, N).
-// Each launch returns the cudaError_t of its launch (0 on success); each
-// *_attributes fills info (5 ints) for the sum (which = 0) or the vjp
-// (which = 1) at D dims: registers per thread, local bytes per thread,
+// ih and dih (B, D), il2, dil2, c and dc (B, N), out, dout and g (B, M),
+// A (B, N), C (B, D, N). Each launch returns the cudaError_t of its launch
+// (0 on success); each *_attributes fills info (5 ints) for the sum (which
+// = 0), the vjp (which = 1) or the jvp (which = 2) at D dims: registers
+// per thread, local bytes per thread,
 // shared bytes per block, threads per block and resident blocks per SM.
 extern "C" int kde_gauss_sum_f32(const float* x, const float* p,
                                  long long p_bstride, const float* ih,
@@ -313,6 +424,28 @@ extern "C" int kde_gauss_sum_vjp_f64(const double* x, const double* p,
                                      int dims, int n, int m, void* stream) {
   return kde_gauss::vjp<double>(x, p, p_bstride, ih, il2, g, A, C, batch,
                                 dims, n, m, stream);
+}
+
+extern "C" int kde_gauss_sum_jvp_f32(const float* x, const float* p,
+                                     long long p_bstride, const float* ih,
+                                     const float* dih, const float* il2,
+                                     const float* dil2, const float* c,
+                                     const float* dc, float* out, float* dout,
+                                     int batch, int dims, int n, int m,
+                                     void* stream) {
+  return kde_gauss::jvp<float>(x, p, p_bstride, ih, dih, il2, dil2, c, dc,
+                               out, dout, batch, dims, n, m, stream);
+}
+
+extern "C" int kde_gauss_sum_jvp_f64(const double* x, const double* p,
+                                     long long p_bstride, const double* ih,
+                                     const double* dih, const double* il2,
+                                     const double* dil2, const double* c,
+                                     const double* dc, double* out,
+                                     double* dout, int batch, int dims, int n,
+                                     int m, void* stream) {
+  return kde_gauss::jvp<double>(x, p, p_bstride, ih, dih, il2, dil2, c, dc,
+                                out, dout, batch, dims, n, m, stream);
 }
 
 extern "C" int kde_gauss_attributes_f32(int which, int dims, int* info) {

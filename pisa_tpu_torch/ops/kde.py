@@ -13,20 +13,26 @@ port of a Pallas kernel; the source says what bounds it):
   ``z_ij = sum_d ((p[d,j] - x[b,d,i]) ih[b,d])^2``;
 - :func:`gauss_sum_vjp`: for a cotangent g (B, M), ``A[b,i] = sum_j g k_ij``
   and ``C[b,d,i] = sum_j g k_ij u_dij^2`` (u the scaled difference), from
-  which torch ops form the gradients of c, lambda and h.
+  which torch ops form the gradients of c, lambda and h;
+- :func:`gauss_sum_jvp`: the sum and its tangent along (dih, dil2, dc) in
+  one pass, ``dout[b,j] = sum_i k_ij (dc_i - 1/2 c_i (dil2_i z_ij + il2_i
+  dz_ij))``, ``dz_ij = sum_d 2 ih_d dih_d (p_dj - x_di)^2``.
 
 CPU tensors go through the plain versions (:func:`gauss_sum_reference`,
-:func:`gauss_sum_vjp_reference`, chunked over the points so that their
-memory stays bounded); CUDA tensors launch the kernel or raise. Each wrapper
-counts its launches (:data:`sum_launch_count`, :data:`vjp_launch_count`).
+:func:`gauss_sum_vjp_reference`, :func:`gauss_sum_jvp_reference`, chunked
+over the points so that their memory stays bounded); CUDA tensors launch
+the kernel or raise. Each wrapper counts its launches
+(:data:`sum_launch_count`, :data:`vjp_launch_count`,
+:data:`jvp_launch_count`).
 
 :class:`AdaptiveDensity` is the whole density of
 ``adaptive_gaussian_kde`` (the pilot at the samples, its geometric mean,
 the local widths lambda, the norms and the sum at the points) as one
-``torch.autograd.Function`` around the two kernels: backward by hand (two
-vjp launches with the pilot, one without), a vmap rule that folds the
-vmapped axis into the batch, and no forward mode (item 18 of ROADMAP
-queue 1).
+``torch.autograd.Function`` around the kernels: backward by hand (two vjp
+launches with the pilot, one without), forward mode by hand (two jvp
+launches with the pilot, one without; the directions of a
+``torch.func.jacfwd`` share them as more rows of the batch), and a vmap
+rule that folds the vmapped axis into the batch.
 
 :func:`kde_operations` and :func:`kde_bound_ms` count the work and give the
 least time an H100 could take for it.
@@ -46,6 +52,8 @@ __all__ = [
     "gauss_sum_vjp",
     "gauss_sum_reference",
     "gauss_sum_vjp_reference",
+    "gauss_sum_jvp",
+    "gauss_sum_jvp_reference",
     "AdaptiveDensity",
     "adaptive_density",
     "kde_operations",
@@ -54,17 +62,20 @@ __all__ = [
     "kernel_attributes",
     "sum_launch_count",
     "vjp_launch_count",
+    "jvp_launch_count",
     "MAX_DIMS",
 ]
 
 #: the kernels' largest number of dimensions
 MAX_DIMS = 3
 
-#: launches of ``kde_gauss_sum`` / ``kde_gauss_sum_vjp`` made in this process
-#: by :func:`gauss_sum` / :func:`gauss_sum_vjp` (incremented where the kernel
-#: is launched, and nowhere else)
+#: launches of ``kde_gauss_sum`` / ``kde_gauss_sum_vjp`` /
+#: ``kde_gauss_sum_jvp`` made in this process by :func:`gauss_sum` /
+#: :func:`gauss_sum_vjp` / :func:`gauss_sum_jvp` (incremented where the
+#: kernel is launched, and nowhere else)
 sum_launch_count = 0
 vjp_launch_count = 0
+jvp_launch_count = 0
 
 #: the plain versions' largest (B, N, points) intermediate, in elements
 _CHUNK_ELEMS = 1 << 24
@@ -93,11 +104,13 @@ HBM_BYTES_PER_S = 3.35e12
 def kde_operations(kind, batch, dims, n, m):
     """The work of one launch: ``{"pairs", "flops", "exps"}`` for `kind`
     "sum" (3D + 2 operations and one exp a pair: D subtractions, D squares
-    and D - 1 additions, the width's multiply, the weight's multiply-add) or
+    and D - 1 additions, the width's multiply, the weight's multiply-add),
     "vjp" (5D + 2: the same distance, g k, the sum A and D multiply-adds
-    for C)."""
+    for C) or "jvp" (5D + 9: the sum's, D multiply-adds for dz and 7 for
+    the tangent's term and its sum)."""
     pairs = int(batch) * int(n) * int(m)
-    per = {"sum": 3 * dims + 2, "vjp": 5 * dims + 2}[kind]
+    per = {"sum": 3 * dims + 2, "vjp": 5 * dims + 2,
+           "jvp": 5 * dims + 9}[kind]
     return {"pairs": pairs, "flops": pairs * per, "exps": pairs}
 
 
@@ -115,6 +128,9 @@ def kde_bound_ms(kind, batch, dims, n, m, dtype, shared_points=True):
     if kind == "sum":
         values = batch * dims * n + points + batch * dims + 2 * batch * n \
             + batch * m
+    elif kind == "jvp":
+        values = batch * dims * n + points + 2 * batch * dims \
+            + 4 * batch * n + 2 * batch * m
     else:
         values = batch * dims * n + points + batch * dims + batch * n \
             + batch * m + batch * n + batch * dims * n
@@ -148,6 +164,10 @@ def kernel_library():
                            _P]
             fn.restype = _I
             fns[f"vjp_{suffix}"] = fn
+            fn = getattr(lib, f"kde_gauss_sum_jvp_{suffix}")
+            fn.argtypes = [_P, _P, _LL] + [_P] * 8 + [_I, _I, _I, _I, _P]
+            fn.restype = _I
+            fns[f"jvp_{suffix}"] = fn
             fn = getattr(lib, f"kde_gauss_attributes_{suffix}")
             fn.argtypes = [_I, _I, _P]
             fn.restype = _I
@@ -158,12 +178,13 @@ def kernel_library():
 
 def kernel_attributes(kind, dims, dtype):
     """Registers per thread, local bytes per thread, shared bytes per block,
-    threads per block and resident blocks per SM of the `kind` ("sum" or
-    "vjp") kernel at `dims` in `dtype`, on the current card."""
+    threads per block and resident blocks per SM of the `kind` ("sum",
+    "vjp" or "jvp") kernel at `dims` in `dtype`, on the current card."""
     suffix = "f64" if dtype == torch.float64 else "f32"
     info = (ctypes.c_int * 5)()
     rc = getattr(kernel_library(), f"attributes_{suffix}")(
-        {"sum": 0, "vjp": 1}[kind], int(dims), ctypes.addressof(info))
+        {"sum": 0, "vjp": 1, "jvp": 2}[kind], int(dims),
+        ctypes.addressof(info))
     if rc != 0:
         raise RuntimeError(f"kde_gauss attributes: CUDA error {rc}")
     keys = ("registers", "local_bytes", "shared_bytes", "threads",
@@ -260,6 +281,42 @@ def gauss_sum_vjp_reference(x, p, ih, il2, g):
     return A, C
 
 
+def gauss_sum_jvp_reference(x, p, ih, dih, il2, dil2, c, dc):
+    """The plain version of :func:`gauss_sum_jvp`, in the kernel's
+    arithmetic (dz from the ih-scaled differences and r = 2 dih / ih),
+    chunked over the points: (out (B, M), dout (B, M)), the tangent's terms
+    with k = 0 left out as the kernel leaves them out."""
+    B, D, N, M = _check(x, p, ih, il2, c, x.shape[-1])
+    _check_tangents(x, dih, dil2, dc)
+    xs, chunks = _point_chunks(x, p, ih, B * N * D)
+    nl = _neg_half_widths(il2)
+    ndl = (-0.5 * dil2).unsqueeze(-1)
+    r = (2.0 * dih / ih)[:, :, None, None]
+    c1, dc1 = c.unsqueeze(-1), dc.unsqueeze(-1)
+    out = torch.empty((B, M), dtype=x.dtype, device=x.device)
+    dout = torch.empty((B, M), dtype=x.dtype, device=x.device)
+    for sl, ps in chunks:
+        u2 = torch.square(ps - xs)  # (B, D, N, m)
+        z = u2.sum(1)
+        k = torch.exp(nl * z)  # (B, N, m)
+        term = dc1 + c1 * (ndl * z + nl * (r * u2).sum(1))
+        out[:, sl] = (c1 * k).sum(1)
+        dout[:, sl] = torch.where(k != 0, k * term, 0.0).sum(1)
+    return out, dout
+
+
+def _check_tangents(x, dih, dil2, dc):
+    """The jvp's tangents: dih (B, D), dil2 and dc (B, N), x's type and
+    device."""
+    B, D, N = x.shape
+    for name, t, shape in (("dih", dih, (B, D)), ("dil2", dil2, (B, N)),
+                           ("dc", dc, (B, N))):
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} must be {shape}; got {tuple(t.shape)}")
+        if t.dtype != x.dtype or t.device != x.device:
+            raise ValueError("every input must share x's type and device")
+
+
 def _launch_args(x, p, ih, il2, last):
     x, ih, il2, last = (t.contiguous() for t in (x, ih, il2, last))
     p = p.contiguous()
@@ -318,6 +375,38 @@ def gauss_sum_vjp(x, p, ih, il2, g):
     return A, C
 
 
+def gauss_sum_jvp(x, p, ih, dih, il2, dil2, c, dc):
+    """(out, dout), each (B, M): :func:`gauss_sum` and its tangent along
+    the tangents dih (B, D), dil2 and dc (B, N) of ih, il2 and c (x and the
+    points are data), ``dout[b,j] = sum_i k_ij (dc_i - 1/2 c_i (dil2_i z_ij
+    + il2_i dz_ij))`` with ``dz_ij = sum_d 2 ih_d dih_d (p_dj - x_di)^2``
+    and the terms with k = 0 left out. One direction a call; more
+    directions are more rows of the batch. CPU tensors take the plain
+    version; CUDA tensors launch ``kde_gauss_sum_jvp`` or raise."""
+    global jvp_launch_count
+    B, D, N, M = _check(x, p, ih, il2, c, x.shape[-1])
+    _check_tangents(x, dih, dil2, dc)
+    if x.device.type == "cpu":
+        return gauss_sum_jvp_reference(x, p, ih, dih, il2, dil2, c, dc)
+    x, p, bstride, ih, il2, c = _launch_args(x, p, ih, il2, c)
+    dih, dil2, dc = (t.contiguous() for t in (dih, dil2, dc))
+    out = torch.empty((B, M), dtype=x.dtype, device=x.device)
+    dout = torch.empty((B, M), dtype=x.dtype, device=x.device)
+    suffix = "f64" if x.dtype == torch.float64 else "f32"
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = getattr(kernel_library(), f"jvp_{suffix}")(
+            x.data_ptr(), p.data_ptr(), bstride, ih.data_ptr(),
+            dih.data_ptr(), il2.data_ptr(), dil2.data_ptr(), c.data_ptr(),
+            dc.data_ptr(), out.data_ptr(), dout.data_ptr(), B, D, N, M,
+            stream)
+    if rc != 0:
+        raise RuntimeError(f"kde_gauss_sum_jvp launch failed: CUDA error"
+                           f" {rc}")
+    jvp_launch_count += 1
+    return out, dout
+
+
 # -- the adaptive density ----------------------------------------------------------
 def _widths(x, w, h, pilot, adaptive, alpha):
     """The per-sample quantities between the pilot and the sum at the
@@ -357,10 +446,12 @@ class AdaptiveDensity(torch.autograd.Function):
     Forward: :func:`gauss_sum` at the samples (the pilot), then at the
     points. Backward: :func:`gauss_sum_vjp` at the points, the chain through
     the norms, lambda and the geometric mean in torch ops, and with
-    `adaptive` a second :func:`gauss_sum_vjp` at the samples. vmap: the
-    vmapped axis joins the batch of one launch. Forward mode raises (item 18
-    of ROADMAP queue 1: Fisher matrices, MCMC and jvp through the KDE
-    stage)."""
+    `adaptive` a second :func:`gauss_sum_vjp` at the samples. Forward mode
+    (jvp): :class:`_DensityTangent`, the backward's chain run forwards, on
+    :func:`gauss_sum_jvp` at the samples (with `adaptive`) and at the
+    points; its vmap rule takes the K directions of a ``torch.func.jacfwd``
+    as K more rows of the same two launches. vmap: the vmapped axis joins
+    the batch of one launch."""
 
     @staticmethod
     def forward(x, w, h, points, adaptive, alpha):
@@ -377,6 +468,7 @@ class AdaptiveDensity(torch.autograd.Function):
         _, pilot = output
         ctx.mark_non_differentiable(pilot)
         ctx.save_for_backward(x, w, h, points, pilot)
+        ctx.save_for_forward(x, w, h, points, pilot)
         ctx.adaptive = bool(adaptive)
         ctx.alpha = float(alpha)
 
@@ -420,36 +512,106 @@ class AdaptiveDensity(torch.autograd.Function):
         return None, g_w, g_h, None, None, None
 
     @staticmethod
-    def jvp(ctx, *tangents):
-        raise NotImplementedError(
-            "forward mode through the KDE density (Fisher matrices, MCMC"
-            " and jvp through the KDE stage) is not ported yet (ROADMAP"
-            " queue 1, item 18)"
-        )
+    def jvp(ctx, _dx, dw, dh, _dpoints, _dadaptive, _dalpha):
+        # x and the points are data, as in backward: their tangents are
+        # not followed
+        x, w, h, points, pilot = ctx.saved_tensors
+        return _DensityTangent.apply(x, w, h, points, pilot, dw, dh,
+                                     ctx.adaptive, ctx.alpha), None
 
     @staticmethod
     def vmap(info, in_dims, x, w, h, points, adaptive, alpha):
         size = info.batch_size
-
-        def front(t, d):
-            t = t.expand((size,) + tuple(t.shape)) if d is None \
-                else t.movedim(d, 0)
-            return t
-
-        xb, wb, hb = (front(t, d) for t, d in zip((x, w, h), in_dims[:3]))
-        B = xb.shape[1]
-        if in_dims[3] is None and points.dim() == 2:
-            pb = points
-        else:
-            pb = front(points, in_dims[3])
-            if pb.dim() == 3:  # (size, D, M) -> (size, B, D, M)
-                pb = pb.unsqueeze(1).expand(-1, B, -1, -1)
-            pb = pb.reshape((size * B,) + tuple(pb.shape[2:]))
-        out, pilot = AdaptiveDensity.apply(
-            xb.reshape((size * B,) + tuple(xb.shape[2:])),
-            wb.reshape(size * B, -1), hb.reshape(size * B, -1), pb,
-            adaptive, alpha)
+        xb, wb, hb = _fold((x, w, h), in_dims[:3], size)
+        B = xb.shape[0] // size
+        pb = _fold_points(points, in_dims[3], size, B)
+        out, pilot = AdaptiveDensity.apply(xb, wb, hb, pb, adaptive, alpha)
         return (out.reshape(size, B, -1), pilot.reshape(size, B, -1)), (0, 0)
+
+
+def _fold(tensors, dims, size):
+    """Each tensor (or None) with its vmap axis `dim` first (expanded where
+    it has none) and that axis merged into the batch axis after it."""
+    out = []
+    for t, d in zip(tensors, dims):
+        if t is not None:
+            t = t.movedim(d, 0) if d is not None else t.expand(
+                (size,) + tuple(t.shape))
+            t = t.reshape((-1,) + tuple(t.shape[2:]))
+        out.append(t)
+    return out
+
+
+def _fold_points(points, dim, size, batch):
+    """The points for a batch folded as :func:`_fold` does: (D, M) shared
+    where no axis is vmapped, else (size * batch, D, M)."""
+    if dim is None and points.dim() == 2:
+        return points
+    pb = points.movedim(dim, 0) if dim is not None else points.expand(
+        (size,) + tuple(points.shape))
+    if pb.dim() == 3:  # (size, D, M) -> (size, B, D, M)
+        pb = pb.unsqueeze(1).expand(-1, batch, -1, -1)
+    return pb.reshape((size * batch,) + tuple(pb.shape[2:]))
+
+
+class _DensityTangent(torch.autograd.Function):
+    """The tangent (B, M) of :class:`AdaptiveDensity`'s density along the
+    tangents dw (B, N) and dh (B, D) of w and h (None: zero): the chain of
+    ``_widths`` run forwards in torch ops around two :func:`gauss_sum_jvp`
+    launches, the pilot's at the samples (il2 = 1, dil2 = 0; with
+    `adaptive`) and the density's at the points. The guards are the
+    backward's: where a norm underflowed or the pilot is below the type's
+    smallest normal number, the tangent through it is 0. Its vmap rule folds
+    the vmapped axis into the batch, so that a ``torch.func.jacfwd``'s K
+    directions are K more rows of the same two launches. A forward-mode
+    rule: it has no backward."""
+
+    @staticmethod
+    def forward(x, w, h, points, pilot, dw, dh, adaptive, alpha):
+        D = x.shape[1]
+        q = _widths(x, w, h, pilot, adaptive, alpha)
+        dw = torch.zeros_like(w) if dw is None else dw
+        dh = torch.zeros_like(h) if dh is None else dh
+        ih, K = q["ih"], q["K"]
+        dih = -dh * ih * ih
+        dK = K * (dh * ih).sum(-1)
+        dnorm0 = torch.where(K > 0, dK, 0.0)
+        dc0 = (dw - q["c0"] * dnorm0[:, None]) / q["norm0"][:, None]
+        lam = q["lam"]
+        if adaptive:
+            _, dpilot = gauss_sum_jvp(x, x, ih, dih, torch.ones_like(w),
+                                      torch.zeros_like(w), q["c0"], dc0)
+            tiny = torch.finfo(x.dtype).tiny
+            live = pilot > tiny
+            dlp = torch.where(live, dpilot / torch.where(live, pilot, 1.0),
+                              0.0)
+            dlog_g = (dw * q["lp"] + w * dlp).sum(-1, keepdim=True)
+            dlam = -alpha * lam * (dlp - dlog_g)
+        else:
+            dlam = torch.zeros_like(w)
+        dnorm = torch.where(q["norm"] > 0, dK[:, None] * lam ** D
+                            + K[:, None] * D * lam ** (D - 1) * dlam, 0.0)
+        dc = (dw - q["c"] * dnorm) / q["norms"]
+        dil2 = -2.0 * dlam / lam ** 3
+        return gauss_sum_jvp(x, points, ih, dih, q["il2"], dil2, q["c"],
+                             dc)[1]
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def vmap(info, in_dims, x, w, h, points, pilot, dw, dh, adaptive, alpha):
+        size = info.batch_size
+        x, w, h, pilot, dw, dh = _fold(
+            (x, w, h, pilot, dw, dh),
+            (in_dims[0], in_dims[1], in_dims[2], in_dims[4], in_dims[5],
+             in_dims[6]), size)
+        B = x.shape[0] // size
+        pb = _fold_points(points, in_dims[3], size, B)
+        out = _DensityTangent.apply(x, w, h, pb, pilot, dw, dh, adaptive,
+                                    alpha)
+        return out.reshape(size, B, -1), 0
 
 
 def adaptive_density(x, w, h, points, adaptive=True, alpha=0.3):

@@ -114,9 +114,10 @@ def key_value(key, rng, n):
     return rng.uniform(0.1, 1.0, n).astype(FTYPE)
 
 
-def make_events_data(service, rng, device="cuda"):
+def make_events_data(service, rng, device="cuda", n_events=N_EVTS):
     """Two-container events-mode ContainerSet providing the service's
-    expected keys."""
+    expected keys, `n_events` events each (the JAX harness's
+    :data:`N_EVTS` by default)."""
     containers = []
     for name, nubar, flav in (("nutau_cc", 1, 2), ("numubar_nc", -1, 1)):
         c = Container(name, representation="events", device=device)
@@ -125,14 +126,14 @@ def make_events_data(service, rng, device="cuda"):
         for key in service.expected_container_keys:
             if key in c:
                 continue
-            c[key] = key_value(key, rng, N_EVTS)
+            c[key] = key_value(key, rng, n_events)
         extra = ["true_energy", "true_coszen", "weights"]
         for mode in (service.calc_mode, service.apply_mode):
             if isinstance(mode, MultiDimBinning):
                 extra.extend(mode.names)
         for key in extra:
             if key not in c:
-                c[key] = key_value(key, rng, N_EVTS)
+                c[key] = key_value(key, rng, n_events)
         containers.append(c)
     cs = ContainerSet("test", device=device, containers=containers)
     cs["output_binning"] = TEST_BINNING

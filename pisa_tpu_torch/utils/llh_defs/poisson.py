@@ -23,9 +23,12 @@ recursion overflows there, which makes its gradient NaN although the
 mixture's value is discarded), and :func:`mixture_k_max` takes the
 recursion length from the counts of the bins that use the mixture only.
 
-The JAX package's host C route (``use_c=True``,
-``pisa_tpu/utils/llh_defs/native.py`` with ``poisson_gamma.c``) is not
-ported (ROADMAP queue 1, item 7): it raises.
+``use_c=True`` takes the mixture from the host C library instead
+(``native.py``, the port's copy of the JAX package's ``poisson_gamma.c``):
+float64 on the host, values only (no gradient), one host read and one
+upload per call, so it cannot be captured in a CUDA graph. It is fed the
+same inputs as the torch recursion, and raises where the library cannot be
+built.
 """
 
 from __future__ import annotations
@@ -123,11 +126,10 @@ def generalized_pg_llh(actual, expected, empty_bins=None, k_max=None,
     subtracted; the others the mixture; an empty bin gives log(SMALL_POS)
     where it holds data, else 0. `k_max` defaults to the largest data
     count (a host read); :func:`mixture_k_max` gives the shortest that
-    serves."""
-    if use_c:
-        raise NotImplementedError(
-            "generalized_poisson_llh(use_c=True), the host C library route,"
-            " is not ported (ROADMAP queue 1, item 7)")
+    serves. `use_c` takes the mixture from the host C library
+    (:func:`~pisa_tpu_torch.utils.llh_defs.native.pg_log_mixture_c`):
+    values only, returned on the inputs' device; it raises where the
+    library cannot be built."""
     for key in ("weights", "llh_alphas", "llh_betas", "n_mc_events"):
         if key not in expected:
             raise ValueError(
@@ -154,9 +156,16 @@ def generalized_pg_llh(actual, expected, empty_bins=None, k_max=None,
     # the mixture, fed benign inputs in the bins that do not use it
     used = (~high_mc & ~empty_bins)[:, None]
     one = torch.ones_like(alphas)
-    log_mix = generalized_pg_log_mixture(
-        torch.where(used[:, 0], k_int, 0), torch.where(used, alphas, one),
-        torch.where(used, betas, one), k_max=k_max)
+    mix_args = (torch.where(used[:, 0], k_int, 0),
+                torch.where(used, alphas, one), torch.where(used, betas, one))
+    if use_c:
+        from pisa_tpu_torch.utils.llh_defs.native import pg_log_mixture_c
+
+        log_mix = torch.as_tensor(
+            pg_log_mixture_c(*(t.detach().cpu().numpy() for t in mix_args)),
+            dtype=weights.dtype, device=device)
+    else:
+        log_mix = generalized_pg_log_mixture(*mix_args, k_max=k_max)
     llh = torch.where(high_mc, log_poisson, log_mix)
     penalty = torch.where(k > 0, torch.full_like(llh, float(np.log(SMALL_POS))),
                           torch.zeros_like(llh))

@@ -360,8 +360,10 @@ def generalized_poisson_llh(actual, expected=None, empty_bins=None,
     'llh_alphas', 'llh_betas' and 'n_mc_events' to (n_sources, n_bins)
     tensors, as the ``likelihood.generalized_llh_params`` stage makes them;
     `k_max` (the recursion's static length, at least the largest data
-    count) is taken from the data where not given. ``use_c=True`` (the JAX
-    package's host C library) is not ported: it raises."""
+    count) is taken from the data where not given. ``use_c=True`` takes
+    the mixture from the host C library (``utils/llh_defs/native.py``):
+    values only, no gradient; it raises where the library cannot be
+    built."""
     from pisa_tpu_torch.utils.llh_defs.poisson import generalized_pg_llh
 
     return generalized_pg_llh(actual, expected, empty_bins=empty_bins,

@@ -241,8 +241,16 @@ def test_density_vmap_rule_and_no_forward_mode():
     batched = torch.func.vmap(f)(w)
     for i in range(4):
         assert _rel(batched[i].numpy(), f(w[i]).numpy()) <= SELF_RTOL
-    with pytest.raises(NotImplementedError, match="item 18"):
-        torch.func.jvp(f, (w[0],), (torch.ones_like(w[0]),))
+    # forward mode is defined (no longer raises) and is the transpose of
+    # the backward: <g, J dw> = <J^T g, dw> (test_torch_kde_forward.py
+    # holds it against jacrev)
+    dw = torch.as_tensor(rng.normal(size=(2, 30)))
+    g = torch.as_tensor(rng.normal(size=(2, 9)))
+    _, tangent = torch.func.jvp(f, (w[0],), (dw,))
+    _, vjp_fn = torch.func.vjp(f, w[0])
+    lhs = float((g * tangent).sum())
+    assert abs(lhs - float((vjp_fn(g)[0] * dw).sum())) <= SELF_RTOL * abs(
+        lhs)
 
 
 def test_kernel_wrappers_check_their_inputs():

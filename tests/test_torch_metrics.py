@@ -273,8 +273,11 @@ def test_generalized_llh_and_normal_approximation_match_jax():
             torch.as_tensor(betas)).numpy(),
         np.asarray(jax_poisson.approximate_poisson_normal(k, alphas, betas)),
         rtol=RTOL)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        stats.generalized_poisson_llh(torch.as_tensor(k), expected,
-                                      use_c=True)
+    # the host C route (the C library's own recursion) gives the same
+    np.testing.assert_allclose(
+        stats.generalized_poisson_llh(
+            torch.as_tensor(k, dtype=torch.float64),
+            {key: torch.as_tensor(v) for key, v in expected.items()},
+            use_c=True).numpy(), want, rtol=RTOL)
     with pytest.raises(ValueError, match="llh_alphas"):
         stats.generalized_poisson_llh(torch.as_tensor(k), {"weights": 1})

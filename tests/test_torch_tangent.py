@@ -10,6 +10,8 @@ the plain versions on a card (``cuda`` marker; skipped without one).
 Inputs are made with numpy from a seed; the suite runs in fp64 (conftest).
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -123,10 +125,14 @@ def test_tangent_reference_matches_pallas_interpret(nubar):
          for k in range(6)]
     ).numpy()
     jpv = jnp.asarray(pvec.numpy()[None])
+    # one compiled program for the six directions: the interpreter's kernel
+    # traced once rather than run op by op six times
+    tangent = jax.jit(functools.partial(pallas_chain.chain_tangent_pallas,
+                                        interpret=True))
     want = np.stack([
-        np.asarray(pallas_chain.chain_tangent_pallas(
+        np.asarray(tangent(
             jpv, jnp.asarray(jac[:, k].numpy()[None]), jnp.asarray(e),
-            jnp.asarray(dens), jnp.asarray(dist), interpret=True,
+            jnp.asarray(dens), jnp.asarray(dist),
         )).transpose(1, 2, 0)
         for k in range(6)
     ])  # (6, 2, 3, N)
