@@ -165,7 +165,19 @@ oscillation grid, 15 free parameters) on the card through its two paths:
   through Analysis from theta23 + 0.10), the interpolated workflow
   (prepare, one job, the resume, assemble) and its template between grid
   values, and ``discr_sys.csv_hypersurfaces`` from the grid's fits with
-  Delta m^2_31 free in a captured value_and_grad.
+  Delta m^2_31 free in a captured value_and_grad;
+- the parameterized-detector study (``testing/param_detector.py``: toy
+  events, barr_simple, prob3 on the 200x200 calc grid, then aeff.param,
+  reco.simple_param, reco.resolutions, hist to the 200 reco bins and
+  fix_error; 4 free, per container), this slice's main path: in float64
+  (a child process), card against CPU, its 12 maps and captured
+  value_and_grad at 2,000 events a category on the coarse grid, its reco
+  variables at 240,000 events exactly, and each of its 13 services and
+  hist's options at 240,000 synthetic events (outputs and parameter
+  gradients; the random streams exactly); then in float32 at full width
+  (240,000 events) the eager template, the captured value_and_grad and a
+  ``device`` fit through Analysis from theta23 + 0.10, and the
+  multitangent kernel at K = 2 on the path's grid, timed.
 
 It times the kernels (device-only, from a CUDA graph of 200 launches, and
 host-inclusive, from back-to-back launches between CUDA events; the
@@ -189,13 +201,14 @@ phases of the rest of the analysis layer alone, and with
 alone, with ``--sterile-only`` the 3+1 and nusquids phases alone, and with
 ``--events-only`` the KDE kernel checks and the HDF5 and KDE phases alone,
 with ``--hypersurfaces-only`` the hypersurfaces phases alone, with
-``--mceq-only`` the MCEq-Barr flagship's phases alone;
+``--mceq-only`` the MCEq-Barr flagship's phases alone, with
+``--param-only`` the parameterized-detector phases alone;
 none prints a status line. It prints its total wall before the
 kernels line.
 
 The float64 runs (CPU reference and card) happen in child processes, since
 the float type is chosen once per process (``PISA_TPU_FTYPE``); the main
-process runs float32, the port's default. The six children of a full run
+process runs float32, the port's default. The nine children of a full run
 start together, after the kernel checks and before the float32 phases
 (``run_children``): their CPU sides dominate them and none depends on
 another, and the float32 phases' timings then run alone.
@@ -468,6 +481,66 @@ MCEQ_XSEC = {"dis_sys": {"dis_csms": 0.6},
              "genie_sys": {"Genie_Ma_QE": -0.4, "Genie_Ma_RES": 0.7},
              "correct_charm_y": {}}
 XSEC_RTOL = 1e-12
+
+# the parameterized-detector path (pisa_tpu_torch/testing/param_detector.py:
+# toy events -> barr_simple -> prob3 -> aeff.param -> reco.simple_param ->
+# reco.resolutions -> hist -> fix_error): its free params (delta_index,
+# theta23, deltam31, aeff_scale) and the multitangent's directions
+# (theta23, Delta m^2_31); the synthetic events of the service checks (two
+# containers, the service matrix's), held card against CPU in float64
+# within XSEC_RTOL (the random streams exactly). PARAM_SERVICES: case ->
+# (stage package, module, its options or None for its init_test, the keys
+# compared, the parameter values it runs at, {key: f} replacing the
+# harness's synthetic values x by f(x) where they would make the output
+# trivial); the cases with random streams are PARAM_EXACT
+PARAM_FREE = 4
+PARAM_THETA = (2, 5)
+PARAM_EVENTS = 240_000
+# the float64 child's CPU threads (it runs beside the other children)
+PARAM_FP64_THREADS = 1
+PARAM_SERVICES = {
+    "aeff.param": ("aeff", "param", None, ("weights",),
+                   {"aeff_scale": 1.3, "livetime": 12.0}, {}),
+    "aeff.weight": ("aeff", "weight", None, ("weights",),
+                    {"weight_scale": 0.8, "livetime": 2.0}, {}),
+    "aeff.weight_hnl": ("aeff", "weight_hnl", None, ("weights",),
+                        {"U_tau4_sq": 2e-2},
+                        {"hnl_decay_width": lambda x: x * 1e-16}),
+    "reco.simple_param": ("reco", "simple_param", None,
+                          ("reco_energy", "reco_coszen", "pid"), {}, {}),
+    "reco.resolutions": ("reco", "resolutions", None,
+                         ("reco_energy", "reco_coszen", "pid"), {}, {}),
+    "utils.adhoc_sys": ("utils", "adhoc_sys", None, ("weights",), {}, {}),
+    "utils.bootstrap": ("utils", "bootstrap", {"seed": 11},
+                        ("weights", "bootstrap_weights"), {}, {}),
+    "utils.fix_error": ("utils", "fix_error", None, ("errors",), {}, {}),
+    "utils.kfold": ("utils", "kfold",
+                    {"n_splits": 3, "select_split": 1, "seed": 5,
+                     "shuffle": True, "save_mask": True},
+                    ("weights", "fold_weight", "kfold_mask"), {}, {}),
+    "utils.set_variance": ("utils", "set_variance", None,
+                           ("errors", "manual_variance"), {}, {}),
+    "data.grid": ("data", "grid", None,
+                  ("true_energy", "true_coszen", "weights"), {}, {}),
+    "data.sqlite_loader": ("data", "sqlite_loader", None,
+                           ("true_energy", "reco_energy", "pid",
+                            "weighted_aeff"), {}, {}),
+    "cont_sys.snowstorm_hist": ("cont_sys", "snowstorm_hist", None,
+                                ("weights", "syst_scale"), {"dom_eff": 1.02},
+                                {"dom_eff": lambda x: 0.7 + 0.6 * x}),
+    "hist.apply_unc_weights": ("utils", "hist",
+                               {"apply_unc_weights": True,
+                                "error_method": "sumw2"},
+                               ("weights", "errors", "bin_unc2"), {}, {}),
+    "hist.unweighted": ("utils", "hist",
+                        {"unweighted": True, "error_method": "sumw2"},
+                        ("weights", "errors", "bin_unc2"), {}, {}),
+    "hist.binned_calc": ("utils", "hist",
+                         {"calc_mode": "reco", "apply_unc_weights": True,
+                          "error_method": "sumw2"},
+                         ("weights", "errors", "bin_unc2"), {}, {}),
+}
+PARAM_EXACT = {"reco.simple_param", "utils.bootstrap", "utils.kfold"}
 
 # hypersurfaces on the flagship (bench.py:640-720's 13-dataset, 3-param
 # design): the forms of three free pipeline params, the nominal point and 12
@@ -1473,14 +1546,17 @@ def run_children(children):
     """Runs the float64 child processes `children` ([(label, arguments of
     this script)]) at once, each with its output in a file of its own;
     when all have ended, prints each one's output and wall in turn, and
-    fails if one failed."""
+    fails if one failed. Together their OpenMP threads outnumber the
+    host's cores, so an idle thread sleeps (OMP_WAIT_POLICY=PASSIVE, unless
+    the caller set it) rather than spin on a core another child needs."""
     started = []
+    env = dict(os.environ, PISA_TPU_FTYPE="fp64")
+    env.setdefault("OMP_WAIT_POLICY", "PASSIVE")
     for label, args in children:
         out = tempfile.TemporaryFile(mode="w+")
         proc = subprocess.Popen(
             [sys.executable, os.path.abspath(__file__), *args],
-            env=dict(os.environ, PISA_TPU_FTYPE="fp64"), stdout=out,
-            stderr=subprocess.STDOUT, text=True)
+            env=env, stdout=out, stderr=subprocess.STDOUT, text=True)
         started.append((label, proc, out, time.perf_counter()))
     walls = {}
     while len(walls) < len(started):
@@ -1546,14 +1622,15 @@ def build_kernel(chain):
         print(f"  {line}")
 
 
-def flagship_geometry(dtype):
-    """The kernel's prepared geometry on the flagship's 200x200 grid with
-    the config's PREM-12 Earth model, on the card."""
+def flagship_geometry(dtype, cfg=CFG):
+    """The kernel's prepared geometry on the prob3 calc grid of the config
+    `cfg` (by default the flagship's 200x200 grid) with its PREM-12 Earth
+    model, on the card."""
     from pisa_tpu_torch.config.parser import parse_pipeline_config
     from pisa_tpu_torch.ops.osc.chain import prepare_chain_geometry
     from pisa_tpu_torch.ops.osc.layers import Layers
 
-    config = parse_pipeline_config(CFG)
+    config = parse_pipeline_config(cfg)
     settings = config[("osc", "prob3")]
     selector = settings["params"]
     selector.select_params(config["pipeline"]["param_selections"])
@@ -5020,6 +5097,388 @@ def mceq_fp32(chain, smi):
     return tuple(total)
 
 
+def param_service(case, device, n_events=PARAM_EVENTS):
+    """The service of PARAM_SERVICES[case] at its values, on the service
+    matrix's two containers with `n_events` synthetic events in all (a
+    source service: an empty set), in template mode with its parameters as
+    float64 tensors that require a gradient, set up; returns (service,
+    the parameter names, their tensor)."""
+    import importlib
+
+    import numpy as np
+    import torch
+
+    from pisa_tpu_torch import ureg
+    from pisa_tpu_torch.core import binning
+    from pisa_tpu_torch.core.container import ContainerSet
+    from pisa_tpu_torch.testing import service_matrix as TSM
+
+    stage, name, options, _, values, overrides = PARAM_SERVICES[case]
+    module = importlib.import_module(f"pisa_tpu_torch.stages.{stage}.{name}")
+    if options is None:
+        service = module.init_test()
+    else:
+        options = dict(options)
+        if options.get("calc_mode") == "reco":
+            # a binning of the reco variables, disjoint from TEST_BINNING's
+            options["calc_mode"] = binning.MultiDimBinning([
+                binning.OneDimBinning("reco_energy", num_bins=4, is_log=True,
+                                      domain=[6, 80] * ureg.GeV),
+                binning.OneDimBinning("reco_coszen", num_bins=3, is_lin=True,
+                                      domain=[-1, 1]),
+            ], name="reco_test")
+            options["apply_mode"] = TSM.TEST_BINNING
+        else:
+            options["calc_mode"] = "events"
+        service = getattr(module, name)(**options)
+    if name in TSM.SOURCE_SERVICES:
+        data = ContainerSet("test", device=device)
+        data["output_binning"] = TSM.TEST_BINNING
+    else:
+        data = TSM.make_events_data(service, np.random.RandomState(0),
+                                    device=device, n_events=n_events // 2)
+    service.data = data
+    for key, f in overrides.items():
+        for c in data:
+            c[key] = f(c[key].cpu().numpy())
+    names = sorted(values)
+    vec = torch.tensor([values[n] for n in names], dtype=torch.float64,
+                       device=device, requires_grad=True)
+    service.setup()
+    service._template_mode = True
+    for pname, x in zip(names, vec.unbind()):
+        p = service.params[pname]
+        p._value = ureg.Quantity(x, p.units)
+    return service, names, vec
+
+
+def param_services_card_vs_cpu(smi, devices=("cpu", "cuda")):
+    """float64: each case of PARAM_SERVICES (the 13 services of the
+    parameterized-detector slice from their init_test, hist's options) at
+    PARAM_EVENTS synthetic events on each of `devices`: the outputs, and
+    the gradient of a seeded weighted sum of them in each differentiable
+    parameter; the second device's within XSEC_RTOL of the first's
+    (PARAM_EXACT's random streams exactly). None of these services has a
+    map mode (as in the JAX package)."""
+    import numpy as np
+    import torch
+
+    from pisa_tpu_torch.testing import service_matrix as TSM
+
+    for case, (stage, name, _, keys, _, _) in PARAM_SERVICES.items():
+        results = []
+        for device in devices:
+            t0 = time.perf_counter()
+            service, names, vec = param_service(case, device)
+            service.run()
+            outputs = {(c.name, k): c[k] for c in service.data for k in keys}
+            rng = np.random.RandomState(7)
+            loss = sum((v * torch.as_tensor(rng.uniform(0.5, 1.5, tuple(
+                v.shape)), device=device)).sum()
+                for v in outputs.values() if v.is_floating_point())
+            grad = (torch.autograd.grad(loss, vec)[0].cpu().numpy()
+                    if names else np.zeros(0))
+            results.append(({k: v.detach().cpu().numpy()
+                             for k, v in outputs.items()}, grad,
+                            time.perf_counter() - t0))
+        (want, want_g, cpu_s), (got, got_g, card_s) = results
+        exact = case in PARAM_EXACT
+        err = 0.0
+        for key, ref in want.items():
+            if exact or ref.dtype == np.bool_:
+                err = max(err, float(np.any(got[key] != ref)))
+            else:
+                err = max(err, float(np.abs(got[key] - ref).max()
+                                     / max(np.abs(ref).max(), 1e-300)))
+        gerr = (float(np.abs(got_g - want_g).max() / np.abs(want_g).max())
+                if names else 0.0)
+        n = max(v.size for v in got.values())
+        map_mode = ("ok" if (stage, name) in TSM.MAP_MODE_SERVICES
+                    else "n/a")
+        print(f"float64 {case} ({n} values a key), card vs CPU: outputs"
+              f" {'equal' if exact and err == 0 else f'{err:.3e} of the largest'}"
+              f" ({'exactly' if exact else f'bound {XSEC_RTOL:g}'}),"
+              f" gradient in {names} {got_g.tolist()} at {gerr:.3e} of the"
+              f" largest; map mode {map_mode}; set-up and run"
+              f" {card_s:.2f} s on the card, {cpu_s:.2f} s on the CPU"
+              f" [{smi}]")
+        check(np.all([np.all(np.isfinite(v)) for v in got.values()
+                      if v.dtype != np.bool_]) and np.all(np.isfinite(got_g)),
+              f"{case}: not finite on the card")
+        check(err == 0 if exact else err <= XSEC_RTOL,
+              f"{case}: the card's outputs are off the CPU's by {err}")
+        check(gerr <= XSEC_RTOL and (not names or np.all(got_g != 0)),
+              f"{case}: the card's gradient is off the CPU's by {gerr}")
+
+
+def param_reco_card_vs_cpu(smi, devices=("cpu", "cuda")):
+    """float64: the parameterized-detector path at its full width
+    (240,000 toy events): the reco variables that reco.simple_param draws
+    and reco.resolutions moves, on each of `devices`; the second's equal to
+    the first's."""
+    import numpy as np
+
+    from pisa_tpu_torch.core.pipeline import Pipeline
+    from pisa_tpu_torch.testing.param_detector import param_detector_config
+
+    reco = []
+    for device in devices:
+        t0 = time.perf_counter()
+        config = param_detector_config()
+        # the reco variables are drawn at set-up from the events alone: the
+        # pipeline's loader and reco stages
+        for key in [k for k in config if isinstance(k, tuple)]:
+            if key[0] not in ("data", "reco"):
+                del config[key]
+        pipeline = Pipeline(config, device=device)
+        values = {}
+        for c in pipeline.data:
+            c.representation = "events"
+            for key in ("reco_energy", "reco_coszen", "pid"):
+                values[(c.name, key)] = c[key].cpu().numpy()
+        reco.append((values, time.perf_counter() - t0))
+    (want, cpu_s), (got, card_s) = reco
+    n = sum(v.size for (_, k), v in got.items() if k == "pid")
+    same = all(np.array_equal(got[k], want[k]) for k in want)
+    print(f"float64 parameterized detector's reco variables at {n} toy"
+          f" events, card vs CPU: {'equal' if same else 'DIFFERENT'};"
+          f" set-up {card_s:.1f} s on the card, {cpu_s:.1f} s on the CPU"
+          f" [{smi}]")
+    check(n == PARAM_EVENTS and same,
+          "the card's reco variables are not the CPU's")
+
+
+def param_fp64(smi):
+    """float64, card against CPU: the parameterized-detector path at
+    small=True (pipeline_card_vs_cpu: the 12 maps within TEMPLATE_RTOL of
+    each map's largest bin, the captured mod_chi2 value_and_grad within
+    VG_FP64), its reco variables at full width exactly, and each service
+    and hist option (param_services_card_vs_cpu)."""
+    from pisa_tpu_torch.testing.param_detector import param_detector_config
+
+    t0 = time.perf_counter()
+    pipeline_card_vs_cpu("parameterized detector, small",
+                         lambda: param_detector_config(small=True), smi)
+    print(f"float64 parameterized detector: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    param_reco_card_vs_cpu(smi)
+    param_services_card_vs_cpu(smi)
+    print(f"float64 parameterized-detector services:"
+          f" {time.perf_counter() - t0:.1f} s")
+
+
+def param_worker():
+    """float64 (``--param-worker``): param_fp64 in a child process, torch on
+    PARAM_FP64_THREADS CPU threads (it runs beside the other children)."""
+    import torch
+
+    from pisa_tpu_torch import FTYPE_NAME
+
+    check(FTYPE_NAME == "fp64", f"param worker runs {FTYPE_NAME}")
+    torch.set_num_threads(PARAM_FP64_THREADS)
+    smi = card_line()
+    t0 = time.perf_counter()
+    param_fp64(smi)
+    print(f"float64 parameterized-detector phase:"
+          f" {time.perf_counter() - t0:.1f} s [{smi}]")
+
+
+def param_multitangent(chain, cfg, smi):
+    """tile_multi_kernel<S, 2> at the path's 200x200 calc grid (40,000
+    points, PREM-12) along theta23 and Delta m^2_31, float32 and float64:
+    against its plain version (nu and nubar at the nominal theta), then its
+    device-only time (a CUDA graph of 200 launches, the better of two
+    turns) beside its operation bound. (multitangent_vs_plain times the
+    plain version, at K = 3.)"""
+    import torch
+
+    times = {}
+    for dtype in (torch.float32, torch.float64):
+        dname = str(dtype).split(".")[-1]
+        geom, params = flagship_geometry(dtype, cfg)
+        args = (geom["e"], geom["dens"], geom["dist"], geom["nl"])
+        tiles = geom["tiles"]
+        thetas = flagship_thetas(params, 1)
+        errs = {"p": 0.0, "t": 0.0}
+        for theta in thetas:
+            for nubar in (1, -1):
+                pvec, dirs = pack_and_directions(chain, theta, nubar, dtype)
+                dpvecs = dirs[list(PARAM_THETA)].contiguous()
+                out, dout = chain.chain_multitangent(pvec, dpvecs, *args,
+                                                     tiles)
+                ref_p, ref_t = chain.chain_multitangent_reference(
+                    pvec, dpvecs, *args)
+                scale = ref_t.abs().amax(dim=(1, 2, 3), keepdim=True)
+                errs["p"] = max(errs["p"], float((out - ref_p).abs().max()))
+                errs["t"] = max(errs["t"], float(((dout - ref_t).abs()
+                                                  / scale).max()))
+        check(errs["p"] <= MULTI_PRIMAL_ATOL[dname]
+              and errs["t"] <= TANGENT_RTOL[dname],
+              f"{dname}: the K=2 multitangent is off its plain version by"
+              f" {errs}")
+        pvec, dirs = pack_and_directions(chain, thetas[0], 1, dtype)
+        dpvecs = dirs[list(PARAM_THETA)].contiguous()
+        run = lambda: chain.chain_multitangent(  # noqa: E731
+            pvec, dpvecs, *args, tiles)
+        device_ms = min(graph_time(run), graph_time(run))
+        bound = kernel_bound(chain, geom, 2, True)
+        times[dname] = device_ms
+        print(f"time, osc_chain_multitangent {dname} (K=2, theta23 and"
+              f" Delta m^2_31), the parameterized detector's"
+              f" {geom['e'].shape[0]}-point grid, {tile_line(tiles)}:"
+              f" {device_ms:.5f} ms device-only (CUDA graph, the better of"
+              f" two); bound"
+              f" {bound['bound_ms']:.5f} ms by {bound['bound_by']}"
+              f" ({bound['ops']} operations):"
+              f" {100 * bound['bound_ms'] / device_ms:.1f}% of it;"
+              f" vs plain: primal {errs['p']:.3e} (bound"
+              f" {MULTI_PRIMAL_ATOL[dname]:g} abs), tangents {errs['t']:.3e}"
+              f" (bound {TANGENT_RTOL[dname]:g} rel) [{smi}]")
+    return times
+
+
+def param_fp32(chain, smi):
+    """The parameterized-detector path at full width, float32, through the
+    entry points (this slice's main path: 240,000 toy events, the 200x200
+    calc grid, 4 free): the eager template (its wall with an oscillation
+    recompute, its launches); the compiled template's captured
+    value_and_grad (measure_vg: wall, device time, kernels a replay, busy
+    share, no wait inside the replay) and one eager value_and_grad's
+    launches; Analysis().fit_recursively(..., 'device', ...) on the
+    DistributionMaker's Asimov data from theta23 moved by +0.10 rescaled;
+    then tile_multi_kernel<S, 2> at the path's grid (param_multitangent,
+    whose launches do not count). The counts are set to 0 just before each
+    part and read just after; returns the sums of the chain kernels'
+    launches."""
+    import numpy as np
+    import torch
+
+    from pisa_tpu_torch import ureg
+    from pisa_tpu_torch.analysis.analysis import Analysis, BasicAnalysis
+    from pisa_tpu_torch.core.distribution_maker import DistributionMaker
+    from pisa_tpu_torch.core.pipeline import Pipeline
+    from pisa_tpu_torch.testing.param_detector import write_param_detector
+
+    total = [0, 0, 0]
+
+    def add():
+        launches = launch_counts(chain)
+        for i, n in enumerate(launches):
+            total[i] += n
+        reset_launch_counts(chain)
+        return launches
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = write_param_detector(tmp)
+        reset_launch_counts(chain)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        pipeline = Pipeline(cfg, device="cuda")
+        setup_s = time.perf_counter() - t0
+        pipeline.data.representation = "events"
+        n_events = sum(c.size for c in pipeline.data)
+        t0 = time.perf_counter()
+        maps = pipeline.get_outputs()
+        totals = [float(m.hist.sum()) for m in maps]
+        first_s = time.perf_counter() - t0
+        add()
+        walls = []
+        theta23 = pipeline.params["theta23"].value
+        for i in range(5):
+            pipeline.params["theta23"].value = theta23 + 0.1 * (i + 1) \
+                * ureg.degree
+            t0 = time.perf_counter()
+            pipeline.get_outputs()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        pipeline.params["theta23"].value = theta23
+        launches = add()
+        per_template = tuple(n // 5 for n in launches)
+        print(f"float32 parameterized detector ({n_events} toy events,"
+              f" {len(maps)} maps of {maps[0].hist.size} bins): Pipeline"
+              f" set-up {setup_s:.2f} s, first template {first_s:.2f} s,"
+              f" then get_outputs with an oscillation recompute median"
+              f" {np.median(walls) * 1e3:.2f} ms (5 runs), {sum(totals):.1f}"
+              f" expected events; launches a template {per_template}; peak"
+              f" memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB"
+              f" [{smi}]")
+        check(n_events == PARAM_EVENTS and len(maps) == 12,
+              f"parameterized detector: {n_events} events, {len(maps)} maps")
+        check(all(np.isfinite(t) and t > 0 for t in totals),
+              "parameterized detector: template not finite")
+        check(launches == (10, 0, 0), f"parameterized detector templates:"
+              f" launches {launches} in 5")
+        del maps
+
+        ct = pipeline.compile()
+        check(not ct.stacked and len(ct.free_names) == PARAM_FREE,
+              f"parameterized detector template: stacked {ct.stacked},"
+              f" {len(ct.free_names)} free")
+        vg_launches = measure_vg("parameterized detector", ct, chain, smi)
+        launches = add()
+        print(f"parameterized detector value_and_grad path: launches"
+              f" {launches} (the eager run, the warm-ups and the capture)"
+              f" [{smi}]")
+        check(vg_launches == (2, 0, 2), f"parameterized detector"
+              f" value_and_grad launches {vg_launches}")
+        del ct, pipeline
+        torch.cuda.empty_cache()
+
+        # the device fit through the analysis layer
+        dm = DistributionMaker([cfg], device="cuda")
+        data = dm.get_outputs(return_sum=True)
+        truth = dm.params["theta23"]._rescaled_value
+        add()
+        dm.params["theta23"]._rescaled_value = min(0.95, truth + 0.10)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        waits, result = count_host_syncs(
+            lambda: Analysis().fit_recursively(data, dm, "mod_chi2", None,
+                                               "device", {}, None))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        meta = result.minimizer_metadata
+        moved = result.params["theta23"]._rescaled_value - truth
+        launches = add()
+        print(f"Analysis fit, parameterized detector"
+              f" ({len(dm.params.free)} free), device, float32: wall"
+              f" {wall:.3f} s with the set-up and capture of its objective,"
+              f" nit {meta['nit']}, nfev {meta['nfev']}, {waits} waits for"
+              f" the card ({waits / meta['nfev']:.2f} per evaluation),"
+              f" theta23 off the truth by {moved:.3e} rescaled (bound"
+              f" {FIT_TOL:g}), metric {result.metric_val!r}; peak memory"
+              f" {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB;"
+              f" launches {launches} [{smi}]")
+        check(abs(moved) <= FIT_TOL, "the parameterized-detector fit did not"
+              " recover theta23")
+        check(waits / meta["nfev"] <= DEVICE_FIT_WAITS,
+              f"the parameterized-detector fit waited"
+              f" {waits / meta['nfev']:.2f} times per evaluation")
+        BasicAnalysis._compiled_cache.clear()
+        del dm
+        torch.cuda.empty_cache()
+        print(f"parameterized-detector path launches (primal, tangent,"
+              f" multitangent): {tuple(total)} [{smi}]")
+        check(total[0] > 0 and total[2] > 0, "the parameterized-detector"
+              " path launched no primal or no multitangent kernel")
+        param_multitangent(chain, cfg, smi)
+    reset_launch_counts(chain)
+    return tuple(total)
+
+
+def param_only_main(chain, smi):
+    """``--param-only``: the kernels built, then the parameterized-detector
+    phases alone (the float64 child's and the main process's); no status
+    line."""
+    run_children([("parameterized detector", ["--param-worker"])])
+    t0 = time.perf_counter()
+    launches = param_fp32(chain, smi)
+    print(f"float32 parameterized-detector phase:"
+          f" {time.perf_counter() - t0:.1f} s; launches {launches}")
+    return 0
+
+
 def mceq_only_main(chain, smi):
     """``--mceq-only``: the kernels built, then the MCEq-Barr flagship's
     phases alone (the float64 child's and the main process's); no status
@@ -6336,7 +6795,8 @@ def analysis_only_main(chain, smi):
 
 def main(kernels_only=False, release_only=False, analysis_only=False,
          options_only=False, lanes_only=False, sterile_only=False,
-         events_only=False, hypersurfaces_only=False, mceq_only=False):
+         events_only=False, hypersurfaces_only=False, mceq_only=False,
+         param_only=False):
     started = time.perf_counter()
     if not os.path.isdir(os.path.join(ROOT, "pisa_tpu_torch")):
         print("chip_smoke.py must run from a checkout of the repository"
@@ -6372,6 +6832,8 @@ def main(kernels_only=False, release_only=False, analysis_only=False,
         return hypersurfaces_only_main(chain, smi)
     if mceq_only:
         return mceq_only_main(chain, smi)
+    if param_only:
+        return param_only_main(chain, smi)
     if release_only:
         return release_only_main(chain, smi)
     if analysis_only:
@@ -6411,6 +6873,7 @@ def main(kernels_only=False, release_only=False, analysis_only=False,
             ("events", ["--events-worker"]),
             ("hypersurfaces", ["--hypersurfaces-worker"]),
             ("MCEq", ["--mceq-worker"]),
+            ("parameterized detector", ["--param-worker"]),
         ])
         with np.load(path) as f:
             ref = {k: f[k] for k in f.files}
@@ -6537,6 +7000,11 @@ def main(kernels_only=False, release_only=False, analysis_only=False,
     t0 = time.perf_counter()
     extra_paths["MCEq"] = mceq_fp32(chain, smi)
     print(f"float32 MCEq phase: {time.perf_counter() - t0:.1f} s")
+    # the parameterized-detector path at full width (this slice's main path)
+    t0 = time.perf_counter()
+    extra_paths["parameterized detector"] = param_fp32(chain, smi)
+    print(f"float32 parameterized-detector phase:"
+          f" {time.perf_counter() - t0:.1f} s")
     print(f"launches (primal, tangent, multitangent) by path: gradient and fit"
           f" {fit_path}, template {template_path}, analysis {analysis_path},"
           f" ensemble {ensemble_path}, release {release_path}, "
@@ -6654,7 +7122,8 @@ if __name__ == "__main__":
                "--sterile-worker": sterile_worker,
                "--events-worker": events_worker,
                "--hypersurfaces-worker": hypersurfaces_worker,
-               "--mceq-worker": mceq_worker}
+               "--mceq-worker": mceq_worker,
+               "--param-worker": param_worker}
     if len(sys.argv) == 2 and sys.argv[1] in workers:
         sys.path.insert(0, ROOT)
         os.chdir(ROOT)
@@ -6676,4 +7145,5 @@ if __name__ == "__main__":
                   sterile_only=sys.argv[1:] == ["--sterile-only"],
                   events_only=sys.argv[1:] == ["--events-only"],
                   hypersurfaces_only=sys.argv[1:] == ["--hypersurfaces-only"],
-                  mceq_only=sys.argv[1:] == ["--mceq-only"]))
+                  mceq_only=sys.argv[1:] == ["--mceq-only"],
+                  param_only=sys.argv[1:] == ["--param-only"]))

@@ -22,8 +22,16 @@ In an evaluation of lanes (``container.lanes``) the weights and the rate
 carry a leading lane axis B: the deferred histogram is then, per category,
 one (B, grid) @ (grid, bins) product, a GEMM where one point's is a GEMV.
 
-Binned calc mode, unweighted and uncertainty-weighted histograms are not
-ported yet (ROADMAP queue 1, item 11).
+Options, as in the JAX package: ``apply_unc_weights`` multiplies the
+weights by the events' ``unc_weights`` (the sumw2 errors' third channel,
+``bin_unc2``, is then the histogram of ``unc^2 * weights``); ``unweighted``
+histograms unit weights (a stacked container's padded slots drop out as
+out-of-range events do). A binned ``calc_mode`` re-bins binned weights
+through a ``(calc size, apply size)`` transform, the joint histogram of the
+events under the two binnings built at set-up (their dimensions must be
+disjoint): one product per channel. ``astro_weights`` (``flux.astrophysical``)
+are added to the weights. With either option the rate deferral declines,
+and a binned calc mode does not stack.
 """
 
 from __future__ import annotations
@@ -33,31 +41,30 @@ import torch
 
 from pisa_tpu_torch import FTYPE, TORCH_FTYPE
 from pisa_tpu_torch.core import translation
-from pisa_tpu_torch.core.binning import MultiDimBinning
 from pisa_tpu_torch.core.stage import Stage
 
-__all__ = ["hist"]
+__all__ = ["hist", "init_test"]
 
 
 class hist(Stage):  # noqa: N801
-    """Events -> binned histogram of 'weights' (+ 'errors' with sumw2)."""
+    """Events (or a binned calc mode) -> binned histogram of 'weights' (+
+    'errors' and 'bin_unc2' with sumw2). Options: apply_unc_weights,
+    unweighted."""
 
     def __init__(self, apply_unc_weights=False, unweighted=False, **std_kwargs):
-        if apply_unc_weights or unweighted:
-            raise NotImplementedError(
-                "hist apply_unc_weights/unweighted is not ported yet (ROADMAP"
-                " queue 1, item 11)"
-            )
+        expected_container_keys = ["weights"]
+        if apply_unc_weights:
+            expected_container_keys.append("unc_weights")
         super().__init__(
             expected_params=(),
-            expected_container_keys=("weights",),
+            expected_container_keys=tuple(expected_container_keys),
             **std_kwargs,
         )
-        if isinstance(self.calc_mode, MultiDimBinning):
+        self.apply_unc_weights = bool(apply_unc_weights)
+        self.unweighted = bool(unweighted)
+        if self.unweighted and self.is_map:
             raise NotImplementedError(
-                "hist binned calc_mode is not ported yet (ROADMAP queue 1,"
-                " item 11)"
-            )
+                "unweighted only implemented for event-wise calc")
 
     def setup_function(self):
         # the JAX package runs this product at Precision.HIGHEST; keep float32
@@ -65,16 +72,77 @@ class hist(Stage):  # noqa: N801
         torch.backends.cuda.matmul.allow_tf32 = False
         if self.apply_mode is None:
             self.apply_mode = self.data["output_binning"]
+        if self.is_map:
+            self._setup_transform()
+            return
         self.data.representation = "events"
         for container in self.data:
             container.cached_hist_matrix(self.apply_mode)
 
+    def _setup_transform(self):
+        """The binned calc mode's ``(calc size, apply size)`` transform per
+        container: the joint histogram of its events under calc x apply
+        (``pisa_tpu/stages/utils/hist.py:51-72``)."""
+        if set(self.calc_mode.names) & set(self.apply_mode.names):
+            raise ValueError(
+                "calc and apply binnings must use disjoint dimensions")
+        joint = self.calc_mode * self.apply_mode
+        for container in self.data:
+            container.representation = "events"
+            counts = translation.histogram(
+                [container[name] for name in joint.names], None, joint)
+            container.representation = self.calc_mode
+            container["hist_transform"] = counts.reshape(
+                self.calc_mode.size, self.apply_mode.size)
+
     supports_stacked = True
+
+    def stacked_ok(self):
+        # the binned calc mode keeps one transform per container
+        return not self.is_map
+
+    def _weights(self, container):
+        """(w, the third sumw2 channel or None when it is w): the weights to
+        histogram, with astro_weights added, unit weights when unweighted,
+        and times unc_weights when apply_unc_weights."""
+        weights = container["weights"]
+        if "astro_weights" in container.keys:
+            weights = weights + container["astro_weights"]
+        if self.unweighted:
+            # a stacked container's padded slots sit at the out-of-range
+            # index, so their unit weights drop out of the histogram
+            weights = torch.ones_like(weights)
+        if not self.apply_unc_weights:
+            return weights, None
+        unc = container["unc_weights"]
+        return unc * weights, torch.square(unc) * weights
+
+    def _channels(self, container):
+        """The weight channels in the last axis: (w, w^2[, unc^2 w]) with
+        sumw2, else w alone."""
+        w, unc2_w = self._weights(container)
+        if self.error_method != "sumw2":
+            return w
+        chans = [w, torch.square(w)] + ([] if unc2_w is None else [unc2_w])
+        return torch.stack(chans, dim=-1)
+
+    def _store(self, container, res):
+        """Writes the histogram channels `res` (as :meth:`_channels` made
+        them) in the apply binning."""
+        container.representation = self.apply_mode
+        if self.error_method != "sumw2":
+            container["weights"] = res
+            return
+        container["weights"] = res[..., 0]
+        container["errors"] = torch.sqrt(res[..., 1])
+        container["bin_unc2"] = res[..., 2 if self.apply_unc_weights else 0]
 
     def prepare_stacked(self, data):
         """The stacked one-hot membership matrix, once (where it fits the
         size budget), so that a template's histogram is one batched
         product."""
+        if self.is_map:
+            return
         if self.apply_mode is None:
             self.apply_mode = data["output_binning"]
         for container in data.containers:
@@ -111,6 +179,8 @@ class hist(Stage):  # noqa: N801
         done for every container; on False no container keeps any of it."""
         if self.apply_mode is None:
             self.apply_mode = data["output_binning"]
+        if self.apply_unc_weights or self.unweighted:
+            return False
         prepared = self._rate_defer_inputs(data, calc_binning, static_keys)
         for sc in data.containers:
             if getattr(sc, "is_stacked", False):
@@ -230,36 +300,40 @@ class hist(Stage):  # noqa: N801
             self._apply_stacked_deferred(container, dr)
             return
         container.representation = "events"
-        w = container["weights"]
-        laned = container.lanes is not None
-        if self.error_method == "sumw2":
-            res = container.stacked_histogram(
-                torch.stack([w, torch.square(w)], dim=-1), self.apply_mode,
-                laned=laned,
-            )
-            hist_w, sumw2 = res[..., 0], res[..., 1]
-        else:
-            hist_w = container.stacked_histogram(w, self.apply_mode,
-                                                 laned=laned)
-        container.representation = self.apply_mode
-        container["weights"] = hist_w
+        res = container.stacked_histogram(self._channels(container),
+                                          self.apply_mode,
+                                          laned=container.lanes is not None)
+        self._store(container, res)
         # histogramming does not invalidate the events representation
         container.validity["weights"][hash("events")] = True
+
+    def _apply_transform(self, container):
+        """Binned calc mode: each channel times the container's transform
+        (with lanes, (B, calc) @ (calc, apply))."""
+        container.representation = self.calc_mode
+        w, unc2_w = self._weights(container)
+        transform = container["hist_transform"]
+        if container.lanes is not None:
+            # static: the broadcast view's first lane is the transform
+            transform = transform[0]
+        hist_w = w @ transform
         if self.error_method == "sumw2":
-            container["errors"] = torch.sqrt(sumw2)
-            container["bin_unc2"] = hist_w
+            res = [hist_w, torch.square(w) @ transform]
+            if unc2_w is not None:
+                res.append(unc2_w @ transform)
+            hist_w = torch.stack(res, dim=-1)
+        self._store(container, hist_w)
 
     def apply_function(self):
         for container in self.data:
+            if self.is_map:
+                self._apply_transform(container)
+                continue
             if getattr(container, "is_stacked", False):
                 self._apply_stacked(container)
                 continue
             container.representation = "events"
-            w = container["weights"]
-            if self.error_method == "sumw2":
-                chans = torch.stack([w, torch.square(w)], dim=-1)
-            else:
-                chans = w
+            chans = self._channels(container)
             matrix = container.cached_hist_matrix(self.apply_mode)
             laned = container.lanes is not None
             if matrix is not None:
@@ -272,12 +346,11 @@ class hist(Stage):  # noqa: N801
             else:
                 idx = container.cached_flat_indices(self.apply_mode)
                 res = translation.histogram(None, chans, self.apply_mode, idx=idx)
-            container.representation = self.apply_mode
-            if self.error_method == "sumw2":
-                container["weights"] = res[..., 0]
-                container["errors"] = torch.sqrt(res[..., 1])
-                container["bin_unc2"] = res[..., 0]
-            else:
-                container["weights"] = res
+            self._store(container, res)
             # histogramming does not invalidate the events representation
             container.validity["weights"][hash("events")] = True
+
+
+def init_test(**param_kwargs):
+    """Instantiation example."""
+    return hist(calc_mode="events")
