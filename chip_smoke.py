@@ -2143,6 +2143,22 @@ def cuda_time(fn, reps):
     return start.elapsed_time(stop) / reps
 
 
+def timed_once(fn):
+    """(fn(), the time of that one call between CUDA events): for plain
+    versions slow enough that one call is a measurement and its result is
+    needed anyway."""
+    import torch
+
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(stop)
+
+
 def compare(ref, got, label, dname, n_events_mask):
     import numpy as np
 
@@ -5530,13 +5546,37 @@ def kde_stage_plan(dtype):
         dtype=dtype)
 
 
-def kde_inputs(dtype):
+def kde_live_counts(n):
+    """Each of kde_example's 24 channels' live samples (12 categories in
+    make_toy_events' order x the PID channels [-1000, 0) and [0, 1000))
+    out of `n` events a category, from a seeded draw of make_toy_events'
+    PID rule (scripts/make_toy_events.py: nu_mu and nu_mu-bar CC uniform on
+    [0, 3), all tracks; every other category uniform on [-3, 1), about 3/4
+    cascades)."""
+    import numpy as np
+
+    rng = np.random.RandomState(TOY_SEED)
+    counts = []
+    for flav in ("nue", "nue_bar", "numu", "numu_bar", "nutau",
+                 "nutau_bar"):
+        for int_type in ("cc", "nc"):
+            pid = rng.uniform(0, 3, n) if flav.startswith("numu") and \
+                int_type == "cc" else rng.uniform(-3, 1, n)
+            counts += [int((pid < 0).sum()), int((pid >= 0).sum())]
+    return counts
+
+
+def kde_inputs(dtype, live=False):
     """Full-width inputs of the KDE kernels, float64 on the card: 24
     channels (12 categories x 2 PID channels) of TOY_EVENTS samples in (log
-    reco energy, reco coszen) from a seed, channel 1 without weight, their
-    bandwidths, the pilot's coefficients, the widths and coefficients of
-    the pass at kde_example's 1,320 grid points (utils/kde.py and
-    ops/kde.py form them so), and cotangents for both vjps."""
+    reco energy, reco coszen) from a seed, their bandwidths, the pilot's
+    coefficients, the widths and coefficients of the pass at kde_example's
+    1,320 grid points (utils/kde.py and ops/kde.py form them so), and
+    cotangents for both vjps. Dense (``counts`` None): every sample live,
+    channel 1 without weight. With `live`: each channel's first
+    kde_live_counts(TOY_EVENTS) samples live (the layout that
+    utils/kde.py:KDEPlan hands the kernels), the rest without weight and
+    left out of every sum through ``counts``."""
     import numpy as np
     import torch
 
@@ -5549,38 +5589,46 @@ def kde_inputs(dtype):
     x = np.stack([rng.normal(3.0, 0.8, (B, N)), rng.uniform(-1, 1, (B, N))],
                  axis=1)
     w = rng.uniform(0.5, 1.5, (B, N))
-    w[1] = 0.0
+    if live:
+        n_live = np.asarray(kde_live_counts(N))
+        w[np.arange(N)[None, :] >= n_live[:, None]] = 0.0
+    else:
+        w[1] = 0.0
 
     def dev(a):
         return torch.as_tensor(a, dtype=torch.float64, device="cuda")
 
+    counts = torch.as_tensor(n_live, dtype=torch.int32, device="cuda") \
+        if live else None
     x, wn, h = kde_bandwidths(dev(x), dev(w), stage.bw_method)
     ih = 1.0 / h
     ones = torch.ones_like(wn)
     q = ops_kde._widths(x, wn, h, ones, False, stage.alpha)
-    pilot = ops_kde.gauss_sum_reference(x, x, ih, ones, q["c0"])
+    pilot = ops_kde.gauss_sum_reference(x, x, ih, ones, q["c0"], counts,
+                                        counts)
     q = ops_kde._widths(x, wn, h, pilot, True, stage.alpha)
     return {
         "x": x.contiguous(), "w": wn, "h": h, "points": plan.points,
         "ih": ih, "ones": ones, "c0": q["c0"], "il2": q["il2"], "c": q["c"],
         "g_pilot": dev(rng.normal(size=(B, N))),
         "g_grid": dev(rng.normal(size=(B, plan.points.shape[1]))),
-        "alpha": stage.alpha,
+        "alpha": stage.alpha, "counts": counts,
     }
 
 
 def kde_kernel_cases(inp):
     """The kernels' four calls of one adaptive KDE: (kernel, label,
-    points-shared flag, its arguments)."""
-    x = inp["x"]
+    points-shared flag, its arguments, n_live, m_live)."""
+    x, n = inp["x"], inp["counts"]
     return (
-        ("sum", "pilot", False, (x, x, inp["ih"], inp["ones"], inp["c0"])),
+        ("sum", "pilot", False, (x, x, inp["ih"], inp["ones"], inp["c0"]),
+         n, n),
         ("sum", "grid", True, (x, inp["points"], inp["ih"], inp["il2"],
-                               inp["c"])),
+                               inp["c"]), n, None),
         ("vjp", "pilot", False, (x, x, inp["ih"], inp["ones"],
-                                 inp["g_pilot"])),
+                                 inp["g_pilot"]), n, n),
         ("vjp", "grid", True, (x, inp["points"], inp["ih"], inp["il2"],
-                               inp["g_grid"])),
+                               inp["g_grid"]), n, None),
     )
 
 
@@ -5588,91 +5636,126 @@ def kde_vs_plain(smi):
     """kde_gauss_sum and kde_gauss_sum_vjp against their plain versions on
     the card at the full-width shapes (B = 24, N = TOY_EVENTS, the pilot's
     M = N and the grid's M = 1,320), float64 and float32 (the float32
-    kernel against the float32 and the float64 plain version), a channel
-    without weight (zeros and finite vjps), the float64 directional
-    derivative of the whole density (ops/kde.py:AdaptiveDensity) against
-    central differences; device-only times (a CUDA graph of 20 launches)
-    beside the plain versions', the bounds and their share, registers and
-    blocks per SM. Returns {kernel name: {dtype: line}}."""
+    kernel against the float32 and the float64 plain version), in two
+    cases: dense (every sample live, a channel without weight: zeros and
+    finite vjps) and live (kde_example's PID split, kde_live_counts: empty
+    channels give zeros); the float64 directional derivative of the whole
+    density (ops/kde.py:AdaptiveDensity) against central differences;
+    device-only times (a CUDA graph of 20 launches) beside the plain
+    versions' (the one call whose result is the reference), the bound on
+    the live pairs and the dense bound with their
+    shares, registers, blocks per SM, outputs per thread (R) and the split
+    count. Returns {kernel name: {dtype: line}}: the live pilot's, with the
+    live grid's under "grid" and the dense pilot's and grid's under
+    "dense" and "dense_grid"."""
     import numpy as np
     import torch
 
     from pisa_tpu_torch.ops import kde as ops_kde
 
-    inp = kde_inputs(torch.float64)
-    B, D, N = inp["x"].shape
-    live = inp["w"].sum(-1) > 0  # the channels with weight
     out = {"kde_gauss_sum": {}, "kde_gauss_sum_vjp": {}}
-    for dname, dtype in (("float64", torch.float64),
-                         ("float32", torch.float32)):
-        for kind, label, shared, args in kde_kernel_cases(inp):
-            name = "kde_gauss_sum" if kind == "sum" else "kde_gauss_sum_vjp"
-            kernel = ops_kde.gauss_sum if kind == "sum" \
-                else ops_kde.gauss_sum_vjp
-            plain = ops_kde.gauss_sum_reference if kind == "sum" \
-                else ops_kde.gauss_sum_vjp_reference
-            cast = tuple(a.to(dtype).contiguous() for a in args)
-            got = kernel(*cast)
-            want = plain(*cast)
-            want64 = plain(*args)
-            torch.cuda.synchronize()
-            got, want, want64 = ((t,) if kind == "sum" else t
-                                 for t in (got, want, want64))
-            err = max(float((g.double() - p.double()).abs().max()
-                            / p.double().abs().max())
-                      for g, p in zip(got, want))
-            # against float64 the channels with weight only: the empty
-            # channel's vjp (k and u^2 at h = 1e-30, which the chain rule
-            # multiplies by its zero coefficients) overflows in float32
-            err64 = max(float((g[live].double() - p[live]).abs().max()
-                              / p[live].abs().max())
-                        for g, p in zip(got, want64))
-            abs_err = max(float((g.double() - p.double()).abs().max())
+    inputs = {}
+    for case in ("dense", "live"):
+        inp = inputs[case] = kde_inputs(torch.float64, live=case == "live")
+        B, D, N = inp["x"].shape
+        live = inp["w"].sum(-1) > 0  # the channels with weight
+        counts = inp["counts"]
+        n_rows = [N] * B if counts is None else counts.tolist()
+        for dname, dtype in (("float64", torch.float64),
+                             ("float32", torch.float32)):
+            for kind, label, shared, args, n_live, m_live in \
+                    kde_kernel_cases(inp):
+                name = "kde_gauss_sum" if kind == "sum" \
+                    else "kde_gauss_sum_vjp"
+                kernel = ops_kde.gauss_sum if kind == "sum" \
+                    else ops_kde.gauss_sum_vjp
+                plain = ops_kde.gauss_sum_reference if kind == "sum" \
+                    else ops_kde.gauss_sum_vjp_reference
+                cast = tuple(a.to(dtype).contiguous() for a in args)
+                got = kernel(*cast, n_live, m_live)
+                want, plain_ms = timed_once(
+                    lambda: plain(*cast, n_live, m_live))
+                want64 = want if dtype == torch.float64 else plain(
+                    *args, n_live, m_live)
+                got, want, want64 = ((t,) if kind == "sum" else t
+                                     for t in (got, want, want64))
+                err = max(float((g.double() - p.double()).abs().max()
+                                / p.double().abs().max())
                           for g, p in zip(got, want))
-            finite = all(bool(torch.isfinite(g).all()) for g in got)
-            zero = float(got[0][1].abs().max()) if kind == "sum" else 0.0
-            check(finite, f"{name} {label} {dname}: not finite")
-            check(zero == 0.0, f"{name} {label} {dname}: the channel"
-                  " without weight is not zero")
-            check(err <= KDE_KERNEL_RTOL[dname] and
-                  err64 <= KDE_KERNEL_RTOL[dname],
-                  f"{name} {label} {dname}: {err:.3e} / {err64:.3e} off the"
-                  " plain version")
-            M = cast[1].shape[-1]
-            ms = graph_time(lambda: kernel(*cast), launches=20, replays=3)
-            plain_ms = cuda_time(lambda: plain(*cast), 2)
-            bound, by = ops_kde.kde_bound_ms(kind, B, D, N, M, dtype,
-                                             shared_points=shared)
-            attrs = ops_kde.kernel_attributes(kind, D, dtype)
-            ops = ops_kde.kde_operations(kind, B, D, N, M)
-            print(f"kernel {name} {dname}, {label} (B={B}, D={D}, N={N},"
-                  f" M={M}): max |kernel - plain| {err:.3e} of the largest"
-                  f" (vs plain float64 {err64:.3e} over the channels with"
-                  f" weight, bound"
-                  f" {KDE_KERNEL_RTOL[dname]:g}); device-only {ms:.4f} ms,"
-                  f" plain {plain_ms:.3f} ms, bound {bound:.4f} ms by {by}"
-                  f" ({ops['pairs']} pairs, {ops['flops']} operations and"
-                  f" {ops['exps']} exps; {100 * bound / ms:.1f}% of bound);"
-                  f" {attrs['registers']} registers,"
-                  f" {attrs['blocks_per_sm']} blocks of {attrs['threads']}"
-                  f" per SM [{smi}]")
-            if label == "pilot":
-                out[name][dname] = {
-                    "max_abs_err": abs_err, "max_rel_err": err,
-                    "max_rel_err_vs_float64": err64, "ms": ms,
-                    "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
-                    "registers": attrs["registers"],
-                    "local_bytes": attrs["local_bytes"],
-                    "threads": attrs["threads"],
-                    "blocks_per_sm": attrs["blocks_per_sm"],
-                    "shape": [B, D, N, M],
-                }
-            else:
-                out[name][dname]["grid"] = {
-                    "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
-                    "bound_by": by, "max_rel_err": err, "shape": [B, D, N, M]}
+                # against float64 the channels with weight only: an empty
+                # channel's vjp (k and u^2 at h = 1e-30, which the chain
+                # rule multiplies by its zero coefficients) overflows in
+                # float32
+                err64 = max(float((g[live].double() - p[live]).abs().max()
+                                  / p[live].abs().max())
+                            for g, p in zip(got, want64))
+                abs_err = max(float((g.double() - p.double()).abs().max())
+                              for g, p in zip(got, want))
+                finite = all(bool(torch.isfinite(g).all()) for g in got)
+                zero = max(float(g[~live].abs().max()) for g in got) \
+                    if kind == "sum" or case == "live" else 0.0
+                check(finite, f"{name} {case} {label} {dname}: not finite")
+                check(zero == 0.0, f"{name} {case} {label} {dname}: a"
+                      " channel without weight or live sample is not zero")
+                check(err <= KDE_KERNEL_RTOL[dname] and
+                      err64 <= KDE_KERNEL_RTOL[dname],
+                      f"{name} {case} {label} {dname}: {err:.3e} /"
+                      f" {err64:.3e} off the plain version")
+                M = cast[1].shape[-1]
+                splits = ops_kde.launch_splits(
+                    kind, D, dtype, B, M if kind == "sum" else N,
+                    N if kind == "sum" else M)
+                ms = graph_time(lambda: kernel(*cast, n_live, m_live),
+                                launches=20, replays=3)
+                m_rows = None if m_live is None else n_rows
+                bound, by = ops_kde.kde_bound_ms(
+                    kind, B, D, N, M, dtype, shared_points=shared,
+                    n_live=n_rows, m_live=m_rows)
+                dense_bound, _ = ops_kde.kde_bound_ms(
+                    kind, B, D, N, M, dtype, shared_points=shared)
+                attrs = ops_kde.kernel_attributes(kind, D, dtype)
+                ops = ops_kde.kde_operations(kind, B, D, N, M, n_rows,
+                                             m_rows)
+                print(f"kernel {name} {dname}, {case} {label} (B={B},"
+                      f" D={D}, N={N}, M={M}; {ops['pairs']} live pairs of"
+                      f" {B * N * M}): max |kernel - plain| {err:.3e} of"
+                      f" the largest (vs plain float64 {err64:.3e} over the"
+                      f" channels with weight, bound"
+                      f" {KDE_KERNEL_RTOL[dname]:g}); device-only"
+                      f" {ms:.4f} ms, plain {plain_ms:.3f} ms; bound on the"
+                      f" live pairs {bound:.4f} ms by {by}"
+                      f" ({100 * bound / ms:.1f}% of it), dense bound"
+                      f" {dense_bound:.4f} ms ({100 * dense_bound / ms:.1f}%);"
+                      f" {attrs['registers']} registers, {attrs['local_bytes']}"
+                      f" local bytes, {attrs['blocks_per_sm']} blocks of"
+                      f" {attrs['threads']} per SM, R ="
+                      f" {attrs['outputs_per_thread']}, {splits} split(s)"
+                      f" [{smi}]")
+                line = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                        "bound_by": by, "dense_bound_ms": dense_bound,
+                        "max_rel_err": err, "pairs": ops["pairs"],
+                        "splits": splits, "shape": [B, D, N, M]}
+                if label == "pilot":
+                    line.update(
+                        max_abs_err=abs_err, max_rel_err_vs_float64=err64,
+                        registers=attrs["registers"],
+                        local_bytes=attrs["local_bytes"],
+                        threads=attrs["threads"],
+                        blocks_per_sm=attrs["blocks_per_sm"],
+                        outputs_per_thread=attrs["outputs_per_thread"])
+                entry = out[name].setdefault(dname, {})
+                if case == "live":
+                    if label == "pilot":
+                        entry.update(line)
+                    else:
+                        entry["grid"] = line
+                else:
+                    entry["dense" if label == "pilot" else "dense_grid"] = \
+                        line
     # float64: the density's backward against central differences along a
-    # seeded direction in (w, h), for a seeded cotangent
+    # seeded direction in (w, h), for a seeded cotangent (dense inputs)
+    inp = inputs["dense"]
+    B, D, N = inp["x"].shape
     rng = np.random.RandomState(1)
     w = inp["w"].detach().clone().requires_grad_(True)
     h = inp["h"].detach().clone().requires_grad_(True)
@@ -5713,12 +5796,15 @@ def kde_jvp_vs_plain(smi):
     pilot at the samples with il2 = 1 and dil2 = 0, and the 1,320 grid
     points), float64 and float32 (against the float32 and the float64
     plain version), seeded tangents (KDE_JVP_DIRECTION), a channel without
-    weight (zeros); device-only times (a CUDA graph of 20 launches) beside
-    the plain version's, the bound and its share, registers and blocks per
-    SM. Then the float64 density's forward mode (AdaptiveDensity's jvp, two
-    jvp launches) against central differences and against its backward
-    (<g, J t> = <J^T g, t>). Returns {dtype: line} of the pilot's pass, with
-    the grid's under "grid"."""
+    weight (zeros); then the same two passes with kde_example's live counts
+    (kde_live_counts; empty channels give zeros); device-only times (a CUDA
+    graph of 20 launches) beside the plain version's (its one call), the
+    bound (on the live pairs) and its share, registers and blocks per SM.
+    Then the float64 density's forward mode (AdaptiveDensity's jvp, two jvp
+    launches) against central differences and against its backward (<g, J
+    t> = <J^T g, t>). Returns {dtype: line} of the dense pilot's pass, with
+    the dense grid's under "grid" and the live passes' under "live_pilot"
+    and "live_grid"."""
     import numpy as np
     import torch
 
@@ -5736,23 +5822,41 @@ def kde_jvp_vs_plain(smi):
             device="cuda")
 
     dih = direction(inp["ih"])
-    cases = (
+    cases = [
         ("pilot", False, (x, x, inp["ih"], dih, inp["ones"],
                           torch.zeros_like(inp["ones"]), inp["c0"],
-                          direction(inp["c0"]))),
+                          direction(inp["c0"])), None, None, live),
         ("grid", True, (x, inp["points"], inp["ih"], dih, inp["il2"],
                         direction(inp["il2"]), inp["c"],
-                        direction(inp["c"]))),
-    )
+                        direction(inp["c"])), None, None, live),
+    ]
+    # the live case (kde_live_counts): the same launches with the counts
+    # that the stacked stage gives them
+    lin = kde_inputs(torch.float64, live=True)
+    n = lin["counts"]
+    lx = lin["x"]
+    cases += [
+        ("live pilot", False, (lx, lx, lin["ih"], direction(lin["ih"]),
+                               lin["ones"], torch.zeros_like(lin["ones"]),
+                               lin["c0"], direction(lin["c0"])), n, n,
+         lin["w"].sum(-1) > 0),
+        ("live grid", True, (lx, lin["points"], lin["ih"],
+                             direction(lin["ih"]), lin["il2"],
+                             direction(lin["il2"]), lin["c"],
+                             direction(lin["c"])), n, None,
+         lin["w"].sum(-1) > 0),
+    ]
     out = {}
     for dname, dtype in (("float64", torch.float64),
                          ("float32", torch.float32)):
-        for label, shared, args in cases:
+        for label, shared, args, n_live, m_live, live in cases:
             cast = tuple(a.to(dtype).contiguous() for a in args)
-            got = ops_kde.gauss_sum_jvp(*cast)
-            want = ops_kde.gauss_sum_jvp_reference(*cast)
-            want64 = ops_kde.gauss_sum_jvp_reference(*args)
-            torch.cuda.synchronize()
+            got = ops_kde.gauss_sum_jvp(*cast, n_live, m_live)
+            want, plain_ms = timed_once(
+                lambda: ops_kde.gauss_sum_jvp_reference(*cast, n_live,
+                                                        m_live))
+            want64 = want if dtype == torch.float64 else \
+                ops_kde.gauss_sum_jvp_reference(*args, n_live, m_live)
             err = max(float((g.double() - p.double()).abs().max()
                             / p.double().abs().max())
                       for g, p in zip(got, want))
@@ -5762,7 +5866,7 @@ def kde_jvp_vs_plain(smi):
             abs_err = max(float((g.double() - p.double()).abs().max())
                           for g, p in zip(got, want))
             finite = all(bool(torch.isfinite(g).all()) for g in got)
-            zero = max(float(g[1].abs().max()) for g in got)
+            zero = max(float(g[~live].abs().max()) for g in got)
             check(finite, f"kde_gauss_sum_jvp {label} {dname}: not finite")
             check(zero == 0.0, f"kde_gauss_sum_jvp {label} {dname}: the"
                   " channel without weight is not zero")
@@ -5771,14 +5875,15 @@ def kde_jvp_vs_plain(smi):
                   f"kde_gauss_sum_jvp {label} {dname}: {err:.3e} /"
                   f" {err64:.3e} off the plain version")
             M = cast[1].shape[-1]
-            ms = graph_time(lambda: ops_kde.gauss_sum_jvp(*cast), launches=20,
-                            replays=3)
-            plain_ms = cuda_time(
-                lambda: ops_kde.gauss_sum_jvp_reference(*cast), 2)
+            ms = graph_time(lambda: ops_kde.gauss_sum_jvp(
+                *cast, n_live, m_live), launches=20, replays=3)
+            n_rows = None if n_live is None else n_live.tolist()
+            m_rows = None if m_live is None else n_rows
             bound, by = ops_kde.kde_bound_ms("jvp", B, D, N, M, dtype,
-                                             shared_points=shared)
+                                             shared_points=shared,
+                                             n_live=n_rows, m_live=m_rows)
             attrs = ops_kde.kernel_attributes("jvp", D, dtype)
-            ops = ops_kde.kde_operations("jvp", B, D, N, M)
+            ops = ops_kde.kde_operations("jvp", B, D, N, M, n_rows, m_rows)
             print(f"kernel kde_gauss_sum_jvp {dname}, {label} (B={B}, D={D},"
                   f" N={N}, M={M}): max |kernel - plain| {err:.3e} of the"
                   f" largest, value and tangent (vs plain float64"
@@ -5801,7 +5906,8 @@ def kde_jvp_vs_plain(smi):
                                   threads=attrs["threads"],
                                   blocks_per_sm=attrs["blocks_per_sm"])
             else:
-                out[dname]["grid"] = line
+                out[dname][label.replace(" ", "_")] = dict(
+                    line, pairs=ops["pairs"])
     # float64: the density's forward mode along a seeded direction in (w, h)
     w, h = inp["w"], inp["h"]
     dw = w * torch.as_tensor(rng.uniform(-1, 1, (B, N)), device="cuda")
@@ -5980,6 +6086,38 @@ def kde_fisher_card_vs_cpu(cpu_pipeline, gpu_pipeline, smi):
           f" {kde}")
 
 
+def kde_live_share(ct, smi):
+    """The live share of a stacked KDE template's slots and pairs: each
+    channel's live count as utils/kde.py:KDEPlan.live_order gives it to the
+    kernels (the PID cut and the stacking's padding), against the dense
+    (categories x channels x padded events) layout. Returns the counts."""
+    from pisa_tpu_torch.stages.utils.kde import kde
+
+    stage = next(s for s in ct.pipeline.stages if isinstance(s, kde))
+    sc = ct._trace_data.containers[0]
+    rep = sc.representation
+    sc.representation = "events"
+    try:
+        sample = stage._sample(sc)
+    finally:
+        sc.representation = rep
+    plan = next(iter(stage._plans.values()))
+    _, counts = plan.live_order(sample, sc.real_events)
+    counts = counts.reshape(-1).tolist()
+    n_pad = sc.n_pad
+    slots = len(counts) * n_pad
+    pairs = sum(n * n for n in counts)
+    grid = plan.points.shape[1]
+    print(f"kde_example's stacked KDE: {len(counts)} channels of {n_pad}"
+          f" slots; live samples {sum(counts)} of {slots}"
+          f" ({100 * sum(counts) / slots:.1f}%), pilot pairs {pairs} of"
+          f" {len(counts) * n_pad ** 2} ({100 * pairs / (len(counts) * n_pad ** 2):.1f}%),"
+          f" grid pairs {sum(counts) * grid} of {slots * grid}; channels"
+          f" without a live sample {sum(n == 0 for n in counts)}; counts"
+          f" {counts} [{smi}]")
+    return counts
+
+
 def kde_launches():
     from pisa_tpu_torch.ops import kde as ops_kde
 
@@ -6061,6 +6199,7 @@ def events_fp32(chain, smi):
     check(ct.stacked, "kde_example's template is not stacked")
     t0 = time.perf_counter()
     stacked = ct.get_outputs(ct.current_rescaled_values())
+    kde_live_share(ct, smi)
     capture_s = time.perf_counter() - t0
     rel = maps_rel(stacked, maps)
     cwall, _ = median_wall(lambda: ct.get_outputs(
@@ -7103,6 +7242,16 @@ def main(kernels_only=False, release_only=False, analysis_only=False,
                                     "max_rel_err")},
             "float64_grid_pass": kde_kernels[name]["float64"]["grid"],
         })
+        if "dense" in k:  # the sum and the vjp: live pairs above, dense here
+            lines[-1].update(
+                live_pairs=k["pairs"], splits=k["splits"],
+                outputs_per_thread=k["outputs_per_thread"],
+                dense_bound_ms=k["dense_bound_ms"],
+                dense_pilot=k["dense"], dense_grid_pass=k["dense_grid"],
+                float64_dense_pilot=kde_kernels[name]["float64"]["dense"])
+        else:  # the jvp: dense above, with the live counts here
+            lines[-1].update(live_pilot=k["live_pilot"],
+                             live_grid=k["live_grid"])
     print(f"chip_smoke.py total wall: {time.perf_counter() - started:.1f} s"
           f" [{smi}]")
     print(json.dumps({"kernels": lines}))

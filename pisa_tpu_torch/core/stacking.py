@@ -101,6 +101,9 @@ class StackedContainer(Container):
         self.rate_defer = None
         #: category -> row maps as device tensors, by their bytes
         self._row_tensors = {}
+        #: (C, n_pad) bool on the device, True at each category's real
+        #: events and False at its padding slots (build_stacked_set sets it)
+        self.real_events = None
 
     # -- aux -------------------------------------------------------------
     def cat_aux(self, key):
@@ -508,6 +511,10 @@ def build_stacked_set(container_set, coord_keys=(), name=None,
             sc._data.setdefault(key, {})[h] = stacked
             sc.rows[(key, h)] = rows
             sc.validity.setdefault(key, {})[h] = valid
+
+    sizes = torch.as_tensor([_events_size(c) for c in containers],
+                            device=sc.device)
+    sc.real_events = torch.arange(n_pad, device=sc.device) < sizes[:, None]
 
     # aux data: shared scalars stay scalars; per-category values become (C,)
     for key in first._aux_data:

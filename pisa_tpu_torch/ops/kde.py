@@ -18,11 +18,31 @@ port of a Pallas kernel; the source says what bounds it):
   one pass, ``dout[b,j] = sum_i k_ij (dc_i - 1/2 c_i (dil2_i z_ij + il2_i
   dz_ij))``, ``dz_ij = sum_d 2 ih_d dih_d (p_dj - x_di)^2``.
 
+Live counts: every function takes ``n_live`` and ``m_live`` (B,) integer
+tensors on the inputs' device, or None (all N, all M). Row b then sums over
+its first ``n_live[b]`` samples and first ``m_live[b]`` points only, and its
+outputs past them are zeros. :class:`AdaptiveDensity` takes one ``counts``
+for its samples (the pilot's points are its samples); ``utils/kde.py``
+orders each PID channel's own samples first, so the pairs that the dense
+sum multiplied by a zero weight are never visited.
+
+The sum and the vjp are register-tiled (each thread owns R outputs and one
+staged 16-byte entry serves R pairs), take the float32 exponential on MUFU
+as ``ex2.approx`` of an exponent that carries log2(e), and cut their inner
+side over ``splits`` blocks where the outer side is too short to fill the
+card, with a fixed-order second pass (:func:`launch_splits`). The sum is
+bounded by MUFU, the vjp by dispatching its FMA-pipe instructions (about
+8/11 of the MUFU bound at D = 2; the source note has the counts). On an
+H100 in float32 at kde_example's 24 x 20,000 samples the pilot's sum runs
+at 81% of its bound dense and 74% on the live pairs, its vjp at 56% and
+52% (``chip_smoke.py:kde_vs_plain``). The jvp keeps its first design (one
+thread per point).
+
 CPU tensors go through the plain versions (:func:`gauss_sum_reference`,
 :func:`gauss_sum_vjp_reference`, :func:`gauss_sum_jvp_reference`, chunked
-over the points so that their memory stays bounded); CUDA tensors launch
-the kernel or raise. Each wrapper counts its launches
-(:data:`sum_launch_count`, :data:`vjp_launch_count`,
+over the points so that their memory stays bounded, with the same live
+counts); CUDA tensors launch the kernel or raise. Each wrapper counts its
+launches (:data:`sum_launch_count`, :data:`vjp_launch_count`,
 :data:`jvp_launch_count`).
 
 :class:`AdaptiveDensity` is the whole density of
@@ -34,8 +54,9 @@ launches with the pilot, one without; the directions of a
 ``torch.func.jacfwd`` share them as more rows of the batch), and a vmap
 rule that folds the vmapped axis into the batch.
 
-:func:`kde_operations` and :func:`kde_bound_ms` count the work and give the
-least time an H100 could take for it.
+:func:`kde_operations` and :func:`kde_bound_ms` count the work (of the live
+pairs, where counts are given) and give the least time an H100 could take
+for it.
 """
 
 from __future__ import annotations
@@ -60,6 +81,7 @@ __all__ = [
     "kde_bound_ms",
     "kernel_library",
     "kernel_attributes",
+    "launch_splits",
     "sum_launch_count",
     "vjp_launch_count",
     "jvp_launch_count",
@@ -72,7 +94,8 @@ MAX_DIMS = 3
 #: launches of ``kde_gauss_sum`` / ``kde_gauss_sum_vjp`` /
 #: ``kde_gauss_sum_jvp`` made in this process by :func:`gauss_sum` /
 #: :func:`gauss_sum_vjp` / :func:`gauss_sum_jvp` (incremented where the
-#: kernel is launched, and nowhere else)
+#: kernel is launched, and nowhere else; a split launch with its second
+#: pass counts once)
 sum_launch_count = 0
 vjp_launch_count = 0
 jvp_launch_count = 0
@@ -80,12 +103,21 @@ jvp_launch_count = 0
 #: the plain versions' largest (B, N, points) intermediate, in elements
 _CHUNK_ELEMS = 1 << 24
 
+#: a split launch aims at this many waves of the card's resident blocks
+_WAVES = 8
+#: and gives each split at least this many staged tiles of the inner side:
+#: the vjp's second pass reads 1 + D values a sample and split, and at the
+#: grid's 1,320 points 10 splits took 11-13% longer than 5
+#: (scripts/tune_kde.py on an H100)
+_MIN_TILES = {"sum": 1, "vjp": 2}
+
 _CSRC = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
     "csrc",
     "kde_gauss.cu",
 )
 _LIB = None
+_ATTRS = {}
 _P, _LL, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 
 # -- H100 SXM peaks, for the bound (NVIDIA's data sheet, dense, 700 W) --------
@@ -101,39 +133,59 @@ MUFU_EXP_PER_S = 16 * 132 * 1.98e9
 HBM_BYTES_PER_S = 3.35e12
 
 
-def kde_operations(kind, batch, dims, n, m):
+def _row_counts(counts, batch, full):
+    """Each row's live count as host ints: `full` for every row where
+    `counts` is None, else `counts` (a (batch,) tensor or sequence) clipped
+    to [0, full] as the kernels clip it."""
+    if counts is None:
+        return [int(full)] * int(batch)
+    if isinstance(counts, torch.Tensor):
+        counts = counts.detach().cpu().reshape(-1).tolist()
+    counts = [min(max(int(c), 0), int(full)) for c in counts]
+    if len(counts) != int(batch):
+        raise ValueError(f"{len(counts)} counts for {batch} rows")
+    return counts
+
+
+def kde_operations(kind, batch, dims, n, m, n_live=None, m_live=None):
     """The work of one launch: ``{"pairs", "flops", "exps"}`` for `kind`
     "sum" (3D + 2 operations and one exp a pair: D subtractions, D squares
     and D - 1 additions, the width's multiply, the weight's multiply-add),
     "vjp" (5D + 2: the same distance, g k, the sum A and D multiply-adds
     for C) or "jvp" (5D + 9: the sum's, D multiply-adds for dz and 7 for
-    the tangent's term and its sum)."""
-    pairs = int(batch) * int(n) * int(m)
+    the tangent's term and its sum). With live counts (each row's, as the
+    kernels take them; None: all) only the live pairs count."""
+    nl = _row_counts(n_live, batch, n)
+    ml = _row_counts(m_live, batch, m)
+    pairs = sum(a * b for a, b in zip(nl, ml))
     per = {"sum": 3 * dims + 2, "vjp": 5 * dims + 2,
            "jvp": 5 * dims + 9}[kind]
     return {"pairs": pairs, "flops": pairs * per, "exps": pairs}
 
 
-def kde_bound_ms(kind, batch, dims, n, m, dtype, shared_points=True):
+def kde_bound_ms(kind, batch, dims, n, m, dtype, shared_points=True,
+                 n_live=None, m_live=None):
     """(least milliseconds an H100 SXM could take, "operations" or "bytes")
-    for one launch: the larger of the bytes (each input read once, each
-    output written once, over :data:`HBM_BYTES_PER_S`) and the operations.
-    In float32 the operations' time is the larger of the FMA pipe's
+    for one launch: the larger of the bytes (each live input read once,
+    each output written once, over :data:`HBM_BYTES_PER_S`) and the
+    operations of :func:`kde_operations` (the live pairs where counts are
+    given). In float32 the operations' time is the larger of the FMA pipe's
     (:data:`FP32_FLOPS`) and the exps' on the special-function unit
     (:data:`MUFU_EXP_PER_S`); in float64 every operation, the exp counted as
     one, runs on the FMA pipe (:data:`FP64_FLOPS`)."""
-    ops = kde_operations(kind, batch, dims, n, m)
+    ops = kde_operations(kind, batch, dims, n, m, n_live, m_live)
     item = torch.finfo(dtype).bits // 8
-    points = (1 if shared_points else batch) * dims * m
+    sn = sum(_row_counts(n_live, batch, n))
+    sm = sum(_row_counts(m_live, batch, m))
+    points = dims * (m if shared_points else sm)
     if kind == "sum":
-        values = batch * dims * n + points + batch * dims + 2 * batch * n \
-            + batch * m
+        values = dims * sn + points + batch * dims + 2 * sn + batch * m
     elif kind == "jvp":
-        values = batch * dims * n + points + 2 * batch * dims \
-            + 4 * batch * n + 2 * batch * m
+        values = dims * sn + points + 2 * batch * dims + 4 * sn \
+            + 2 * batch * m
     else:
-        values = batch * dims * n + points + batch * dims + batch * n \
-            + batch * m + batch * n + batch * dims * n
+        values = dims * sn + points + batch * dims + sn + sm \
+            + batch * n * (1 + dims)
     t_bytes = values * item / HBM_BYTES_PER_S
     if dtype == torch.float64:
         t_ops = (ops["flops"] + ops["exps"]) / FP64_FLOPS
@@ -153,43 +205,69 @@ def kernel_library():
         from pisa_tpu_torch.utils.cuda_build import build_libraries
 
         lib = build_libraries({"kde_gauss": ([_CSRC], [])})["kde_gauss"]
-        fns = {}
-        for suffix in ("f32", "f64"):
-            fn = getattr(lib, f"kde_gauss_sum_{suffix}")
-            fn.argtypes = [_P, _P, _LL, _P, _P, _P, _P, _I, _I, _I, _I, _P]
-            fn.restype = _I
-            fns[f"sum_{suffix}"] = fn
-            fn = getattr(lib, f"kde_gauss_sum_vjp_{suffix}")
-            fn.argtypes = [_P, _P, _LL, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                           _P]
-            fn.restype = _I
-            fns[f"vjp_{suffix}"] = fn
-            fn = getattr(lib, f"kde_gauss_sum_jvp_{suffix}")
-            fn.argtypes = [_P, _P, _LL] + [_P] * 8 + [_I, _I, _I, _I, _P]
-            fn.restype = _I
-            fns[f"jvp_{suffix}"] = fn
-            fn = getattr(lib, f"kde_gauss_attributes_{suffix}")
-            fn.argtypes = [_I, _I, _P]
-            fn.restype = _I
-            fns[f"attributes_{suffix}"] = fn
-        _LIB = types.SimpleNamespace(**fns)
+        _LIB = bind_library(lib)
     return _LIB
 
 
-def kernel_attributes(kind, dims, dtype):
+def bind_library(lib):
+    """The entry points of a loaded ``kde_gauss`` library (a ctypes.CDLL),
+    with their argument types, as a namespace."""
+    fns = {}
+    for suffix in ("f32", "f64"):
+        fn = getattr(lib, f"kde_gauss_sum_{suffix}")
+        fn.argtypes = [_P, _P, _LL] + [_P] * 7 + [_I] * 5 + [_P]
+        fn.restype = _I
+        fns[f"sum_{suffix}"] = fn
+        fn = getattr(lib, f"kde_gauss_sum_vjp_{suffix}")
+        fn.argtypes = [_P, _P, _LL] + [_P] * 8 + [_I] * 5 + [_P]
+        fn.restype = _I
+        fns[f"vjp_{suffix}"] = fn
+        fn = getattr(lib, f"kde_gauss_sum_jvp_{suffix}")
+        fn.argtypes = [_P, _P, _LL] + [_P] * 10 + [_I] * 4 + [_P]
+        fn.restype = _I
+        fns[f"jvp_{suffix}"] = fn
+        fn = getattr(lib, f"kde_gauss_attributes_{suffix}")
+        fn.argtypes = [_I, _I, _P]
+        fn.restype = _I
+        fns[f"attributes_{suffix}"] = fn
+    return types.SimpleNamespace(**fns)
+
+
+def kernel_attributes(kind, dims, dtype, lib=None):
     """Registers per thread, local bytes per thread, shared bytes per block,
-    threads per block and resident blocks per SM of the `kind` ("sum",
-    "vjp" or "jvp") kernel at `dims` in `dtype`, on the current card."""
+    threads per block, resident blocks per SM, outputs per thread and the
+    card's SMs of the `kind` ("sum", "vjp" or "jvp") kernel at `dims` in
+    `dtype`, on the current card (of `lib`, a :func:`bind_library`
+    namespace, else of :func:`kernel_library`; cached per card)."""
+    lib = kernel_library() if lib is None else lib
     suffix = "f64" if dtype == torch.float64 else "f32"
-    info = (ctypes.c_int * 5)()
-    rc = getattr(kernel_library(), f"attributes_{suffix}")(
-        {"sum": 0, "vjp": 1, "jvp": 2}[kind], int(dims),
-        ctypes.addressof(info))
-    if rc != 0:
-        raise RuntimeError(f"kde_gauss attributes: CUDA error {rc}")
-    keys = ("registers", "local_bytes", "shared_bytes", "threads",
-            "blocks_per_sm")
-    return dict(zip(keys, info))
+    key = (id(lib), kind, int(dims), suffix, torch.cuda.current_device())
+    if key not in _ATTRS:
+        info = (ctypes.c_int * 7)()
+        rc = getattr(lib, f"attributes_{suffix}")(
+            {"sum": 0, "vjp": 1, "jvp": 2}[kind], int(dims),
+            ctypes.addressof(info))
+        if rc != 0:
+            raise RuntimeError(f"kde_gauss attributes: CUDA error {rc}")
+        keys = ("registers", "local_bytes", "shared_bytes", "threads",
+                "blocks_per_sm", "outputs_per_thread", "sms")
+        _ATTRS[key] = dict(zip(keys, info))
+    return dict(_ATTRS[key])
+
+
+def launch_splits(kind, dims, dtype, batch, outer, inner, lib=None):
+    """How many blocks the inner side of a `kind` ("sum" or "vjp") launch
+    is cut over, from the shapes alone (no count is read): enough for
+    :data:`_WAVES` waves of the card's resident blocks where the outer side
+    (points for the sum, samples for the vjp) gives fewer, and no split
+    below :data:`_MIN_TILES` staged tiles of the inner side (the
+    numbers of ``scripts/tune_kde.py`` on an H100)."""
+    a = kernel_attributes(kind, dims, dtype, lib)
+    tile = a["threads"] * a["outputs_per_thread"]
+    blocks = max(1, -(-int(outer) // tile) * int(batch))
+    want = -(-(_WAVES * a["sms"] * max(1, a["blocks_per_sm"])) // blocks)
+    most = max(1, int(inner) // (a["threads"] * _MIN_TILES[kind]))
+    return max(1, min(want, most))
 
 
 def _check(x, p, ih, il2, last, last_len):
@@ -225,6 +303,26 @@ def _check(x, p, ih, il2, last, last_len):
     return B, D, N, p.shape[-1]
 
 
+def _check_counts(x, *counts):
+    """The live counts: each None or a (B,) integer tensor on x's
+    device."""
+    for t in counts:
+        if t is None:
+            continue
+        if tuple(t.shape) != (x.shape[0],) or t.dtype.is_floating_point \
+                or t.dtype == torch.bool or t.device != x.device:
+            raise ValueError(f"live counts must be ({x.shape[0]},) integers"
+                             f" on {x.device}; got {tuple(t.shape)}"
+                             f" {t.dtype} on {t.device}")
+
+
+def _live_mask(counts, B, L, device):
+    """(B, L) bool: index < counts[b]; None without counts."""
+    if counts is None:
+        return None
+    return torch.arange(L, device=device) < counts.to(torch.int64)[:, None]
+
+
 def _point_chunks(x, p, ih, n_batch_elems):
     """(scaled samples (B, D, N, 1), [(slice, scaled points (B, D, 1, m))]):
     the points cut so that a (B, N, m) block has at most _CHUNK_ELEMS
@@ -250,49 +348,71 @@ def _neg_half_widths(il2):
         .unsqueeze(-1)
 
 
-def gauss_sum_reference(x, p, ih, il2, c):
+def gauss_sum_reference(x, p, ih, il2, c, n_live=None, m_live=None):
     """The plain version of :func:`gauss_sum`, in the kernel's arithmetic
-    (samples and points scaled by ih first), chunked over the points."""
+    (samples and points scaled by ih first), chunked over the points; the
+    samples past ``n_live`` left out, the points past ``m_live`` zero."""
     B, D, N, M = _check(x, p, ih, il2, c, x.shape[-1])
+    _check_counts(x, n_live, m_live)
     xs, chunks = _point_chunks(x, p, ih, B * N)
     nl = _neg_half_widths(il2)
+    ok_i = _live_mask(n_live, B, N, x.device)
     out = torch.empty((B, M), dtype=x.dtype, device=x.device)
     for sl, ps in chunks:
         z = torch.square(ps - xs).sum(1)  # (B, N, m)
-        out[:, sl] = (c.unsqueeze(-1) * torch.exp(nl * z)).sum(1)
-    return out
+        terms = c.unsqueeze(-1) * torch.exp(nl * z)
+        if ok_i is not None:
+            terms = torch.where(ok_i.unsqueeze(-1), terms, 0.0)
+        out[:, sl] = terms.sum(1)
+    ok_j = _live_mask(m_live, B, M, x.device)
+    return out if ok_j is None else torch.where(ok_j, out, 0.0)
 
 
-def gauss_sum_vjp_reference(x, p, ih, il2, g):
+def gauss_sum_vjp_reference(x, p, ih, il2, g, n_live=None, m_live=None):
     """The plain version of :func:`gauss_sum_vjp`: (A (B, N), C (B, D, N)),
-    terms with k = 0 left out as the kernel leaves them out."""
+    terms with k = 0 left out as the kernel leaves them out, the points past
+    ``m_live`` left out, the samples past ``n_live`` zero."""
     B, D, N, M = _check(x, p, ih, il2, g, p.shape[-1])
+    _check_counts(x, n_live, m_live)
     xs, chunks = _point_chunks(x, p, ih, B * N * D)
     nl = _neg_half_widths(il2)
+    ok_j = _live_mask(m_live, B, M, x.device)
     A = torch.zeros((B, N), dtype=x.dtype, device=x.device)
     C = torch.zeros((B, D, N), dtype=x.dtype, device=x.device)
     for sl, ps in chunks:
         u2 = torch.square(ps - xs)  # (B, D, N, m)
         k = torch.exp(nl * u2.sum(1))  # (B, N, m)
         gk = g[:, None, sl] * k
+        keep = k != 0
+        if ok_j is not None:
+            gk = torch.where(ok_j[:, None, sl], gk, 0.0)
+            keep = keep & ok_j[:, None, sl]
         A += gk.sum(-1)
-        C += torch.where((k != 0).unsqueeze(1), gk.unsqueeze(1) * u2,
+        C += torch.where(keep.unsqueeze(1), gk.unsqueeze(1) * u2,
                          0.0).sum(-1)
+    ok_i = _live_mask(n_live, B, N, x.device)
+    if ok_i is not None:
+        A = torch.where(ok_i, A, 0.0)
+        C = torch.where(ok_i.unsqueeze(1), C, 0.0)
     return A, C
 
 
-def gauss_sum_jvp_reference(x, p, ih, dih, il2, dil2, c, dc):
+def gauss_sum_jvp_reference(x, p, ih, dih, il2, dil2, c, dc, n_live=None,
+                            m_live=None):
     """The plain version of :func:`gauss_sum_jvp`, in the kernel's
     arithmetic (dz from the ih-scaled differences and r = 2 dih / ih),
     chunked over the points: (out (B, M), dout (B, M)), the tangent's terms
-    with k = 0 left out as the kernel leaves them out."""
+    with k = 0 left out as the kernel leaves them out, the samples past
+    ``n_live`` left out, the points past ``m_live`` zero."""
     B, D, N, M = _check(x, p, ih, il2, c, x.shape[-1])
     _check_tangents(x, dih, dil2, dc)
+    _check_counts(x, n_live, m_live)
     xs, chunks = _point_chunks(x, p, ih, B * N * D)
     nl = _neg_half_widths(il2)
     ndl = (-0.5 * dil2).unsqueeze(-1)
     r = (2.0 * dih / ih)[:, :, None, None]
     c1, dc1 = c.unsqueeze(-1), dc.unsqueeze(-1)
+    ok_i = _live_mask(n_live, B, N, x.device)
     out = torch.empty((B, M), dtype=x.dtype, device=x.device)
     dout = torch.empty((B, M), dtype=x.dtype, device=x.device)
     for sl, ps in chunks:
@@ -300,8 +420,17 @@ def gauss_sum_jvp_reference(x, p, ih, dih, il2, dil2, c, dc):
         z = u2.sum(1)
         k = torch.exp(nl * z)  # (B, N, m)
         term = dc1 + c1 * (ndl * z + nl * (r * u2).sum(1))
-        out[:, sl] = (c1 * k).sum(1)
-        dout[:, sl] = torch.where(k != 0, k * term, 0.0).sum(1)
+        keep = k != 0
+        ck = c1 * k
+        if ok_i is not None:
+            keep = keep & ok_i.unsqueeze(-1)
+            ck = torch.where(ok_i.unsqueeze(-1), ck, 0.0)
+        out[:, sl] = ck.sum(1)
+        dout[:, sl] = torch.where(keep, k * term, 0.0).sum(1)
+    ok_j = _live_mask(m_live, B, M, x.device)
+    if ok_j is not None:
+        out = torch.where(ok_j, out, 0.0)
+        dout = torch.where(ok_j, dout, 0.0)
     return out, dout
 
 
@@ -324,50 +453,87 @@ def _launch_args(x, p, ih, il2, last):
     return x, p, bstride, ih, il2, last
 
 
-def gauss_sum(x, p, ih, il2, c):
+def _counts_ptr(counts):
+    """(int32 contiguous counts or None, their device pointer or None)."""
+    if counts is None:
+        return None, None
+    counts = counts.to(torch.int32).contiguous()
+    return counts, counts.data_ptr()
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def gauss_sum(x, p, ih, il2, c, n_live=None, m_live=None, splits=None,
+              lib=None):
     """``out[b, j] = sum_i c[b,i] exp(-1/2 il2[b,i] sum_d ((p[d,j] -
     x[b,d,i]) ih[b,d])^2)``, (B, M), for x (B, D, N), p (D, M) shared or
-    (B, D, M), ih (B, D), il2 and c (B, N). CPU tensors take the plain
-    version; CUDA tensors launch ``kde_gauss_sum`` on the current stream
-    (nothing waits for the card) or raise."""
+    (B, D, M), ih (B, D), il2 and c (B, N); with live counts (B,) the
+    samples past ``n_live[b]`` are left out and the points past
+    ``m_live[b]`` are zero. CPU tensors take the plain version; CUDA
+    tensors launch ``kde_gauss_sum`` on the current stream (nothing waits
+    for the card) or raise. `splits` (default :func:`launch_splits`) and
+    `lib` (another build's :func:`bind_library`) are for timing."""
     global sum_launch_count
     B, D, N, M = _check(x, p, ih, il2, c, x.shape[-1])
+    _check_counts(x, n_live, m_live)
     if x.device.type == "cpu":
-        return gauss_sum_reference(x, p, ih, il2, c)
+        return gauss_sum_reference(x, p, ih, il2, c, n_live, m_live)
+    lib = kernel_library() if lib is None else lib
     x, p, bstride, ih, il2, c = _launch_args(x, p, ih, il2, c)
+    n_live, n_ptr = _counts_ptr(n_live)
+    m_live, m_ptr = _counts_ptr(m_live)
     out = torch.empty((B, M), dtype=x.dtype, device=x.device)
     suffix = "f64" if x.dtype == torch.float64 else "f32"
     with torch.cuda.device(x.device):
+        if splits is None:
+            splits = launch_splits("sum", D, x.dtype, B, M, N, lib)
+        scratch = torch.empty((splits, B, M), dtype=x.dtype,
+                              device=x.device) if splits > 1 else None
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = getattr(kernel_library(), f"sum_{suffix}")(
+        rc = getattr(lib, f"sum_{suffix}")(
             x.data_ptr(), p.data_ptr(), bstride, ih.data_ptr(),
-            il2.data_ptr(), c.data_ptr(), out.data_ptr(), B, D, N, M, stream)
+            il2.data_ptr(), c.data_ptr(), n_ptr, m_ptr, out.data_ptr(),
+            _ptr(scratch), B, D, N, M, int(splits), stream)
     if rc != 0:
         raise RuntimeError(f"kde_gauss_sum launch failed: CUDA error {rc}")
     sum_launch_count += 1
     return out
 
 
-def gauss_sum_vjp(x, p, ih, il2, g):
+def gauss_sum_vjp(x, p, ih, il2, g, n_live=None, m_live=None, splits=None,
+                  lib=None):
     """(A (B, N), C (B, D, N)) of :func:`gauss_sum` for the cotangent g
     (B, M): ``A[b,i] = sum_j g[b,j] k_ij``, ``C[b,d,i] = sum_j g[b,j] k_ij
     u_dij^2`` with u the ih-scaled difference and the terms with k = 0 left
-    out (where u^2 overflows, 0 * inf would be NaN). CPU tensors take the
-    plain version; CUDA tensors launch ``kde_gauss_sum_vjp`` or raise."""
+    out (where u^2 overflows, 0 * inf would be NaN); with live counts the
+    points past ``m_live[b]`` are left out and the samples past
+    ``n_live[b]`` are zero. CPU tensors take the plain version; CUDA tensors
+    launch ``kde_gauss_sum_vjp`` or raise. `splits` and `lib` as for
+    :func:`gauss_sum`."""
     global vjp_launch_count
     B, D, N, M = _check(x, p, ih, il2, g, p.shape[-1])
+    _check_counts(x, n_live, m_live)
     if x.device.type == "cpu":
-        return gauss_sum_vjp_reference(x, p, ih, il2, g)
+        return gauss_sum_vjp_reference(x, p, ih, il2, g, n_live, m_live)
+    lib = kernel_library() if lib is None else lib
     x, p, bstride, ih, il2, g = _launch_args(x, p, ih, il2, g)
+    n_live, n_ptr = _counts_ptr(n_live)
+    m_live, m_ptr = _counts_ptr(m_live)
     A = torch.empty((B, N), dtype=x.dtype, device=x.device)
     C = torch.empty((B, D, N), dtype=x.dtype, device=x.device)
     suffix = "f64" if x.dtype == torch.float64 else "f32"
     with torch.cuda.device(x.device):
+        if splits is None:
+            splits = launch_splits("vjp", D, x.dtype, B, N, M, lib)
+        scratch = torch.empty((splits, B, 1 + D, N), dtype=x.dtype,
+                              device=x.device) if splits > 1 else None
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = getattr(kernel_library(), f"vjp_{suffix}")(
+        rc = getattr(lib, f"vjp_{suffix}")(
             x.data_ptr(), p.data_ptr(), bstride, ih.data_ptr(),
-            il2.data_ptr(), g.data_ptr(), A.data_ptr(), C.data_ptr(), B, D,
-            N, M, stream)
+            il2.data_ptr(), g.data_ptr(), n_ptr, m_ptr, A.data_ptr(),
+            C.data_ptr(), _ptr(scratch), B, D, N, M, int(splits), stream)
     if rc != 0:
         raise RuntimeError(f"kde_gauss_sum_vjp launch failed: CUDA error"
                            f" {rc}")
@@ -375,21 +541,27 @@ def gauss_sum_vjp(x, p, ih, il2, g):
     return A, C
 
 
-def gauss_sum_jvp(x, p, ih, dih, il2, dil2, c, dc):
+def gauss_sum_jvp(x, p, ih, dih, il2, dil2, c, dc, n_live=None,
+                  m_live=None):
     """(out, dout), each (B, M): :func:`gauss_sum` and its tangent along
     the tangents dih (B, D), dil2 and dc (B, N) of ih, il2 and c (x and the
     points are data), ``dout[b,j] = sum_i k_ij (dc_i - 1/2 c_i (dil2_i z_ij
     + il2_i dz_ij))`` with ``dz_ij = sum_d 2 ih_d dih_d (p_dj - x_di)^2``
-    and the terms with k = 0 left out. One direction a call; more
-    directions are more rows of the batch. CPU tensors take the plain
-    version; CUDA tensors launch ``kde_gauss_sum_jvp`` or raise."""
+    and the terms with k = 0 left out; live counts as for
+    :func:`gauss_sum`. One direction a call; more directions are more rows
+    of the batch. CPU tensors take the plain version; CUDA tensors launch
+    ``kde_gauss_sum_jvp`` or raise."""
     global jvp_launch_count
     B, D, N, M = _check(x, p, ih, il2, c, x.shape[-1])
     _check_tangents(x, dih, dil2, dc)
+    _check_counts(x, n_live, m_live)
     if x.device.type == "cpu":
-        return gauss_sum_jvp_reference(x, p, ih, dih, il2, dil2, c, dc)
+        return gauss_sum_jvp_reference(x, p, ih, dih, il2, dil2, c, dc,
+                                       n_live, m_live)
     x, p, bstride, ih, il2, c = _launch_args(x, p, ih, il2, c)
     dih, dil2, dc = (t.contiguous() for t in (dih, dil2, dc))
+    n_live, n_ptr = _counts_ptr(n_live)
+    m_live, m_ptr = _counts_ptr(m_live)
     out = torch.empty((B, M), dtype=x.dtype, device=x.device)
     dout = torch.empty((B, M), dtype=x.dtype, device=x.device)
     suffix = "f64" if x.dtype == torch.float64 else "f32"
@@ -398,8 +570,8 @@ def gauss_sum_jvp(x, p, ih, dih, il2, dil2, c, dc):
         rc = getattr(kernel_library(), f"jvp_{suffix}")(
             x.data_ptr(), p.data_ptr(), bstride, ih.data_ptr(),
             dih.data_ptr(), il2.data_ptr(), dil2.data_ptr(), c.data_ptr(),
-            dc.data_ptr(), out.data_ptr(), dout.data_ptr(), B, D, N, M,
-            stream)
+            dc.data_ptr(), n_ptr, m_ptr, out.data_ptr(), dout.data_ptr(),
+            B, D, N, M, stream)
     if rc != 0:
         raise RuntimeError(f"kde_gauss_sum_jvp launch failed: CUDA error"
                            f" {rc}")
@@ -437,11 +609,17 @@ def _widths(x, w, h, pilot, adaptive, alpha):
 
 class AdaptiveDensity(torch.autograd.Function):
     """(x (B, D, N), w (B, N) normalized, h (B, D), points (D, M) or
-    (B, D, M), adaptive, alpha) -> (density (B, M), pilot (B, N)): the
-    density of ``pisa_tpu/utils/kde.py:adaptive_gaussian_kde`` after its
-    bandwidths, differentiable in w and h (x and the points are data). The
-    pilot (the fixed-width density at the samples; ones without
+    (B, D, M), adaptive, alpha, counts) -> (density (B, M), pilot (B, N)):
+    the density of ``pisa_tpu/utils/kde.py:adaptive_gaussian_kde`` after
+    its bandwidths, differentiable in w and h (x and the points are data).
+    The pilot (the fixed-width density at the samples; ones without
     `adaptive`) is returned for the backward and takes no gradient.
+    `counts` (B,) integers or None: row b's samples past ``counts[b]`` are
+    left out of every sum (the kernels' ``n_live``, and ``m_live`` of the
+    pilot, whose points are the samples); their pilot is 0 (its log floored
+    at the type's smallest normal number) and their weights must be 0, so
+    that nothing of them reaches the density, and their gradients are
+    finite.
 
     Forward: :func:`gauss_sum` at the samples (the pilot), then at the
     points. Backward: :func:`gauss_sum_vjp` at the points, the chain through
@@ -454,32 +632,34 @@ class AdaptiveDensity(torch.autograd.Function):
     the batch of one launch."""
 
     @staticmethod
-    def forward(x, w, h, points, adaptive, alpha):
+    def forward(x, w, h, points, adaptive, alpha, counts):
         pilot = torch.ones_like(w)
         if adaptive:
             q = _widths(x, w, h, pilot, False, alpha)
-            pilot = gauss_sum(x, x, q["ih"], pilot, q["c0"])
+            pilot = gauss_sum(x, x, q["ih"], pilot, q["c0"], counts, counts)
         q = _widths(x, w, h, pilot, adaptive, alpha)
-        return gauss_sum(x, points, q["ih"], q["il2"], q["c"]), pilot
+        return gauss_sum(x, points, q["ih"], q["il2"], q["c"], counts), \
+            pilot
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        x, w, h, points, adaptive, alpha = inputs
+        x, w, h, points, adaptive, alpha, counts = inputs
         _, pilot = output
         ctx.mark_non_differentiable(pilot)
-        ctx.save_for_backward(x, w, h, points, pilot)
-        ctx.save_for_forward(x, w, h, points, pilot)
+        ctx.save_for_backward(x, w, h, points, pilot, counts)
+        ctx.save_for_forward(x, w, h, points, pilot, counts)
         ctx.adaptive = bool(adaptive)
         ctx.alpha = float(alpha)
 
     @staticmethod
     def backward(ctx, g_out, _g_pilot):
-        x, w, h, points, pilot = ctx.saved_tensors
+        x, w, h, points, pilot, counts = ctx.saved_tensors
         adaptive, alpha = ctx.adaptive, ctx.alpha
         D = x.shape[1]
         q = _widths(x, w, h, pilot, adaptive, alpha)
         lam, c, il2, norms = q["lam"], q["c"], q["il2"], q["norms"]
-        A, C = gauss_sum_vjp(x, points, q["ih"], il2, g_out.contiguous())
+        A, C = gauss_sum_vjp(x, points, q["ih"], il2, g_out.contiguous(),
+                             counts)
         # through the sum at the points: c, il2 and h directly
         g_h = (C * (c * il2)[:, None, :]).sum(-1) / h
         g_il2 = -0.5 * c * C.sum(1)
@@ -503,29 +683,31 @@ class AdaptiveDensity(torch.autograd.Function):
                                   0.0)
             # the pilot: gauss_sum(x, x, ih, 1, c0), c0 = w / norm0
             A0, C0 = gauss_sum_vjp(x, x, q["ih"], torch.ones_like(w),
-                                   g_pilot.contiguous())
+                                   g_pilot.contiguous(), counts, counts)
             g_h = g_h + (C0 * q["c0"][:, None, :]).sum(-1) / h
             g_w = g_w + A0 / q["norm0"][:, None]
             g_K = g_K + torch.where(
                 q["K"] > 0, -(A0 * q["c0"]).sum(-1) / q["norm0"], 0.0)
         g_h = g_h + (g_K * q["K"])[:, None] / h
-        return None, g_w, g_h, None, None, None
+        return None, g_w, g_h, None, None, None, None
 
     @staticmethod
-    def jvp(ctx, _dx, dw, dh, _dpoints, _dadaptive, _dalpha):
+    def jvp(ctx, _dx, dw, dh, _dpoints, _dadaptive, _dalpha, _dcounts):
         # x and the points are data, as in backward: their tangents are
         # not followed
-        x, w, h, points, pilot = ctx.saved_tensors
+        x, w, h, points, pilot, counts = ctx.saved_tensors
         return _DensityTangent.apply(x, w, h, points, pilot, dw, dh,
-                                     ctx.adaptive, ctx.alpha), None
+                                     ctx.adaptive, ctx.alpha, counts), None
 
     @staticmethod
-    def vmap(info, in_dims, x, w, h, points, adaptive, alpha):
+    def vmap(info, in_dims, x, w, h, points, adaptive, alpha, counts):
         size = info.batch_size
-        xb, wb, hb = _fold((x, w, h), in_dims[:3], size)
+        xb, wb, hb, cb = _fold((x, w, h, counts),
+                               in_dims[:3] + (in_dims[6],), size)
         B = xb.shape[0] // size
         pb = _fold_points(points, in_dims[3], size, B)
-        out, pilot = AdaptiveDensity.apply(xb, wb, hb, pb, adaptive, alpha)
+        out, pilot = AdaptiveDensity.apply(xb, wb, hb, pb, adaptive, alpha,
+                                           cb)
         return (out.reshape(size, B, -1), pilot.reshape(size, B, -1)), (0, 0)
 
 
@@ -561,13 +743,13 @@ class _DensityTangent(torch.autograd.Function):
     launches, the pilot's at the samples (il2 = 1, dil2 = 0; with
     `adaptive`) and the density's at the points. The guards are the
     backward's: where a norm underflowed or the pilot is below the type's
-    smallest normal number, the tangent through it is 0. Its vmap rule folds
-    the vmapped axis into the batch, so that a ``torch.func.jacfwd``'s K
-    directions are K more rows of the same two launches. A forward-mode
-    rule: it has no backward."""
+    smallest normal number, the tangent through it is 0. `counts` as for
+    :class:`AdaptiveDensity`. Its vmap rule folds the vmapped axis into the
+    batch, so that a ``torch.func.jacfwd``'s K directions are K more rows
+    of the same two launches. A forward-mode rule: it has no backward."""
 
     @staticmethod
-    def forward(x, w, h, points, pilot, dw, dh, adaptive, alpha):
+    def forward(x, w, h, points, pilot, dw, dh, adaptive, alpha, counts):
         D = x.shape[1]
         q = _widths(x, w, h, pilot, adaptive, alpha)
         dw = torch.zeros_like(w) if dw is None else dw
@@ -580,7 +762,8 @@ class _DensityTangent(torch.autograd.Function):
         lam = q["lam"]
         if adaptive:
             _, dpilot = gauss_sum_jvp(x, x, ih, dih, torch.ones_like(w),
-                                      torch.zeros_like(w), q["c0"], dc0)
+                                      torch.zeros_like(w), q["c0"], dc0,
+                                      counts, counts)
             tiny = torch.finfo(x.dtype).tiny
             live = pilot > tiny
             dlp = torch.where(live, dpilot / torch.where(live, pilot, 1.0),
@@ -594,26 +777,29 @@ class _DensityTangent(torch.autograd.Function):
         dc = (dw - q["c"] * dnorm) / q["norms"]
         dil2 = -2.0 * dlam / lam ** 3
         return gauss_sum_jvp(x, points, ih, dih, q["il2"], dil2, q["c"],
-                             dc)[1]
+                             dc, counts)[1]
 
     @staticmethod
     def setup_context(ctx, inputs, output):
         pass
 
     @staticmethod
-    def vmap(info, in_dims, x, w, h, points, pilot, dw, dh, adaptive, alpha):
+    def vmap(info, in_dims, x, w, h, points, pilot, dw, dh, adaptive, alpha,
+             counts):
         size = info.batch_size
-        x, w, h, pilot, dw, dh = _fold(
-            (x, w, h, pilot, dw, dh),
+        x, w, h, pilot, dw, dh, counts = _fold(
+            (x, w, h, pilot, dw, dh, counts),
             (in_dims[0], in_dims[1], in_dims[2], in_dims[4], in_dims[5],
-             in_dims[6]), size)
+             in_dims[6], in_dims[9]), size)
         B = x.shape[0] // size
         pb = _fold_points(points, in_dims[3], size, B)
         out = _DensityTangent.apply(x, w, h, pb, pilot, dw, dh, adaptive,
-                                    alpha)
+                                    alpha, counts)
         return out.reshape(size, B, -1), 0
 
 
-def adaptive_density(x, w, h, points, adaptive=True, alpha=0.3):
+def adaptive_density(x, w, h, points, adaptive=True, alpha=0.3,
+                     counts=None):
     """The density (B, M) of :class:`AdaptiveDensity`."""
-    return AdaptiveDensity.apply(x, w, h, points, adaptive, alpha)[0]
+    return AdaptiveDensity.apply(x, w, h, points, adaptive, alpha,
+                                 counts)[0]

@@ -12,8 +12,11 @@ category's PID channels form one batch: one launch for the pilots of all
 (categories x channels), one for the densities at the bin centres, and one
 each for their vector-Jacobian products in the backward pass. The padding
 slots of the stacked layout carry zero weights (and NaN coordinates, which
-the KDE makes finite), so they drop out of every statistic. In an
-evaluation of lanes the lane axis joins that batch.
+the KDE makes finite), so they drop out of every statistic; the plan also
+takes the container's ``real_events`` mask, so that neither they nor
+another channel's samples are visited by the kernels (each channel's live
+samples first, ``utils/kde.py:KDEPlan.live_order``). In an evaluation of
+lanes the lane axis joins that batch.
 
 Bootstrap errors resample on the host with ``np.random.default_rng(seed)``
 (as the JAX stage does) and run per container, as do stashed histograms;
@@ -146,7 +149,7 @@ class kde(Stage):  # noqa: N801
         sample = self._sample(container)  # ([B,] C, n_pad, D)
         weights = container["weights"]  # ([B,] C, n_pad)
         hists = self._plan(container.device, weights.dtype)(
-            sample, weights, **self._kwargs())
+            sample, weights, real=container.real_events, **self._kwargs())
         container.representation = self.apply_mode
         container["weights"] = hists  # ([B,] C, size)
 

@@ -16,7 +16,13 @@ Everything here takes a leading batch axis: ``x`` (B, D, N) and weights
 (B, N) evaluate B independent densities in one launch per pass. PID
 channels are selected by weight zeroing, exactly as in the JAX package, so
 shapes stay static and the stacked KDE stage is one batch of (categories x
-channels).
+channels). :class:`KDEPlan` then orders each channel's live samples first
+(those in the channel's PID range and, on a stacked container, not a
+padding slot: the data decides, never the weights) and hands the kernels
+each channel's live count, so the pairs with the samples that weight
+zeroing masks are never evaluated (:meth:`KDEPlan.live_order`); the order
+is built on the device in every evaluation (a cumulative sum and a
+scatter), so nothing is read on the host.
 
 The histogram conveniences follow the JAX package: coszen reflection at the
 +-1 edges, evaluation at the (oversampled) bin centres, bin volumes, the
@@ -80,7 +86,7 @@ def kde_bandwidths(x, weights, bw_method="scott"):
 
 
 def adaptive_gaussian_kde(x, weights, points, bw_method="scott",
-                          adaptive=True, alpha=0.3):
+                          adaptive=True, alpha=0.3, counts=None):
     """Weighted (adaptive) Gaussian KDE evaluated at `points`
     (``pisa_tpu/utils/kde.py:adaptive_gaussian_kde``).
 
@@ -92,6 +98,8 @@ def adaptive_gaussian_kde(x, weights, points, bw_method="scott",
     bw_method : 'scott' or 'silverman'
     adaptive : bool, Abramson local bandwidths
     alpha : float, adaptivity exponent
+    counts : (B,) integer tensor or None, each row's live samples: those
+        past ``counts[b]`` are left out of every sum and must have weight 0
 
     Returns the density (G,) or (B, G), normalized to integrate to 1 (zeros
     for a batch entry without weight), differentiable in `weights`.
@@ -104,7 +112,7 @@ def adaptive_gaussian_kde(x, weights, points, bw_method="scott",
     points = points.to(dtype=x.dtype)
     x, w, h = kde_bandwidths(x, weights, bw_method)
     dens = adaptive_density(x.contiguous(), w, h, points, bool(adaptive),
-                            float(alpha))
+                            float(alpha), counts)
     return dens[0] if single else dens
 
 
@@ -278,32 +286,68 @@ class KDEPlan:
                 torch.tensor(e, dtype=dtype, device=self.device)
                 for e in (self.pid_edges[:-1], self.pid_edges[1:]))
 
+    def channel_mask(self, sample):
+        """(..., K, N) bool: which samples fall in each PID channel's range
+        (a NaN pid in none); K = 1 and all True without ``stack_pid``."""
+        if not self.stack_pid:
+            return torch.ones(sample.shape[:-1], dtype=torch.bool,
+                              device=sample.device).unsqueeze(-2)
+        pid = sample[..., self.pid_bin].unsqueeze(-2)  # (..., 1, N)
+        return (pid >= self._pid_lo[:, None]) & (pid < self._pid_hi[:, None])
+
     def channel_weights(self, sample, weights):
         """(..., K, N): the weights of each PID channel, by weight zeroing
         (``pisa_tpu/utils/kde.py:395``); K = 1 without ``stack_pid``."""
         if not self.stack_pid:
             return weights.unsqueeze(-2)
-        pid = sample[..., self.pid_bin].unsqueeze(-2)  # (..., 1, N)
-        mask = (pid >= self._pid_lo[:, None]) & (pid < self._pid_hi[:, None])
-        return weights.unsqueeze(-2) * mask.to(weights.dtype)
+        return weights.unsqueeze(-2) * self.channel_mask(sample).to(
+            weights.dtype)
+
+    def live_order(self, sample, real=None):
+        """(order (..., K, N) int64, counts (..., K) int32): each channel's
+        live samples (in its PID range and, where `real` (..., N) bool is
+        given, real events rather than a stacked container's padding) first,
+        in their order, then the others; ``counts`` of the live ones. Device
+        ops only (a cumulative sum and a scatter): no host read, no sort."""
+        live = self.channel_mask(sample)
+        if real is not None:
+            live = live & real.unsqueeze(-2)
+        n = live.shape[-1]
+        flag = live.to(torch.int64)
+        counts = flag.sum(-1, keepdim=True)
+        dest = torch.where(live, torch.cumsum(flag, -1) - 1,
+                           counts + torch.cumsum(1 - flag, -1) - 1)
+        src = torch.arange(n, device=live.device).expand_as(dest)
+        order = torch.empty_like(dest).scatter_(-1, dest, src)
+        return order, counts.squeeze(-1).to(torch.int32)
 
     def __call__(self, sample, weights, bw_method="scott", adaptive=True,
-                 alpha=0.3, total=None):
+                 alpha=0.3, total=None, real=None):
         """Histograms (..., size) in the binning's flat order of `sample`
         (..., N, D) with `weights` (..., N); the leading axes are a batch
         (categories, lanes) that broadcasts between the two. Each channel is
         scaled to its weight total, or to `total` (..., K) where given (the
-        bootstrap scales every replicate to the original total)."""
+        bootstrap scales every replicate to the original total). `real`
+        (..., N) bool, where given, marks the real events (a stacked
+        container's padding slots are False): the others are no channel's
+        live samples. The densities run on each channel's live samples
+        only (:meth:`live_order`)."""
         w = torch.nan_to_num(weights)
         wk = self.channel_weights(sample, w)  # (..., K, N)
         lead = tuple(wk.shape[:-2])
         K, N = wk.shape[-2:]
+        order, counts = self.live_order(sample, real)
         x = sample.index_select(-1, self.columns).transpose(-1, -2)
-        x = x.unsqueeze(-3).expand(lead + (K,) + tuple(x.shape[-2:]))
+        D = x.shape[-2]
+        x = x.unsqueeze(-3).expand(order.shape[:-1] + (D, N)).gather(
+            -1, order.unsqueeze(-2).expand(order.shape[:-1] + (D, N)))
+        x = x.expand(lead + (K, D, N))
+        wc = wk.gather(-1, order.expand(lead + (K, N)))
         norm = wk.sum(-1) if total is None else total
         dens = adaptive_gaussian_kde(
-            x.reshape((-1,) + tuple(x.shape[-2:])), wk.reshape(-1, N),
-            self.points, bw_method=bw_method, adaptive=adaptive, alpha=alpha)
+            x.reshape(-1, D, N), wc.reshape(-1, N), self.points,
+            bw_method=bw_method, adaptive=adaptive, alpha=alpha,
+            counts=counts.expand(lead + (K,)).reshape(-1))
         dens = dens.reshape(lead + (K, -1)) * norm.unsqueeze(-1)
         contrib = dens.reshape(lead + (-1,)) * self.factor
         out = torch.zeros(lead + (self.size,), dtype=contrib.dtype,

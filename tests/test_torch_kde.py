@@ -301,6 +301,51 @@ def test_kernels_match_plain_versions_on_card(cuda_device, dtype, rtol):
         assert _rel(a.double().cpu().numpy(), b.numpy()) <= rtol
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("splits", [None, 1, 3])
+@pytest.mark.parametrize("dtype,rtol", [(torch.float64, 1e-12),
+                                        (torch.float32, 1e-4)])
+def test_kernels_with_live_counts_match_plain_versions_on_card(
+        cuda_device, dtype, rtol, splits):
+    """Live counts below N (a full row, a partial one, an empty one, a
+    one-sample one, and a row whose bandwidth is 1e-30), the pilot's
+    per-row points and the grid's shared ones, at the wrapper's split
+    count and at forced ones; the same result from run to run."""
+    g = torch.Generator().manual_seed(1)
+    B, D, N, M = 5, 2, 3000, 500
+    counts = torch.tensor([3000, 1234, 0, 1, 2000], dtype=torch.int32)
+    x = torch.randn(B, D, N, generator=g, dtype=torch.float64)
+    x[(torch.arange(N) >= counts[:, None].long()).unsqueeze(1)
+      .expand_as(x)] = float("nan")  # padding past the counts
+    p = torch.randn(D, M, generator=g, dtype=torch.float64)
+    ih = torch.full((B, D), 4.0, dtype=torch.float64)
+    ih[4] = 1e30
+    il2 = 0.5 + torch.rand(B, N, generator=g, dtype=torch.float64)
+    c = torch.rand(B, N, generator=g, dtype=torch.float64) / N
+    gp = torch.randn(B, N, generator=g, dtype=torch.float64)
+    gg = torch.randn(B, M, generator=g, dtype=torch.float64)
+    cases = (("sum", (x, x, ih, il2, c), counts, counts),
+             ("sum", (x, p, ih, il2, c), counts, None),
+             ("vjp", (x, x, ih, il2, gp), counts, counts),
+             ("vjp", (x, p, ih, il2, gg), counts, None))
+    dev_counts = counts.to(cuda_device)
+    for kind, args, n_live, m_live in cases:
+        fn = ops_kde.gauss_sum if kind == "sum" else ops_kde.gauss_sum_vjp
+        want = fn(*args, n_live, m_live)
+        want = (want,) if kind == "sum" else want
+        dev = [t.to(cuda_device, dtype) for t in args]
+        m_dev = None if m_live is None else dev_counts
+        got = fn(*dev, dev_counts, m_dev, splits=splits)
+        again = fn(*dev, dev_counts, m_dev, splits=splits)
+        torch.cuda.synchronize()
+        got = (got,) if kind == "sum" else got
+        again = (again,) if kind == "sum" else again
+        for a, b, a2 in zip(got, want, again):
+            assert torch.isfinite(a).all()
+            assert torch.equal(a, a2)
+            assert _rel(a.double().cpu().numpy(), b.numpy()) <= rtol
+
+
 # -- vbwkde ----------------------------------------------------------------------
 def test_vbwkde_and_isj_match_jax():
     rng = np.random.RandomState(6)
