@@ -460,6 +460,9 @@ KDE_FD = {"step": 1e-5, "rtol": 1e-6}
 # kde_example, card against CPU in float64, max |difference| / max |F|
 KDE_JVP_DIRECTION = 0.1
 KDE_FISHER_RTOL = 1e-9
+# the jvp's directions in its check: kde_example's Fisher matrix's (3 free
+# params, one launch at the samples and one at the points)
+KDE_JVP_K = 3
 # the host C route of the generalized likelihood against the torch route
 # on the generalized toy's bins: the reference test's tolerances
 # (tests/test_generalized_llh.py: two summation orders of one recursion)
@@ -5566,6 +5569,10 @@ def kde_live_counts(n):
     return counts
 
 
+# kde_inputs' results, made once for both KDE kernel checks
+_KDE_INPUTS = {}
+
+
 def kde_inputs(dtype, live=False):
     """Full-width inputs of the KDE kernels, float64 on the card: 24
     channels (12 categories x 2 PID channels) of TOY_EVENTS samples in (log
@@ -5583,6 +5590,8 @@ def kde_inputs(dtype, live=False):
     from pisa_tpu_torch.ops import kde as ops_kde
     from pisa_tpu_torch.utils.kde import kde_bandwidths
 
+    if (dtype, live) in _KDE_INPUTS:
+        return _KDE_INPUTS[(dtype, live)]
     stage, plan = kde_stage_plan(torch.float64)
     rng = np.random.RandomState(TOY_SEED)
     B, N = 24, TOY_EVENTS
@@ -5607,13 +5616,14 @@ def kde_inputs(dtype, live=False):
     pilot = ops_kde.gauss_sum_reference(x, x, ih, ones, q["c0"], counts,
                                         counts)
     q = ops_kde._widths(x, wn, h, pilot, True, stage.alpha)
-    return {
+    _KDE_INPUTS[(dtype, live)] = {
         "x": x.contiguous(), "w": wn, "h": h, "points": plan.points,
         "ih": ih, "ones": ones, "c0": q["c0"], "il2": q["il2"], "c": q["c"],
         "g_pilot": dev(rng.normal(size=(B, N))),
         "g_grid": dev(rng.normal(size=(B, plan.points.shape[1]))),
         "alpha": stage.alpha, "counts": counts,
     }
+    return _KDE_INPUTS[(dtype, live)]
 
 
 def kde_kernel_cases(inp):
@@ -5655,6 +5665,7 @@ def kde_vs_plain(smi):
 
     out = {"kde_gauss_sum": {}, "kde_gauss_sum_vjp": {}}
     inputs = {}
+    plain64 = {}
     for case in ("dense", "live"):
         inp = inputs[case] = kde_inputs(torch.float64, live=case == "live")
         B, D, N = inp["x"].shape
@@ -5675,8 +5686,8 @@ def kde_vs_plain(smi):
                 got = kernel(*cast, n_live, m_live)
                 want, plain_ms = timed_once(
                     lambda: plain(*cast, n_live, m_live))
-                want64 = want if dtype == torch.float64 else plain(
-                    *args, n_live, m_live)
+                # the float64 pass's plain result, kept for the float32 one
+                want64 = plain64.setdefault((case, kind, label), want)
                 got, want, want64 = ((t,) if kind == "sum" else t
                                      for t in (got, want, want64))
                 err = max(float((g.double() - p.double()).abs().max()
@@ -5794,122 +5805,160 @@ def kde_jvp_vs_plain(smi):
     """kde_gauss_sum_jvp against its plain version (gauss_sum_jvp_reference)
     on the card at the full-width shapes (B = 24, N = TOY_EVENTS; the
     pilot at the samples with il2 = 1 and dil2 = 0, and the 1,320 grid
-    points), float64 and float32 (against the float32 and the float64
-    plain version), seeded tangents (KDE_JVP_DIRECTION), a channel without
-    weight (zeros); then the same two passes with kde_example's live counts
-    (kde_live_counts; empty channels give zeros); device-only times (a CUDA
-    graph of 20 launches) beside the plain version's (its one call), the
-    bound (on the live pairs) and its share, registers and blocks per SM.
-    Then the float64 density's forward mode (AdaptiveDensity's jvp, two jvp
-    launches) against central differences and against its backward (<g, J
-    t> = <J^T g, t>). Returns {dtype: line} of the dense pilot's pass, with
-    the dense grid's under "grid" and the live passes' under "live_pilot"
-    and "live_grid"."""
+    points), at K = 1 and K = KDE_JVP_K (the Fisher matrix's directions; K
+    = 1 takes the first of them), dense (a channel without weight: zeros)
+    and with kde_example's live counts (kde_live_counts; empty channels give
+    zeros), float64 and float32 (against the float32 and the float64 plain
+    version), seeded tangents (KDE_JVP_DIRECTION). Timed (device-only, a
+    CUDA graph of 20 launches, beside the plain version's one call, the
+    K-aware bound on the live pairs and its share, registers and blocks per
+    SM): the dense pilot at K = 1 in both types (the earlier design's
+    shape; its plain version at K = 1 in float32, at KDE_JVP_K in float64)
+    and, in float32, the live pilot and grid at K = 1 and K = KDE_JVP_K
+    (their plain version's call at KDE_JVP_K); the other passes are checks
+    only. Then the float64 density's
+    forward mode (AdaptiveDensity's jvp, two jvp launches) against central
+    differences and against its backward (<g, J t> = <J^T g, t>). Returns
+    {dtype: line} of the dense pilot at K = 1, with the float32 live passes
+    under "live_pilot", "live_grid" (K = 1), "live_pilot_K3" and
+    "live_grid_K3" (K = KDE_JVP_K), and every pass's errors under
+    "checks"."""
     import numpy as np
     import torch
 
     from pisa_tpu_torch.ops import kde as ops_kde
 
-    inp = kde_inputs(torch.float64)
-    x = inp["x"]
-    B, D, N = x.shape
-    live = inp["w"].sum(-1) > 0
+    K = KDE_JVP_K
     rng = np.random.RandomState(2)
 
     def direction(t):
         return t * torch.as_tensor(
-            rng.uniform(-KDE_JVP_DIRECTION, KDE_JVP_DIRECTION, tuple(t.shape)),
-            device="cuda")
+            rng.uniform(-KDE_JVP_DIRECTION, KDE_JVP_DIRECTION,
+                        (K,) + tuple(t.shape)), device="cuda")
 
-    dih = direction(inp["ih"])
-    cases = [
-        ("pilot", False, (x, x, inp["ih"], dih, inp["ones"],
-                          torch.zeros_like(inp["ones"]), inp["c0"],
-                          direction(inp["c0"])), None, None, live),
-        ("grid", True, (x, inp["points"], inp["ih"], dih, inp["il2"],
-                        direction(inp["il2"]), inp["c"],
-                        direction(inp["c"])), None, None, live),
-    ]
-    # the live case (kde_live_counts): the same launches with the counts
-    # that the stacked stage gives them
-    lin = kde_inputs(torch.float64, live=True)
-    n = lin["counts"]
-    lx = lin["x"]
-    cases += [
-        ("live pilot", False, (lx, lx, lin["ih"], direction(lin["ih"]),
-                               lin["ones"], torch.zeros_like(lin["ones"]),
-                               lin["c0"], direction(lin["c0"])), n, n,
-         lin["w"].sum(-1) > 0),
-        ("live grid", True, (lx, lin["points"], lin["ih"],
-                             direction(lin["ih"]), lin["il2"],
-                             direction(lin["il2"]), lin["c"],
-                             direction(lin["c"])), n, None,
-         lin["w"].sum(-1) > 0),
-    ]
+    cases = []
+    for case in ("dense", "live"):
+        inp = kde_inputs(torch.float64, live=case == "live")
+        x, n = inp["x"], inp["counts"]
+        dih = direction(inp["ih"])
+        zeros = torch.zeros((K,) + tuple(inp["ones"].shape),
+                            dtype=torch.float64, device="cuda")
+        cases += [
+            (case, "pilot", False, (x, x, inp["ih"], dih, inp["ones"], zeros,
+                                    inp["c0"], direction(inp["c0"])), n, n,
+             inp["w"].sum(-1) > 0),
+            (case, "grid", True, (x, inp["points"], inp["ih"], dih,
+                                  inp["il2"], direction(inp["il2"]), inp["c"],
+                                  direction(inp["c"])), n, None,
+             inp["w"].sum(-1) > 0),
+        ]
+
+    def first(args):  # the first direction of each tangent
+        return tuple(a[:1] if i in (3, 5, 7) else a
+                     for i, a in enumerate(args))
+
     out = {}
+    want64 = {}
     for dname, dtype in (("float64", torch.float64),
                          ("float32", torch.float32)):
-        for label, shared, args, n_live, m_live, live in cases:
+        line = {"checks": {}}
+        for case, label, shared, args, n_live, m_live, live in cases:
             cast = tuple(a.to(dtype).contiguous() for a in args)
-            got = ops_kde.gauss_sum_jvp(*cast, n_live, m_live)
             want, plain_ms = timed_once(
                 lambda: ops_kde.gauss_sum_jvp_reference(*cast, n_live,
                                                         m_live))
-            want64 = want if dtype == torch.float64 else \
-                ops_kde.gauss_sum_jvp_reference(*args, n_live, m_live)
-            err = max(float((g.double() - p.double()).abs().max()
-                            / p.double().abs().max())
-                      for g, p in zip(got, want))
-            err64 = max(float((g[live].double() - p[live]).abs().max()
-                              / p[live].abs().max())
-                        for g, p in zip(got, want64))
-            abs_err = max(float((g.double() - p.double()).abs().max())
-                          for g, p in zip(got, want))
-            finite = all(bool(torch.isfinite(g).all()) for g in got)
-            zero = max(float(g[~live].abs().max()) for g in got)
-            check(finite, f"kde_gauss_sum_jvp {label} {dname}: not finite")
-            check(zero == 0.0, f"kde_gauss_sum_jvp {label} {dname}: the"
-                  " channel without weight is not zero")
-            check(err <= KDE_KERNEL_RTOL[dname]
-                  and err64 <= KDE_KERNEL_RTOL[dname],
-                  f"kde_gauss_sum_jvp {label} {dname}: {err:.3e} /"
-                  f" {err64:.3e} off the plain version")
+            want64.setdefault((case, label), want)
+            B, D, N = cast[0].shape
             M = cast[1].shape[-1]
-            ms = graph_time(lambda: ops_kde.gauss_sum_jvp(
-                *cast, n_live, m_live), launches=20, replays=3)
             n_rows = None if n_live is None else n_live.tolist()
             m_rows = None if m_live is None else n_rows
-            bound, by = ops_kde.kde_bound_ms("jvp", B, D, N, M, dtype,
-                                             shared_points=shared,
-                                             n_live=n_rows, m_live=m_rows)
-            attrs = ops_kde.kernel_attributes("jvp", D, dtype)
-            ops = ops_kde.kde_operations("jvp", B, D, N, M, n_rows, m_rows)
-            print(f"kernel kde_gauss_sum_jvp {dname}, {label} (B={B}, D={D},"
-                  f" N={N}, M={M}): max |kernel - plain| {err:.3e} of the"
-                  f" largest, value and tangent (vs plain float64"
-                  f" {err64:.3e} over the channels with weight, bound"
-                  f" {KDE_KERNEL_RTOL[dname]:g}); device-only {ms:.4f} ms,"
-                  f" plain {plain_ms:.3f} ms, bound {bound:.4f} ms by {by}"
-                  f" ({ops['pairs']} pairs, {ops['flops']} operations and"
-                  f" {ops['exps']} exps; {100 * bound / ms:.1f}% of bound);"
-                  f" {attrs['registers']} registers, {attrs['local_bytes']}"
-                  f" local bytes, {attrs['blocks_per_sm']} blocks of"
-                  f" {attrs['threads']} per SM [{smi}]")
-            line = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
-                    "bound_by": by, "max_rel_err": err,
-                    "shape": [B, D, N, M]}
-            if label == "pilot":
-                out[dname] = dict(line, max_abs_err=abs_err,
-                                  max_rel_err_vs_float64=err64,
-                                  registers=attrs["registers"],
-                                  local_bytes=attrs["local_bytes"],
-                                  threads=attrs["threads"],
-                                  blocks_per_sm=attrs["blocks_per_sm"])
-            else:
-                out[dname][label.replace(" ", "_")] = dict(
-                    line, pairs=ops["pairs"])
+            for k in (1, K):
+                kargs = cast if k == K else first(cast)
+                head = case == "dense" and label == "pilot" and k == 1
+                timed = head or (case == "live" and dname == "float32")
+                kwant, plain_k = want, K
+                if head and dname == "float32":
+                    # the plain version at the earlier design's shape, for
+                    # the kernels line (float64 keeps the call at K)
+                    kwant, plain_ms = timed_once(
+                        lambda: ops_kde.gauss_sum_jvp_reference(
+                            *kargs, n_live, m_live))
+                    plain_k = 1
+                got = ops_kde.gauss_sum_jvp(*kargs, n_live, m_live)
+                triples = [(got[0], kwant[0], want64[(case, label)][0])] + [
+                    (got[1][i], kwant[1][i], want64[(case, label)][1][i])
+                    for i in range(k)]
+                err = max(float((g.double() - p.double()).abs().max()
+                                / p.double().abs().max())
+                          for g, p, _ in triples)
+                err64 = max(float((g[live].double() - p[live]).abs().max()
+                                  / p[live].abs().max())
+                            for g, _, p in triples)
+                abs_err = max(float((g.double() - p.double()).abs().max())
+                              for g, p, _ in triples)
+                finite = all(bool(torch.isfinite(g).all()) for g in got)
+                zero = max(float(g[..., ~live, :].abs().max()) for g in got)
+                tag = f"{case} {label}, K = {k}"
+                check(finite, f"kde_gauss_sum_jvp {tag} {dname}: not finite")
+                check(zero == 0.0, f"kde_gauss_sum_jvp {tag} {dname}: a"
+                      " channel without weight or live sample is not zero")
+                check(err <= KDE_KERNEL_RTOL[dname]
+                      and err64 <= KDE_KERNEL_RTOL[dname],
+                      f"kde_gauss_sum_jvp {tag} {dname}: {err:.3e} /"
+                      f" {err64:.3e} off the plain version")
+                line["checks"][f"K{k}_{case}_{label}"] = {
+                    "max_rel_err": err, "max_rel_err_vs_float64": err64}
+                text = (f"kernel kde_gauss_sum_jvp {dname}, {tag} (B={B},"
+                        f" D={D}, N={N}, M={M}): max |kernel - plain|"
+                        f" {err:.3e} of the largest, value and tangents (vs"
+                        f" plain float64 {err64:.3e} over the channels with"
+                        f" weight, bound {KDE_KERNEL_RTOL[dname]:g})")
+                if not timed:
+                    print(f"{text}; not timed [{smi}]")
+                    continue
+                ms = graph_time(lambda: ops_kde.gauss_sum_jvp(
+                    *kargs, n_live, m_live), launches=20, replays=3)
+                bound, by = ops_kde.kde_bound_ms(
+                    "jvp", B, D, N, M, dtype, shared_points=shared,
+                    n_live=n_rows, m_live=m_rows, directions=k)
+                attrs = ops_kde.kernel_attributes("jvp", D, dtype,
+                                                  directions=k)
+                splits = ops_kde.launch_splits("jvp", D, dtype, B, M, N,
+                                               directions=k)
+                ops = ops_kde.kde_operations("jvp", B, D, N, M, n_rows,
+                                             m_rows, directions=k)
+                print(f"{text}; {ops['pairs']} live pairs of {B * N * M};"
+                      f" device-only {ms:.4f} ms ({ms / k:.4f} a direction),"
+                      f" plain at K = {plain_k} {plain_ms:.3f} ms, bound {bound:.4f} ms by {by}"
+                      f" ({ops['flops']} operations and {ops['exps']} exps;"
+                      f" {100 * bound / ms:.1f}% of it);"
+                      f" {attrs['registers']} registers,"
+                      f" {attrs['local_bytes']} local bytes,"
+                      f" {attrs['blocks_per_sm']} blocks of"
+                      f" {attrs['threads']} per SM, R ="
+                      f" {attrs['outputs_per_thread']}, {splits} split(s)"
+                      f" [{smi}]")
+                timing = {"ms": ms, "plain_ms": plain_ms,
+                          "plain_directions": plain_k, "bound_ms": bound,
+                          "bound_by": by, "max_rel_err": err,
+                          "shape": [B, D, N, M], "directions": k,
+                          "pairs": ops["pairs"], "splits": splits,
+                          "registers": attrs["registers"],
+                          "blocks_per_sm": attrs["blocks_per_sm"]}
+                if head:
+                    line.update(timing, max_abs_err=abs_err,
+                                max_rel_err_vs_float64=err64,
+                                local_bytes=attrs["local_bytes"],
+                                threads=attrs["threads"])
+                else:
+                    line[f"live_{label}" + ("" if k == 1 else f"_K{k}")] = \
+                        timing
+        out[dname] = line
+    del want64, cases
     # float64: the density's forward mode along a seeded direction in (w, h)
-    w, h = inp["w"], inp["h"]
+    inp = kde_inputs(torch.float64)
+    x, w, h = inp["x"], inp["w"], inp["h"]
+    B, D, N = x.shape
     dw = w * torch.as_tensor(rng.uniform(-1, 1, (B, N)), device="cuda")
     dh = h * torch.as_tensor(rng.uniform(-1, 1, (B, D)), device="cuda")
     g = torch.as_tensor(rng.normal(size=(B, inp["points"].shape[1])),
@@ -6223,8 +6272,8 @@ def events_fp32(chain, smi):
           " primal kernel")
 
     # the Fisher matrix: jacfwd of the eager template, the density's
-    # tangents from kde_gauss_sum_jvp (all directions as rows of one launch
-    # at the samples and one at the points)
+    # tangents from kde_gauss_sum_jvp (all directions on its direction axis:
+    # one launch at the samples and one at the points)
     from pisa_tpu_torch.analysis.fisher import get_fisher_matrix
 
     get_fisher_matrix(ct)  # the first call builds the cached tensors
@@ -6239,7 +6288,8 @@ def events_fp32(chain, smi):
     print(f"float32 Fisher matrix, kde_example at 240k toy events ({n}"
           f" params), jacfwd of the eager template: wall {wall * 1e3:.2f} ms"
           f" (second call); launches {launches}, KDE (sum, vjp, jvp) {kde}"
-          f" (jvp: the pilot's and the points', the {n} directions as rows);"
+          f" (jvp: the pilot's and the points', each with the {n}"
+          f" directions);"
           f" peak memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB;"
           f" diagonal {np.diag(fm.matrix).tolist()} [{smi}]")
     check(np.all(np.isfinite(fm.matrix)) and np.all(np.diag(fm.matrix) > 0),
@@ -6307,14 +6357,24 @@ def events_fp32(chain, smi):
     return tuple(total), tuple(total_kde)
 
 
+def kde_checks(smi):
+    """kde_vs_plain, then kde_jvp_vs_plain, with the wall of each; returns
+    kde_vs_plain's lines with the jvp's under "kde_gauss_sum_jvp"."""
+    t0 = time.perf_counter()
+    kde_kernels = kde_vs_plain(smi)
+    t1 = time.perf_counter()
+    kde_kernels["kde_gauss_sum_jvp"] = kde_jvp_vs_plain(smi)
+    t2 = time.perf_counter()
+    print(f"KDE kernel checks: {t2 - t0:.1f} s (kde_vs_plain {t1 - t0:.1f}"
+          f" s, kde_jvp_vs_plain {t2 - t1:.1f} s)")
+    return kde_kernels
+
+
 def events_only_main(chain, smi):
     """``--events-only``: the kernels built, the KDE kernels held and
     timed, then the events phases alone (the float64 child's and the main
     process's); no status line."""
-    t0 = time.perf_counter()
-    kde_vs_plain(smi)
-    kde_jvp_vs_plain(smi)
-    print(f"KDE kernel checks: {time.perf_counter() - t0:.1f} s")
+    kde_checks(smi)
     run_children([("events", ["--events-worker"])])
     t0 = time.perf_counter()
     launches = events_fp32(chain, smi)
@@ -6990,10 +7050,7 @@ def main(kernels_only=False, release_only=False, analysis_only=False,
     general_pack_kernels(chain)
     general_lanes = general_lane_kernels(chain)
     print_kernel_times(kernels, smi)
-    t0 = time.perf_counter()
-    kde_kernels = kde_vs_plain(smi)
-    kde_kernels["kde_gauss_sum_jvp"] = kde_jvp_vs_plain(smi)
-    print(f"KDE kernel checks: {time.perf_counter() - t0:.1f} s")
+    kde_kernels = kde_checks(smi)
     if kernels_only:
         herm4_vs_plain(smi)
         return 0
@@ -7229,29 +7286,40 @@ def main(kernels_only=False, release_only=False, analysis_only=False,
             # kernels with per-sample widths
             "library_ms": None,
             "dtype": "float32",
-            "shape_BDNM": k["shape"],
             "max_rel_err": k["max_rel_err"],
             "max_rel_err_vs_float64": k["max_rel_err_vs_float64"],
             "registers": k["registers"],
             "local_bytes": k["local_bytes"],
             "threads": k["threads"],
             "blocks_per_sm": k["blocks_per_sm"],
-            "grid_pass": k["grid"],
-            "float64": {key: kde_kernels[name]["float64"][key]
-                        for key in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                    "max_rel_err")},
-            "float64_grid_pass": kde_kernels[name]["float64"]["grid"],
         })
-        if "dense" in k:  # the sum and the vjp: live pairs above, dense here
+        if name == "kde_gauss_sum_jvp":
+            # the dense pilot at K = 1 above (the earlier design's shape);
+            # the live passes at K = 1 and at the Fisher matrix's K here,
+            # and every pass's errors
             lines[-1].update(
-                live_pairs=k["pairs"], splits=k["splits"],
-                outputs_per_thread=k["outputs_per_thread"],
-                dense_bound_ms=k["dense_bound_ms"],
-                dense_pilot=k["dense"], dense_grid_pass=k["dense_grid"],
-                float64_dense_pilot=kde_kernels[name]["float64"]["dense"])
-        else:  # the jvp: dense above, with the live counts here
-            lines[-1].update(live_pilot=k["live_pilot"],
-                             live_grid=k["live_grid"])
+                shape_BDNM=k["shape"],
+                float64={key: kde_kernels[name]["float64"][key]
+                         for key in ("ms", "plain_ms", "plain_directions",
+                                     "bound_ms", "bound_by", "max_rel_err")},
+                **{key: k[key] for key in (
+                    "live_pilot", "live_grid", f"live_pilot_K{KDE_JVP_K}",
+                    f"live_grid_K{KDE_JVP_K}")},
+                checks={dname: kde_kernels[name][dname]["checks"]
+                        for dname in ("float32", "float64")})
+            continue
+        # the sum and the vjp: live pairs above, dense here
+        lines[-1].update(
+            shape_BDNM=k["shape"], grid_pass=k["grid"],
+            float64={key: kde_kernels[name]["float64"][key]
+                     for key in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                 "max_rel_err")},
+            float64_grid_pass=kde_kernels[name]["float64"]["grid"],
+            live_pairs=k["pairs"], splits=k["splits"],
+            outputs_per_thread=k["outputs_per_thread"],
+            dense_bound_ms=k["dense_bound_ms"],
+            dense_pilot=k["dense"], dense_grid_pass=k["dense_grid"],
+            float64_dense_pilot=kde_kernels[name]["float64"]["dense"])
     print(f"chip_smoke.py total wall: {time.perf_counter() - started:.1f} s"
           f" [{smi}]")
     print(json.dumps({"kernels": lines}))

@@ -1,6 +1,6 @@
 // Eigenvalues and eigenvectors of batched 4x4 complex Hermitian matrices for
-// NVIDIA Hopper (sm_90a): cyclic Jacobi, one thread per matrix, in registers,
-// float32 and float64.
+// NVIDIA Hopper (sm_90a): cyclic Jacobi in registers, one thread a matrix,
+// its block's matrices staged through shared memory, float32 and float64.
 //
 // Not a port of a Pallas kernel. It is the card's counterpart of the XLA
 // eigvalsh call of pisa_tpu/ops/osc/sterile.py:_eigvals_hermitian4, which
@@ -10,34 +10,45 @@
 // (it checks for convergence failure on the CPU), so a CUDA graph cannot
 // capture it; this kernel reads nothing back and can be captured.
 //
-// The math. Each thread loads one matrix, takes its Hermitian part
-// (A + A^H) / 2, as the JAX package symmetrizes its embedding, and divides
-// it by its largest entry (Jacobi is scale-invariant; this keeps every
-// intermediate far from float32's underflow and overflow at any energy).
-// Then cyclic sweeps over the six planes (p, q): a complex Givens rotation
-// G = [[c, s e^{i phi}], [-s e^{-i phi}, c]] with a_pq = r e^{i phi} and
-// t = s / c the smaller root of t^2 + 2 tau t - 1 = 0, tau = (a_qq - a_pp) /
-// (2 r), annihilates a_pq (A <- G^H A G, V <- V G). Sweeps stop once the
-// off-diagonal mass is below eps^2 of the diagonal's (eps the type's
-// machine epsilon); Jacobi converges quadratically, a few sweeps at 4x4.
-// The eigenvalues are sorted ascending, with V's columns, and scaled back.
+// The math. The Hermitian part (A + A^H) / 2, as the JAX package
+// symmetrizes its embedding, divided by its largest entry (Jacobi is
+// scale-invariant; this keeps every intermediate far from float32's
+// underflow and overflow at any energy). Then cyclic sweeps over the six
+// planes (p, q): a complex Givens rotation G = [[c, s e^{i phi}], [-s
+// e^{-i phi}, c]] with a_pq = r e^{i phi} and t = s / c the smaller root of
+// t^2 + 2 tau t - 1 = 0, tau = (a_qq - a_pp) / (2 r), annihilates a_pq (A <-
+// G^H A G, V <- V G); rotation_of forms it with one sqrt, one division and
+// one rsqrt. Sweeps stop once the off-diagonal mass is below eps^2 of the
+// diagonal's (eps the type's machine epsilon); Jacobi converges
+// quadratically, a few sweeps at 4x4. The eigenvalues are sorted ascending,
+// with V's columns, and scaled back.
+//
+// What bounds it on the card: 272 bytes of matrix in and out in float32
+// (544 in float64) against ~3,000 floating-point operations a matrix (3-4
+// sweeps; ops/osc/herm4.py:herm4_operations), a few hundred instructions a
+// sweep with a sqrt, an rsqrt and a division in each rotation's dependency
+// chain. The design (herm4_thread_kernel): a block's 128 matrices are one
+// contiguous span (16 KB in float32), loaded and stored through shared
+// memory as 16-byte words, consecutive threads on consecutive words (one
+// thread reading its own 128 bytes touched 32 cache lines a warp-wide
+// load); each thread then runs solve() on its matrix in registers. On an
+// H100 at the 3+1 flagship's 279,600 matrices this took 0.187 ms to 0.047
+// ms in float32 (48% of the bytes bound; 0.209 to 0.099 ms in float64;
+// scripts/tune_herm4.py, PERF.md).
+//
+// A design of four lanes a matrix (a column of A a lane, a sweep as three
+// rounds of two disjoint rotations exchanged by shuffles) converged in
+// fewer sweeps but ran about twice the instructions a matrix and lost on
+// the same card (PERF.md), so it is not kept.
 //
 // Outputs: the eigenvalues in ascending order, (n, 4) real, which the 3+1
 // layer step needs sorted (its deflation picks the isolated state and the
 // cluster extreme from neighbouring gaps, sterile.py:194, :228); the
 // eigenvectors, (n, 4, 4) complex with the eigenvectors as columns, as
-// torch.linalg.eigh gives them, which only the derivatives read; and, where
-// the pointer is not null, the sweeps each matrix took (int32), from which
-// chip_smoke.py counts the operations behind the kernel's bound.
-//
-// What bounds it on the card: operations. A rotation is 143 flops (with a
-// sqrt, an rsqrt and two divisions), a sweep 6 rotations and a convergence
-// check; 4-6 sweeps at the 3+1 layer steps, against 272 bytes of matrix in
-// and out in float32 (544 in float64). One thread per matrix keeps the
-// matrix (32 scalars) and the eigenvectors (32) in registers; no shared
-// memory, no synchronization. Each thread reads its matrix's 128 (256)
-// contiguous bytes; the rest of a warp's cache lines are the neighbours'
-// matrices, read by the next loads from L1.
+// torch.linalg.eigh gives them, which only the derivatives read (their
+// phases are the rotations', not eigh's); and, where the pointer is not
+// null, the sweeps each matrix took (int32), from which chip_smoke.py
+// counts the operations behind the kernel's bound.
 //
 // solve() is __host__ __device__ over any scalar type: the host tests
 // (tests/test_torch_herm4_source.py) compile it with the C++ compiler and
@@ -60,7 +71,7 @@
 
 namespace herm4 {
 
-constexpr int kThreads = 128;   // threads of a block, one matrix each
+constexpr int kThreads = 128;   // threads of a block
 constexpr int kMaxSweeps = 16;  // a bound only: 4x4 converges in 4-6
 
 // -- precision-dispatched math (device intrinsics on the card, std on host) --
@@ -84,6 +95,25 @@ H4_HD double h4_rsqrt(double x) {
 }
 H4_HD float value(float x) { return x; }
 H4_HD double value(double x) { return x; }
+
+// The rotation of the pair (p, q) with dlt = a_qq - a_pp and a_pq = xr + i
+// xi, r2 = |a_pq|^2 > 0: c, s e^{i phi} = (sr, si) and t r. t = s / c is the
+// smaller root of t^2 + 2 tau t - 1 = 0, tau = dlt / (2 r), written as t =
+// sgn(dlt) 2 r / (|dlt| + sqrt(dlt^2 + 4 r^2)) = q r, so that one sqrt and
+// one division give t^2 = q^2 r^2, s e^{i phi} = t c e^{i phi} = c q (xr +
+// i xi) and t r = q r^2; the entries are scaled to at most 1, so nothing
+// here overflows.
+template <typename S>
+H4_HD void rotation_of(S dlt, S xr, S xi, S r2, S& c, S& sr, S& si, S& tr) {
+  const S inv = S(1) / (h4_fabs(dlt) + h4_sqrt(dlt * dlt + S(4) * r2));
+  S q = S(2) * inv;
+  if (value(dlt) < 0) q = -q;
+  c = h4_rsqrt(S(1) + q * q * r2);
+  const S cq = c * q;
+  sr = cq * xr;
+  si = cq * xi;
+  tr = q * r2;
+}
 
 // A Hermitian matrix (both triangles kept) and the eigenvectors found so far
 // (columns), split into real and imaginary parts.
@@ -111,17 +141,11 @@ H4_HD void rotate_pair(S& xr, S& xi, S& yr, S& yi, S c, S sr, S si) {
 template <int P, int Q, typename S>
 H4_HD void rotate(Herm4<S>& h) {
   const S xr = h.ar[P][Q], xi = h.ai[P][Q];
-  const S r = h4_sqrt(xr * xr + xi * xi);
-  if (!(value(r) > 0)) return;
+  const S r2 = xr * xr + xi * xi;
+  if (!(value(r2) > 0)) return;
   const S a = h.ar[P][P], b = h.ar[Q][Q];
-  const S tau = (b - a) / (S(2) * r);
-  // the smaller root; an overflow of tau * tau gives t = 0, no rotation
-  S t = S(1) / (h4_fabs(tau) + h4_sqrt(S(1) + tau * tau));
-  if (value(tau) < 0) t = -t;
-  const S c = h4_rsqrt(S(1) + t * t);
-  const S s = t * c;
-  const S inv_r = S(1) / r;
-  const S sr = s * (xr * inv_r), si = s * (xi * inv_r);  // s e^{i phi}
+  S c, sr, si, tr;
+  rotation_of(b - a, xr, xi, r2, c, sr, si, tr);
 #pragma unroll
   for (int k = 0; k < 4; ++k) {
     if (k == P || k == Q) continue;
@@ -131,7 +155,6 @@ H4_HD void rotate(Herm4<S>& h) {
     h.ar[Q][k] = h.ar[k][Q];
     h.ai[Q][k] = -h.ai[k][Q];
   }
-  const S tr = t * r;
   h.ar[P][P] = a - tr;
   h.ar[Q][Q] = b + tr;
   h.ar[P][Q] = h.ai[P][Q] = h.ar[Q][P] = h.ai[Q][P] = S(0);
@@ -239,16 +262,74 @@ H4_HD int solve(const S* m, S tol2, S* w, S* v) {
 }
 
 #ifdef __CUDACC__
+// a matrix's row in shared memory: 32 scalars padded by one 16-byte word
+template <typename S>
+struct Staged {
+  static constexpr int kPer = 16 / sizeof(S);  // scalars a word
+  static constexpr int kWords = 32 / kPer;     // words a matrix
+  static constexpr int kStride = 32 + kPer;
+};
+struct alignas(16) Word {
+  unsigned u[4];
+};
+
+// the block's matrices from first on, m -> shared (16-byte words,
+// consecutive threads on consecutive words); zeros past n
+template <typename S>
+__device__ __forceinline__ void stage_in(const S* __restrict__ m,
+                                         long long first, long long n,
+                                         S* sm) {
+  using T = Staged<S>;
+  const Word* src = reinterpret_cast<const Word*>(m + 32 * first);
+  for (int k = threadIdx.x; k < kThreads * T::kWords; k += kThreads) {
+    const int mi = k / T::kWords, wo = k % T::kWords;
+    Word word = {{0u, 0u, 0u, 0u}};
+    if (first + mi < n) word = src[k];
+    *reinterpret_cast<Word*>(sm + mi * T::kStride + wo * T::kPer) = word;
+  }
+}
+
+// shared -> v, the matrices below n
+template <typename S>
+__device__ __forceinline__ void stage_out(const S* sm, long long first,
+                                          long long n, S* __restrict__ v) {
+  using T = Staged<S>;
+  Word* dst = reinterpret_cast<Word*>(v + 32 * first);
+  for (int k = threadIdx.x; k < kThreads * T::kWords; k += kThreads) {
+    const int mi = k / T::kWords, wo = k % T::kWords;
+    if (first + mi < n)
+      dst[k] = *reinterpret_cast<const Word*>(sm + mi * T::kStride +
+                                              wo * T::kPer);
+  }
+}
+
+// one thread a matrix (solve), its block's matrices staged through shared
+// memory
 template <typename S>
 __global__ void __launch_bounds__(kThreads)
-    herm4_kernel(const S* __restrict__ m, S* __restrict__ w,
-                 S* __restrict__ v, int* __restrict__ sweeps, long long n,
-                 S tol2) {
-  const long long i =
-      static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
-  if (i >= n) return;
-  const int s = solve(m + 32 * i, tol2, w + 4 * i, v + 32 * i);
-  if (sweeps != nullptr) sweeps[i] = s;
+    herm4_thread_kernel(const S* __restrict__ m, S* __restrict__ w,
+                        S* __restrict__ v, int* __restrict__ sweeps,
+                        long long n, S tol2) {
+  constexpr int kStride = Staged<S>::kStride;
+  __shared__ Word words[kThreads * kStride / Staged<S>::kPer];
+  S* sm = reinterpret_cast<S*>(words);
+  const long long first = static_cast<long long>(blockIdx.x) * kThreads;
+  stage_in<S>(m, first, n, sm);
+  __syncthreads();
+  S* a = sm + threadIdx.x * kStride;
+  S wl[4], vl[32];
+  const int s = solve(a, tol2, wl, vl);
+  __syncthreads();
+#pragma unroll
+  for (int k = 0; k < 32; ++k) a[k] = vl[k];
+  const long long i = first + threadIdx.x;
+  if (i < n) {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) w[4 * i + k] = wl[k];
+    if (sweeps != nullptr) sweeps[i] = s;
+  }
+  __syncthreads();
+  stage_out<S>(sm, first, n, v);
 }
 
 template <typename S>
@@ -257,14 +338,16 @@ int launch(const S* m, S* w, S* v, int* sweeps, long long n, S eps,
   if (n <= 0) return 0;
   const long long blocks = (n + kThreads - 1) / kThreads;
   if (blocks > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
-  herm4_kernel<S><<<static_cast<unsigned>(blocks), kThreads, 0,
-                    static_cast<cudaStream_t>(stream)>>>(m, w, v, sweeps, n,
-                                                         eps * eps);
+  const unsigned grid = static_cast<unsigned>(blocks);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  herm4_thread_kernel<S><<<grid, kThreads, 0, s>>>(m, w, v, sweeps, n,
+                                                   eps * eps);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename F>
-int attributes(F* kernel, int* info) {
+template <typename S>
+int attributes(int* info) {
+  const auto kernel = herm4_thread_kernel<S>;
   cudaFuncAttributes a;
   cudaError_t rc = cudaFuncGetAttributes(&a, kernel);
   if (rc != cudaSuccess) return static_cast<int>(rc);
@@ -284,11 +367,11 @@ int attributes(F* kernel, int* info) {
 
 #ifdef __CUDACC__
 // All pointers are device pointers, launched on `stream`: m (n, 4, 4)
-// complex (interleaved re, im), w (n, 4), v (n, 4, 4) complex, sweeps (n,)
-// int32 or null. Each launch returns the cudaError_t of its launch (0 on
-// success); each *_attributes fills info (5 ints): registers per thread,
-// local bytes per thread, shared bytes per block, threads per block and
-// resident blocks per SM.
+// complex (interleaved re, im; 16-byte aligned), w (n, 4), v (n, 4, 4)
+// complex (16-byte aligned), sweeps (n,) int32 or null. Each launch returns
+// the cudaError_t of its launch (0 on success); each *_attributes fills
+// info (5 ints): registers per thread, local bytes per thread, shared bytes
+// per block, threads per block and resident blocks per SM.
 extern "C" int herm4_eig_f32(const float* m, float* w, float* v, int* sweeps,
                              long long n, void* stream) {
   return herm4::launch<float>(m, w, v, sweeps, n, 1.1920928955078125e-07f,
@@ -302,10 +385,10 @@ extern "C" int herm4_eig_f64(const double* m, double* w, double* v,
 }
 
 extern "C" int herm4_eig_attributes_f32(int* info) {
-  return herm4::attributes(herm4::herm4_kernel<float>, info);
+  return herm4::attributes<float>(info);
 }
 
 extern "C" int herm4_eig_attributes_f64(int* info) {
-  return herm4::attributes(herm4::herm4_kernel<double>, info);
+  return herm4::attributes<double>(info);
 }
 #endif  // __CUDACC__

@@ -14,9 +14,10 @@ port of a Pallas kernel; the source says what bounds it):
 - :func:`gauss_sum_vjp`: for a cotangent g (B, M), ``A[b,i] = sum_j g k_ij``
   and ``C[b,d,i] = sum_j g k_ij u_dij^2`` (u the scaled difference), from
   which torch ops form the gradients of c, lambda and h;
-- :func:`gauss_sum_jvp`: the sum and its tangent along (dih, dil2, dc) in
-  one pass, ``dout[b,j] = sum_i k_ij (dc_i - 1/2 c_i (dil2_i z_ij + il2_i
-  dz_ij))``, ``dz_ij = sum_d 2 ih_d dih_d (p_dj - x_di)^2``.
+- :func:`gauss_sum_jvp`: the sum and its tangents along K directions
+  (dih, dil2, dc) in one pass, ``dout[k,b,j] = sum_i k_ij (dc_ki - 1/2 c_i
+  (dil2_ki z_ij + il2_i dz_kij))``, ``dz_kij = sum_d 2 ih_d dih_kd (p_dj -
+  x_di)^2``; the directions share each pair's distance and exponential.
 
 Live counts: every function takes ``n_live`` and ``m_live`` (B,) integer
 tensors on the inputs' device, or None (all N, all M). Row b then sums over
@@ -26,17 +27,18 @@ for its samples (the pilot's points are its samples); ``utils/kde.py``
 orders each PID channel's own samples first, so the pairs that the dense
 sum multiplied by a zero weight are never visited.
 
-The sum and the vjp are register-tiled (each thread owns R outputs and one
-staged 16-byte entry serves R pairs), take the float32 exponential on MUFU
-as ``ex2.approx`` of an exponent that carries log2(e), and cut their inner
-side over ``splits`` blocks where the outer side is too short to fill the
-card, with a fixed-order second pass (:func:`launch_splits`). The sum is
-bounded by MUFU, the vjp by dispatching its FMA-pipe instructions (about
-8/11 of the MUFU bound at D = 2; the source note has the counts). On an
-H100 in float32 at kde_example's 24 x 20,000 samples the pilot's sum runs
-at 81% of its bound dense and 74% on the live pairs, its vjp at 56% and
-52% (``chip_smoke.py:kde_vs_plain``). The jvp keeps its first design (one
-thread per point).
+All three are register-tiled (each thread owns R outputs and one staged
+entry of whole 16-byte words serves R pairs), take the float32
+exponential on MUFU as ``ex2.approx`` of an exponent that carries log2(e),
+and cut their inner side over ``splits`` blocks where the outer side is
+too short to fill the card, with a fixed-order second pass
+(:func:`launch_splits`). The sum is bounded by MUFU, the vjp and the jvp by
+dispatching their FMA-pipe instructions (the source note has the counts).
+On an H100 in float32 at kde_example's 24 x 20,000 samples the pilot's sum
+runs at 81% of its bound dense and 74% on the live pairs, its vjp at 56%
+and 52% (``chip_smoke.py:kde_vs_plain``), the jvp on the live pairs at 47%
+for a Fisher matrix's 3 directions and 43% for one
+(``chip_smoke.py:kde_jvp_vs_plain``).
 
 CPU tensors go through the plain versions (:func:`gauss_sum_reference`,
 :func:`gauss_sum_vjp_reference`, :func:`gauss_sum_jvp_reference`, chunked
@@ -51,8 +53,9 @@ the local widths lambda, the norms and the sum at the points) as one
 ``torch.autograd.Function`` around the kernels: backward by hand (two vjp
 launches with the pilot, one without), forward mode by hand (two jvp
 launches with the pilot, one without; the directions of a
-``torch.func.jacfwd`` share them as more rows of the batch), and a vmap
-rule that folds the vmapped axis into the batch.
+``torch.func.jacfwd`` go to the same launches as the kernel's direction
+axis, in chunks of :data:`MAX_DIRECTIONS`), and a vmap rule that folds the
+vmapped axis into the batch.
 
 :func:`kde_operations` and :func:`kde_bound_ms` count the work (of the live
 pairs, where counts are given) and give the least time an H100 could take
@@ -86,10 +89,15 @@ __all__ = [
     "vjp_launch_count",
     "jvp_launch_count",
     "MAX_DIMS",
+    "MAX_DIRECTIONS",
 ]
 
 #: the kernels' largest number of dimensions
 MAX_DIMS = 3
+#: the most directions one ``kde_gauss_sum_jvp`` launch takes (its
+#: templates K = 1..6); :class:`AdaptiveDensity`'s forward mode cuts more
+#: into chunks of this many
+MAX_DIRECTIONS = 6
 
 #: launches of ``kde_gauss_sum`` / ``kde_gauss_sum_vjp`` /
 #: ``kde_gauss_sum_jvp`` made in this process by :func:`gauss_sum` /
@@ -109,7 +117,7 @@ _WAVES = 8
 #: the vjp's second pass reads 1 + D values a sample and split, and at the
 #: grid's 1,320 points 10 splits took 11-13% longer than 5
 #: (scripts/tune_kde.py on an H100)
-_MIN_TILES = {"sum": 1, "vjp": 2}
+_MIN_TILES = {"sum": 1, "vjp": 2, "jvp": 1}
 
 _CSRC = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
@@ -147,42 +155,47 @@ def _row_counts(counts, batch, full):
     return counts
 
 
-def kde_operations(kind, batch, dims, n, m, n_live=None, m_live=None):
+def kde_operations(kind, batch, dims, n, m, n_live=None, m_live=None,
+                   directions=1):
     """The work of one launch: ``{"pairs", "flops", "exps"}`` for `kind`
     "sum" (3D + 2 operations and one exp a pair: D subtractions, D squares
     and D - 1 additions, the width's multiply, the weight's multiply-add),
     "vjp" (5D + 2: the same distance, g k, the sum A and D multiply-adds
-    for C) or "jvp" (5D + 9: the sum's, D multiply-adds for dz and 7 for
-    the tangent's term and its sum). With live counts (each row's, as the
-    kernels take them; None: all) only the live pairs count."""
+    for C) or "jvp" with K `directions` (4D + 2 + K (2D + 2): the sum's 3D
+    + 2, the D products k u_d^2, and for each direction a multiply-add of
+    dc and D of the staged G; ``csrc/kde_gauss.cu``). With live counts
+    (each row's, as the kernels take them; None: all) only the live pairs
+    count."""
     nl = _row_counts(n_live, batch, n)
     ml = _row_counts(m_live, batch, m)
     pairs = sum(a * b for a, b in zip(nl, ml))
     per = {"sum": 3 * dims + 2, "vjp": 5 * dims + 2,
-           "jvp": 5 * dims + 9}[kind]
+           "jvp": 4 * dims + 2 + int(directions) * (2 * dims + 2)}[kind]
     return {"pairs": pairs, "flops": pairs * per, "exps": pairs}
 
 
 def kde_bound_ms(kind, batch, dims, n, m, dtype, shared_points=True,
-                 n_live=None, m_live=None):
+                 n_live=None, m_live=None, directions=1):
     """(least milliseconds an H100 SXM could take, "operations" or "bytes")
     for one launch: the larger of the bytes (each live input read once,
-    each output written once, over :data:`HBM_BYTES_PER_S`) and the
+    each output written once, over :data:`HBM_BYTES_PER_S`; the jvp's K
+    `directions` read K tangent sets and write K tangents) and the
     operations of :func:`kde_operations` (the live pairs where counts are
     given). In float32 the operations' time is the larger of the FMA pipe's
     (:data:`FP32_FLOPS`) and the exps' on the special-function unit
     (:data:`MUFU_EXP_PER_S`); in float64 every operation, the exp counted as
     one, runs on the FMA pipe (:data:`FP64_FLOPS`)."""
-    ops = kde_operations(kind, batch, dims, n, m, n_live, m_live)
+    ops = kde_operations(kind, batch, dims, n, m, n_live, m_live, directions)
     item = torch.finfo(dtype).bits // 8
     sn = sum(_row_counts(n_live, batch, n))
     sm = sum(_row_counts(m_live, batch, m))
     points = dims * (m if shared_points else sm)
+    K = int(directions)
     if kind == "sum":
         values = dims * sn + points + batch * dims + 2 * sn + batch * m
     elif kind == "jvp":
-        values = dims * sn + points + 2 * batch * dims + 4 * sn \
-            + 2 * batch * m
+        values = dims * sn + points + (1 + K) * batch * dims \
+            + (2 + 2 * K) * sn + (1 + K) * batch * m
     else:
         values = dims * sn + points + batch * dims + sn + sm \
             + batch * n * (1 + dims)
@@ -223,29 +236,32 @@ def bind_library(lib):
         fn.restype = _I
         fns[f"vjp_{suffix}"] = fn
         fn = getattr(lib, f"kde_gauss_sum_jvp_{suffix}")
-        fn.argtypes = [_P, _P, _LL] + [_P] * 10 + [_I] * 4 + [_P]
+        fn.argtypes = [_P, _P, _LL] + [_P] * 11 + [_I] * 6 + [_P]
         fn.restype = _I
         fns[f"jvp_{suffix}"] = fn
         fn = getattr(lib, f"kde_gauss_attributes_{suffix}")
-        fn.argtypes = [_I, _I, _P]
+        fn.argtypes = [_I, _I, _I, _P]
         fn.restype = _I
         fns[f"attributes_{suffix}"] = fn
     return types.SimpleNamespace(**fns)
 
 
-def kernel_attributes(kind, dims, dtype, lib=None):
+def kernel_attributes(kind, dims, dtype, lib=None, directions=1):
     """Registers per thread, local bytes per thread, shared bytes per block,
     threads per block, resident blocks per SM, outputs per thread and the
-    card's SMs of the `kind` ("sum", "vjp" or "jvp") kernel at `dims` in
-    `dtype`, on the current card (of `lib`, a :func:`bind_library`
-    namespace, else of :func:`kernel_library`; cached per card)."""
+    card's SMs of the `kind` ("sum", "vjp" or "jvp", the latter at K
+    `directions`) kernel at `dims` in `dtype`, on the current card (of
+    `lib`, a :func:`bind_library` namespace, else of
+    :func:`kernel_library`; cached per card)."""
     lib = kernel_library() if lib is None else lib
     suffix = "f64" if dtype == torch.float64 else "f32"
-    key = (id(lib), kind, int(dims), suffix, torch.cuda.current_device())
+    directions = int(directions) if kind == "jvp" else 1
+    key = (id(lib), kind, int(dims), directions, suffix,
+           torch.cuda.current_device())
     if key not in _ATTRS:
         info = (ctypes.c_int * 7)()
         rc = getattr(lib, f"attributes_{suffix}")(
-            {"sum": 0, "vjp": 1, "jvp": 2}[kind], int(dims),
+            {"sum": 0, "vjp": 1, "jvp": 2}[kind], int(dims), directions,
             ctypes.addressof(info))
         if rc != 0:
             raise RuntimeError(f"kde_gauss attributes: CUDA error {rc}")
@@ -255,14 +271,15 @@ def kernel_attributes(kind, dims, dtype, lib=None):
     return dict(_ATTRS[key])
 
 
-def launch_splits(kind, dims, dtype, batch, outer, inner, lib=None):
-    """How many blocks the inner side of a `kind` ("sum" or "vjp") launch
-    is cut over, from the shapes alone (no count is read): enough for
-    :data:`_WAVES` waves of the card's resident blocks where the outer side
-    (points for the sum, samples for the vjp) gives fewer, and no split
-    below :data:`_MIN_TILES` staged tiles of the inner side (the
-    numbers of ``scripts/tune_kde.py`` on an H100)."""
-    a = kernel_attributes(kind, dims, dtype, lib)
+def launch_splits(kind, dims, dtype, batch, outer, inner, lib=None,
+                  directions=1):
+    """How many blocks the inner side of a `kind` ("sum", "vjp" or "jvp")
+    launch is cut over, from the shapes alone (no count is read): enough
+    for :data:`_WAVES` waves of the card's resident blocks where the outer
+    side (points for the sum and the jvp, samples for the vjp) gives fewer,
+    and no split below :data:`_MIN_TILES` staged tiles of the inner side
+    (the numbers of ``scripts/tune_kde.py`` on an H100)."""
+    a = kernel_attributes(kind, dims, dtype, lib, directions)
     tile = a["threads"] * a["outputs_per_thread"]
     blocks = max(1, -(-int(outer) // tile) * int(batch))
     want = -(-(_WAVES * a["sms"] * max(1, a["blocks_per_sm"])) // blocks)
@@ -401,49 +418,63 @@ def gauss_sum_jvp_reference(x, p, ih, dih, il2, dil2, c, dc, n_live=None,
                             m_live=None):
     """The plain version of :func:`gauss_sum_jvp`, in the kernel's
     arithmetic (dz from the ih-scaled differences and r = 2 dih / ih),
-    chunked over the points: (out (B, M), dout (B, M)), the tangent's terms
-    with k = 0 left out as the kernel leaves them out, the samples past
+    chunked over the points: (out (B, M), dout (B, M), or (K, B, M) where
+    the tangents carry a leading axis of K directions), the tangent's terms
+    with k = 0 left out as the kernel leaves them out, a sample whose c is
+    0 adding k dc alone (as the kernel stages it), the samples past
     ``n_live`` left out, the points past ``m_live`` zero."""
     B, D, N, M = _check(x, p, ih, il2, c, x.shape[-1])
-    _check_tangents(x, dih, dil2, dc)
+    multi = _check_tangents(x, dih, dil2, dc)
     _check_counts(x, n_live, m_live)
-    xs, chunks = _point_chunks(x, p, ih, B * N * D)
+    if not multi:
+        dih, dil2, dc = (t.unsqueeze(0) for t in (dih, dil2, dc))
+    K = dih.shape[0]
+    xs, chunks = _point_chunks(x, p, ih, B * N * D * K)
     nl = _neg_half_widths(il2)
     ndl = (-0.5 * dil2).unsqueeze(-1)
-    r = (2.0 * dih / ih)[:, :, None, None]
+    r = (2.0 * dih / ih)[..., None, None]
     c1, dc1 = c.unsqueeze(-1), dc.unsqueeze(-1)
+    weightless = c1 == 0
     ok_i = _live_mask(n_live, B, N, x.device)
     out = torch.empty((B, M), dtype=x.dtype, device=x.device)
-    dout = torch.empty((B, M), dtype=x.dtype, device=x.device)
+    dout = torch.empty((K, B, M), dtype=x.dtype, device=x.device)
     for sl, ps in chunks:
         u2 = torch.square(ps - xs)  # (B, D, N, m)
         z = u2.sum(1)
         k = torch.exp(nl * z)  # (B, N, m)
-        term = dc1 + c1 * (ndl * z + nl * (r * u2).sum(1))
+        term = dc1 + torch.where(  # (K, B, N, m)
+            weightless, 0.0, c1 * (ndl * z + nl * (r * u2).sum(2)))
         keep = k != 0
         ck = c1 * k
         if ok_i is not None:
             keep = keep & ok_i.unsqueeze(-1)
             ck = torch.where(ok_i.unsqueeze(-1), ck, 0.0)
         out[:, sl] = ck.sum(1)
-        dout[:, sl] = torch.where(keep, k * term, 0.0).sum(1)
+        dout[..., sl] = torch.where(keep, k * term, 0.0).sum(-2)
     ok_j = _live_mask(m_live, B, M, x.device)
     if ok_j is not None:
         out = torch.where(ok_j, out, 0.0)
         dout = torch.where(ok_j, dout, 0.0)
-    return out, dout
+    return out, dout if multi else dout[0]
 
 
 def _check_tangents(x, dih, dil2, dc):
-    """The jvp's tangents: dih (B, D), dil2 and dc (B, N), x's type and
-    device."""
+    """The jvp's tangents: dih (B, D), dil2 and dc (B, N), or all three with
+    one leading axis of K >= 1 directions; x's type and device. Returns
+    whether they carry the direction axis."""
     B, D, N = x.shape
-    for name, t, shape in (("dih", dih, (B, D)), ("dil2", dil2, (B, N)),
-                           ("dc", dc, (B, N))):
+    multi = dih.dim() == 3
+    lead = (dih.shape[0],) if multi else ()
+    if multi and dih.shape[0] < 1:
+        raise ValueError("the tangents carry no direction")
+    for name, t, shape in (("dih", dih, lead + (B, D)),
+                           ("dil2", dil2, lead + (B, N)),
+                           ("dc", dc, lead + (B, N))):
         if tuple(t.shape) != shape:
             raise ValueError(f"{name} must be {shape}; got {tuple(t.shape)}")
         if t.dtype != x.dtype or t.device != x.device:
             raise ValueError("every input must share x's type and device")
+    return multi
 
 
 def _launch_args(x, p, ih, il2, last):
@@ -542,41 +573,53 @@ def gauss_sum_vjp(x, p, ih, il2, g, n_live=None, m_live=None, splits=None,
 
 
 def gauss_sum_jvp(x, p, ih, dih, il2, dil2, c, dc, n_live=None,
-                  m_live=None):
-    """(out, dout), each (B, M): :func:`gauss_sum` and its tangent along
-    the tangents dih (B, D), dil2 and dc (B, N) of ih, il2 and c (x and the
+                  m_live=None, splits=None, lib=None):
+    """(out, dout): :func:`gauss_sum` (B, M) and its tangents along the
+    tangents dih (B, D), dil2 and dc (B, N) of ih, il2 and c (x and the
     points are data), ``dout[b,j] = sum_i k_ij (dc_i - 1/2 c_i (dil2_i z_ij
     + il2_i dz_ij))`` with ``dz_ij = sum_d 2 ih_d dih_d (p_dj - x_di)^2``
     and the terms with k = 0 left out; live counts as for
-    :func:`gauss_sum`. One direction a call; more directions are more rows
-    of the batch. CPU tensors take the plain version; CUDA tensors launch
-    ``kde_gauss_sum_jvp`` or raise."""
+    :func:`gauss_sum`. With a leading axis of K directions on all three
+    tangents ((K, B, D), (K, B, N), (K, B, N); 1 <= K <=
+    :data:`MAX_DIRECTIONS`) dout is (K, B, M), from one launch that forms
+    each pair's distance and exponential once. CPU tensors take the plain
+    version; CUDA tensors launch ``kde_gauss_sum_jvp`` or raise. `splits`
+    and `lib` as for :func:`gauss_sum`."""
     global jvp_launch_count
     B, D, N, M = _check(x, p, ih, il2, c, x.shape[-1])
-    _check_tangents(x, dih, dil2, dc)
+    multi = _check_tangents(x, dih, dil2, dc)
+    K = dih.shape[0] if multi else 1
+    if K > MAX_DIRECTIONS:
+        raise ValueError(f"one launch takes at most {MAX_DIRECTIONS}"
+                         f" directions, not {K}")
     _check_counts(x, n_live, m_live)
     if x.device.type == "cpu":
         return gauss_sum_jvp_reference(x, p, ih, dih, il2, dil2, c, dc,
                                        n_live, m_live)
+    lib = kernel_library() if lib is None else lib
     x, p, bstride, ih, il2, c = _launch_args(x, p, ih, il2, c)
     dih, dil2, dc = (t.contiguous() for t in (dih, dil2, dc))
     n_live, n_ptr = _counts_ptr(n_live)
     m_live, m_ptr = _counts_ptr(m_live)
     out = torch.empty((B, M), dtype=x.dtype, device=x.device)
-    dout = torch.empty((B, M), dtype=x.dtype, device=x.device)
+    dout = torch.empty((K, B, M), dtype=x.dtype, device=x.device)
     suffix = "f64" if x.dtype == torch.float64 else "f32"
     with torch.cuda.device(x.device):
+        if splits is None:
+            splits = launch_splits("jvp", D, x.dtype, B, M, N, lib, K)
+        scratch = torch.empty((splits, 1 + K, B, M), dtype=x.dtype,
+                              device=x.device) if splits > 1 else None
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = getattr(kernel_library(), f"jvp_{suffix}")(
+        rc = getattr(lib, f"jvp_{suffix}")(
             x.data_ptr(), p.data_ptr(), bstride, ih.data_ptr(),
             dih.data_ptr(), il2.data_ptr(), dil2.data_ptr(), c.data_ptr(),
             dc.data_ptr(), n_ptr, m_ptr, out.data_ptr(), dout.data_ptr(),
-            B, D, N, M, stream)
+            _ptr(scratch), B, D, K, N, M, int(splits), stream)
     if rc != 0:
         raise RuntimeError(f"kde_gauss_sum_jvp launch failed: CUDA error"
                            f" {rc}")
     jvp_launch_count += 1
-    return out, dout
+    return out, dout if multi else dout[0]
 
 
 # -- the adaptive density ----------------------------------------------------------
@@ -627,9 +670,10 @@ class AdaptiveDensity(torch.autograd.Function):
     `adaptive` a second :func:`gauss_sum_vjp` at the samples. Forward mode
     (jvp): :class:`_DensityTangent`, the backward's chain run forwards, on
     :func:`gauss_sum_jvp` at the samples (with `adaptive`) and at the
-    points; its vmap rule takes the K directions of a ``torch.func.jacfwd``
-    as K more rows of the same two launches. vmap: the vmapped axis joins
-    the batch of one launch."""
+    points; its vmap rule hands the K directions of a ``torch.func.jacfwd``
+    to the same two launches as their direction axis (in chunks of
+    :data:`MAX_DIRECTIONS`). vmap: the vmapped axis joins the batch of one
+    launch."""
 
     @staticmethod
     def forward(x, w, h, points, adaptive, alpha, counts):
@@ -736,48 +780,84 @@ def _fold_points(points, dim, size, batch):
     return pb.reshape((size * batch,) + tuple(pb.shape[2:]))
 
 
+def _tangent_chunk(x, w, points, pilot, q, dw, dh, adaptive, alpha,
+                   counts):
+    """The density's tangents (K, B, M) along K <= MAX_DIRECTIONS
+    directions dw (K, B, N) and dh (K, B, D) (either None: zero), given the
+    widths `q` of the primal: ``_widths``'s chain run forwards in torch ops,
+    broadcast over the directions, around one :func:`gauss_sum_jvp` launch
+    at the samples (with `adaptive`) and one at the points."""
+    D = x.shape[1]
+    K = (dw if dw is not None else dh).shape[0]
+    dw = w.new_zeros((K,) + tuple(w.shape)) if dw is None else dw
+    dh = w.new_zeros((K,) + tuple(q["ih"].shape)) if dh is None else dh
+    ih, Kn = q["ih"], q["K"]
+    dih = -dh * ih * ih
+    dK = Kn * (dh * ih).sum(-1)
+    dnorm0 = torch.where(Kn > 0, dK, 0.0)
+    dc0 = (dw - q["c0"] * dnorm0[..., None]) / q["norm0"][:, None]
+    lam = q["lam"]
+    if adaptive:
+        _, dpilot = gauss_sum_jvp(x, x, ih, dih, torch.ones_like(w),
+                                  torch.zeros_like(dw), q["c0"], dc0,
+                                  counts, counts)
+        tiny = torch.finfo(x.dtype).tiny
+        live = pilot > tiny
+        dlp = torch.where(live, dpilot / torch.where(live, pilot, 1.0), 0.0)
+        dlog_g = (dw * q["lp"] + w * dlp).sum(-1, keepdim=True)
+        dlam = -alpha * lam * (dlp - dlog_g)
+    else:
+        dlam = torch.zeros_like(dw)
+    dnorm = torch.where(q["norm"] > 0, dK[..., None] * lam ** D
+                        + Kn[:, None] * D * lam ** (D - 1) * dlam, 0.0)
+    dc = (dw - q["c"] * dnorm) / q["norms"]
+    dil2 = -2.0 * dlam / lam ** 3
+    return gauss_sum_jvp(x, points, ih, dih, q["il2"], dil2, q["c"], dc,
+                         counts)[1]
+
+
+def _has_directions(t, dim, ref, ref_dim):
+    """Whether tangent `t` (physical, vmapped at `dim` or not) carries a
+    direction axis before the shape of its primal `ref` (vmapped at
+    `ref_dim` or not)."""
+    return t is not None and \
+        t.dim() - (dim is not None) > ref.dim() - (ref_dim is not None)
+
+
 class _DensityTangent(torch.autograd.Function):
     """The tangent (B, M) of :class:`AdaptiveDensity`'s density along the
-    tangents dw (B, N) and dh (B, D) of w and h (None: zero): the chain of
-    ``_widths`` run forwards in torch ops around two :func:`gauss_sum_jvp`
-    launches, the pilot's at the samples (il2 = 1, dil2 = 0; with
-    `adaptive`) and the density's at the points. The guards are the
+    tangents dw (B, N) and dh (B, D) of w and h (None: zero), or the K
+    tangents (K, B, M) where dw (K, B, N) and dh (K, B, D) carry a leading
+    axis of K directions: the chain of ``_widths`` run forwards in torch
+    ops around :func:`gauss_sum_jvp`, the pilot's launch at the samples (il2
+    = 1, dil2 = 0; with `adaptive`) and the density's at the points, two
+    launches for each :data:`MAX_DIRECTIONS` directions. The guards are the
     backward's: where a norm underflowed or the pilot is below the type's
     smallest normal number, the tangent through it is 0. `counts` as for
-    :class:`AdaptiveDensity`. Its vmap rule folds the vmapped axis into the
-    batch, so that a ``torch.func.jacfwd``'s K directions are K more rows
-    of the same two launches. A forward-mode rule: it has no backward."""
+    :class:`AdaptiveDensity`. Its vmap rule: where only the tangents carry
+    the vmapped axis (a ``torch.func.jacfwd``'s directions), that axis
+    becomes the direction axis of the same launches; where the primals
+    carry it as well (lanes), it is folded into the batch. A forward-mode
+    rule: it has no backward."""
 
     @staticmethod
     def forward(x, w, h, points, pilot, dw, dh, adaptive, alpha, counts):
-        D = x.shape[1]
+        multi = _has_directions(dw, None, w, None) or \
+            _has_directions(dh, None, h, None)
+        if not multi:
+            dw, dh = (None if t is None else t.unsqueeze(0)
+                      for t in (dw, dh))
+        if dw is None and dh is None:
+            dw = torch.zeros_like(w).unsqueeze(0)
         q = _widths(x, w, h, pilot, adaptive, alpha)
-        dw = torch.zeros_like(w) if dw is None else dw
-        dh = torch.zeros_like(h) if dh is None else dh
-        ih, K = q["ih"], q["K"]
-        dih = -dh * ih * ih
-        dK = K * (dh * ih).sum(-1)
-        dnorm0 = torch.where(K > 0, dK, 0.0)
-        dc0 = (dw - q["c0"] * dnorm0[:, None]) / q["norm0"][:, None]
-        lam = q["lam"]
-        if adaptive:
-            _, dpilot = gauss_sum_jvp(x, x, ih, dih, torch.ones_like(w),
-                                      torch.zeros_like(w), q["c0"], dc0,
-                                      counts, counts)
-            tiny = torch.finfo(x.dtype).tiny
-            live = pilot > tiny
-            dlp = torch.where(live, dpilot / torch.where(live, pilot, 1.0),
-                              0.0)
-            dlog_g = (dw * q["lp"] + w * dlp).sum(-1, keepdim=True)
-            dlam = -alpha * lam * (dlp - dlog_g)
-        else:
-            dlam = torch.zeros_like(w)
-        dnorm = torch.where(q["norm"] > 0, dK[:, None] * lam ** D
-                            + K[:, None] * D * lam ** (D - 1) * dlam, 0.0)
-        dc = (dw - q["c"] * dnorm) / q["norms"]
-        dil2 = -2.0 * dlam / lam ** 3
-        return gauss_sum_jvp(x, points, ih, dih, q["il2"], dil2, q["c"],
-                             dc, counts)[1]
+        K = (dw if dw is not None else dh).shape[0]
+        parts = [_tangent_chunk(
+            x, w, points, pilot, q,
+            None if dw is None else dw[k0:k0 + MAX_DIRECTIONS],
+            None if dh is None else dh[k0:k0 + MAX_DIRECTIONS],
+            adaptive, alpha, counts) for k0 in range(0, K, MAX_DIRECTIONS)]
+        out = parts[0] if len(parts) == 1 else torch.cat(parts)
+        return out if multi else out[0]
 
     @staticmethod
     def setup_context(ctx, inputs, output):
@@ -787,14 +867,47 @@ class _DensityTangent(torch.autograd.Function):
     def vmap(info, in_dims, x, w, h, points, pilot, dw, dh, adaptive, alpha,
              counts):
         size = info.batch_size
-        x, w, h, pilot, dw, dh, counts = _fold(
-            (x, w, h, pilot, dw, dh, counts),
-            (in_dims[0], in_dims[1], in_dims[2], in_dims[4], in_dims[5],
-             in_dims[6], in_dims[9]), size)
+        multi = _has_directions(dw, in_dims[5], w, in_dims[1]) or \
+            _has_directions(dh, in_dims[6], h, in_dims[2])
+        primals = (in_dims[0], in_dims[1], in_dims[2], in_dims[3],
+                   in_dims[4], in_dims[9])
+        if all(d is None for d in primals):
+            # a jacfwd: the vmapped axis becomes (the front of) the
+            # direction axis
+            def lead(t, d):
+                if t is None:
+                    return None
+                t = t.movedim(d, 0) if d is not None else t.expand(
+                    (size,) + tuple(t.shape))
+                return t.reshape((-1,) + tuple(t.shape[2:])) if multi else t
+            out = _DensityTangent.apply(x, w, h, points, pilot,
+                                        lead(dw, in_dims[5]),
+                                        lead(dh, in_dims[6]), adaptive,
+                                        alpha, counts)
+            if multi:
+                out = out.reshape((size, -1) + tuple(out.shape[1:]))
+            return out, 0
+        # lanes: the vmapped axis joins the batch, after any direction axis
+        x, w, h, pilot, counts = _fold(
+            (x, w, h, pilot, counts),
+            (in_dims[0], in_dims[1], in_dims[2], in_dims[4], in_dims[9]),
+            size)
         B = x.shape[0] // size
         pb = _fold_points(points, in_dims[3], size, B)
+        if multi:
+            def fold(t, d):
+                if t is None:
+                    return None
+                t = t.movedim(d, 1) if d is not None else t.unsqueeze(
+                    1).expand((t.shape[0], size) + tuple(t.shape[1:]))
+                return t.reshape((t.shape[0], -1) + tuple(t.shape[3:]))
+            dw, dh = fold(dw, in_dims[5]), fold(dh, in_dims[6])
+        else:
+            dw, dh = _fold((dw, dh), (in_dims[5], in_dims[6]), size)
         out = _DensityTangent.apply(x, w, h, pb, pilot, dw, dh, adaptive,
                                     alpha, counts)
+        if multi:
+            return out.reshape((out.shape[0], size, B, -1)), 1
         return out.reshape(size, B, -1), 0
 
 

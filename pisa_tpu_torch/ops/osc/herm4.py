@@ -11,8 +11,9 @@ check, so a CUDA graph cannot capture it, and every fit route of the port
 replays a captured program (its cuSOLVER route also refuses batches of
 32,768 4x4 matrices and more on the H100 machine, torch 2.11 with CUDA
 12.8). The card therefore runs a hand-written kernel,
-``pisa_tpu_torch/csrc/herm4_eig.cu`` (cyclic Jacobi, one thread per
-matrix), which reads nothing back:
+``pisa_tpu_torch/csrc/herm4_eig.cu`` (cyclic Jacobi, one thread a matrix,
+the block's matrices staged through shared memory as 16-byte words), which
+reads nothing back:
 
 - :func:`herm4_eig`: the eigenvalues in ascending order and the
   eigenvectors (as columns); CPU tensors go through the plain version,
@@ -75,13 +76,13 @@ def herm4_operations(sweeps):
     add, subtract, multiply, divide, sqrt and rsqrt counts one; compares,
     selects and negations count nothing. A matrix costs 61 (the Hermitian
     part, the scaling and the scaling back), 31 per convergence check (one
-    more than its sweeps, unless it stopped at the bound) and 864 per
-    sweep (6 rotations of 144); ``tests/test_torch_herm4_source.py``
-    checks these numbers against the source compiled for the host with an
+    more than its sweeps, unless it stopped at the bound) and 846 per sweep
+    (6 rotations of 141); ``tests/test_torch_herm4_source.py`` checks these
+    numbers against the source compiled for the host with an
     operation-counting type."""
     sweeps = torch.as_tensor(sweeps).to(torch.int64)
     checks = sweeps + (sweeps < MAX_SWEEPS).to(torch.int64)
-    return int((61 + 31 * checks + 864 * sweeps).sum())
+    return int((61 + 31 * checks + 846 * sweeps).sum())
 
 
 def hermitian_part(H):
@@ -161,6 +162,8 @@ def herm4_eig(H, sweeps=False):
         raise ValueError(f"unsupported device {H.device}")
     lead = tuple(H.shape[:-2])
     flat = H.reshape(-1, 4, 4).contiguous()
+    if flat.data_ptr() % 16:  # the kernel loads 16-byte words
+        flat = flat.clone()
     n = flat.shape[0]
     real = torch.float64 if H.dtype == torch.complex128 else torch.float32
     w = torch.empty((n, 4), dtype=real, device=H.device)

@@ -7,7 +7,8 @@ checkout only, into ``build/pisa_tpu_torch/`` beside the package. The file
 name carries a hash of the sources and flags, so an edited source forces a
 rebuild. Libraries asked for together are compiled in parallel, one ``nvcc``
 each. The compiler's ``-Xptxas -v`` report (registers, spills, shared memory
-per kernel) is printed once, when a library is built.
+per kernel) is printed once, when a library is built, with the seconds that
+its ``nvcc`` took.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import time
 
 __all__ = ["build_libraries", "BUILD_DIR", "NVCC_FLAGS"]
 
@@ -78,13 +80,22 @@ def build_libraries(specs):
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
         cmd = [_nvcc(), *NVCC_FLAGS, *flags, "-o", tmp, *sources]
-        proc = subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
-        )
-        jobs[name] = (cmd, tmp, proc)
+        out = tempfile.TemporaryFile(mode="w+")
+        proc = subprocess.Popen(cmd, stdout=out, stderr=subprocess.STDOUT,
+                                text=True)
+        jobs[name] = (cmd, tmp, proc, out, time.perf_counter())
+    # each build's own time, from its start to its exit
+    took = {}
+    while len(took) < len(jobs):
+        for name, (_, _, proc, _, t0) in jobs.items():
+            if name not in took and proc.poll() is not None:
+                took[name] = time.perf_counter() - t0
+        time.sleep(0.05)
     failures = []
-    for name, (cmd, tmp, proc) in jobs.items():
-        log, _ = proc.communicate()
+    for name, (cmd, tmp, proc, out, _) in jobs.items():
+        out.seek(0)
+        log = out.read()
+        out.close()
         if proc.returncode != 0:
             os.unlink(tmp)
             failures.append(
@@ -92,7 +103,8 @@ def build_libraries(specs):
                 f"{' '.join(cmd)}\n{log}"
             )
             continue
-        print(f"[cuda_build] built {paths[name]}", file=sys.stderr)
+        print(f"[cuda_build] built {paths[name]} in {took[name]:.1f} s",
+              file=sys.stderr)
         print(log, file=sys.stderr, end="")
         os.replace(tmp, paths[name])
     if failures:

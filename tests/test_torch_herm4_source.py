@@ -4,13 +4,14 @@ the C++ compiler (its ``solve`` is ``__host__ __device__``): the cyclic
 Jacobi eigen-decomposition of 4x4 complex Hermitian matrices against
 numpy's ``eigh`` (eigenvalues to 1e-13 of the matrix's norm in float64,
 1e-5 in float32; eigenvectors by their residual ``|H v - w v|``), at random
-matrices, near-degenerate ones and the 3+1 layer steps' Hamiltonians at the
-TeV resonance, and the operation count behind the kernel's bound
+matrices, near-degenerate and exactly degenerate ones, non-Hermitian input,
+the zero matrix and the 3+1 layer steps' Hamiltonians at the TeV resonance,
+and the operation count behind the kernel's bound
 (``herm4.herm4_operations``) against the source run with an
 operation-counting scalar type. This checks the CUDA source's arithmetic
 without a card; the kernel itself runs only on one (``chip_smoke.py``, the
-``cuda`` tests of tests/test_torch_sterile.py). Skipped where no C++
-compiler is installed.
+``cuda`` tests here and in tests/test_torch_sterile.py). Skipped where no
+C++ compiler is installed.
 """
 
 import ctypes
@@ -44,27 +45,27 @@ inline Cnt h4_sqrt(Cnt x) { ++g_ops; return Cnt(std::sqrt(x.v)); }
 inline Cnt h4_rsqrt(Cnt x) { ++g_ops; return Cnt(1.0 / std::sqrt(x.v)); }
 inline Cnt h4_fabs(Cnt x) { return Cnt(std::fabs(x.v)); }
 
+static const double kTol64 = 2.220446049250313e-16 * 2.220446049250313e-16;
+static const float kEps32 = 1.1920928955078125e-07f;
+
 extern "C" {
 int solve_f64(const double* m, double* w, double* v, long long n) {
   int most = 0;
   for (long long i = 0; i < n; ++i) {
-    int s = solve(m + 32 * i, 2.220446049250313e-16 * 2.220446049250313e-16,
-                  w + 4 * i, v + 32 * i);
+    int s = solve(m + 32 * i, kTol64, w + 4 * i, v + 32 * i);
     most = s > most ? s : most;
   }
   return most;
 }
 void solve_f32(const float* m, float* w, float* v, int* sweeps, long long n) {
-  const float eps = 1.1920928955078125e-07f;
   for (long long i = 0; i < n; ++i)
-    sweeps[i] = solve(m + 32 * i, eps * eps, w + 4 * i, v + 32 * i);
+    sweeps[i] = solve(m + 32 * i, kEps32 * kEps32, w + 4 * i, v + 32 * i);
 }
 long long count_ops(const double* m, int* sweeps) {
   Cnt mc[32], w[4], v[32];
   for (int k = 0; k < 32; ++k) mc[k] = Cnt(m[k]);
   g_ops = 0;
-  *sweeps = solve(mc, Cnt(2.220446049250313e-16 * 2.220446049250313e-16), w,
-                  v);
+  *sweeps = solve(mc, Cnt(kTol64), w, v);
   return g_ops;
 }
 }
@@ -216,3 +217,118 @@ def test_operation_count_matches_formula(host_lib):
         seen.add(sweeps.value)
         assert ops == herm4.herm4_operations([sweeps.value])
     assert len(seen) >= 2
+
+
+# -- float32, degenerate and non-Hermitian input ------------------------------
+def _solve(host_lib, h, dtype):
+    n = h.shape[0]
+    m = _interleaved(h, dtype)
+    w = np.zeros((n, 4), dtype=dtype)
+    v = np.zeros((n, 32), dtype=dtype)
+    sweeps = np.zeros(n, dtype=np.int32)
+    if dtype == np.float64:
+        host_lib.solve_f64(_ptr(m), _ptr(w), _ptr(v), n)
+    else:
+        host_lib.solve_f32(_ptr(m), _ptr(w), _ptr(v), _ptr(sweeps), n)
+    vc = v.astype(np.float64).view(np.complex128).reshape(n, 4, 4)
+    return w.astype(np.float64), vc, sweeps
+
+
+def _non_hermitian(n, seed):
+    rng = np.random.RandomState(seed)
+    return rng.normal(size=(n, 4, 4)) + 1j * rng.normal(size=(n, 4, 4))
+
+
+@pytest.mark.parametrize("kind", ["random", "tiny", "near_degenerate",
+                                  "resonance", "non_hermitian"])
+def test_jacobi_matches_numpy_f32(host_lib, kind):
+    """float32 at the float32 bound; a non-Hermitian input is taken by its
+    Hermitian part."""
+    h = {"random": lambda: _random_hermitian(200, 1),
+         "tiny": lambda: _random_hermitian(50, 2, scale=1e-7),
+         "near_degenerate": lambda: _near_degenerate(50, 3),
+         "resonance": _resonance_hamiltonians,
+         "non_hermitian": lambda: _non_hermitian(40, 8)}[kind]()
+    w, v, sweeps = _solve(host_lib, h, np.float32)
+    herm = 0.5 * (h + np.conj(np.swapaxes(h, -1, -2)))
+    _check(herm, w, v, 1e-5)
+    assert 1 <= sweeps.max() < herm4.MAX_SWEEPS
+
+
+def test_jacobi_non_hermitian_f64(host_lib):
+    h = _non_hermitian(40, 8)
+    w, v, _ = _solve(host_lib, h, np.float64)
+    herm = 0.5 * (h + np.conj(np.swapaxes(h, -1, -2)))
+    _check(herm, w, v, 1e-13)
+
+
+def test_jacobi_exactly_degenerate_and_zero(host_lib):
+    """Exactly degenerate eigenvalues (a multiple of the identity, which
+    takes no sweep, and a doubly degenerate pair) in both types, and the
+    zero matrix in float32 (no sweep, identity eigenvectors)."""
+    rng = np.random.RandomState(4)
+    q, _ = np.linalg.qr(rng.normal(size=(4, 4)) + 1j * rng.normal(
+        size=(4, 4)))
+    degenerate = np.stack([3.0 * np.eye(4), q @ np.diag([1.0, 1.0, 2.0, 5.0])
+                           @ np.conj(q.T)])
+    for dtype, rtol in ((np.float64, 1e-13), (np.float32, 1e-5)):
+        w, v, _ = _solve(host_lib, degenerate, dtype)
+        _check(degenerate, w, v, rtol)
+    w, v, sweeps = _solve(host_lib, np.zeros((1, 4, 4)), np.float32)
+    assert sweeps[0] == 0
+    np.testing.assert_array_equal(w, 0.0)
+    np.testing.assert_array_equal(v[0], np.eye(4))
+
+
+def test_operation_count_at_non_hermitian_and_degenerate(host_lib):
+    """herm4_operations(sweeps) also counts non-Hermitian input (the
+    Hermitian part costs the same) and a doubly degenerate pair."""
+    rng = np.random.RandomState(5)
+    q, _ = np.linalg.qr(rng.normal(size=(4, 4)) + 1j * rng.normal(
+        size=(4, 4)))
+    h = np.concatenate([_non_hermitian(6, 9), (q @ np.diag(
+        [1.0, 1.0, 2.0, 5.0]) @ np.conj(q.T))[None]])
+    seen = set()
+    for x in h:
+        m = _interleaved(x[None], np.float64)[0]
+        sweeps = ctypes.c_int()
+        ops = host_lib.count_ops(_ptr(m), ctypes.addressof(sweeps))
+        seen.add(sweeps.value)
+        assert ops == herm4.herm4_operations([sweeps.value])
+    assert len(seen) >= 2
+
+
+# -- the kernel on a card ---------------------------------------------------------
+@pytest.fixture
+def cuda_device():
+    import torch
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (torch.cuda.is_available() is False)")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,rtol", [("complex128", 1e-13),
+                                        ("complex64", 1e-5)])
+def test_kernel_matches_numpy_on_the_card(cuda_device, dtype, rtol):
+    """The default build at the host tests' matrices (a batch that leaves
+    a partial block, the zero matrix and a non-Hermitian input among them)
+    against numpy, with the sweeps it reports."""
+    import torch
+
+    rng = np.random.RandomState(9)
+    a = rng.normal(size=(7, 4, 4)) + 1j * rng.normal(size=(7, 4, 4))
+    h = np.concatenate([_random_hermitian(101, 1), _near_degenerate(30, 3),
+                        _resonance_hamiltonians(), np.zeros((1, 4, 4)), a])
+    H = torch.as_tensor(h).to(getattr(torch, dtype)).to(cuda_device)
+    before = herm4.launch_count
+    w, v, sweeps = herm4.herm4_eig(H, sweeps=True)
+    torch.cuda.synchronize()
+    assert herm4.launch_count == before + 1
+    herm = 0.5 * (h + np.conj(np.swapaxes(h, -1, -2)))
+    keep = np.linalg.norm(herm, axis=(-2, -1)) > 0
+    _check(herm[keep], w.double().cpu().numpy()[keep],
+           v.to(torch.complex128).cpu().numpy()[keep], rtol)
+    assert int(sweeps.cpu()[~torch.as_tensor(keep)].max()) == 0
+    assert int(sweeps.max()) < herm4.MAX_SWEEPS

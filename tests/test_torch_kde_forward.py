@@ -111,13 +111,16 @@ def test_jvp_wrapper_checks_its_tangents():
         ops_kde.gauss_sum_jvp(x, p, ih, dih, il2, dil2, c, dc[:, :5])
     with pytest.raises(ValueError, match="type and device"):
         ops_kde.gauss_sum_jvp(x, p, ih, dih, il2, dil2.float(), c, dc)
-    assert ops_kde.kde_operations("jvp", 1, 2, 3, 4)["flops"] == 12 * 19
-    # float32 at D = 3: 24 operations a pair on the FMA pipe take longer
+    # 4D + 2 operations a pair shared by the directions, 2D + 2 for each
+    assert ops_kde.kde_operations("jvp", 1, 2, 3, 4)["flops"] == 12 * 16
+    assert ops_kde.kde_operations("jvp", 1, 2, 3, 4,
+                                  directions=3)["flops"] == 12 * 28
+    # float32 at D = 3: 22 operations a pair on the FMA pipe take longer
     # than the pair's exp on the special-function unit
     pairs = 24 * 20000 * 1320
     ms, by = ops_kde.kde_bound_ms("jvp", 24, 3, 20000, 1320, torch.float32)
     assert by == "operations" and ms == pytest.approx(
-        pairs * 24 / ops_kde.FP32_FLOPS * 1e3)
+        pairs * 22 / ops_kde.FP32_FLOPS * 1e3)
     ms, by = ops_kde.kde_bound_ms("jvp", 24, 1, 20000, 1320, torch.float32)
     assert by == "operations" and ms == pytest.approx(
         pairs / ops_kde.MUFU_EXP_PER_S * 1e3)

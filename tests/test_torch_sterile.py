@@ -362,8 +362,8 @@ def test_herm4_eig_plain_version_and_checks():
         herm4.herm4_eig(H.real)
     with pytest.raises(ValueError, match="CUDA kernel only"):
         herm4.herm4_eig(H, sweeps=True)
-    assert herm4.herm4_operations([4, 16]) == (61 + 31 * 5 + 864 * 4) + (
-        61 + 31 * 16 + 864 * 16)
+    assert herm4.herm4_operations([4, 16]) == (61 + 31 * 5 + 846 * 4) + (
+        61 + 31 * 16 + 846 * 16)
 
 
 # -- on a card ------------------------------------------------------------------------
