@@ -177,7 +177,19 @@ oscillation grid, 15 free parameters) on the card through its two paths:
   gradients; the random streams exactly); then in float32 at full width
   (240,000 events) the eager template, the captured value_and_grad and a
   ``device`` fit through Analysis from theta23 + 0.10, and the
-  multitangent kernel at K = 2 on the path's grid, timed.
+  multitangent kernel at K = 2 on the path's grid, timed;
+- the command-line entry points and the llh server, this slice's main
+  path (``cli_fp32``, float32, the flagship at full width): each command
+  called through its ``main(argv)`` in this process. ``pipeline --compile
+  --outdir`` writes the captured template, which ``compare`` holds against
+  the CPU float64 nominal template (the reference child's) to the float32
+  template bound (exit code 0); ``analysis --method device -o`` fits Asimov
+  data at theta23 + 0.10 rescaled and the written state recovers theta23;
+  ``python -m pisa_tpu_torch.utils.llh_server`` runs in a child process
+  over the same data, and 16 requests of ``llh_client.Client`` match this
+  process's own ``-value_only(x)`` (its first answer after its start and
+  the median round trip timed); ``benchmark -n 50`` and ``--in-device -n
+  100`` print templates/s.
 
 It times the kernels (device-only, from a CUDA graph of 200 launches, and
 host-inclusive, from back-to-back launches between CUDA events; the
@@ -202,8 +214,9 @@ alone, with ``--sterile-only`` the 3+1 and nusquids phases alone, and with
 ``--events-only`` the KDE kernel checks and the HDF5 and KDE phases alone,
 with ``--hypersurfaces-only`` the hypersurfaces phases alone, with
 ``--mceq-only`` the MCEq-Barr flagship's phases alone, with
-``--param-only`` the parameterized-detector phases alone;
-none prints a status line. It prints its total wall before the
+``--param-only`` the parameterized-detector phases alone, with
+``--cli-only`` the command-line phase alone (the CPU float64 nominal
+template from a child of its own); none prints a status line. It prints its total wall before the
 kernels line.
 
 The float64 runs (CPU reference and card) happen in child processes, since
@@ -295,9 +308,10 @@ DEVICE_FIT_WAITS = 2.0
 # card vs CPU L-BFGS (float64, the 20x20-grid flagship): the same
 # iterations, best fits within this (rescaled); the iteration cap is low
 # because the CPU side takes ~3 s an iteration (the batched fits' parity
-# below holds four more fits to the same rule)
+# below holds four more fits to the same rule; 8 until the command-line
+# phase came, then 6 to keep the run in its time limit)
 LBFGS_X_ATOL = 1e-8
-LBFGS_MAX_STEPS = 8
+LBFGS_MAX_STEPS = 6
 # the batched kernels: lanes of one launch at the checks (the ensemble's
 # trials: the main path's lanes), and the first of them at the timings
 KERNEL_LANES = 64
@@ -307,10 +321,11 @@ KERNEL_TIME_LANES = (1, 16, 64)
 # fit on the card (the same objective, its lanes in one program) and
 # against the same batch on the CPU (another summation order)
 BATCH_FIT_LANES = 4
-BATCH_FIT_STEPS = 10
+BATCH_FIT_STEPS = 7
 # ... and its stopping tolerance (the gradient's L2 norm in z), at which the
-# lanes stop at different iterations (1, 6, 10 and 10 on the CPU): the lanes
-# that have stopped stay frozen while the others go on
+# lanes stop at different iterations (1, 6, 7 and 7 on the CPU; 1, 6, 10
+# and 10 at the cap of 10 that held until the command-line phase came): the
+# lanes that have stopped stay frozen while the others go on
 BATCH_FIT_GTOL = 0.5
 BATCH_SOLO_X_ATOL = 1e-10
 BATCH_CPU_X_ATOL = 1e-9
@@ -580,6 +595,7 @@ HS_COEFF_FP32 = 1e-4
 # the applied flagship's device fit: its most L-BFGS iterations (float32
 # meets no gtol; the kde_example fit's cap)
 HS_FIT_STEPS = 30
+
 # the interpolated workflow's events in the float64 child (a fraction of
 # the flagship's, by the loader's deterministic stride), and the child's
 # CPU threads: it runs beside the other children (on the H100 80GB HBM3
@@ -588,6 +604,13 @@ HS_FIT_STEPS = 30
 # and 282 s)
 HS_FP64_FRACTION = 0.05
 HS_FP64_THREADS = 2
+
+# the command-line phase: requests the llh server answers (each against
+# this process's objective), how long its first answer may take (a new
+# process, the flagship's set-up, the capture), and the phase's budget
+CLI_REQUESTS = 16
+CLI_SERVER_TIMEOUT = 180.0
+CLI_BUDGET_S = 60.0
 
 # the routes of one value_and_grad: label, compile options, captured
 ROUTES = (
@@ -6941,6 +6964,276 @@ def hypersurfaces_only_main(chain, smi):
     return 0
 
 
+# -- the command-line entry points and the llh server ---------------------------
+def free_port():
+    """A TCP port on localhost that no socket holds now."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def template_json(ref, binning, path):
+    """The CPU float64 nominal template that the reference child left in
+    `ref` (its ``cpu|nominal|w|`` and ``|e|`` arrays), written to `path` as
+    a MapSet JSON over `binning`."""
+    from pisa_tpu_torch.core.map import Map, MapSet
+
+    prefix = "cpu|nominal|w|"
+    MapSet([
+        Map(name=key[len(prefix):], hist=w, binning=binning,
+            error_hist=ref[f"cpu|nominal|e|{key[len(prefix):]}"])
+        for key, w in ref.items() if key.startswith(prefix)
+    ], name="cpu_fp64").to_json(path)
+
+
+def cli_worker(path):
+    """float64: the CPU nominal flagship template alone, for
+    ``--cli-only`` (saved to `path` as the reference child saves it)."""
+    import numpy as np
+
+    from pisa_tpu_torch import FTYPE_NAME
+    from pisa_tpu_torch.core.pipeline import Pipeline
+
+    check(FTYPE_NAME == "fp64", f"cli worker runs {FTYPE_NAME}")
+    maps = Pipeline(CFG, device="cpu").get_outputs()
+    arrays = {}
+    for m in maps:
+        arrays[f"cpu|nominal|w|{m.name}"] = m.hist
+        arrays[f"cpu|nominal|e|{m.name}"] = m.error_hist
+    np.savez(path, **arrays)
+
+
+def run_command(main_fn, argv):
+    """`main_fn(argv)` (a command's entry point) in this process, its
+    standard output echoed; returns (exit code, output, wall)."""
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = main_fn(argv)
+    wall = time.perf_counter() - t0
+    sys.stdout.write(out.getvalue())
+    return rc, out.getvalue(), wall
+
+
+def cli_fp32(chain, pipeline, ref, smi):
+    """Float32 at full width, the flagship through the port's commands,
+    each called through its ``main(argv)`` in this process, the server in a
+    child process: ``pipeline --compile --outdir`` held by ``compare``
+    against the CPU float64 nominal template (`ref`, the reference child's)
+    as ``compare()`` judges float32; ``analysis --method device`` against
+    Asimov data at theta23 + 0.10 rescaled (from `pipeline`, the float32
+    flagship on the card), recovering theta23 to FIT_TOL from the written
+    state; ``python -m pisa_tpu_torch.utils.llh_server`` over the same
+    data, whose first answer is timed from its start and whose CLI_REQUESTS
+    answers at seeded points match this process's own ``-value_only(x)``
+    to VG_FP32["value"]; ``benchmark -n 50`` and ``--in-device -n 100``.
+    The server starts first, so its set-up overlaps the commands before
+    it; its launches are its own. Returns the commands' (primal, tangent,
+    multitangent) launches."""
+    import re
+    import shutil
+    import threading
+
+    import numpy as np
+    import torch
+
+    from pisa_tpu_torch.analysis.analysis import BasicAnalysis
+    from pisa_tpu_torch.core.map import MapSet
+    from pisa_tpu_torch.core.param import ParamSet
+    from pisa_tpu_torch.scripts import analysis, benchmark
+    from pisa_tpu_torch.scripts import compare as compare_command
+    from pisa_tpu_torch.scripts import pipeline as pipeline_command
+    from pisa_tpu_torch.utils.fileio import from_file
+    from pisa_tpu_torch.utils.llh_client import Client
+
+    started = time.perf_counter()
+    total = [0, 0, 0]
+
+    def add():
+        for i, n in enumerate(launch_counts(chain)):
+            total[i] += n
+        reset_launch_counts(chain)
+
+    tmp = tempfile.mkdtemp(prefix="cli_fp32_")
+    server = None
+    server_log = open(os.path.join(tmp, "server.log"), "w+")
+    try:
+        # the data: the flagship's eager template at theta23 + 0.10
+        # rescaled
+        pipeline.params.reset_all()
+        v0 = np.asarray(pipeline.params.free._rescaled_values,
+                        dtype=np.float64)
+        truth = min(0.95, pipeline.params["theta23"]._rescaled_value + 0.10)
+        pipeline.params["theta23"]._rescaled_value = truth
+        data = pipeline.get_outputs()
+        pipeline.params.reset_all()
+        data_path = os.path.join(tmp, "asimov_theta23.json.bz2")
+        data.to_json(data_path)
+
+        # the server, in a child process; a thread times its first answer
+        port = free_port()
+        t_server = time.perf_counter()
+        server = subprocess.Popen(
+            [sys.executable, "-m", "pisa_tpu_torch.utils.llh_server",
+             "--config", CFG, "--ref", data_path, "--port", str(port),
+             "--metric", "llh"],
+            cwd=ROOT, stdout=server_log, stderr=subprocess.STDOUT, text=True)
+        first = {}
+
+        def first_answer():
+            while server.poll() is None:
+                try:
+                    with Client(("localhost", port)) as client:
+                        first["llh"] = client.get_llh(v0)
+                        first["s"] = time.perf_counter() - t_server
+                        return
+                except OSError:
+                    time.sleep(0.05)
+
+        waiter = threading.Thread(target=first_answer, daemon=True)
+        waiter.start()
+        cpu_path = os.path.join(tmp, "cpu_fp64_nominal.json.bz2")
+        template_json(ref, pipeline.output_binning, cpu_path)
+        print(f"command-line phase: data written, server started, reference"
+              f" written {time.perf_counter() - started:.2f} s")
+        reset_launch_counts(chain)
+
+        # pipeline, then compare against the CPU float64 template
+        out_dir = os.path.join(tmp, "pipeline")
+        rc, _, wall = run_command(pipeline_command.main,
+                                  [CFG, "--compile", "--outdir", out_dir])
+        add()
+        check(rc == 0, f"the pipeline command exited {rc}")
+        test_path = os.path.join(out_dir, f"{pipeline.name}__outputs.json.bz2")
+        print(f"float32 pipeline command (--compile --outdir): {wall:.2f} s"
+              f" [{smi}]")
+        rtol = TEMPLATE_RTOL["float32"]
+        rc, _, _ = run_command(compare_command.main, [
+            "--ref", cpu_path, "--ref-label", "cpu_fp64",
+            "--test", test_path, "--test-label", "card_fp32",
+            "--rtol", str(rtol), "--atol", str(rtol * MIN_EVENTS_FP32),
+            "--outdir", tmp])
+        check(rc == 0, f"compare exited {rc}: the pipeline command's template"
+              " is off the CPU float64 one")
+        written = MapSet.from_json(test_path)
+        check(all(m.error_hist is not None for m in written),
+              "the pipeline command wrote no errors")
+        got = ({m.name: m.hist for m in written},
+               {m.name: m.error_hist for m in written})
+        check_template(got, "the pipeline command's float32 template")
+        cpu = MapSet.from_json(cpu_path)
+        compare(({m.name: m.hist for m in cpu},
+                 {m.name: m.error_hist for m in cpu}), got,
+                "nominal (pipeline command)", "float32", True)
+
+        # analysis: the device fit from the nominal to the data
+        result_path = os.path.join(tmp, "fit.json")
+        rc, _, wall = run_command(analysis.main, [
+            "-p", CFG, "--data", data_path, "--method", "device",
+            "-o", result_path])
+        add()
+        BasicAnalysis._compiled_cache.clear()
+        check(rc == 0, f"the analysis command exited {rc}")
+        state = from_file(result_path)
+        moved = (ParamSet.from_state(state["params"])["theta23"]
+                 ._rescaled_value - truth)
+        meta = state["minimizer_metadata"]
+        print(f"float32 analysis command (--method device): wall {wall:.2f}"
+              f" s, the fit {state['minimizer_time']:.3f} (its capture"
+              f" included), nit {meta['nit']}, nfev {meta['nfev']}, theta23"
+              f" off by {moved:.3e} rescaled (bound {FIT_TOL:g}) [{smi}]")
+        check(abs(moved) <= FIT_TOL,
+              "the analysis command's fit did not recover theta23")
+
+        # the server's answers against this process's own objective (built
+        # while the server may still be setting up)
+        ct = pipeline.compile()
+        check(np.array_equal(ct.current_rescaled_values(), v0),
+              "the template's free parameters are not the pipeline's")
+        value_only, _ = ct.build_objective(data, "llh")
+        waiter.join(timeout=CLI_SERVER_TIMEOUT)
+        check("s" in first and server.poll() is None,
+              f"the llh server did not answer (exit code {server.poll()})")
+        rng = np.random.RandomState(0)
+        points = np.clip(v0 + rng.uniform(-0.1, 0.1, (CLI_REQUESTS, v0.size)),
+                         0.05, 0.95)
+        served, trips = [], []
+        with Client(("localhost", port)) as client:
+            for x in points:
+                t0 = time.perf_counter()
+                served.append(client.get_llh(x))
+                trips.append(time.perf_counter() - t0)
+        want = [-float(value_only(x)) for x in points]
+        first_rel = abs(first["llh"] - -float(value_only(v0))) / abs(
+            float(value_only(v0)))
+        rel = max(abs(s - w) / abs(w) for s, w in zip(served, want))
+        check(server.poll() is None, "the llh server died")
+        print(f"float32 llh server (python -m pisa_tpu_torch.utils.llh_server,"
+              f" one pipeline, the captured objective): first answer"
+              f" {first['s']:.2f} s after its start (set-up and capture,"
+              f" beside the commands above), {CLI_REQUESTS} requests at"
+              f" seeded points: round trip median"
+              f" {np.median(trips) * 1e3:.3f} ms, min {min(trips) * 1e3:.3f}"
+              f" ms; served llh vs this process's -value_only(x): max rel"
+              f" {max(rel, first_rel):.3e} (bound {VG_FP32['value']:g}) [{smi}]")
+        check(max(rel, first_rel) <= VG_FP32["value"],
+              "the served llh is off the in-process objective")
+        del value_only
+        server.terminate()
+        server.wait(timeout=30)
+        server = None
+
+        # benchmark: the captured call, then the scan
+        reset_launch_counts(chain)
+        for args in (["-n", "50"], ["--in-device", "-n", "100"]):
+            rc, out, wall = run_command(benchmark.main, [CFG, *args])
+            add()
+            rate = re.search(r"([\d.]+) templates/s", out)
+            check(rc == 0 and rate is not None,
+                  f"benchmark {' '.join(args)} printed no templates/s")
+            print(f"float32 benchmark {' '.join(args)}: {rate.group(1)}"
+                  f" templates/s (command wall {wall:.2f} s) [{smi}]")
+        del ct
+        torch.cuda.empty_cache()
+    finally:
+        if server is not None:
+            server.kill()
+            server.wait(timeout=30)
+            server_log.seek(0)
+            sys.stdout.write(server_log.read())
+        server_log.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"command-line path launches (primal, tangent, multitangent):"
+          f" {tuple(total)} [{smi}]")
+    check(total[0] > 0 and total[2] > 0, "the command-line path did not"
+          " launch the primal and the multitangent")
+    print(f"float32 command-line phase: {time.perf_counter() - started:.1f} s"
+          f" (budget {CLI_BUDGET_S:g} s) [{smi}]")
+    return tuple(total)
+
+
+def cli_only_main(chain, smi):
+    """``--cli-only``: the kernels built, the CPU float64 nominal template
+    in a child, then the command-line phase alone; no status line."""
+    import numpy as np
+
+    from pisa_tpu_torch.core.pipeline import Pipeline
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "cli.npz")
+        run_children([("CPU nominal template", ["--cli-worker", path])])
+        with np.load(path) as f:
+            ref = {k: f[k] for k in f.files}
+    t0 = time.perf_counter()
+    pipeline = Pipeline(CFG, device="cuda")
+    print(f"float32 Pipeline(...) setup on the card:"
+          f" {time.perf_counter() - t0:.2f} s")
+    cli_fp32(chain, pipeline, ref, smi)
+    return 0
+
+
 def print_kernel_times(kernels, smi):
     for name, k in kernels.items():
         for dname, t in k.items():
@@ -6995,7 +7288,7 @@ def analysis_only_main(chain, smi):
 def main(kernels_only=False, release_only=False, analysis_only=False,
          options_only=False, lanes_only=False, sterile_only=False,
          events_only=False, hypersurfaces_only=False, mceq_only=False,
-         param_only=False):
+         param_only=False, cli_only=False):
     started = time.perf_counter()
     if not os.path.isdir(os.path.join(ROOT, "pisa_tpu_torch")):
         print("chip_smoke.py must run from a checkout of the repository"
@@ -7033,6 +7326,8 @@ def main(kernels_only=False, release_only=False, analysis_only=False,
         return mceq_only_main(chain, smi)
     if param_only:
         return param_only_main(chain, smi)
+    if cli_only:
+        return cli_only_main(chain, smi)
     if release_only:
         return release_only_main(chain, smi)
     if analysis_only:
@@ -7201,6 +7496,9 @@ def main(kernels_only=False, release_only=False, analysis_only=False,
     extra_paths["parameterized detector"] = param_fp32(chain, smi)
     print(f"float32 parameterized-detector phase:"
           f" {time.perf_counter() - t0:.1f} s")
+    # the command-line entry points and the llh server on the flagship
+    # (this slice's main path)
+    extra_paths["command line"] = cli_fp32(chain, pipeline, ref, smi)
     print(f"launches (primal, tangent, multitangent) by path: gradient and fit"
           f" {fit_path}, template {template_path}, analysis {analysis_path},"
           f" ensemble {ensemble_path}, release {release_path}, "
@@ -7346,13 +7644,13 @@ if __name__ == "__main__":
         os.chdir(ROOT)
         workers[sys.argv[1]]()
         sys.exit(0)
-    if len(sys.argv) == 3 and sys.argv[1] in ("--reference-worker",
-                                              "--release-worker"):
+    path_workers = {"--reference-worker": reference_worker,
+                    "--release-worker": release_worker,
+                    "--cli-worker": cli_worker}
+    if len(sys.argv) == 3 and sys.argv[1] in path_workers:
         sys.path.insert(0, ROOT)
         os.chdir(ROOT)
-        worker = (reference_worker if sys.argv[1] == "--reference-worker"
-                  else release_worker)
-        worker(sys.argv[2])
+        path_workers[sys.argv[1]](sys.argv[2])
         sys.exit(0)
     sys.exit(main(kernels_only=sys.argv[1:] == ["--kernels-only"],
                   release_only=sys.argv[1:] == ["--release-only"],
@@ -7363,4 +7661,5 @@ if __name__ == "__main__":
                   events_only=sys.argv[1:] == ["--events-only"],
                   hypersurfaces_only=sys.argv[1:] == ["--hypersurfaces-only"],
                   mceq_only=sys.argv[1:] == ["--mceq-only"],
-                  param_only=sys.argv[1:] == ["--param-only"]))
+                  param_only=sys.argv[1:] == ["--param-only"],
+                  cli_only=sys.argv[1:] == ["--cli-only"]))
