@@ -189,7 +189,19 @@ oscillation grid, 15 free parameters) on the card through its two paths:
   over the same data, and 16 requests of ``llh_client.Client`` match this
   process's own ``-value_only(x)`` (its first answer after its start and
   the median round trip timed); ``benchmark -n 50`` and ``--in-device -n
-  100`` print templates/s.
+  100`` print templates/s;
+- the events-file workflow on the port's own HDF5 writer, this slice's main
+  path (``events_file_fp32``, float32): 240,000 simulated events (12
+  flavour and interaction categories of 20,000) written as per-run source
+  files with no ``h5py``, ``make_events_file`` (unjoined) and
+  ``add_fluxes_to_file`` (the Honda table, flux name "nominal"), every
+  array read back bit-equal to what the scripts held and the file
+  byte-equal to the one a float64 child wrote beside the other children;
+  ``example.cfg`` from the file on the card, its template within 3e-6 of
+  that child's CPU float64 template in bins with >= 1 event and its
+  captured value_and_grad; and the histogram scatter-added past the
+  one-hot budget (640 bins, per container) over 4 lanes against 4 unlaned
+  evaluations. It prints each write and read time and its wall.
 
 It times the kernels (device-only, from a CUDA graph of 200 launches, and
 host-inclusive, from back-to-back launches between CUDA events; the
@@ -211,7 +223,8 @@ phases of the rest of the analysis layer alone, and with
 ``--osc-options-only`` the phases of prob3's options alone, and with
 ``--osc-lanes-only`` the phases of forward mode and lanes under the options
 alone, with ``--sterile-only`` the 3+1 and nusquids phases alone, and with
-``--events-only`` the KDE kernel checks and the HDF5 and KDE phases alone,
+``--events-only`` the KDE kernel checks, the HDF5 and KDE phases and the
+events-file workflow alone,
 with ``--hypersurfaces-only`` the hypersurfaces phases alone, with
 ``--mceq-only`` the MCEq-Barr flagship's phases alone, with
 ``--param-only`` the parameterized-detector phases alone, with
@@ -221,7 +234,7 @@ kernels line.
 
 The float64 runs (CPU reference and card) happen in child processes, since
 the float type is chosen once per process (``PISA_TPU_FTYPE``); the main
-process runs float32, the port's default. The nine children of a full run
+process runs float32, the port's default. The ten children of a full run
 start together, after the kernel checks and before the float32 phases
 (``run_children``): their CPU sides dominate them and none depends on
 another, and the float32 phases' timings then run alone.
@@ -454,6 +467,21 @@ KDE_REPLACES = "pisa_tpu/utils/kde.py:53 adaptive_gaussian_kde"
 TOY_EVENTS = 20_000
 TOY_EVENTS_FP64 = 2_000
 TOY_SEED = 0
+# the events-file workflow (events_file_fp32): events per flavour and
+# interaction (12 categories: 240,000 events) and the sources' seed; the
+# float32 template's bound against the float64 one of the same file
+# (relative, bins >= 1 event; cli_fp32's flagship template came within
+# 8.6e-7); the laned histogram's lanes, its reco binning (16 x 20 x 2 = 640
+# bins, past the one-hot budget of 512 bins) and its bound against the
+# unlaned calls (of the largest bin: atomics reorder the float32 sums); the
+# phase's wall budget
+EVENTS_FILE_PER_FLAVINT = 20_000
+EVENTS_FILE_SEED = 0
+EVENTS_FILE_RTOL = 3e-6
+EVENTS_FILE_LANES = 4
+EVENTS_FILE_FINE_BINS = (16, 20)
+EVENTS_FILE_LANES_ATOL = 1e-5
+EVENTS_FILE_BUDGET_S = 30
 # KDE kernel vs its plain version on the same inputs, max |difference| /
 # max |plain|: float64 to the round-off of 20,000-term sums; the float32
 # kernel against the float32 plain version (the same terms summed in
@@ -6395,15 +6423,328 @@ def kde_checks(smi):
 
 def events_only_main(chain, smi):
     """``--events-only``: the kernels built, the KDE kernels held and
-    timed, then the events phases alone (the float64 child's and the main
-    process's); no status line."""
+    timed, then the events phases alone (the float64 children's and the
+    main process's: the KDE and HDF5 phases, then the events-file
+    workflow); no status line."""
     kde_checks(smi)
-    run_children([("events", ["--events-worker"])])
-    t0 = time.perf_counter()
-    launches = events_fp32(chain, smi)
-    print(f"float32 events phase: {time.perf_counter() - t0:.1f} s;"
-          f" launches {launches}")
+    with tempfile.TemporaryDirectory(prefix="events_file_fp64_") as events:
+        run_children([("events", ["--events-worker"]),
+                      ("events file", ["--events-file-worker", events])])
+        t0 = time.perf_counter()
+        launches = events_fp32(chain, smi)
+        print(f"float32 events phase: {time.perf_counter() - t0:.1f} s;"
+              f" launches {launches}")
+        launches = events_file_fp32(chain, events, smi)
+    print(f"events-file launches {launches}")
     return 0
+
+# -- the events-file workflow: simulation -> make_events_file ->
+# add_flux_to_events_file -> example.cfg, on the port's own HDF5 writer ------
+def events_file_build(directory):
+    """The workflow of testing/events_workflow.py at full width into
+    `directory`: the per-run source files (EVENTS_FILE_PER_FLAVINT events
+    for each of the 12 flavour and interaction categories, seeded), then
+    make_events_file (unjoined, no cut) and add_fluxes_to_file (the Honda
+    table, flux name "nominal"), each timed; the Events and the dict that
+    add_fluxes_to_file wrote are kept as the scripts held them. Returns
+    (paths, in memory, seconds)."""
+    from pisa_tpu_torch.scripts import add_flux_to_events_file as add_flux
+    from pisa_tpu_torch.scripts.make_events_file import make_events_file
+    from pisa_tpu_torch.testing import events_workflow as W
+    from pisa_tpu_torch.utils.flux_weights import load_2d_table
+
+    seconds, held = {}, {}
+
+    def timed(label, fn):
+        def run(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            seconds[label] = time.perf_counter() - t0
+            return out
+        return run
+
+    def keep(obj, fname, **kwargs):
+        held["fluxes"] = obj
+        return write(obj, fname, **kwargs)
+
+    sources = timed("write sources", W.write_sources)(
+        os.path.join(directory, "sources"), EVENTS_FILE_PER_FLAVINT,
+        seed=EVENTS_FILE_SEED)
+    write, add_flux.to_file = add_flux.to_file, keep
+    try:
+        held["events"], events_path, flux_path = W.make_example_events_file(
+            timed("make_events_file", make_events_file),
+            timed("add_fluxes_to_file", add_flux.add_fluxes_to_file),
+            load_2d_table, sources, directory, EVENTS_FILE_PER_FLAVINT)
+    finally:
+        add_flux.to_file = write
+    paths = {"sources": sources, "events": events_path, "fluxes": flux_path}
+    return paths, held, seconds
+
+
+def file_digest(path):
+    import hashlib
+
+    with open(path, "rb") as f:
+        return hashlib.sha256(f.read()).hexdigest()
+
+
+def events_file_config(events_file, fine=False):
+    """example.cfg reading `events_file`; with `fine`, histogrammed into
+    EVENTS_FILE_FINE_BINS reco bins (past the one-hot budget of 512)."""
+    from pisa_tpu_torch import ureg
+    from pisa_tpu_torch.config.parser import parse_pipeline_config
+    from pisa_tpu_torch.core import binning
+
+    cfg = parse_pipeline_config(EXAMPLE_CFG)
+    cfg[("data", "simple_data_loader")]["events_file"] = events_file
+    if fine:
+        e_bins, cz_bins = EVENTS_FILE_FINE_BINS
+        reco = binning.MultiDimBinning([
+            binning.OneDimBinning("reco_energy", num_bins=e_bins,
+                                  is_log=True, domain=[5, 100] * ureg.GeV),
+            binning.OneDimBinning("reco_coszen", num_bins=cz_bins,
+                                  is_lin=True, domain=[-1, 1]),
+            binning.OneDimBinning("pid", bin_edges=[-1000.0, 0.0, 1000.0]),
+        ], name="fine_reco")
+        cfg["pipeline"]["output_binning"] = reco
+        cfg[("utils", "hist")]["apply_mode"] = reco
+    return cfg
+
+
+def events_file_worker(directory):
+    """float64: the events-file workflow into `directory`, then example.cfg
+    from the file with fluxes on the CPU (the reference of events_file_fp32)
+    and on the card (held to the CPU within TEMPLATE_RTOL["float64"]);
+    saves the CPU maps and errors and the file's digest to
+    `directory`/fp64.npz."""
+    import numpy as np
+
+    from pisa_tpu_torch import FTYPE_NAME
+    from pisa_tpu_torch.core.pipeline import Pipeline
+
+    check(FTYPE_NAME == "fp64", f"events-file worker runs {FTYPE_NAME}")
+    smi = card_line()
+    t0 = time.perf_counter()
+    paths, _, seconds = events_file_build(directory)
+    cfg = events_file_config(paths["fluxes"])
+    cpu = Pipeline(cfg, device="cpu").get_outputs()
+    gpu = Pipeline(cfg, device="cuda").get_outputs()
+    rel = maps_rel(gpu, cpu)
+    print(f"float64 example.cfg from the written events file, card vs CPU:"
+          f" worst bin {rel:.3e} of its map's largest (bound"
+          f" {TEMPLATE_RTOL['float64']:g}); the workflow "
+          + ", ".join(f"{k} {v:.2f} s" for k, v in seconds.items())
+          + f" [{smi}]")
+    check(rel <= TEMPLATE_RTOL["float64"],
+          "example.cfg from the written file: the card's maps are off the"
+          " CPU's")
+    arrays = {"digest": np.array(file_digest(paths["fluxes"]))}
+    for m in cpu:
+        arrays[f"w|{m.name}"] = m.hist
+        arrays[f"e|{m.name}"] = m.error_hist
+    np.savez(os.path.join(directory, "fp64.npz"), **arrays)
+    print(f"float64 events-file phase: {time.perf_counter() - t0:.1f} s"
+          f" [{smi}]")
+
+
+def same_arrays(got, want, path=""):
+    """The nested dicts of arrays `got` (as read back) and `want` (as the
+    scripts held them) hold the same keys and bit-equal arrays; returns the
+    number of arrays compared."""
+    import numpy as np
+
+    check(sorted(got) == sorted(want), f"{path}: keys {sorted(got)} read"
+          f" back, {sorted(want)} written")
+    n = 0
+    for key, value in want.items():
+        if isinstance(value, dict):
+            n += same_arrays(got[key], value, f"{path}/{key}")
+            continue
+        ref = np.asarray(value)
+        back = got[key]
+        if ref.dtype.kind in "UO":
+            def text(x):
+                return x.decode() if isinstance(x, bytes) else str(x)
+
+            same = [text(b) for b in np.asarray(back).reshape(-1)] == [
+                text(r) for r in ref.reshape(-1)]
+        else:
+            same = (back.dtype == ref.dtype and back.shape == ref.shape
+                    and back.tobytes() == ref.tobytes())
+        check(same, f"{path}/{key}: read back differs from what was"
+              " written")
+        n += 1
+    return n
+
+
+def events_file_fp32(chain, directory, smi):
+    """The events-file workflow at full width on the card's machine, in
+    float32: the per-run sources written with the port's HDF5 writer, the
+    two scripts, the files read back bit-equal to what the scripts held
+    (and byte-equal to the float64 child's, whose template of the same file
+    is the reference), example.cfg from the file on the card (one template
+    within EVENTS_FILE_RTOL of the float64 one in bins >= 1 event, one
+    captured value_and_grad), and the laned scatter-added histogram
+    (EVENTS_FILE_LANES lanes per container, past the one-hot budget)
+    against as many unlaned calls. Returns the path's launches (primal,
+    tangent, multitangent)."""
+    import numpy as np
+    import torch
+
+    from pisa_tpu_torch.core.events import Events
+    from pisa_tpu_torch.core.pipeline import Pipeline
+    from pisa_tpu_torch.utils.hdf import from_hdf
+    from pisa_tpu_torch.utils.hdf5_reader import read_hdf5
+
+    started = time.perf_counter()
+    total = [0, 0, 0]
+
+    def add():
+        launches = launch_counts(chain)
+        for i, n in enumerate(launches):
+            total[i] += n
+        reset_launch_counts(chain)
+        return launches
+
+    with np.load(os.path.join(directory, "fp64.npz")) as f:
+        ref = {k: f[k] for k in f.files}
+    tmp = tempfile.mkdtemp(prefix="events_file_")
+    try:
+        paths, held, seconds = events_file_build(tmp)
+        t0 = time.perf_counter()
+        sources = {path: read_hdf5(path) for run in paths["sources"].values()
+                   for path in run}
+        seconds["read sources"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        events = from_hdf(paths["events"])
+        seconds["read events file"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        fluxes = from_hdf(paths["fluxes"])
+        seconds["read file with fluxes"] = time.perf_counter() - t0
+        n_events = sum(v["true_energy"].size for k, v in fluxes.items()
+                       if k != "metadata")
+        size = sum(os.path.getsize(p) for p in
+                   [paths["events"], paths["fluxes"], *sources])
+        check("h5py" not in [m for m, v in sys.modules.items()
+                             if v is not None], "h5py was imported")
+        evts = held["events"]
+        written = {str(fi): evts[fi] for fi in evts.flavints_present}
+        written["metadata"] = evts.metadata
+        n = same_arrays(events, written, "events file")
+        n += same_arrays(fluxes, held["fluxes"], "file with fluxes")
+        digest = file_digest(paths["fluxes"])
+        print(f"events-file workflow, {n_events} events in"
+              f" {len(sources)} source files ({size / 2**20:.1f} MiB with the"
+              f" two events files), no h5py: "
+              + ", ".join(f"{k} {v:.3f} s" for k, v in seconds.items())
+              + f"; {n} arrays read back bit-equal to the scripts'; the file"
+              f" with fluxes byte-equal to the float64 child's:"
+              f" {digest == str(ref['digest'])} [{smi}]")
+        check(n_events == 12 * EVENTS_FILE_PER_FLAVINT,
+              f"the events file holds {n_events} events")
+        check(digest == str(ref["digest"]), "the float64 child wrote another"
+              " events file")
+        check(len(Events(paths["fluxes"]).flavints_present) == 12,
+              "Events does not read the written file")
+
+        # example.cfg from the file: the template against float64, then the
+        # captured value_and_grad
+        reset_launch_counts(chain)
+        t0 = time.perf_counter()
+        pipeline = Pipeline(events_file_config(paths["fluxes"]),
+                            device="cuda")
+        maps = pipeline.get_outputs()
+        torch.cuda.synchronize()
+        template_s = time.perf_counter() - t0
+        template_launches = add()
+        worst_w = worst_e = 0.0
+        for m in maps:
+            want = ref[f"w|{m.name}"]
+            mask = np.abs(want) >= MIN_EVENTS_FP32
+            worst_w = max(worst_w, max_rel(want, m.hist, mask))
+            worst_e = max(worst_e, max_rel(ref[f"e|{m.name}"], m.error_hist,
+                                           mask))
+        expected = sum(float(m.hist.sum()) for m in maps)
+        print(f"float32 example.cfg from the written file: set-up and first"
+              f" template {template_s:.2f} s, {expected:.1f} expected events;"
+              f" vs the float64 template of the same file (bins >= 1 event):"
+              f" weights {worst_w:.3e}, errors {worst_e:.3e} (bound"
+              f" {EVENTS_FILE_RTOL:g}); launches (primal, tangent,"
+              f" multitangent) {template_launches} [{smi}]")
+        check(worst_w <= EVENTS_FILE_RTOL and worst_e <= EVENTS_FILE_RTOL,
+              "example.cfg from the written file: the float32 template is"
+              " off the float64 one")
+        ct = pipeline.compile()
+        vg_launches = measure_vg("example.cfg from the written events file",
+                                 ct, chain, smi)
+        add()
+        print(f"example.cfg from the written file: launches (primal, tangent,"
+              f" multitangent) of one template {template_launches}, of one"
+              f" eager value_and_grad {vg_launches} [{smi}]")
+        check(template_launches[0] > 0 and vg_launches[2] > 0,
+              "example.cfg from the written file ran no chain kernel")
+        del ct, pipeline
+        torch.cuda.empty_cache()
+
+        # the laned scatter-added histogram, per container, past the
+        # one-hot budget, against one unlaned evaluation per lane
+        ct = Pipeline(events_file_config(paths["fluxes"], fine=True),
+                      device="cuda").compile(stack=False)
+        check(ct.output_binning.size > 512 and not ct.stacked,
+              "the fine example.cfg is not a per-container scatter")
+        rng = np.random.RandomState(EVENTS_FILE_SEED)
+        x0 = ct.current_rescaled_values()
+        vecs = np.clip(x0 + rng.uniform(-0.05, 0.05,
+                                        (EVENTS_FILE_LANES, x0.size)), 0, 1)
+        with torch.no_grad():
+            laned = ct._evaluate(ct._magnitudes_from_rescaled(
+                torch.as_tensor(vecs, device="cuda")),
+                lanes=EVENTS_FILE_LANES)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            laned = ct._evaluate(ct._magnitudes_from_rescaled(
+                torch.as_tensor(vecs, device="cuda")),
+                lanes=EVENTS_FILE_LANES)
+            torch.cuda.synchronize()
+            laned_ms = (time.perf_counter() - t0) * 1e3
+            t0 = time.perf_counter()
+            single = [ct._evaluate(ct._magnitudes_from_rescaled(
+                torch.as_tensor(v, device="cuda"))) for v in vecs]
+            torch.cuda.synchronize()
+            single_ms = (time.perf_counter() - t0) * 1e3
+        worst = 0.0
+        for name, hist in laned["hist"].items():
+            for lane in range(EVENTS_FILE_LANES):
+                want = single[lane]["hist"][name].double().cpu().numpy()
+                got = hist[lane].double().cpu().numpy()
+                worst = max(worst, float(np.abs(got - want).max()
+                                         / np.abs(want).max()))
+        spread = float(np.abs(
+            laned["hist"]["numu_cc"][0].double().cpu().numpy()
+            - laned["hist"]["numu_cc"][-1].double().cpu().numpy()).max())
+        launches = add()
+        print(f"float32 laned scatter-added histogram: example.cfg into"
+              f" {ct.output_binning.size} bins per container,"
+              f" {EVENTS_FILE_LANES} lanes at {n_events} events: each lane vs"
+              f" its unlaned evaluation {worst:.3e} of the largest bin"
+              f" (bound {EVENTS_FILE_LANES_ATOL:g}); laned evaluation"
+              f" {laned_ms:.2f} ms, {EVENTS_FILE_LANES} unlaned"
+              f" {single_ms:.2f} ms; launches {launches} [{smi}]")
+        check(worst <= EVENTS_FILE_LANES_ATOL and spread > 0,
+              "the laned scatter-added histogram is off the unlaned calls")
+        del ct
+        torch.cuda.empty_cache()
+    finally:
+        import shutil
+
+        shutil.rmtree(tmp, ignore_errors=True)
+    wall = time.perf_counter() - started
+    print(f"float32 events-file phase: {wall:.1f} s (budget"
+          f" {EVENTS_FILE_BUDGET_S} s); launches (primal, tangent,"
+          f" multitangent) {tuple(total)} [{smi}]")
+    return tuple(total)
+
 
 # -- hypersurfaces: fit on the flagship, then apply ---------------------------
 def hs_fit_config(pipeline_cfg=CFG):
@@ -7353,6 +7694,9 @@ def main(kernels_only=False, release_only=False, analysis_only=False,
     # float64, card against CPU: every child process at once (their CPU
     # sides dominate, and none depends on another), before the float32
     # phases, whose timings then run alone
+    # the events-file child's file and float64 template, read by
+    # events_file_fp32
+    events_dir = tempfile.TemporaryDirectory(prefix="events_file_fp64_")
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "reference.npz")
         run_children([
@@ -7365,6 +7709,7 @@ def main(kernels_only=False, release_only=False, analysis_only=False,
             ("hypersurfaces", ["--hypersurfaces-worker"]),
             ("MCEq", ["--mceq-worker"]),
             ("parameterized detector", ["--param-worker"]),
+            ("events file", ["--events-file-worker", events_dir.name]),
         ])
         with np.load(path) as f:
             ref = {k: f[k] for k in f.files}
@@ -7482,6 +7827,12 @@ def main(kernels_only=False, release_only=False, analysis_only=False,
     t0 = time.perf_counter()
     extra_paths["events"], kde_path = events_fp32(chain, smi)
     print(f"float32 events phase: {time.perf_counter() - t0:.1f} s")
+    # the events-file workflow on the port's HDF5 writer, example.cfg from
+    # the written file and the laned scatter-added histogram (this slice's
+    # main path)
+    extra_paths["events file"] = events_file_fp32(chain, events_dir.name,
+                                                  smi)
+    events_dir.cleanup()
     # hypersurfaces fitted on the flagship and applied to it (this slice's
     # main path)
     t0 = time.perf_counter()
@@ -7646,7 +7997,8 @@ if __name__ == "__main__":
         sys.exit(0)
     path_workers = {"--reference-worker": reference_worker,
                     "--release-worker": release_worker,
-                    "--cli-worker": cli_worker}
+                    "--cli-worker": cli_worker,
+                    "--events-file-worker": events_file_worker}
     if len(sys.argv) == 3 and sys.argv[1] in path_workers:
         sys.path.insert(0, ROOT)
         os.chdir(ROOT)

@@ -29,9 +29,8 @@ unlike the 0-d ones of a single point, would promote float32 data to
 float64: stages take them through ``core.stage.in_data_type``, so that a
 lane computes in the data's type as its single point does. A laned value
 translates between events and a binning with its lane axis folded into the
-channels (a lookup or a histogram per container, or the stacked
-container's own ops, ``core/stacking.py``); a resampling between two
-binnings of a laned value raises.
+channels (a lookup, a histogram or a resampling between two binnings per
+container, or the stacked container's own ops, ``core/stacking.py``).
 
 Variables are torch tensors on the container set's device. Host arrays
 (numpy) are uploaded when set, floating ones in ``TORCH_FTYPE`` (as the JAX
@@ -347,11 +346,6 @@ class Container:
         values = self._data[key][_rep_hash(src_representation)]
         laned = key in self._laned
         if laned:
-            if from_map and to_map:
-                raise NotImplementedError(
-                    f"resampling {key!r} with a lane axis"
-                    f" ({src_representation} -> {dest}) is not supported"
-                )
             # the lane axis joins the trailing channels, (size, rest * B),
             # and leaves them again after the translation
             laned_shape = tuple(values.shape)

@@ -7,10 +7,11 @@ EventsPi: container of per-category structured event arrays loaded from
 PISA-format HDF5 files (cf. reference ``pisa/core/events_pi.py:105``).
 
 Supports the legacy nested ``{flavor: {cc/nc: {var: array}}}`` layout, the
-flat ``{flavint: {var: array}}`` layout, pdg_code/interaction splitting,
-variable mapping (with column stacking), the legacy "oppo" flux fix,
-deterministic down-sampling into statistically independent sub-samples, and
-string cuts.
+flat ``{flavint: {var: array}}`` layout (the ``metadata`` group that
+``core/events.py:Events.save`` writes beside it is skipped),
+pdg_code/interaction splitting, variable mapping (with column stacking),
+the legacy "oppo" flux fix, deterministic down-sampling into statistically
+independent sub-samples, and string cuts.
 """
 
 from __future__ import annotations
@@ -139,6 +140,11 @@ class EventsPi(OrderedDict):
             if not isinstance(file_data, Mapping) or not file_data:
                 raise TypeError(f"no event data loaded from {infile}")
             for k, v in file_data.items():
+                if k == "metadata":
+                    # the bookkeeping that Events.save writes beside the
+                    # categories (make_events_file's output); the JAX
+                    # package's loader raises on it
+                    continue
                 _append_arrays_dict(k, v, input_data)
 
             if required_metadata is not None:

@@ -112,11 +112,14 @@ def lookup_indices_flat(sample, binning_or_spec):
         torch.int32)
 
 
-def histogram(sample, weights, binning_or_spec, averaged=False, idx=None):
+def histogram(sample, weights, binning_or_spec, averaged=False, idx=None,
+              laned=False):
     """Histogram `sample` into the binning, weighted by `weights` ((N,) or
     (N, ch); None for counts). With `averaged`, per-bin sums are divided by
     per-bin counts (empty bins -> 0). `idx`: precomputed
-    :func:`sanitized_flat_indices`. Returns (size,) or (size, ch)."""
+    :func:`sanitized_flat_indices`. Returns (size,) or (size, ch). With
+    `laned`, `weights` and the result carry a leading lane axis (B, ...):
+    one scatter-add along the bins of every lane at once."""
     spec = _as_spec(binning_or_spec)
     size = _size(spec)
     if idx is None:
@@ -125,15 +128,15 @@ def histogram(sample, weights, binning_or_spec, averaged=False, idx=None):
         w = torch.ones(idx.shape[0], dtype=sample[0].dtype, device=idx.device)
     else:
         w = weights
-    out = torch.zeros((size + 1,) + tuple(w.shape[1:]), dtype=w.dtype,
-                      device=w.device)
-    flat_hist = out.index_add_(0, idx, w)[:size]
+    lead = tuple(w.shape[:1]) if laned else ()
+    axis = len(lead)
+    out = torch.zeros(lead + (size + 1,) + tuple(w.shape[axis + 1:]),
+                      dtype=w.dtype, device=w.device)
+    flat_hist = out.index_add_(axis, idx, w).narrow(axis, 0, size)
     if averaged:
         counts = torch.zeros(size + 1, dtype=w.dtype, device=w.device)
         counts = counts.index_add_(0, idx, torch.ones_like(idx, dtype=w.dtype))
-        counts = counts[:size]
-        if w.dim() > 1:
-            counts = counts[:, None]
+        counts = counts[:size].reshape((size,) + (1,) * (w.dim() - axis - 1))
         flat_hist = torch.where(
             counts > 0, flat_hist / torch.where(counts > 0, counts, 1.0), 0.0
         )

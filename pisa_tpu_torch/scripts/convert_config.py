@@ -26,9 +26,8 @@ from argparse import ArgumentDefaultsHelpFormatter, ArgumentParser
 PI_RENAMES = re.compile(r"(?<=\.)pi_(?=\w)")
 RESOURCE_PREFIX = re.compile(r"pisa_examples/resources/")
 #: the services pisa_tpu_torch cannot run, as ``stage.service``: their
-#: packages cannot be had (``data.licloader_weighter``, ``flux.airs``) or
-#: they are not ported yet (``data.meows_loader``)
-GATED = ("data.licloader_weighter", "data.meows_loader", "flux.airs")
+#: packages cannot be had (LeptonWeighter, photospline)
+GATED = ("data.licloader_weighter", "flux.airs")
 
 
 def convert_text(text):

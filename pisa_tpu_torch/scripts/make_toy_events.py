@@ -1,8 +1,8 @@
 """
 Host copy of ``pisa_tpu/scripts/make_toy_events.py`` with its imports
 rewritten to ``pisa_tpu_torch``: the same events for the same seed, from
-the port's ``utils/flux_weights.py``. Writing the file needs ``h5py``
-(``utils/hdf.py:to_hdf``).
+the port's ``utils/flux_weights.py``, written by the port's own HDF5
+writer (``utils/hdf.py:to_hdf``).
 
 Generate a PISA-format toy MC events HDF5 file (cf. reference
 ``pisa/scripts/make_toy_events.py``): per-flavor/interaction groups with

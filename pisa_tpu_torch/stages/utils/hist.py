@@ -7,7 +7,8 @@ The histogram is one product of the weight channels with each container's
 cached one-hot bin-membership matrix (``translation.histogram_matmul``), as
 the JAX package computes it with ``Precision.HIGHEST``: TF32 is switched off
 for CUDA matmuls at setup, so float32 products keep full float32 precision.
-A container whose matrix would exceed the size budget is scatter-added. A
+A container whose matrix would exceed the size budget is scatter-added
+(with lanes, one ``index_add_`` along the bins of every lane). A
 category-stacked container (``core/stacking.py``) is histogrammed in one
 batched op.
 
@@ -338,14 +339,10 @@ class hist(Stage):  # noqa: N801
             laned = container.lanes is not None
             if matrix is not None:
                 res = translation.histogram_matmul(chans, matrix, laned=laned)
-            elif laned:
-                raise NotImplementedError(
-                    "lanes through a scatter-added histogram (a container"
-                    " past the one-hot size budget) need a stacked template"
-                )
             else:
                 idx = container.cached_flat_indices(self.apply_mode)
-                res = translation.histogram(None, chans, self.apply_mode, idx=idx)
+                res = translation.histogram(None, chans, self.apply_mode,
+                                            idx=idx, laned=laned)
             self._store(container, res)
             # histogramming does not invalidate the events representation
             container.validity["weights"][hash("events")] = True

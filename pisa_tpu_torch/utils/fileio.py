@@ -1,8 +1,9 @@
 """
 Host copy of ``pisa_tpu/utils/fileio.py`` with its imports rewritten to
 ``pisa_tpu_torch``. CSV files are read with numpy (plain or ``.bz2``
-compressed) into ``{column: array}`` dicts; HDF5 files are read by the
-port's own reader (``utils/hdf.py``) and written with ``h5py``.
+compressed) into ``{column: array}`` dicts; HDF5 files are read and
+written by the port's own reader and writer (``utils/hdf.py``), without
+``h5py``.
 
 Generic file I/O dispatch by extension (cf. reference
 ``pisa/utils/fileio.py:486,542``): .json(.bz2), .csv(.bz2), .pkl,

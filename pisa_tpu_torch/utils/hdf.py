@@ -7,17 +7,17 @@ numpy arrays.
 (``utils/hdf5_reader.py``, numpy and the standard library only), so the
 same code runs on machines without ``h5py``; it returns what the JAX
 package's ``from_hdf`` returns (h5py's values, a scalar ``bytes`` decoded
-to ``str``). :func:`to_hdf` writes with ``h5py`` and raises an
-``ImportError`` naming it where it is missing.
+to ``str``). :func:`to_hdf` writes through the port's own writer
+(``utils/hdf5_writer.py``) what the JAX package's ``to_hdf`` writes through
+h5py; neither function imports ``h5py``.
 """
 
 from __future__ import annotations
 
 import os
 
-import numpy as np
-
 from pisa_tpu_torch.utils.hdf5_reader import H5File
+from pisa_tpu_torch.utils.hdf5_writer import write_hdf5
 
 __all__ = ["from_hdf", "to_hdf"]
 
@@ -37,31 +37,10 @@ def from_hdf(path, choose=None):
         return _decode(f.read("/", choose=choose))
 
 
-def _write_group(h5py, group, d):
-    for key, val in d.items():
-        key = str(key)
-        if isinstance(val, dict):
-            _write_group(h5py, group.create_group(key), val)
-        else:
-            arr = np.asarray(val)
-            if arr.dtype.kind in ("U", "O"):
-                arr = arr.astype(h5py.string_dtype())
-            group.create_dataset(key, data=arr)
-
-
 def to_hdf(d, path, attrs=None, overwrite=True):
-    """Write a nested dict of arrays to an HDF5 file (needs ``h5py``)."""
-    try:
-        import h5py
-    except ImportError as exc:
-        raise ImportError(
-            "to_hdf needs the h5py package, which is not installed; reading"
-            " (from_hdf) does not"
-        ) from exc
+    """Write a nested dict of arrays to an HDF5 file, with root attributes
+    `attrs`."""
     if os.path.exists(path) and not overwrite:
         raise IOError(f"Refusing to overwrite {path}")
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-    with h5py.File(path, "w") as f:
-        _write_group(h5py, f, d)
-        for k, v in (attrs or {}).items():
-            f.attrs[k] = v
+    write_hdf5(d, path, attrs=attrs)

@@ -341,8 +341,8 @@ def test_convert_gates_what_the_port_cannot_run(tmp_path, capsys):
     out, notes = convert_config.convert_text(text)
     assert out == jax_convert_config.convert_text(text)[0]
     assert "pi_" not in out and "pisa_examples" not in out
+    # data.meows_loader runs in the port: flux.airs is the gated example
     assert _gating(notes) == [
-        "NOTE: service 'data.meows_loader' does not run in pisa_tpu_torch",
         "NOTE: service 'flux.airs' does not run in pisa_tpu_torch"]
     outfile = str(tmp_path / "converted.cfg")
     convert_config.main([find_resource(
@@ -386,7 +386,7 @@ def test_entry_points_name_modules_with_main():
         scripts = tomllib.load(f)["project"]["scripts"]
     port = {k: v for k, v in scripts.items()
             if k.startswith("pisa-tpu-torch-")}
-    assert len(port) == 11
+    assert len(port) == 15
     for name, target in port.items():
         module, _, attr = target.partition(":")
         assert module.startswith("pisa_tpu_torch.scripts."), name

@@ -186,9 +186,12 @@ def test_to_hdf_round_trip_and_missing_h5py(tmp_path, monkeypatch):
     got = from_hdf(path)
     assert_same(got, jax_from_hdf(path))
     np.testing.assert_array_equal(got["g"]["x"], d["g"]["x"])
+    # the port writes without h5py (utils/hdf5_writer.py): a file written
+    # with h5py unimportable reads back the same
     monkeypatch.setitem(sys.modules, "h5py", None)
-    with pytest.raises(ImportError, match="h5py"):
-        to_hdf(d, str(tmp_path / "other.h5"))
+    other = str(tmp_path / "other.h5")
+    to_hdf(d, other)
+    assert_same(from_hdf(other), got)
 
 
 @pytest.fixture
