@@ -201,7 +201,18 @@ oscillation grid, 15 free parameters) on the card through its two paths:
   that child's CPU float64 template in bins with >= 1 event and its
   captured value_and_grad; and the histogram scatter-added past the
   one-hot budget (640 bins, per container) over 4 lanes against 4 unlaned
-  evaluations. It prints each write and read time and its wall.
+  evaluations, and toy_fit_example's probabilities resampled from a
+  200 x 200 grid over 4 lanes against 4 unlaned evaluations. It prints each
+  write and read time, the three bins farthest from the float64 template,
+  and its wall;
+- multi-device evaluation, this slice's main path (``sharded_fp32``,
+  float32): an NCCL world of one in this process, the flagship sharded over
+  it (``Pipeline(...).compile().shard(default_mesh())``, the collective run
+  all the same) and its value_and_grad captured with the ``all_reduce`` in
+  the graph, against the unsharded captured flagship; and a float64 child
+  (``--sharded-worker``) with a gloo world of 2 ranks on the one card, its
+  sharded template and gradient against the unsharded card float64 ones to
+  1e-12 and 1e-10, each rank's grid points and real layer steps printed.
 
 It times the kernels (device-only, from a CUDA graph of 200 launches, and
 host-inclusive, from back-to-back launches between CUDA events; the
@@ -229,12 +240,13 @@ with ``--hypersurfaces-only`` the hypersurfaces phases alone, with
 ``--mceq-only`` the MCEq-Barr flagship's phases alone, with
 ``--param-only`` the parameterized-detector phases alone, with
 ``--cli-only`` the command-line phase alone (the CPU float64 nominal
-template from a child of its own); none prints a status line. It prints its total wall before the
+template from a child of its own), with ``--sharded-only`` the sharded
+flagship's phase and its float64 child alone; none prints a status line. It prints its total wall before the
 kernels line.
 
 The float64 runs (CPU reference and card) happen in child processes, since
 the float type is chosen once per process (``PISA_TPU_FTYPE``); the main
-process runs float32, the port's default. The ten children of a full run
+process runs float32, the port's default. The eleven children of a full run
 start together, after the kernel checks and before the float32 phases
 (``run_children``): their CPU sides dominate them and none depends on
 another, and the float32 phases' timings then run alone.
@@ -481,6 +493,11 @@ EVENTS_FILE_RTOL = 3e-6
 EVENTS_FILE_LANES = 4
 EVENTS_FILE_FINE_BINS = (16, 20)
 EVENTS_FILE_LANES_ATOL = 1e-5
+# the laned map-to-map resampling check (toy_fit_example's probabilities
+# from a grid of this many bins a side): each lane vs its unlaned call, of
+# the largest bin
+RESAMPLE_GRID_BINS = 200
+RESAMPLE_LANES_ATOL = 1e-6
 EVENTS_FILE_BUDGET_S = 30
 # KDE kernel vs its plain version on the same inputs, max |difference| /
 # max |plain|: float64 to the round-off of 20,000-term sums; the float32
@@ -639,6 +656,14 @@ HS_FP64_THREADS = 2
 CLI_REQUESTS = 16
 CLI_SERVER_TIMEOUT = 180.0
 CLI_BUDGET_S = 60.0
+
+# the sharded flagship (parallel/, CompiledTemplate.shard): the float32
+# phase's budget; the float64 child's gloo ranks, every one on cuda:0; its
+# bounds against the unsharded card float64 flagship (relative per bin;
+# relative per gradient entry, plus that fraction of the largest)
+SHARDED_BUDGET_S = 30
+SHARDED_WORLD = 2
+SHARDED_FP64 = {"template": 1e-12, "grad": 1e-10}
 
 # the routes of one value_and_grad: label, compile options, captured
 ROUTES = (
@@ -6588,7 +6613,8 @@ def events_file_fp32(chain, directory, smi):
     captured value_and_grad), and the laned scatter-added histogram
     (EVENTS_FILE_LANES lanes per container, past the one-hot budget)
     against as many unlaned calls. Returns the path's launches (primal,
-    tangent, multitangent)."""
+    tangent, multitangent): of a laned check, its one timed laned
+    evaluation's, not the unlaned reference's."""
     import numpy as np
     import torch
 
@@ -6659,12 +6685,59 @@ def events_file_fp32(chain, directory, smi):
         template_s = time.perf_counter() - t0
         template_launches = add()
         worst_w = worst_e = 0.0
+        # every bin >= 1 event: (relative error, channel, map, flat bin,
+        # float64 value)
+        bins = []
         for m in maps:
             want = ref[f"w|{m.name}"]
             mask = np.abs(want) >= MIN_EVENTS_FP32
             worst_w = max(worst_w, max_rel(want, m.hist, mask))
             worst_e = max(worst_e, max_rel(ref[f"e|{m.name}"], m.error_hist,
                                            mask))
+            for channel, want_c, got_c in (
+                    ("weights", want, m.hist),
+                    ("errors", ref[f"e|{m.name}"], m.error_hist)):
+                want_c = np.asarray(want_c, dtype=np.float64).ravel()
+                got_c = np.asarray(got_c, dtype=np.float64).ravel()
+                for i in np.flatnonzero(mask.ravel()):
+                    bins.append((abs(got_c[i] - want_c[i]) / abs(want_c[i]),
+                                 channel, m.name, int(i), want_c[i],
+                                 want.ravel()[i]))
+        for channel in ("errors", "weights"):
+            worst = sorted((b for b in bins if b[1] == channel),
+                           reverse=True)[:3]
+            print(f"float32 example.cfg from the written file, the three"
+                  f" {channel} bins farthest from float64: " + "; ".join(
+                      f"{name} bin {i}: {err:.3e} of {value:.6g}"
+                      f" ({events:.6g} expected events)"
+                      for err, _, name, i, value, events in worst)
+                  + f" [{smi}]")
+        # whether the float32 sums carry that margin: the same float32
+        # event weights, histogrammed in float64 (the errors the root of
+        # the float64 sum of their squares)
+        reco = pipeline["utils.hist"].apply_mode
+        summed64 = {"weights": 0.0, "errors": 0.0}
+        for c in pipeline.data.containers:
+            prev, c.representation = c.representation, "events"
+            w = c["weights"].double()
+            idx = c.cached_flat_indices(reco)
+            c.representation = prev
+            want = ref[f"w|{c.name}"].ravel()
+            mask = np.abs(want) >= MIN_EVENTS_FP32
+            for channel, values, ref_c in (
+                    ("weights", w, want),
+                    ("errors", torch.square(w), ref[f"e|{c.name}"].ravel())):
+                h = torch.zeros(reco.size + 1, dtype=torch.float64,
+                                device=w.device).index_add_(0, idx, values)
+                h = h[:reco.size].cpu().numpy()
+                if channel == "errors":
+                    h = np.sqrt(h)
+                summed64[channel] = max(summed64[channel],
+                                        max_rel(ref_c, h, mask))
+        print(f"float32 example.cfg from the written file, its float32 event"
+              f" weights histogrammed in float64 vs the float64 template"
+              f" (bins >= 1 event): weights {summed64['weights']:.3e}, errors"
+              f" {summed64['errors']:.3e} [{smi}]")
         expected = sum(float(m.hist.sum()) for m in maps)
         print(f"float32 example.cfg from the written file: set-up and first"
               f" template {template_s:.2f} s, {expected:.1f} expected events;"
@@ -6702,17 +6775,22 @@ def events_file_fp32(chain, directory, smi):
                 torch.as_tensor(vecs, device="cuda")),
                 lanes=EVENTS_FILE_LANES)
             torch.cuda.synchronize()
+            # the path's launches: the one laned evaluation's
+            reset_launch_counts(chain)
             t0 = time.perf_counter()
             laned = ct._evaluate(ct._magnitudes_from_rescaled(
                 torch.as_tensor(vecs, device="cuda")),
                 lanes=EVENTS_FILE_LANES)
             torch.cuda.synchronize()
             laned_ms = (time.perf_counter() - t0) * 1e3
+            launches = add()
             t0 = time.perf_counter()
             single = [ct._evaluate(ct._magnitudes_from_rescaled(
                 torch.as_tensor(v, device="cuda"))) for v in vecs]
             torch.cuda.synchronize()
             single_ms = (time.perf_counter() - t0) * 1e3
+            # the unlaned reference's launches are not the path's
+            reset_launch_counts(chain)
         worst = 0.0
         for name, hist in laned["hist"].items():
             for lane in range(EVENTS_FILE_LANES):
@@ -6723,18 +6801,19 @@ def events_file_fp32(chain, directory, smi):
         spread = float(np.abs(
             laned["hist"]["numu_cc"][0].double().cpu().numpy()
             - laned["hist"]["numu_cc"][-1].double().cpu().numpy()).max())
-        launches = add()
         print(f"float32 laned scatter-added histogram: example.cfg into"
               f" {ct.output_binning.size} bins per container,"
               f" {EVENTS_FILE_LANES} lanes at {n_events} events: each lane vs"
               f" its unlaned evaluation {worst:.3e} of the largest bin"
               f" (bound {EVENTS_FILE_LANES_ATOL:g}); laned evaluation"
               f" {laned_ms:.2f} ms, {EVENTS_FILE_LANES} unlaned"
-              f" {single_ms:.2f} ms; launches {launches} [{smi}]")
+              f" {single_ms:.2f} ms; launches of the laned evaluation"
+              f" {launches} [{smi}]")
         check(worst <= EVENTS_FILE_LANES_ATOL and spread > 0,
               "the laned scatter-added histogram is off the unlaned calls")
         del ct
         torch.cuda.empty_cache()
+        events_file_resampling(chain, add, smi)
     finally:
         import shutil
 
@@ -6744,6 +6823,106 @@ def events_file_fp32(chain, directory, smi):
           f" {EVENTS_FILE_BUDGET_S} s); launches (primal, tangent,"
           f" multitangent) {tuple(total)} [{smi}]")
     return tuple(total)
+
+
+def resampled_toy_config():
+    """toy_fit_example.cfg with prob3 computed on a RESAMPLE_GRID_BINS^2
+    grid and applied on its calc_grid_coarse, so that its probabilities
+    are resampled between the two binnings (tests/test_torch_hist_lanes.py
+    cuts the grid to 20 x 20)."""
+    from pisa_tpu_torch import ureg
+    from pisa_tpu_torch.config.parser import parse_pipeline_config
+    from pisa_tpu_torch.core import binning
+
+    cfg = parse_pipeline_config("settings/pipeline/toy_fit_example.cfg")
+    cfg[("osc", "prob3")]["calc_mode"] = binning.MultiDimBinning([
+        binning.OneDimBinning("true_energy", num_bins=RESAMPLE_GRID_BINS,
+                              is_log=True, domain=[1, 1000] * ureg.GeV),
+        binning.OneDimBinning("true_coszen", num_bins=RESAMPLE_GRID_BINS,
+                              is_lin=True, domain=[-1, 1]),
+    ], name="osc_grid")
+    return cfg
+
+
+def events_file_resampling(chain, add, smi):
+    """Laned map-to-map resampling on the card: toy_fit_example's
+    probabilities resampled from a 200 x 200 grid onto its calc grid with
+    EVENTS_FILE_LANES lanes folded into the channels
+    (``core/container.py:translate``), each lane against its unlaned
+    evaluation, within RESAMPLE_LANES_ATOL of the lane's largest bin; the
+    resampling ran with the lane axis. `add` takes the launches of the one
+    timed laned evaluation."""
+    import numpy as np
+    import torch
+
+    from pisa_tpu_torch.core import translation
+    from pisa_tpu_torch.core.pipeline import Pipeline
+
+    ct = Pipeline(resampled_toy_config(), device="cuda").compile(stack=False)
+    rng = np.random.RandomState(EVENTS_FILE_SEED)
+    x0 = ct.current_rescaled_values()
+    vecs = np.clip(x0 + rng.uniform(-0.05, 0.05,
+                                    (EVENTS_FILE_LANES, x0.size)), 0, 1)
+    shapes = []
+    resample = translation.resample
+
+    def counted(values, *args, **kwargs):
+        shapes.append(tuple(values.shape))
+        return resample(values, *args, **kwargs)
+
+    translation.resample = counted
+    try:
+        with torch.no_grad():
+            vec = torch.as_tensor(vecs, device="cuda")
+            ct._evaluate(ct._magnitudes_from_rescaled(vec),
+                         lanes=EVENTS_FILE_LANES)
+            torch.cuda.synchronize()
+            # the path's launches: the one laned evaluation's
+            reset_launch_counts(chain)
+            t0 = time.perf_counter()
+            laned = ct._evaluate(ct._magnitudes_from_rescaled(vec),
+                                 lanes=EVENTS_FILE_LANES)
+            torch.cuda.synchronize()
+            laned_ms = (time.perf_counter() - t0) * 1e3
+            launches = add()
+            laned_shapes = list(shapes)
+            t0 = time.perf_counter()
+            single = [ct._evaluate(ct._magnitudes_from_rescaled(
+                torch.as_tensor(v, device="cuda"))) for v in vecs]
+            torch.cuda.synchronize()
+            single_ms = (time.perf_counter() - t0) * 1e3
+            # the unlaned reference's launches are not the path's
+            reset_launch_counts(chain)
+    finally:
+        translation.resample = resample
+    worst = 0.0
+    for name, hist in laned["hist"].items():
+        for lane in range(EVENTS_FILE_LANES):
+            want = single[lane]["hist"][name].double().cpu().numpy()
+            got = hist[lane].double().cpu().numpy()
+            worst = max(worst, float(np.abs(got - want).max()
+                                     / np.abs(want).max()))
+    spread = float(np.abs(
+        laned["hist"]["numu_cc"][0].double().cpu().numpy()
+        - laned["hist"]["numu_cc"][-1].double().cpu().numpy()).max())
+    # the laned evaluations' resamplings fold the lanes into the channels:
+    # (points, channels x lanes)
+    folded = [s for s in laned_shapes if len(s) == 2
+              and s[1] % EVENTS_FILE_LANES == 0]
+    print(f"float32 laned map-to-map resampling: toy_fit_example's"
+          f" probabilities from a {RESAMPLE_GRID_BINS}x{RESAMPLE_GRID_BINS}"
+          f" grid onto {ct.output_binning.size} bins per container,"
+          f" {EVENTS_FILE_LANES} lanes: each lane vs its unlaned evaluation"
+          f" {worst:.3e} of the largest bin (bound {RESAMPLE_LANES_ATOL:g});"
+          f" {len(folded)} resamplings with the lanes folded into the"
+          f" channels, e.g. {folded[:1]}; laned evaluation {laned_ms:.2f} ms,"
+          f" {EVENTS_FILE_LANES} unlaned {single_ms:.2f} ms; launches of the"
+          f" laned evaluation {launches} [{smi}]")
+    check(worst <= RESAMPLE_LANES_ATOL and spread > 0 and folded,
+          "the laned resampling is off the unlaned calls")
+    check(launches[0] > 0, f"the laned resampling's launches {launches}")
+    del ct
+    torch.cuda.empty_cache()
 
 
 # -- hypersurfaces: fit on the flagship, then apply ---------------------------
@@ -7555,6 +7734,291 @@ def cli_fp32(chain, pipeline, ref, smi):
     return tuple(total)
 
 
+# -- the sharded flagship: parallel/ and CompiledTemplate.shard --------------
+def sharded_worker():
+    """float64 (``--sharded-worker``): the full flagship sharded over a
+    gloo world of SHARDED_WORLD ranks, every one on cuda:0 (NCCL refuses two
+    ranks on one card), each a process of its own
+    (``pisa_tpu_torch/testing/sharded_worker.py``), eager; its template and
+    mod_chi2 gradient against the unsharded card float64 ones (rank 0's),
+    within SHARDED_FP64, with each rank's grid points, real layer steps and
+    launches."""
+    import numpy as np
+
+    from pisa_tpu_torch.testing.sharded_worker import start_world
+
+    t0 = time.perf_counter()
+    ranks = start_world({"device": "cuda:0", "backend": "gloo",
+                         "cases": ["card_flagship"], "grid_bins": None,
+                         "fraction": None, "threads": 2},
+                        SHARDED_WORLD).results(timeout=600)
+    errors = [out["card_flagship|error"] for out in ranks
+              if "card_flagship|error" in out]
+    check(not errors, "the sharded float64 ranks failed:\n"
+          + "\n".join(errors))
+    want = ranks[0]
+    worst_t = worst_e = worst_g = 0.0
+    for rank, out in enumerate(ranks):
+        for key in ("hist", "errors"):
+            ref = want[f"card|unsharded|{key}"]
+            got = out[f"card|sharded|{key}"]
+            mask = ref != 0
+            err = float(np.max(np.abs(got - ref)[mask] / np.abs(ref)[mask]))
+            if key == "hist":
+                worst_t = max(worst_t, err)
+            else:
+                worst_e = max(worst_e, err)
+        worst_g = max(worst_g, grad_mismatch(
+            out["card|sharded|grad"], want["card|unsharded|grad"],
+            SHARDED_FP64["grad"], SHARDED_FP64["grad"]))
+        print(f"float64 sharded rank {rank} of {SHARDED_WORLD} (gloo,"
+              f" cuda:0): events {out['card|events'].tolist()}, grid points"
+              f" {out['card|grid'].tolist()} ({out['card|points']} points"
+              f" a sign, {out['card|layer_steps']} real layer steps a sign);"
+              f" launches (primal, multitangent) of one template and one"
+              f" eager value_and_grad {out['card|launches'].tolist()};"
+              f" set-up {out['card|setup_s']:.2f} s, the case"
+              f" {out['card_flagship|seconds']:.1f} s")
+    print(f"float64 sharded flagship ({SHARDED_WORLD} gloo ranks on the card)"
+          f" vs unsharded on the card: template {worst_t:.3e}, errors"
+          f" {worst_e:.3e} relative per bin (bound"
+          f" {SHARDED_FP64['template']:g}); gradient {worst_g:.3e} of its"
+          f" bound ({SHARDED_FP64['grad']:g} relative per entry, plus"
+          f" {SHARDED_FP64['grad']:g} of the largest); value"
+          f" {ranks[1]['card|sharded|value']:.12e} vs"
+          f" {want['card|unsharded|value']:.12e}; wall"
+          f" {time.perf_counter() - t0:.1f} s")
+    check(worst_t <= SHARDED_FP64["template"]
+          and worst_e <= SHARDED_FP64["template"] and worst_g <= 1.0,
+          "the sharded float64 flagship is off the unsharded one")
+    check(all(out["card|launches"][0] > 0 and out["card|launches"][1] > 0
+              for out in ranks), "a sharded rank launched no chain kernel")
+
+
+def rank_slice_kernels(chain, prob3, smi):
+    """The primal and the multitangent kernel (K = 3) at the grid slices
+    of a world of SHARDED_WORLD ranks (20,000 points a sign each), float32:
+    each against its plain version at the nominal theta, and timed
+    device-only beside its bound. Returns {name: [(ms, bound, steps) per
+    slice]}."""
+    import numpy as np
+    import torch
+
+    energy, coszen = prob3._grid_points()
+    n = energy.size
+    out = {"osc_chain": [], "osc_chain_multitangent": []}
+    theta = flagship_thetas({p.name: p for p in prob3.params})[0]
+    pvec, jac = pack_and_directions(chain, theta, 1, torch.float32)
+    dirs = jac[list(FREE_THETA)].contiguous()
+    for rank in range(SHARDED_WORLD):
+        part = slice(rank * n // SHARDED_WORLD, (rank + 1) * n // SHARDED_WORLD)
+        geom = prob3._make_geometry(energy[part], *prob3._chains(coszen[part]))
+        check(geom["e"].dtype == torch.float32, "the slice is not float32")
+        args = (geom["e"], geom["dens"], geom["dist"], geom["nl"])
+        steps = int((geom["dist"] > 0).sum())
+        for name, run, plain, k, primal in (
+                ("osc_chain",
+                 lambda: chain.chain_probs(pvec, *args, geom["tiles"]),
+                 lambda: chain.chain_probs_reference(pvec, *args), 0, True),
+                ("osc_chain_multitangent",
+                 lambda: chain.chain_multitangent(pvec, dirs, *args,
+                                                  geom["tiles"]),
+                 lambda: chain.chain_multitangent_reference(pvec, dirs,
+                                                            *args),
+                 len(FREE_THETA), True)):
+            got, want = run(), plain()
+            got = got if isinstance(got, tuple) else (got,)
+            want = want if isinstance(want, tuple) else (want,)
+            # the primal absolute (KERNEL_ATOL), the tangents relative to
+            # their largest (TANGENT_RTOL)
+            err = float((got[0] - want[0]).abs().max())
+            check(err <= KERNEL_ATOL["float32"], f"{name} at rank {rank}'s"
+                  f" slice: the primal {err} off the plain version")
+            if k:
+                rel = float((got[1] - want[1]).abs().max()
+                            / want[1].abs().max())
+                check(rel <= TANGENT_RTOL["float32"], f"{name} at rank"
+                      f" {rank}'s slice: the tangents {rel} off the plain"
+                      " version")
+                err = max(err, rel)
+            ms = graph_time(run)
+            bound = kernel_bound(chain, geom, k, primal)
+            out[name].append((ms, bound["bound_ms"], steps))
+            print(f"float32 {name}{f' K = {k}' if k else ''} at rank {rank}'s"
+                  f" grid slice of {SHARDED_WORLD} ({geom['e'].shape[0]}"
+                  f" points, {steps} real layer steps): {ms:.5f} ms"
+                  f" device-only, bound {bound['bound_ms']:.5f} ms by"
+                  f" {bound['bound_by']}"
+                  f" ({100 * bound['bound_ms'] / ms:.1f}%); vs plain"
+                  f" {err:.3e} [{smi}]")
+    return out
+
+
+def sharded_fp32(chain, smi):
+    """Float32 at full width (240k events, the 200x200 grid, 15 free): an
+    NCCL world of one in this process (``init_multihost``), a flagship
+    Pipeline of the phase's own, its template sharded over the mesh
+    (``.compile().shard(default_mesh())``: the events and the grid split
+    over the one rank, the collective run all the same) and its mod_chi2
+    value_and_grad captured with the all_reduce in the graph, against the
+    unsharded captured flagship on the same pipeline: the template within
+    TEMPLATE_RTOL, the gradient within VG_FP32, both expected bit-equal.
+    Prints the two value_and_grad walls, the launches (chain kernels and
+    collectives), the replay's busy share and the phase's wall against
+    SHARDED_BUDGET_S. The launches are the sharded template's own, counted
+    from zero after the unsharded reference: its captured template and
+    captured value_and_grad (each run CAPTURE_WARMUP times, then captured),
+    which the phase returns as (primal, tangent, multitangent), and one
+    eager value_and_grad, held to expected_vg_launches."""
+    import socket
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from pisa_tpu_torch.core import collectives
+    from pisa_tpu_torch.core.pipeline import Pipeline
+    from pisa_tpu_torch.core.template import CAPTURE_WARMUP
+    from pisa_tpu_torch.parallel import default_mesh, multihost
+
+    started = time.perf_counter()
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    multihost.init_multihost(f"127.0.0.1:{port}", 1, 0, device="cuda:0")
+    try:
+        check(default_mesh().backend == "nccl", "the world is not on NCCL")
+        pipeline = Pipeline(CFG, device="cuda")
+        ct = pipeline.compile()
+        data = ct.get_outputs(ct.current_rescaled_values())
+        v = gradient_point(ct)
+        _, vg_ref = ct.build_objective(data, "mod_chi2")
+        ref = read_back(vg_ref(v))
+        t0 = time.perf_counter()
+        sharded = pipeline.compile().shard(default_mesh())
+        shard_s = time.perf_counter() - t0
+        sc = sharded._trace_data.containers[0]
+        geom = pipeline["osc.prob3"]._grid_geometry(sc)
+        # the sharded path's own launches and collectives from here
+        reset_launch_counts(chain)
+        collectives.collective_count = 0
+        maps = sharded.get_outputs()
+        torch.cuda.synchronize()
+        template_launches = launch_counts(chain)
+        template_collectives = collectives.collective_count
+        worst_t = worst_e = 0.0
+        bit_equal = True
+        for m in data:
+            got = maps[m.name]
+            mask = np.abs(m.hist) >= MIN_EVENTS_FP32
+            worst_t = max(worst_t, max_rel(m.hist, got.hist, mask))
+            worst_e = max(worst_e, max_rel(m.error_hist, got.error_hist,
+                                           mask))
+            bit_equal &= bool(np.array_equal(m.hist, got.hist)
+                              and np.array_equal(m.error_hist,
+                                                 got.error_hist))
+        reset_launch_counts(chain)
+        collectives.collective_count = 0
+        t0 = time.perf_counter()
+        value_fn, vg = sharded.build_objective(data, "mod_chi2")
+        got = read_back(vg(v))
+        capture_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        vg_collectives = collectives.collective_count
+        vg_launches = launch_counts(chain)
+        launches = tuple(a + b for a, b in zip(template_launches,
+                                               vg_launches))
+        reset_launch_counts(chain)
+        _, eager = sharded.build_objective(data, "mod_chi2", capture=False)
+        eager(torch.as_tensor(v, device="cuda"))
+        torch.cuda.synchronize()
+        eager_launches = launch_counts(chain)
+        reset_launch_counts(chain)
+        collectives_before = collectives.collective_count
+        value_err = abs(got[0] - ref[0]) / abs(ref[0])
+        grad_err = grad_mismatch(got[1:], ref[1:], VG_FP32["grad_rtol"],
+                                 VG_FP32["grad_atol"])
+        wall, wall_min = median_wall(lambda: read_back(vg(v)), 10)
+        ref_wall, ref_min = median_wall(lambda: read_back(vg_ref(v)), 10)
+        program = value_fn.program
+        bounds = sharded._device_bounds()
+        vec = torch.as_tensor(v, device="cuda")
+        _, device_ms, top, _, kernels = profile_device_busy(
+            lambda: program.value_and_grad(vec, *bounds))
+        replay_collectives = collectives.collective_count - collectives_before
+        ref_program = vg_ref.program
+        _, ref_device_ms, _, _, ref_kernels = profile_device_busy(
+            lambda: ref_program.value_and_grad(vec, *ct._device_bounds()))
+        print(f"float32 sharded flagship over an NCCL world of"
+              f" {dist.get_world_size()} (this process, cuda:0): shard()"
+              f" {shard_s:.2f} s; events {list(sc.shard.events)} of"
+              f" {sc.shard.n_events}, grid points"
+              f" {list(sc.shard.grids.values())} ({int(geom['e'].shape[0])}"
+              f" points a sign, {int(geom['nl'].sum())} real layer steps a"
+              f" sign) [{smi}]")
+        print(f"float32 sharded vs unsharded captured flagship: template"
+              f" {worst_t:.3e}, errors {worst_e:.3e} relative in bins >="
+              f" {MIN_EVENTS_FP32:g} event (bound"
+              f" {TEMPLATE_RTOL['float32']:g}); value {value_err:.3e},"
+              f" gradient {grad_err:.3e} of its bound (VG_FP32); bit-equal:"
+              f" template {bit_equal}, value {got[0] == ref[0]}, gradient"
+              f" {bool(np.array_equal(got[1:], ref[1:]))} (largest gradient"
+              f" difference {float(np.abs(got[1:] - ref[1:]).max()):.3e})"
+              f" [{smi}]")
+        print(f"float32 sharded captured value_and_grad: wall"
+              f" {wall * 1e3:.3f} ms median of 10 (min {wall_min * 1e3:.3f});"
+              f" unsharded {ref_wall * 1e3:.3f} ms (min {ref_min * 1e3:.3f});"
+              f" one replay {kernels} kernels, {device_ms:.3f} ms of device"
+              f" time ({100 * device_ms / (wall * 1e3):.1f}% busy of the"
+              f" median wall), unsharded {ref_kernels} kernels,"
+              f" {ref_device_ms:.3f} ms ({100 * ref_device_ms / (ref_wall * 1e3):.1f}%"
+              f" busy); capture with its first call {capture_s:.2f} s"
+              f" [{smi}]")
+        print(f"float32 sharded path's own launches (primal, tangent,"
+              f" multitangent): captured template {template_launches},"
+              f" captured value_and_grad {vg_launches} (each"
+              f" {CAPTURE_WARMUP} warm-up runs and the capture), one eager"
+              f" value_and_grad {eager_launches}; all_reduce calls: template"
+              f" {template_collectives}, value_and_grad {vg_collectives} (a"
+              f" replay adds {replay_collectives}) [{smi}]")
+        for key, ms, count in top[:5]:
+            print(f"  {ms:8.3f} ms  {count:5d}x  {key[:80]}")
+        rank_slice_kernels(chain, pipeline["osc.prob3"], smi)
+        reset_launch_counts(chain)
+        check(worst_t <= TEMPLATE_RTOL["float32"]
+              and worst_e <= TEMPLATE_RTOL["float32"],
+              "the sharded float32 template is off the unsharded one")
+        check(value_err <= VG_FP32["value"] and grad_err <= 1.0,
+              "the sharded float32 value_and_grad is off the unsharded one")
+        runs = CAPTURE_WARMUP + 1
+        template_one, vg_one = (2, 0, 0), expected_vg_launches(True)
+        check(template_launches == tuple(runs * n for n in template_one)
+              and vg_launches == tuple(runs * (a + b) for a, b in
+                                       zip(vg_one, template_one))
+              and eager_launches == vg_one,
+              f"the sharded path's launches: template {template_launches},"
+              f" value_and_grad {vg_launches}, eager {eager_launches}")
+        check(template_collectives > 0 and vg_collectives > 0,
+              f"the sharded path's all_reduce calls: template"
+              f" {template_collectives}, value_and_grad {vg_collectives}")
+        del sharded, ct, pipeline, program, ref_program, value_fn, vg, vg_ref
+        del eager
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    print(f"float32 sharded phase: {time.perf_counter() - started:.1f} s"
+          f" (budget {SHARDED_BUDGET_S:g} s) [{smi}]")
+    return launches
+
+
+def sharded_only_main(chain, smi):
+    """``--sharded-only``: the kernels built, the float64 sharded child,
+    then the float32 sharded phase; no status line."""
+    run_children([("sharded", ["--sharded-worker"])])
+    sharded_fp32(chain, smi)
+    return 0
+
+
 def cli_only_main(chain, smi):
     """``--cli-only``: the kernels built, the CPU float64 nominal template
     in a child, then the command-line phase alone; no status line."""
@@ -7629,7 +8093,7 @@ def analysis_only_main(chain, smi):
 def main(kernels_only=False, release_only=False, analysis_only=False,
          options_only=False, lanes_only=False, sterile_only=False,
          events_only=False, hypersurfaces_only=False, mceq_only=False,
-         param_only=False, cli_only=False):
+         param_only=False, cli_only=False, sharded_only=False):
     started = time.perf_counter()
     if not os.path.isdir(os.path.join(ROOT, "pisa_tpu_torch")):
         print("chip_smoke.py must run from a checkout of the repository"
@@ -7669,6 +8133,8 @@ def main(kernels_only=False, release_only=False, analysis_only=False,
         return param_only_main(chain, smi)
     if cli_only:
         return cli_only_main(chain, smi)
+    if sharded_only:
+        return sharded_only_main(chain, smi)
     if release_only:
         return release_only_main(chain, smi)
     if analysis_only:
@@ -7710,6 +8176,7 @@ def main(kernels_only=False, release_only=False, analysis_only=False,
             ("MCEq", ["--mceq-worker"]),
             ("parameterized detector", ["--param-worker"]),
             ("events file", ["--events-file-worker", events_dir.name]),
+            ("sharded", ["--sharded-worker"]),
         ])
         with np.load(path) as f:
             ref = {k: f[k] for k in f.files}
@@ -7850,6 +8317,9 @@ def main(kernels_only=False, release_only=False, analysis_only=False,
     # the command-line entry points and the llh server on the flagship
     # (this slice's main path)
     extra_paths["command line"] = cli_fp32(chain, pipeline, ref, smi)
+    # the flagship sharded over an NCCL world of one, its value_and_grad
+    # captured with the collective (this slice's main path)
+    extra_paths["sharded"] = sharded_fp32(chain, smi)
     print(f"launches (primal, tangent, multitangent) by path: gradient and fit"
           f" {fit_path}, template {template_path}, analysis {analysis_path},"
           f" ensemble {ensemble_path}, release {release_path}, "
@@ -7989,7 +8459,8 @@ if __name__ == "__main__":
                "--events-worker": events_worker,
                "--hypersurfaces-worker": hypersurfaces_worker,
                "--mceq-worker": mceq_worker,
-               "--param-worker": param_worker}
+               "--param-worker": param_worker,
+               "--sharded-worker": sharded_worker}
     if len(sys.argv) == 2 and sys.argv[1] in workers:
         sys.path.insert(0, ROOT)
         os.chdir(ROOT)
@@ -8014,4 +8485,5 @@ if __name__ == "__main__":
                   hypersurfaces_only=sys.argv[1:] == ["--hypersurfaces-only"],
                   mceq_only=sys.argv[1:] == ["--mceq-only"],
                   param_only=sys.argv[1:] == ["--param-only"],
-                  cli_only=sys.argv[1:] == ["--cli-only"]))
+                  cli_only=sys.argv[1:] == ["--cli-only"],
+                  sharded_only=sys.argv[1:] == ["--sharded-only"]))

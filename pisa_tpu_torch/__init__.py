@@ -14,6 +14,10 @@ Global runtime configuration (cf. ``pisa_tpu/__init__.py:48-69``):
   torch dtype used for tensors on the device.
 - ``HASH_SIGFIGS``/``EPSILON``: hashing and comparison precision.
 - ``ureg``/``Q_``: unit registry.
+- ``PISA_TPU_NUM_DEVICES``: the number of ranks a sharded evaluation's
+  default mesh spans (``parallel.default_mesh``; 0, the default: all of the
+  process group), from the env var of that name
+  (``pisa_tpu/__init__.py:96-98``).
 
 Devices are explicit: pipelines take ``device="cuda"`` (the default) or
 ``device="cpu"``, and nothing falls back to the CPU when no card is found.
@@ -35,6 +39,7 @@ __all__ = [
     "EPSILON",
     "ureg",
     "Q_",
+    "PISA_TPU_NUM_DEVICES",
 ]
 
 __version__ = "0.1.0"
@@ -60,5 +65,7 @@ else:
     )
 
 EPSILON = 10 ** -HASH_SIGFIGS
+
+PISA_TPU_NUM_DEVICES = int(os.environ.get("PISA_TPU_NUM_DEVICES", "0"))
 
 from pisa_tpu_torch.units import ureg, Quantity as Q_  # noqa: E402

@@ -36,11 +36,19 @@ Variables are torch tensors on the container set's device. Host arrays
 (numpy) are uploaded when set, floating ones in ``TORCH_FTYPE`` (as the JAX
 package's arrays take FTYPE); a tensor on another device is refused rather
 than moved.
+
+A sharded template's containers (``parallel/sharding.py``) hold one rank's
+slice: their :class:`Shard` says which slice of the padded event axis, and
+of which binnings' flat points, they hold. The coordinates of a sharded
+binning are that slice of its grid, and a sum-mode translation from the
+events to a binning sums over the ranks; the mean-mode one, which would need
+the ranks' counts too, raises.
 """
 
 from __future__ import annotations
 
 import re
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
@@ -50,7 +58,8 @@ from pisa_tpu_torch.core import translation
 from pisa_tpu_torch.core.binning import MultiDimBinning
 from pisa_tpu_torch.core.map import Map, MapSet
 
-__all__ = ["Container", "ContainerSet", "VirtualContainer", "resolve_device"]
+__all__ = ["Container", "ContainerSet", "VirtualContainer", "Shard",
+           "resolve_device"]
 
 #: Largest dense one-hot histogram matrix per container, in elements
 #: (5e7 elements = 200 MB in fp32), and in bins; beyond either the histogram
@@ -77,6 +86,44 @@ def resolve_device(device):
         if device.index is None:
             device = torch.device("cuda", torch.cuda.current_device())
     return device
+
+
+@dataclass(frozen=True)
+class Shard:
+    """One rank's slice of a sharded container (``parallel/sharding.py``).
+
+    mesh : parallel.sharding.Mesh
+        The ranks the container is split over, and this one's place; its
+        ``all_reduce_sum(x)`` sums `x` over them.
+    events : (start, stop)
+        The slice of the padded event axis this rank holds.
+    n_events : int
+        The padded event axis's length over all ranks.
+    grids : {rep hash: (start, stop)}
+        The binnings whose flat points are split too, and this rank's
+        slice of each.
+    """
+
+    mesh: object
+    events: tuple
+    n_events: int
+    grids: dict = field(default_factory=dict)
+
+    @property
+    def key(self):
+        """What tells this slice's host-side caches from another's."""
+        return (self.mesh.rank, self.mesh.size, self.events,
+                tuple(sorted(self.grids.items())))
+
+
+def reduce_over_ranks(container, values):
+    """`values` summed over the ranks of a sharded `container` (one
+    differentiable ``all_reduce``, ``core/collectives.py``, over its
+    shard's mesh); as it is on a container that is not sharded."""
+    shard = getattr(container, "shard", None)
+    if shard is None:
+        return values
+    return shard.mesh.all_reduce_sum(values)
 
 
 class Container:
@@ -112,6 +159,9 @@ class Container:
         self.lanes = None
         #: keys written with the lane axis in the evaluation in progress
         self._laned = set()
+        #: this rank's slice of a sharded template's container (:class:`Shard`),
+        #: or None
+        self.shard = None
         self.representation = representation
 
     # -- representation handling --------------------------------------------
@@ -142,6 +192,13 @@ class Container:
             if arr is not None:
                 return (arr.shape[1 if key in self._laned else 0],)
         return None
+
+    def local_size(self, binning):
+        """The number of `binning`'s flat points this container holds: all,
+        or this rank's slice where the binning is sharded."""
+        grid = None if self.shard is None else self.shard.grids.get(
+            _rep_hash(binning))
+        return binning.size if grid is None else grid[1] - grid[0]
 
     @property
     def size(self):
@@ -309,15 +366,20 @@ class Container:
         self._laned = set(laned)
 
     def _binning_coord(self, key):
-        """The unrolled weighted-center grid of binning dimension `key`,
-        uploaded once per binning."""
+        """The unrolled weighted-center grid of binning dimension `key` (this
+        rank's slice of it, where the binning is sharded), uploaded once per
+        binning."""
         binning = self._representation
         cache_key = (_rep_hash(binning), "grid", key)
         if cache_key not in self._flatidx:
             grid = binning.meshgrid(entity="weighted_centers",
                                     attach_units=False)
+            points = grid[binning.index(key)].ravel()
+            if self.shard is not None and _rep_hash(binning) in \
+                    self.shard.grids:
+                points = points[slice(*self.shard.grids[_rep_hash(binning)])]
             self._flatidx[cache_key] = torch.as_tensor(
-                np.ascontiguousarray(grid[binning.index(key)].ravel()),
+                np.ascontiguousarray(points),
                 dtype=TORCH_FTYPE,
                 device=self.device,
             )
@@ -345,6 +407,12 @@ class Container:
         to_map = isinstance(dest, MultiDimBinning)
         values = self._data[key][_rep_hash(src_representation)]
         laned = key in self._laned
+        if self.shard is not None and to_map and not from_map \
+                and mode == "average":
+            raise NotImplementedError(
+                f"{key!r}: a mean from this rank's slice of the events to"
+                f" {dest} needs the other ranks' counts; a sharded template"
+                " translates events to a binning in sum mode only")
         if laned:
             # the lane axis joins the trailing channels, (size, rest * B),
             # and leaves them again after the translation
@@ -385,6 +453,8 @@ class Container:
         if laned:
             out = out.reshape(out.shape[:1] + laned_shape[2:]
                               + laned_shape[:1]).movedim(-1, 0)
+        if to_map and not from_map:
+            out = reduce_over_ranks(self, out)
 
         self._data[key][_rep_hash(dest)] = out
         self.validity[key][_rep_hash(dest)] = True

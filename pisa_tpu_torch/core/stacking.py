@@ -61,6 +61,7 @@ from pisa_tpu_torch.core.container import (
     Container,
     ContainerSet,
     _rep_hash,
+    reduce_over_ranks,
 )
 
 __all__ = ["StackedContainer", "StackingError", "build_stacked_set"]
@@ -191,7 +192,7 @@ class StackedContainer(Container):
         lead = self._lead
         shape = tuple(data.shape)[len(lead):]
         if self.is_map:
-            size = self._representation.size
+            size = self.local_size(self._representation)
             bshape = tuple(self._representation.shape)
             nb = len(bshape)
             # unflattened (C,) + bshape + extra, or bshape + extra
@@ -243,14 +244,26 @@ class StackedContainer(Container):
         rows = self.rows.get((key, src_h))
         laned = key in self._laned
 
+        sharded = self.shard is not None
         if from_map and not to_map and mode == "average":
+            if sharded and src_h in self.shard.grids:
+                raise NotImplementedError(
+                    f"{key!r}: this rank holds a slice of {src_representation}"
+                    " but all of its events; a sharded template splits the"
+                    " calc grid only where the histogram contracts it")
             out = self._stacked_binned_to_array(
                 values, rows, src_representation, laned
             )
         elif to_map and not from_map:
-            out = self.stacked_histogram(
+            if sharded and mode == "average":
+                raise NotImplementedError(
+                    f"{key!r}: a mean from this rank's slice of the events"
+                    f" to {dest} needs the other ranks' counts; a sharded"
+                    " template translates events to a binning in sum mode"
+                    " only")
+            out = reduce_over_ranks(self, self.stacked_histogram(
                 values, dest, averaged=(mode == "average"), laned=laned
-            )
+            ))
         else:
             raise NotImplementedError(
                 f"stacked translation {src_representation} -> {dest}"
@@ -419,7 +432,7 @@ def _dedup_rows(tensors):
 
 
 def build_stacked_set(container_set, coord_keys=(), name=None,
-                      exclude_keys=()):
+                      exclude_keys=(), pad_multiple=1):
     """A ContainerSet holding ONE StackedContainer that stands in for all
     containers of `container_set` (which is not changed).
 
@@ -430,6 +443,11 @@ def build_stacked_set(container_set, coord_keys=(), name=None,
         Event keys that are binning coordinates (padded with NaN, so that
         padded events fall outside every binning); all other float keys pad
         with 0.
+    pad_multiple : int
+        Round the padded event count up to a multiple of this (the mesh
+        size of a sharded template, so that the event axis splits evenly
+        over the ranks; ``pisa_tpu/core/stacking.py:472``); the extra slots
+        pad as the others do and drop out of every reduction.
     exclude_keys : collection of str
         Keys left out of the stacked copy (``Stage.stacking_exclude_keys``).
 
@@ -456,7 +474,9 @@ def build_stacked_set(container_set, coord_keys=(), name=None,
         raise StackingError("containers have differing aux-data keys")
 
     ev_h = _rep_hash("events")
-    n_pad = max(_events_size(c) for c in containers)
+    pad_multiple = max(1, int(pad_multiple))
+    n_pad = -(-max(_events_size(c) for c in containers) // pad_multiple) \
+        * pad_multiple
     sc = StackedContainer(
         name or container_set.name or "stacked",
         [c.name for c in containers],

@@ -153,6 +153,14 @@ class Stage:
         contract; override where that depends on the modes."""
         return self.stacked_rate_defer_safe
 
+    #: the stage may run in a sharded template (``parallel/sharding.py``),
+    #: where its containers hold one rank's slice of the events: everything
+    #: it does is per event, or per point of a binning, or a histogram whose
+    #: ranks' parts it sums (``stages/utils/hist.py``), and what it keeps on
+    #: the host per container tells one rank's slice from another's. A
+    #: compiled template shards only when every traced stage says so.
+    supports_shard = False
+
     # -- params ---------------------------------------------------------------
     @property
     def params(self) -> ParamSet:

@@ -39,8 +39,14 @@ stages, metric, priors and the backward with its kernel launches) and the
 value alone (:class:`CapturedObjective`); an evaluation copies its inputs
 into the graphs' static tensors and replays. A graph bakes in what it read
 at capture: the fixed params' values and the container data (by address).
-On the CPU the same code runs eagerly. ``shard`` is not ported (ROADMAP
-queue 1, item 12).
+On the CPU the same code runs eagerly.
+
+:meth:`CompiledTemplate.shard` splits the template over the ranks of a mesh
+(``parallel/sharding.py``): each rank then holds its slice of the events,
+the histogram stage sums the ranks' partial histograms with one
+``all_reduce``, and every rank holds the whole template, value and
+gradient. On NCCL the collectives are captured with the rest of a
+``value_and_grad``.
 
 Lanes (the batched fits, the counterpart of ``jax.vmap`` over the template):
 a (B, n) rescaled matrix evaluates B independent parameter points in one
@@ -192,13 +198,21 @@ class CompiledTemplate:
         for stage in self._hoisted_stages:
             stage.run()
 
+        #: the pipeline's containers as the hoisted stages left them (a
+        #: sharded template's copies are cut from this state)
+        self._hoisted_state = pipeline.data.state()
         #: the ContainerSet the traced stages run on: the pipeline's own, or
-        #: its stacked copy
+        #: its stacked copy (or, sharded, this rank's slices of either)
         self._trace_data = pipeline.data
         if stack:
             self._build_stacked(rate_defer)
         self._base_state = self._trace_data.state()
         self._bounds_cache = None
+        #: the mesh the template is sharded over (:meth:`shard`), or None
+        self.mesh = None
+        #: advanced by :meth:`shard`; objectives built before it refuse to
+        #: run (:func:`wrap_objective`)
+        self._generation = 0
 
     # -- what the template runs on --------------------------------------------
     @property
@@ -209,7 +223,8 @@ class CompiledTemplate:
     def stacked(self):
         """Whether the traced stages run on one category-stacked
         container."""
-        return self._trace_data is not self.pipeline.data
+        return any(getattr(c, "is_stacked", False)
+                   for c in self._trace_data.containers)
 
     @property
     def rate_deferred(self):
@@ -252,10 +267,11 @@ class CompiledTemplate:
                     coord_keys.update(mode.names)
         return coord_keys
 
-    def _build_stacked(self, rate_defer):
+    def _build_stacked(self, rate_defer, pad_multiple=1):
         """Stack the pipeline's containers for the traced stages where they
-        all can run stacked; otherwise ``self._trace_data`` stays the
-        pipeline's own set, and the reason is logged."""
+        all can run stacked, the event axis padded to a multiple of
+        `pad_multiple`; otherwise ``self._trace_data`` stays the pipeline's
+        own set, and the reason is logged."""
         if len(self.pipeline.data.containers) < 2:
             logging.info("stacking off: fewer than 2 containers")
             return
@@ -271,7 +287,7 @@ class CompiledTemplate:
         try:
             self._trace_data = stacking.build_stacked_set(
                 self.pipeline.data, coord_keys=self._coord_keys(),
-                exclude_keys=exclude,
+                exclude_keys=exclude, pad_multiple=pad_multiple,
             )
         except stacking.StackingError as exc:
             logging.warning("stacking off: %s", exc)
@@ -324,6 +340,93 @@ class CompiledTemplate:
         if hs.prepare_rate_defer(self._trace_data, osc.calc_mode, static_keys):
             logging.info("rate deferral on: factorized histogram (static"
                          " keys %s)", static_keys)
+
+    # -- sharding ------------------------------------------------------------------
+    def shard(self, mesh, axis_name="data", shard_grid=None,
+              grid_min=None):
+        """Split the template over the ranks of `mesh`
+        (``parallel/sharding.py``; ``pisa_tpu/core/template.py:482-550``);
+        every rank of the mesh calls it, with a pipeline on the mesh's
+        device. Returns self.
+
+        A stacked template is stacked again with its event axis padded to a
+        multiple of the mesh size where it is not one already
+        (``build_stacked_set(pad_multiple=...)``, which runs the stages'
+        ``prepare_stacked`` again); each rank then keeps its slice of the
+        events and, under rate deferral, of a calc grid of at least
+        `grid_min` points (``parallel.sharding.GRID_MIN`` by default) that
+        divides by the mesh size, with `shard_grid` (by default on, unless
+        ``PISA_TPU_SHARD_GRID`` is 0, off or false). A template that runs
+        per container keeps each container's slice of the events. The
+        histogram stage sums the ranks' partial histograms with one
+        ``all_reduce``, and an objective built after this carries the
+        gradient rule of ``parallel/sharding.py``: value and gradient are
+        the whole template's on every rank.
+
+        The pipeline's own containers are not changed: the slices are cut
+        from the template's own copies of the state the hoisted stages left,
+        padding included, so the pipeline's eager ``get_outputs()`` gives
+        what it gave before. The captured template call is dropped, and
+        objectives built before this raise when called (build them again).
+        A sharded template over gloo, whose collectives cannot be captured,
+        must have been compiled with ``capture=False``. Every traced stage
+        must support sharding (``Stage.supports_shard``)."""
+        from pisa_tpu_torch.parallel import sharding
+
+        if self.mesh is not None:
+            raise ValueError("the template is sharded already")
+        if mesh.rank is None:
+            raise ValueError("this rank is not in the mesh")
+        if mesh.device != self.device:
+            raise ValueError(f"the mesh's device {mesh.device} is not the"
+                             f" pipeline's {self.device}")
+        if self.capture and mesh.backend != "nccl":
+            raise ValueError(
+                f"{mesh.backend} collectives cannot be captured in a CUDA"
+                " graph: compile the template with capture=False")
+        unsupported = [str(s) for s in self._traced_stages
+                       if not s.supports_shard]
+        if unsupported:
+            raise ValueError(f"stages that cannot run sharded: {unsupported}")
+        if shard_grid is None:
+            import os
+
+            shard_grid = os.environ.get("PISA_TPU_SHARD_GRID", "1").lower() \
+                not in ("0", "off", "false")
+        n = mesh.size
+        data = self.pipeline.data
+        current = data.state()
+        data.set_state(self._hoisted_state)
+        try:
+            if self.stacked:
+                if self._trace_data.containers[0].n_pad % n:
+                    logging.debug("shard(): stacking again with"
+                                  " pad_multiple=%d", n)
+                    rate_defer = self.rate_deferred
+                    self._trace_data = data
+                    self._build_stacked(rate_defer, pad_multiple=n)
+                    if not self.stacked:
+                        raise RuntimeError("shard(): stacking again with"
+                                           f" pad_multiple={n} failed")
+                sharding.shard_stacked_containers(
+                    self._trace_data, mesh, axis_name=axis_name,
+                    shard_grid=shard_grid,
+                    grid_min=sharding.GRID_MIN if grid_min is None
+                    else grid_min)
+                # the one-hot matrices, fields and geometries of the slice
+                for stage in self._traced_stages:
+                    stage.prepare_stacked(self._trace_data)
+            else:
+                self._trace_data = sharding.shard_containers(
+                    data, mesh, axis_name=axis_name,
+                    coord_keys=self._coord_keys())
+        finally:
+            data.set_state(current)
+        self._base_state = self._trace_data.state()
+        self.mesh = mesh
+        self._program = None
+        self._generation += 1
+        return self
 
     # -- parameters ------------------------------------------------------------
     def _current_bounds(self):
@@ -571,6 +674,7 @@ class CompiledTemplate:
         minimize_on_device`; ``value_only.raw_with_data`` its batched form
         over (B, n) lanes (:func:`wrap_objective`), whose data, where given,
         is (B, bins) with the data's maps laid end to end."""
+        from pisa_tpu_torch.core import collectives
         from pisa_tpu_torch.utils import stats
 
         maximize = stats.is_metric_to_maximize(metric)
@@ -607,8 +711,14 @@ class CompiledTemplate:
         if self.stacked and list(data) == self.names:
             data_stacked = torch.stack(list(data.values()))
         sign = 1.0 if maximize else -2.0  # llh, or chi2 = -2 llh
+        mesh = self.mesh
 
         def objective(vec, los=None, his=None, data_arg=None):
+            if mesh is not None:
+                # the gradient rule of core/collectives.py: the vector's
+                # gradient summed over the ranks, each rank's objective 1 /
+                # world of it
+                vec = collectives.sum_gradients(vec, mesh)
             mags = self._magnitudes_from_rescaled(vec, los, his)
             lanes = vec.shape[0] if vec.dim() == 2 else None
             lead = () if lanes is None else (lanes,)
@@ -650,7 +760,10 @@ class CompiledTemplate:
                         lead)
                 if daemon is not None:
                     total = total + sign * daemon[1](mags).reshape(lead)
-            return -total if maximize else total
+            total = -total if maximize else total
+            if mesh is not None:
+                total = collectives.scale_gradient(total, 1.0 / mesh.size)
+            return total
 
         return wrap_objective(self, objective, capture)
 
@@ -689,8 +802,20 @@ def wrap_objective(owner, objective, capture):
     CUDA device it is captured once per (B, with or without data), the data
     batch a static input of the program that a call copies in;
     ``raw_with_data.bind(data, B)`` copies it in once and returns ``(vec,
-    los, his) -> (B,)`` for all the evaluations of a fit."""
+    los, his) -> (B,)`` for all the evaluations of a fit.
+
+    Where `owner` has been sharded since (:meth:`CompiledTemplate.shard`),
+    every one of these functions raises rather than evaluate the data it
+    was built on."""
     device = owner.device
+    generation = getattr(owner, "_generation", None)
+
+    def fresh():
+        if generation is not None and owner._generation != generation:
+            raise RuntimeError(
+                "this objective was built before the template was sharded;"
+                " build it again")
+
     if capture:
         program = CapturedObjective(
             objective, owner.current_rescaled_values(),
@@ -699,6 +824,7 @@ def wrap_objective(owner, objective, capture):
         batched = {}  # (B, with data) -> CapturedObjective
 
         def raw(vec, los, his):
+            fresh()
             return program.differentiable(vec, los, his)
 
         def bind_data(data, lanes):
@@ -714,21 +840,27 @@ def wrap_objective(owner, objective, capture):
             bound = batched[key]
 
             def raw_bound(vec, los, his):
+                fresh()
                 _check_lanes(vec, data, device, lanes)
                 return bound.differentiable(vec, los, his)
             return raw_bound
     else:
         program = None
-        raw = objective
         batched = None
+
+        def raw(vec, los, his):
+            fresh()
+            return objective(vec, los, his)
 
         def bind_data(data, lanes):
             def raw_bound(vec, los, his):
+                fresh()
                 _check_lanes(vec, data, device, lanes)
                 return objective(vec, los, his, data)
             return raw_bound
 
         def vg(vec, los, his):
+            fresh()
             vec = on_device(vec, device).detach().clone()
             vec.requires_grad_(True)
             value = objective(vec, los, his)
@@ -736,15 +868,18 @@ def wrap_objective(owner, objective, capture):
             return value.detach(), grad
 
     def raw_with_data(vec, los, his, data=None):
+        fresh()
         _check_lanes(vec, data, device)
         return bind_data(data, vec.shape[0])(vec, los, his)
 
     def value_fn(vec):
+        fresh()
         with torch.no_grad():
             return raw(vec if capture else on_device(vec, device),
                        *owner._device_bounds())
 
     def vg_fn(vec):
+        fresh()
         return vg(vec if capture else on_device(vec, device),
                   *owner._device_bounds())
 

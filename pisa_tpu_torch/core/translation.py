@@ -184,10 +184,14 @@ def resample(weights, old_sample, old_binning, new_sample, new_binning):
     """Resample binned `weights` (given at `old_sample` points under
     `old_binning`) onto `new_binning` at `new_sample` points: averaged
     histogram where new bins receive >1 points, point lookup otherwise
-    (reference ``translation.py:49``)."""
+    (reference ``translation.py:49``). The averages are summed in float64
+    and rounded once to the weights' type: a float32 sum's rounding would
+    follow the order of the card's atomic adds, which differs from call to
+    call and between a laned call and its lanes one by one."""
     old_spec = _as_spec(old_binning)
     new_spec = _as_spec(new_binning)
-    hist_avg = histogram(old_sample, weights, new_spec, averaged=True)
+    hist_avg = histogram(old_sample, weights.to(torch.float64), new_spec,
+                         averaged=True).to(weights.dtype)
     counts = histogram(old_sample, None, new_spec)
     looked_up = lookup(new_sample, weights, old_spec)
     mask = counts > 1

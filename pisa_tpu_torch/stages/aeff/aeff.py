@@ -40,6 +40,7 @@ class aeff(Stage):  # noqa: N801
     # category): the rate-deferral contract (core/stage.py)
     stacked_rate_defer_safe = True
     stacked_static_weight_keys = ("weighted_aeff",)
+    supports_shard = True
 
     def _category_masks(self, container):
         """Which of the categories take nutau_cc_norm, nutau_norm and

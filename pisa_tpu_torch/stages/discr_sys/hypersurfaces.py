@@ -119,6 +119,8 @@ class hypersurfaces(Stage):  # noqa: N801
         self._interp_surfaces = None
 
     supports_stacked = True
+    # on the output binning, after the histogram's sum over the ranks
+    supports_shard = True
 
     def stacked_rate_defer_ok(self):
         # reweighting per bin keeps the rate-deferral contract; scales

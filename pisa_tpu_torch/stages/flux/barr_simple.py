@@ -71,6 +71,7 @@ class barr_simple(Stage):  # noqa: N801
 
     # writes nu_flux only; never touches the event weights
     stacked_rate_defer_safe = True
+    supports_shard = True
 
     def stacked_ok(self):
         """In grid calc mode the grid is shared across categories and the

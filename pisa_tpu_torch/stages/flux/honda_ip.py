@@ -49,6 +49,8 @@ class honda_ip(Stage):  # noqa: N801
 
     # fills the nominal flux fields only; never touches the event weights
     stacked_rate_defer_safe = True
+    # per point, with no host state per container
+    supports_shard = True
 
     def stacked_ok(self):
         """Grid calc mode only: the nominal flux on the shared calc grid is

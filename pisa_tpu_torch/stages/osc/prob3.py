@@ -48,6 +48,14 @@ one propagation with its sign, over geometry prepared at set-up with the
 padded slots sanitized on their inputs (energy 1 GeV, zero-length chains),
 so that their values and gradients stay finite.
 
+On a sharded template (``parallel/sharding.py``) a container holds one
+rank's slice of the events, and, where the calc grid is split, of the
+grid's flat points: the stage then propagates only that slice, over chain
+geometry it builds for it (:meth:`prob3._grid_geometry`), the port's form of
+the JAX package's ``grid_sharded`` switch (its ``prob3.py:580-586``); the
+per-event geometries are built for the rank's events. Nothing here holds a
+global index.
+
 In an evaluation of lanes (``container.lanes``, the batched fits, the MCMC
 walkers) every route takes its inputs with a leading lane axis: theta as a
 (B, 6) tensor, and the general and layers routes' matrices as (B, 3, 3)
@@ -214,7 +222,9 @@ class prob3(Stage):  # noqa: N801
         self.geom = None
         #: per-event calc mode: per container name, (layer state, geometry);
         #: per stacked container (name, categories, padded size), the
-        #: nubar groups' geometries (:meth:`_stacked_events_geometry`)
+        #: nubar groups' geometries (:meth:`_stacked_events_geometry`); on a
+        #: sharded template each key also names the rank's slice, and a
+        #: split calc grid's slices have theirs (:meth:`_grid_geometry`)
         self.geoms = {}
 
     # -- setup ---------------------------------------------------------------
@@ -306,16 +316,40 @@ class prob3(Stage):  # noqa: N801
         check_slot_index(geom["dist"], geom["slot_index"])
         return geom
 
+    def _grid_points(self):
+        """(energy, coszen) of the calc grid's flat points."""
+        binning = self.calc_mode
+        grid = binning.meshgrid(entity="weighted_centers", attach_units=False)
+        return (grid[binning.index("true_energy")].ravel(),
+                grid[binning.index("true_coszen")].ravel())
+
+    def _grid_geometry(self, container):
+        """The calc grid's geometry for `container`: the whole grid's, or,
+        where a sharded template split the grid, that of the rank's slice of
+        its flat points, built for the current layers."""
+        shard = getattr(container, "shard", None)
+        grid = None if shard is None else shard.grids.get(hash(self.calc_mode))
+        if grid is None:
+            return self.geom
+        key = ("grid", tuple(grid))
+        state, geom = self.geoms.get(key, (None, None))
+        if state != self._layer_state:
+            energy, coszen = (x[slice(*grid)] for x in self._grid_points())
+            geom = self._make_geometry(energy, *self._chains(coszen))
+            self.geoms[key] = (self._layer_state, geom)
+        return geom
+
+    @staticmethod
+    def _shard_key(container):
+        shard = getattr(container, "shard", None)
+        return None if shard is None else shard.key
+
     def _prepare_geometry(self):
         """The geometry of every propagation, for the current layers: the
         calc grid's (its chains are flavour-independent: computed once), or
         each container's events'."""
         if self.is_map:
-            binning = self.calc_mode
-            grid = binning.meshgrid(entity="weighted_centers",
-                                    attach_units=False)
-            energy = grid[binning.index("true_energy")].ravel()
-            coszen = grid[binning.index("true_coszen")].ravel()
+            energy, coszen = self._grid_points()
             self.geom = self._make_geometry(energy, *self._chains(coszen))
             return
         for container in self.data:
@@ -326,12 +360,13 @@ class prob3(Stage):  # noqa: N801
 
     def _events_geometry(self, container):
         """One container's per-event geometry, for the current layers."""
-        state, geom = self.geoms.get(container.name, (None, None))
+        key = (container.name, self._shard_key(container))
+        state, geom = self.geoms.get(key, (None, None))
         if state != self._layer_state:
             energy = container["true_energy"].detach().cpu().numpy()
             coszen = container["true_coszen"].detach().cpu().numpy()
             geom = self._make_geometry(energy, *self._chains(coszen))
-            self.geoms[container.name] = (self._layer_state, geom)
+            self.geoms[key] = (self._layer_state, geom)
         return geom
 
     def _stacked_events_geometry(self, container):
@@ -341,7 +376,8 @@ class prob3(Stage):  # noqa: N801
         gradients stay finite). Kept in ``self.geoms`` for the current
         layers, with the permutation that puts the groups' blocks back in
         category order and each category's final flavour."""
-        key = (container.name, tuple(container.cat_names), container.n_pad)
+        key = (container.name, tuple(container.cat_names), container.n_pad,
+               self._shard_key(container))
         static = self.geoms.get(key)
         if static is not None and static["state"] == self._layer_state:
             return static
@@ -472,8 +508,9 @@ class prob3(Stage):  # noqa: N801
                 grp = (np.asarray(container.cat_aux("nubar")) < 0).astype(
                     np.int32)
                 flav = np.asarray(container.cat_aux("flav"), dtype=np.int32)
+                geom = self._grid_geometry(container)
                 probability = torch.stack(
-                    [self._propagate(self.geom, sign, physics)
+                    [self._propagate(geom, sign, physics)
                      for sign in (1, -1)], dim=-4)  # ([B,] 2, n, 3, 3)
                 container.set_stacked("probability", probability, rows=grp)
                 # rows = group * 3 + final flavour: P(e -> f), P(mu -> f)
@@ -526,9 +563,13 @@ class prob3(Stage):  # noqa: N801
         return (self.is_map or self.calc_mode == "events") and not isinstance(
             self.apply_mode, MultiDimBinning)
 
+    supports_shard = True
+
     def prepare_stacked(self, data):
-        if not self.is_map:
-            for container in data.containers:
+        for container in data.containers:
+            if self.is_map:
+                self._grid_geometry(container)
+            else:
                 self._stacked_events_geometry(container)
 
     def _apply_stacked(self, container):

@@ -19,6 +19,14 @@ it to the events, the histogram is the contraction of that rate with static
 on that template's stacked container (``container.rate_defer``), never on
 this stage: two templates over one pipeline each have their own.
 
+On a sharded template (``parallel/sharding.py``) each rank histograms its
+slice of the events, and the ranks' partial channels are summed with one
+``all_reduce`` before anything that is not linear in them: the sumw2
+errors take their square root after it. Under rate deferral each rank
+contracts its rows of the calc grid with its rows of S and S2, and the
+category scalars travel in the same ``all_reduce``: the rank whose slice
+holds a category's reference event contributes its factor, the others 0.
+
 In an evaluation of lanes (``container.lanes``) the weights and the rate
 carry a leading lane axis B: the deferred histogram is then, per category,
 one (B, grid) @ (grid, bins) product, a GEMM where one point's is a GEMV.
@@ -42,6 +50,7 @@ import torch
 
 from pisa_tpu_torch import FTYPE, TORCH_FTYPE
 from pisa_tpu_torch.core import translation
+from pisa_tpu_torch.core.container import reduce_over_ranks
 from pisa_tpu_torch.core.stage import Stage
 
 __all__ = ["hist", "init_test"]
@@ -97,6 +106,7 @@ class hist(Stage):  # noqa: N801
                 self.calc_mode.size, self.apply_mode.size)
 
     supports_stacked = True
+    supports_shard = True
 
     def stacked_ok(self):
         # the binned calc mode keeps one transform per container
@@ -248,6 +258,13 @@ class hist(Stage):  # noqa: N801
                 "e0": put(np.arange(C) * sc.n_pad + e0, torch.int64),
                 "inv_a0": put(np.where(a0 != 0, 1.0 / a0, 0.0)),
                 "a0_nonzero": put(a0 != 0, torch.bool),
+                # on the host, for a sharded template
+                # (parallel/sharding.py:shard_stacked_containers): the calc
+                # grid's representation, each reference event's place on
+                # the padded event axis and its A0
+                "grid": hash(calc_binning),
+                "e0_event": e0,
+                "a0": a0,
             }
         return prepared or None
 
@@ -259,24 +276,36 @@ class hist(Stage):  # noqa: N801
         lead = () if container.lanes is None else (container.lanes,)
         container.representation = "events"
         A = container["weights"]  # ([B,] C, n_pad) weights before the rate
-        s = torch.where(
-            defer["a0_nonzero"],
-            A.reshape(lead + (-1,)).index_select(len(lead), defer["e0"])
-            * defer["inv_a0"],
-            1.0,
-        )
         rate_c = rate.index_select(len(lead),
                                    container.row_tensor(dr["rows"]))
-        hist_w = (
-            torch.einsum("...cg,cgb->...cb", rate_c, defer["S"])
-            * s[..., None]
-        )
+        sharded = container.shard is not None
+        if sharded and defer["rate_slice"] is not None:
+            g0, g1 = defer["rate_slice"]
+            rate_c = rate_c[..., g0:g1]
+        parts = [torch.einsum("...cg,cgb->...cb", rate_c, defer["S"])]
         if self.error_method == "sumw2":
-            sumw2 = (
-                torch.einsum("...cg,cgb->...cb", torch.square(rate_c),
-                             defer["S2"])
-                * torch.square(s)[..., None]
-            )
+            parts.append(torch.einsum("...cg,cgb->...cb",
+                                      torch.square(rate_c), defer["S2"]))
+        k = len(lead)
+        A_e0 = A.reshape(lead + (-1,)).index_select(k, defer["e0"]) \
+            * defer["inv_a0"]
+        if sharded:
+            # the ranks' partial channels and the category scalars' parts
+            # (each from the rank that holds its reference event) summed in
+            # one all_reduce; the unsharded route skips the cat and the
+            # index_add, which would cost its captured value_and_grad 15
+            # kernels a replay (PERF.md §6)
+            scalars = torch.zeros(lead + (container.n_cats,), dtype=A.dtype,
+                                  device=A.device).index_add(
+                k, defer["e0_cats"], A_e0)
+            total = reduce_over_ranks(
+                container, torch.cat(parts + [scalars[..., None]], dim=-1))
+            nb = parts[0].shape[-1]
+            parts = [total[..., i * nb:(i + 1) * nb]
+                     for i in range(len(parts))]
+            A_e0 = total[..., -1]
+        s = torch.where(defer["a0_nonzero"], A_e0, 1.0)
+        hist_w = parts[0] * s[..., None]
         container.representation = self.apply_mode
         container["weights"] = hist_w
         # under deferral the events-representation weights lack the rate:
@@ -284,7 +313,8 @@ class hist(Stage):  # noqa: N801
         # taking them
         container.validity["weights"][hash("events")] = False
         if self.error_method == "sumw2":
-            container["errors"] = torch.sqrt(sumw2)
+            container["errors"] = torch.sqrt(
+                parts[1] * torch.square(s)[..., None])
             container["bin_unc2"] = hist_w
 
     def _apply_stacked(self, container):
@@ -304,7 +334,7 @@ class hist(Stage):  # noqa: N801
         res = container.stacked_histogram(self._channels(container),
                                           self.apply_mode,
                                           laned=container.lanes is not None)
-        self._store(container, res)
+        self._store(container, reduce_over_ranks(container, res))
         # histogramming does not invalidate the events representation
         container.validity["weights"][hash("events")] = True
 
@@ -343,7 +373,7 @@ class hist(Stage):  # noqa: N801
                 idx = container.cached_flat_indices(self.apply_mode)
                 res = translation.histogram(None, chans, self.apply_mode,
                                             idx=idx, laned=laned)
-            self._store(container, res)
+            self._store(container, reduce_over_ranks(container, res))
             # histogramming does not invalidate the events representation
             container.validity["weights"][hash("events")] = True
 
