@@ -212,7 +212,20 @@ oscillation grid, 15 free parameters) on the card through its two paths:
   the graph, against the unsharded captured flagship; and a float64 child
   (``--sharded-worker``) with a gloo world of 2 ranks on the one card, its
   sharded template and gradient against the unsharded card float64 ones to
-  1e-12 and 1e-10, each rank's grid points and real layer steps printed.
+  1e-12 and 1e-10, each rank's grid points and real layer steps printed;
+- the public surface the port completed last (``api_fp32``): the
+  ``init_test`` of 13 services (the flagship's stages among them, and the
+  two gated on ``photospline`` and ``LeptonWeighter``) through
+  ``testing/service_matrix.run_service`` on the card and on the CPU in both
+  modes, each status the CPU's and none a failure; and the ``Container``
+  helpers in float64 at the flagship's width (240,000 seeded events, the
+  200x200 ``true_allsky_fine`` grid, the 8x8x2 output binning):
+  ``array_to_binned`` (mean and sum), ``binned_to_array``, ``resample``
+  onto toy_fit_example's 24x24 grid (the output binning's dimensions are
+  reco ones, which a grid of true ones cannot be resampled onto) and
+  ``keep`` on a seeded mask, each within 1e-12 of the largest entry of the
+  same call on the CPU. It prints each status, each helper's card wall and
+  worst error, and its wall against a budget of 10 s.
 
 It times the kernels (device-only, from a CUDA graph of 200 launches, and
 host-inclusive, from back-to-back launches between CUDA events; the
@@ -241,7 +254,8 @@ with ``--hypersurfaces-only`` the hypersurfaces phases alone, with
 ``--param-only`` the parameterized-detector phases alone, with
 ``--cli-only`` the command-line phase alone (the CPU float64 nominal
 template from a child of its own), with ``--sharded-only`` the sharded
-flagship's phase and its float64 child alone; none prints a status line. It prints its total wall before the
+flagship's phase and its float64 child alone, with ``--api-only`` the
+public-surface phase alone; none prints a status line. It prints its total wall before the
 kernels line.
 
 The float64 runs (CPU reference and card) happen in child processes, since
@@ -664,6 +678,22 @@ CLI_BUDGET_S = 60.0
 SHARDED_BUDGET_S = 30
 SHARDED_WORLD = 2
 SHARDED_FP64 = {"template": 1e-12, "grad": 1e-10}
+
+# the public-surface phase: the services whose init_test it runs on the
+# card and on the CPU (the 11 that had none before it, then the 2 gated on a
+# package), the Container helpers' events (the flagship's count), their
+# bound against the CPU (of the largest entry), and the phase's budget
+API_SERVICES = (
+    ("aeff", "aeff"), ("data", "csv_data_hist"), ("data", "csv_icc_hist"),
+    ("data", "csv_loader"), ("data", "toy_event_generator"),
+    ("flux", "barr_simple"), ("flux", "daemon_flux"), ("flux", "honda_ip"),
+    ("likelihood", "generalized_llh_params"), ("osc", "prob3"),
+    ("utils", "add_indices"), ("flux", "airs"),
+    ("data", "licloader_weighter"),
+)
+API_EVENTS = 240_000
+API_TOL = 1e-12
+API_BUDGET_S = 10.0
 
 # the routes of one value_and_grad: label, compile options, captured
 ROUTES = (
@@ -8011,6 +8041,157 @@ def sharded_fp32(chain, smi):
     return launches
 
 
+def api_inputs():
+    """The helpers' seeded inputs: 240,000 events over the flagship's
+    coordinates (some outside the output binning), values on the 200x200
+    grid, and a mask keeping about half of the events; and the binnings
+    (the flagship's grid and output binning, toy_fit_example's grid)."""
+    import numpy as np
+
+    from pisa_tpu_torch.config.parser import parse_pipeline_config
+
+    cfg = parse_pipeline_config(CFG)
+    fine = cfg[("osc", "prob3")]["calc_mode"]
+    output = cfg[("utils", "hist")]["apply_mode"]
+    coarse = parse_pipeline_config("settings/pipeline/toy_fit_example.cfg")[
+        ("osc", "prob3")]["calc_mode"]
+    rng = np.random.RandomState(22)
+    n = API_EVENTS
+    events = {
+        "true_energy": 10 ** rng.uniform(0, 3, n),
+        "true_coszen": rng.uniform(-1, 1, n),
+        "reco_energy": 10 ** rng.uniform(0.5, 1.9, n),
+        "reco_coszen": rng.uniform(-1, 1, n),
+        "pid": rng.choice([0.0, 1.0], n),
+        "weights": rng.uniform(0, 1e-3, n),
+    }
+    return (events, rng.uniform(0, 1, fine.size), rng.uniform(size=n) < 0.5,
+            (fine, output, coarse))
+
+
+def api_helpers(device, inputs):
+    """The Container helpers on `device` in float64 (the values set as
+    float64 tensors): {helper: host array}, {helper: wall in s}. The first
+    call of each, as a user makes it: the index caches it builds
+    included."""
+    import torch
+
+    from pisa_tpu_torch.core.container import Container
+
+    events, grid_values, mask, (fine, output, coarse) = inputs
+    c = Container("nu", device=device)
+    for key, value in events.items():
+        c[key] = torch.as_tensor(value, dtype=torch.float64, device=device)
+    c.representation = fine
+    c["prob"] = torch.as_tensor(grid_values, dtype=torch.float64,
+                                device=device)
+    c.representation = "events"
+
+    def keep():
+        c.keep(torch.as_tensor(mask, device=device))
+        return torch.stack([c[k] for k in ("weights", "true_energy",
+                                           "reco_energy", "pid")])
+
+    calls = {
+        "array_to_binned mean": lambda: c.array_to_binned(
+            "weights", "events", output),
+        "array_to_binned sum": lambda: c.array_to_binned(
+            "weights", "events", output, averaged=False),
+        "binned_to_array": lambda: c.binned_to_array("prob", fine, "events"),
+        "resample": lambda: c.resample("prob", fine, coarse),
+        "keep": keep,
+    }
+    out, walls = {}, {}
+    for name, call in calls.items():
+        t0 = time.perf_counter()
+        result = call()
+        if result.is_cuda:
+            torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t0
+        check(result.dtype == torch.float64, f"{name}: {result.dtype}")
+        out[name] = result.cpu().numpy()
+    return out, walls
+
+
+def api_fp32(chain, smi):
+    """The public surface the port completed last, in the float32 process:
+    each of API_SERVICES through ``service_matrix.run_service`` in both
+    modes on the card, then on the CPU: each status the CPU's, none a
+    failure or without an init_test (the gated two skip where their package
+    is missing, on both); the chain kernel launched by prob3's. Then the
+    Container helpers in float64 on the card against the same calls on the
+    CPU, each within API_TOL of the largest entry. Prints the statuses, the
+    helpers' card walls and worst errors, and the phase's wall against
+    API_BUDGET_S; returns the services' launches on the card (primal,
+    tangent, multitangent)."""
+    import numpy as np
+    import torch
+
+    from pisa_tpu_torch.testing import service_matrix
+
+    started = time.perf_counter()
+
+    def statuses(device):
+        """{(service, mode): (status, wall in s)} on `device`."""
+        out = {}
+        for service in API_SERVICES:
+            for mode in ("events", "map"):
+                t0 = time.perf_counter()
+                status = service_matrix.run_service(*service, mode,
+                                                    device=device)
+                if device == "cuda":
+                    torch.cuda.synchronize()
+                out[(service, mode)] = (status, time.perf_counter() - t0)
+        return out
+
+    reset_launch_counts(chain)
+    card = statuses("cuda")
+    launches = launch_counts(chain)
+    card_wall = time.perf_counter() - started
+    t0 = time.perf_counter()
+    cpu = statuses("cpu")
+    cpu_wall = time.perf_counter() - t0
+    for key, (status, wall) in card.items():
+        name, mode = ".".join(key[0]), key[1]
+        want, cpu_s = cpu[key]
+        print(f"public API: {name} {mode}: card {status!r} ({wall:.3f} s),"
+              f" CPU {want!r} ({cpu_s:.3f} s)")
+        check(status == want,
+              f"{name} {mode}: {status!r} on the card, {want!r} on the CPU")
+        check(not status.startswith("FAIL") and status != "no init_test",
+              f"{name} {mode}: {status!r}")
+    check(launches[0] > 0, f"the services' launches on the card {launches}")
+    print(f"public API: {len(API_SERVICES)} services in both modes, card"
+          f" {card_wall:.2f} s, CPU {cpu_wall:.2f} s; launches (primal,"
+          f" tangent, multitangent) on the card {launches} [{smi}]")
+
+    inputs = api_inputs()
+    got, walls = api_helpers("cuda", inputs)
+    want, cpu_walls = api_helpers("cpu", inputs)
+    worst = 0.0
+    for name, ref in want.items():
+        check(got[name].shape == ref.shape and np.all(np.isfinite(got[name])),
+              f"{name}: shape {got[name].shape}, CPU {ref.shape}")
+        err = float(np.abs(got[name] - ref).max() / np.abs(ref).max())
+        worst = max(worst, err)
+        print(f"public API: {name} float64, {ref.shape}: card"
+              f" {walls[name] * 1e3:.2f} ms, CPU {cpu_walls[name] * 1e3:.2f}"
+              f" ms, card vs CPU {err:.3e} of the largest entry (bound"
+              f" {API_TOL:g}) [{smi}]")
+        check(err <= API_TOL, f"{name}: card vs CPU {err:.3e}")
+    print(f"float32 public API phase: {time.perf_counter() - started:.1f} s"
+          f" (budget {API_BUDGET_S:g} s), worst helper error {worst:.3e}"
+          f" [{smi}]")
+    return launches
+
+
+def api_only_main(chain, smi):
+    """``--api-only``: the kernels built, then the public-surface phase
+    alone; no status line."""
+    api_fp32(chain, smi)
+    return 0
+
+
 def sharded_only_main(chain, smi):
     """``--sharded-only``: the kernels built, the float64 sharded child,
     then the float32 sharded phase; no status line."""
@@ -8093,7 +8274,8 @@ def analysis_only_main(chain, smi):
 def main(kernels_only=False, release_only=False, analysis_only=False,
          options_only=False, lanes_only=False, sterile_only=False,
          events_only=False, hypersurfaces_only=False, mceq_only=False,
-         param_only=False, cli_only=False, sharded_only=False):
+         param_only=False, cli_only=False, sharded_only=False,
+         api_only=False):
     started = time.perf_counter()
     if not os.path.isdir(os.path.join(ROOT, "pisa_tpu_torch")):
         print("chip_smoke.py must run from a checkout of the repository"
@@ -8135,6 +8317,8 @@ def main(kernels_only=False, release_only=False, analysis_only=False,
         return cli_only_main(chain, smi)
     if sharded_only:
         return sharded_only_main(chain, smi)
+    if api_only:
+        return api_only_main(chain, smi)
     if release_only:
         return release_only_main(chain, smi)
     if analysis_only:
@@ -8320,6 +8504,9 @@ def main(kernels_only=False, release_only=False, analysis_only=False,
     # the flagship sharded over an NCCL world of one, its value_and_grad
     # captured with the collective (this slice's main path)
     extra_paths["sharded"] = sharded_fp32(chain, smi)
+    # the public surface completed last: the services' init_tests on the
+    # card and the Container helpers (this slice's main path)
+    extra_paths["public API"] = api_fp32(chain, smi)
     print(f"launches (primal, tangent, multitangent) by path: gradient and fit"
           f" {fit_path}, template {template_path}, analysis {analysis_path},"
           f" ensemble {ensemble_path}, release {release_path}, "
@@ -8486,4 +8673,5 @@ if __name__ == "__main__":
                   mceq_only=sys.argv[1:] == ["--mceq-only"],
                   param_only=sys.argv[1:] == ["--param-only"],
                   cli_only=sys.argv[1:] == ["--cli-only"],
-                  sharded_only=sys.argv[1:] == ["--sharded-only"]))
+                  sharded_only=sys.argv[1:] == ["--sharded-only"],
+                  api_only=sys.argv[1:] == ["--api-only"]))

@@ -18,6 +18,9 @@ Global runtime configuration (cf. ``pisa_tpu/__init__.py:48-69``):
   default mesh spans (``parallel.default_mesh``; 0, the default: all of the
   process group), from the env var of that name
   (``pisa_tpu/__init__.py:96-98``).
+- ``CACHE_DIR``: the on-disk cache location, from ``PISA_TPU_CACHE_DIR``
+  (default ``$XDG_CACHE_HOME/pisa_tpu``, ``~/.cache/pisa_tpu``), as in
+  ``pisa_tpu/__init__.py:100-106``.
 
 Devices are explicit: pipelines take ``device="cuda"`` (the default) or
 ``device="cpu"``, and nothing falls back to the CPU when no card is found.
@@ -40,6 +43,7 @@ __all__ = [
     "ureg",
     "Q_",
     "PISA_TPU_NUM_DEVICES",
+    "CACHE_DIR",
 ]
 
 __version__ = "0.1.0"
@@ -67,5 +71,13 @@ else:
 EPSILON = 10 ** -HASH_SIGFIGS
 
 PISA_TPU_NUM_DEVICES = int(os.environ.get("PISA_TPU_NUM_DEVICES", "0"))
+
+CACHE_DIR = os.environ.get(
+    "PISA_TPU_CACHE_DIR",
+    os.path.join(
+        os.environ.get("XDG_CACHE_HOME", os.path.expanduser("~/.cache")),
+        "pisa_tpu",
+    ),
+)
 
 from pisa_tpu_torch.units import ureg, Quantity as Q_  # noqa: E402

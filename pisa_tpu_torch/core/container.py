@@ -136,6 +136,7 @@ class Container:
     device : torch.device or str
     """
 
+    valid_translation_modes = ("average", "sum")
     #: variables that default to 'sum' translation (additive quantities)
     sum_mode_keys = ("weights", "initial_weights", "errors")
 
@@ -184,6 +185,14 @@ class Container:
         return isinstance(self._representation, MultiDimBinning)
 
     @property
+    def representations(self):
+        return tuple(self._representations.values())
+
+    @property
+    def representation_keys(self):
+        return tuple(self._representations.keys())
+
+    @property
     def shape(self):
         if self.is_map:
             return self._representation.shape
@@ -207,6 +216,10 @@ class Container:
         shape = self.shape
         return None if shape is None else int(np.prod(shape))
 
+    @property
+    def num_dims(self):
+        return self._representation.num_dims if self.is_map else 1
+
     # -- keys ----------------------------------------------------------------
     @property
     def keys(self):
@@ -225,6 +238,10 @@ class Container:
     @property
     def all_keys_incl_aux_data(self):
         return self.all_keys + list(self._aux_data.keys())
+
+    @property
+    def keys_incl_aux_data(self):
+        return self.keys + list(self._aux_data.keys())
 
     def __contains__(self, key):
         return key in self._data or key in self._aux_data
@@ -321,6 +338,10 @@ class Container:
         # a rewritten coordinate invalidates index caches built on it
         self.drop_index_caches({key})
 
+    def mark_valid(self, key):
+        self.validity.setdefault(key, {})[
+            _rep_hash(self._representation)] = True
+
     def drop_index_caches(self, keys):
         """Forget the cached indices built on any coordinate in `keys`."""
         stale = [k for k, names in self._flatidx_names.items()
@@ -372,9 +393,7 @@ class Container:
         binning = self._representation
         cache_key = (_rep_hash(binning), "grid", key)
         if cache_key not in self._flatidx:
-            grid = binning.meshgrid(entity="weighted_centers",
-                                    attach_units=False)
-            points = grid[binning.index(key)].ravel()
+            points = self.unroll_binning(key, binning)
             if self.shard is not None and _rep_hash(binning) in \
                     self.shard.grids:
                 points = points[slice(*self.shard.grids[_rep_hash(binning)])]
@@ -384,6 +403,13 @@ class Container:
                 device=self.device,
             )
         return self._flatidx[cache_key]
+
+    @staticmethod
+    def unroll_binning(key, binning):
+        """The weighted centers of binning dimension `key` at every bin,
+        flattened (a host array)."""
+        grid = binning.meshgrid(entity="weighted_centers", attach_units=False)
+        return grid[binning.index(key)].ravel()
 
     # -- translation ----------------------------------------------------------
     def auto_translate(self, key):
@@ -405,59 +431,89 @@ class Container:
         mode = self.translation_modes.get(key, "average")
         from_map = isinstance(src_representation, MultiDimBinning)
         to_map = isinstance(dest, MultiDimBinning)
-        values = self._data[key][_rep_hash(src_representation)]
-        laned = key in self._laned
-        if self.shard is not None and to_map and not from_map \
-                and mode == "average":
-            raise NotImplementedError(
-                f"{key!r}: a mean from this rank's slice of the events to"
-                f" {dest} needs the other ranks' counts; a sharded template"
-                " translates events to a binning in sum mode only")
-        if laned:
-            # the lane axis joins the trailing channels, (size, rest * B),
-            # and leaves them again after the translation
-            laned_shape = tuple(values.shape)
-            values = values.movedim(0, -1).reshape(laned_shape[1], -1)
-
         if mode == "average":
             if from_map and to_map:
-                old = self._sample_arrays(src_representation,
-                                          src_representation.names)
-                new = self._sample_arrays(dest, dest.names)
-                out = translation.resample(
-                    values, old, src_representation, new, dest
-                )
+                out = self.resample(key, src_representation, dest)
             elif to_map:
-                out = self._array_to_binned(
-                    values, src_representation, dest, averaged=True
-                )
+                out = self.array_to_binned(key, src_representation, dest)
             elif from_map:
-                idx = self.cached_flat_indices(src_representation, dest)
-                out = translation.lookup(None, values, src_representation,
-                                         idx=idx)
+                out = self.binned_to_array(key, src_representation, dest)
             else:
                 raise NotImplementedError(
                     f"average translation {src_representation} -> {dest}"
                 )
         elif mode == "sum":
             if to_map and not from_map:
-                out = self._array_to_binned(
-                    values, src_representation, dest, averaged=False
-                )
+                out = self.array_to_binned(key, src_representation, dest,
+                                           averaged=False)
             else:
                 raise NotImplementedError(
                     f"sum translation {src_representation} -> {dest}"
                 )
         else:
             raise ValueError(f"Unknown translation mode {mode!r}")
-        if laned:
-            out = out.reshape(out.shape[:1] + laned_shape[2:]
-                              + laned_shape[:1]).movedim(-1, 0)
-        if to_map and not from_map:
-            out = reduce_over_ranks(self, out)
-
         self._data[key][_rep_hash(dest)] = out
         self.validity[key][_rep_hash(dest)] = True
+
+    def _translated(self, key, src_representation, op):
+        """``op(values)`` of `key`'s values in `src_representation`, a
+        translation by rows: a laned key's lane axis joins the trailing
+        channels, (size, rest * B), and leaves them again after it."""
+        values = self._data[key][_rep_hash(src_representation)]
+        if key not in self._laned:
+            return op(values)
+        laned_shape = tuple(values.shape)
+        out = op(values.movedim(0, -1).reshape(laned_shape[1], -1))
+        return out.reshape(out.shape[:1] + laned_shape[2:]
+                           + laned_shape[:1]).movedim(-1, 0)
+
+    def array_to_binned(self, key, src_representation, dest_representation,
+                        averaged=True):
+        """`key`'s events in `src_representation` histogrammed into the
+        binning `dest_representation` (their mean per bin if `averaged`,
+        else their sum), not stored; on a sharded container the sum over
+        the ranks, and a mean raises."""
+        from_events = not isinstance(src_representation, MultiDimBinning)
+        if self.shard is not None and from_events and averaged:
+            raise NotImplementedError(
+                f"{key!r}: a mean from this rank's slice of the events to"
+                f" {dest_representation} needs the other ranks' counts; a"
+                " sharded template translates events to a binning in sum"
+                " mode only")
+        def histogram(values):
+            return self._array_to_binned(values, src_representation,
+                                         dest_representation, averaged)
+
+        out = self._translated(key, src_representation, histogram)
+        return reduce_over_ranks(self, out) if from_events else out
+
+    def binned_to_array(self, key, src_representation, dest_representation):
+        """`key`'s values on the binning `src_representation` looked up at
+        the events of `dest_representation` (0 out of range), not
+        stored."""
+        idx = self.cached_flat_indices(src_representation,
+                                       dest_representation)
+
+        def lookup(values):
+            return translation.lookup(None, values, src_representation,
+                                      idx=idx)
+
+        return self._translated(key, src_representation, lookup)
+
+    def resample(self, key, src_representation, dest_representation):
+        """`key`'s values on the binning `src_representation` resampled onto
+        the binning `dest_representation` (:func:`translation.resample`),
+        not stored."""
+        old = self._sample_arrays(src_representation,
+                                  src_representation.names)
+        new = self._sample_arrays(dest_representation,
+                                  dest_representation.names)
+
+        def resample(values):
+            return translation.resample(values, old, src_representation, new,
+                                        dest_representation)
+
+        return self._translated(key, src_representation, resample)
 
     def _sample_arrays(self, rep, names):
         """Coordinate tensors for `names` as seen in representation `rep`
@@ -522,6 +578,27 @@ class Container:
             cut_expression, {"__builtins__": {}}, names
         )
         return torch.as_tensor(mask, device=self.device).to(torch.bool)
+
+    def keep(self, keep_mask):
+        """Keep the events where `keep_mask` (host or on the container's
+        device) is true in every variable valid in the events
+        representation, which becomes their only valid one; the cached
+        indices built on the events are dropped."""
+        if self.is_map:
+            raise ValueError("Cannot apply event mask in binned representation")
+        if self.shard is not None:
+            raise NotImplementedError(
+                f"Container {self.name!r} holds one rank's slice of a sharded"
+                " template's events; a mask would change the slice")
+        h = _rep_hash(self._representation)
+        mask = torch.as_tensor(keep_mask, device=self.device).to(torch.bool)
+        for key, per_rep in self._data.items():
+            if h in per_rep and self.validity[key].get(h, False):
+                values = per_rep[h]
+                per_rep[h] = (values[:, mask] if key in self._laned
+                              else values[mask])
+                self.validity[key] = {h: True}
+        self.drop_index_caches(set(self._data))
 
     # -- outputs --------------------------------------------------------------
     def get_hist(self, key):
@@ -592,6 +669,10 @@ class VirtualContainer:
     def size(self):
         return self.containers[0].size
 
+    @property
+    def shape(self):
+        return self.containers[0].shape
+
     def __getitem__(self, key):
         return self.containers[0][key]
 
@@ -601,6 +682,18 @@ class VirtualContainer:
         value = self.containers[0]._to_device(value)
         for c in self.containers:
             c[key] = value
+
+    def set_aux_data(self, key, val):
+        for c in self.containers:
+            c.set_aux_data(key, val)
+
+    def mark_changed(self, key):
+        for c in self.containers:
+            c.mark_changed(key)
+
+    def mark_valid(self, key):
+        for c in self.containers:
+            c.mark_valid(key)
 
     def __contains__(self, key):
         return key in self.containers[0]
@@ -668,6 +761,13 @@ class ContainerSet:
         reference ``container.py:323``)."""
         self._glob_aux[key] = value
 
+    def get_shared_keys(self, rep_indep=True):
+        """The keys (aux data included) every container has: in any
+        representation if `rep_indep`, else valid in the current one."""
+        keys = [set(c.all_keys_incl_aux_data if rep_indep
+                    else c.keys_incl_aux_data) for c in self.containers]
+        return tuple(sorted(set.intersection(*keys))) if keys else ()
+
     # -- representation -------------------------------------------------------
     @property
     def representation(self):
@@ -680,6 +780,10 @@ class ContainerSet:
     def representation(self, rep):
         for c in self.containers:
             c.representation = rep
+
+    @property
+    def is_map(self):
+        return all(c.is_map for c in self.containers)
 
     @property
     def lanes(self):

@@ -264,4 +264,12 @@ class Stage:
     def __str__(self):
         return f"{self.stage_name}.{self.service_name}"
 
+    @property
+    def has_calc_mode(self):
+        return self.calc_mode is not None
+
+    @property
+    def has_apply_mode(self):
+        return self.apply_mode is not None
+
     __repr__ = __str__

@@ -11,8 +11,8 @@ interpolation + ``param.*`` keys), so conversion is a light rewrite:
   reference applies at ``pisa/core/pipeline.py:273-276``);
 - ``pisa_examples/resources/...`` include/resource paths -> bare resource
   names resolved by the resource finder;
-- a report of services referenced by the config that pisa_tpu_torch
-  cannot run (:data:`GATED`).
+- a report of services referenced by the config that run in
+  pisa_tpu_torch only with an external package (:data:`GATED`).
 """
 
 from __future__ import annotations
@@ -25,8 +25,9 @@ from argparse import ArgumentDefaultsHelpFormatter, ArgumentParser
 # headers and the [pipeline] order line alike)
 PI_RENAMES = re.compile(r"(?<=\.)pi_(?=\w)")
 RESOURCE_PREFIX = re.compile(r"pisa_examples/resources/")
-#: the services pisa_tpu_torch cannot run, as ``stage.service``: their
-#: packages cannot be had (LeptonWeighter, photospline)
+#: the services that run only with an external package, as
+#: ``stage.service``: their init imports it (LeptonWeighter, photospline),
+#: as the JAX package's does
 GATED = ("data.licloader_weighter", "flux.airs")
 
 
@@ -44,7 +45,8 @@ def convert_text(text):
     for name in GATED:
         if re.search(rf"\b{re.escape(name)}\b", out):
             notes.append(
-                f"NOTE: service '{name}' does not run in pisa_tpu_torch"
+                f"NOTE: service '{name}' requires an external package and"
+                " is import-gated in pisa_tpu_torch"
             )
     return out, notes
 

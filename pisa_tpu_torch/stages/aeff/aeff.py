@@ -12,9 +12,11 @@ from __future__ import annotations
 
 import torch
 
+from pisa_tpu_torch import ureg
+from pisa_tpu_torch.core.param import Param, ParamSet
 from pisa_tpu_torch.core.stage import Stage, in_data_type
 
-__all__ = ["aeff"]
+__all__ = ["aeff", "init_test"]
 
 
 class aeff(Stage):  # noqa: N801
@@ -91,3 +93,17 @@ class aeff(Stage):  # noqa: N801
                 container["weights"] * container["weighted_aeff"]
                 * in_data_type(scale)
             )
+
+
+def init_test(**param_kwargs):
+    """Instantiation example."""
+    param_set = ParamSet(
+        [
+            Param(name="livetime", value=10 * ureg.s, **param_kwargs),
+            Param(name="aeff_scale", value=1.0, **param_kwargs),
+            Param(name="nutau_cc_norm", value=1.0, **param_kwargs),
+            Param(name="nutau_norm", value=1.0, **param_kwargs),
+            Param(name="nu_nc_norm", value=1.0, **param_kwargs),
+        ]
+    )
+    return aeff(params=param_set)

@@ -15,7 +15,7 @@ from pisa_tpu_torch.core.stage import Stage
 from pisa_tpu_torch.utils.fileio import read_csv
 from pisa_tpu_torch.utils.resources import find_resource
 
-__all__ = ["csv_data_hist"]
+__all__ = ["csv_data_hist", "init_test"]
 
 
 class csv_data_hist(Stage):  # noqa: N801
@@ -37,3 +37,10 @@ class csv_data_hist(Stage):  # noqa: N801
                          ("reco_coszen", "reco_coszen"), ("pid", "pid")):
             container[key] = events[col].astype(FTYPE)
         self.data.add_container(container)
+
+
+def init_test(**param_kwargs):
+    """Instantiation example."""
+    return csv_data_hist(
+        events_file="events/IceCube_3y_oscillations/data.csv.bz2"
+    )

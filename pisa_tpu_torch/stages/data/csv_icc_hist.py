@@ -18,11 +18,12 @@ import numpy as np
 
 from pisa_tpu_torch import FTYPE
 from pisa_tpu_torch.core.container import Container
+from pisa_tpu_torch.core.param import Param, ParamSet
 from pisa_tpu_torch.core.stage import Stage, in_data_type
 from pisa_tpu_torch.utils.fileio import read_csv
 from pisa_tpu_torch.utils.resources import find_resource
 
-__all__ = ["csv_icc_hist"]
+__all__ = ["csv_icc_hist", "init_test"]
 
 
 class csv_icc_hist(Stage):  # noqa: N801
@@ -53,3 +54,13 @@ class csv_icc_hist(Stage):  # noqa: N801
             self.params.atm_muon_scale.m_as("dimensionless"))
         for container in self.data:
             container["weights"] = container["count"] * scale
+
+
+def init_test(**param_kwargs):
+    """Instantiation example."""
+    return csv_icc_hist(
+        events_file="events/IceCube_3y_oscillations/muons.csv.bz2",
+        params=ParamSet(
+            [Param(name="atm_muon_scale", value=0.2, **param_kwargs)]
+        ),
+    )

@@ -19,7 +19,7 @@ from pisa_tpu_torch.core.stage import Stage
 from pisa_tpu_torch.utils.fileio import read_csv
 from pisa_tpu_torch.utils.resources import find_resource
 
-__all__ = ["csv_loader"]
+__all__ = ["csv_loader", "init_test"]
 
 
 class csv_loader(Stage):  # noqa: N801
@@ -152,3 +152,20 @@ class csv_loader(Stage):  # noqa: N801
         # reset weights before downstream stages multiply them
         for container in self.data:
             container["weights"] = container["initial_weights"] * 1.0
+
+
+def init_test(**param_kwargs):
+    """Instantiation example."""
+    data_dict = {
+        "true_energy": "true_energy",
+        "true_coszen": "true_coszen",
+        "weighted_aeff": "weight",
+        "reco_energy": "reco_energy",
+        "reco_coszen": "reco_coszen",
+        "pid": "pid",
+    }
+    return csv_loader(
+        events_file="events/IceCube_3y_oscillations/neutrino_mc.csv.bz2",
+        data_dict=data_dict,
+        output_names=["nue_cc", "numu_cc"],
+    )

@@ -16,9 +16,10 @@ import numpy as np
 from pisa_tpu_torch import FTYPE
 from pisa_tpu_torch.core.binning import MultiDimBinning
 from pisa_tpu_torch.core.container import Container
+from pisa_tpu_torch.core.param import Param, ParamSet
 from pisa_tpu_torch.core.stage import Stage
 
-__all__ = ["toy_event_generator"]
+__all__ = ["toy_event_generator", "init_test"]
 
 
 class toy_event_generator(Stage):  # noqa: N801
@@ -83,3 +84,18 @@ class toy_event_generator(Stage):  # noqa: N801
         for container in self.data:
             # a fresh tensor: the template's state swap keeps the old one
             container["weights"] = container["initial_weights"] * 1.0
+
+
+def init_test(**param_kwargs):
+    """Instantiation example."""
+    param_set = ParamSet(
+        [
+            Param(name="n_events", value=100, **param_kwargs),
+            Param(name="random", value=1, **param_kwargs),
+            Param(name="seed", value=666, **param_kwargs),
+        ]
+    )
+    return toy_event_generator(
+        output_names=["numu", "nue_bar"], params=param_set,
+        calc_mode="events",
+    )

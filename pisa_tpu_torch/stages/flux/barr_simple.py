@@ -17,10 +17,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from pisa_tpu_torch.core.param import Param, ParamSet
 from pisa_tpu_torch.core.stage import Stage, in_data_type
 from pisa_tpu_torch.ops.flux import barr
 
-__all__ = ["barr_simple"]
+__all__ = ["barr_simple", "init_test"]
 
 _NU_FLAVS = [
     "nue_cc", "numu_cc", "nutau_cc", "nue_nc", "numu_nc", "nutau_nc",
@@ -262,3 +263,17 @@ class barr_simple(Stage):  # noqa: N801
             container["nu_flux"] = torch.stack(
                 torch.broadcast_tensors(out_e, out_mu), dim=-1)
         self.data.unlink_containers()
+
+
+def init_test(**param_kwargs):
+    """Instantiation example."""
+    param_set = ParamSet(
+        [
+            Param(name="nue_numu_ratio", value=1.0, **param_kwargs),
+            Param(name="nu_nubar_ratio", value=1.0, **param_kwargs),
+            Param(name="delta_index", value=0.0, **param_kwargs),
+            Param(name="Barr_uphor_ratio", value=0.0, **param_kwargs),
+            Param(name="Barr_nu_nubar_ratio", value=0.0, **param_kwargs),
+        ]
+    )
+    return barr_simple(params=param_set)

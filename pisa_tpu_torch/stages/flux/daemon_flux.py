@@ -50,7 +50,7 @@ from pisa_tpu_torch.utils.flux_weights import (
 )
 from pisa_tpu_torch.utils.log import logging
 
-__all__ = ["daemon_flux"]
+__all__ = ["daemon_flux", "init_test"]
 
 _BASE_TABLE = "flux/honda-2015-spl-solmin-aa.d"
 
@@ -167,3 +167,15 @@ class daemon_flux(Stage):  # noqa: N801
                 basis = basis[0]  # static: a broadcast view over the lanes
             container["nu_flux"] = (container["daemon_base_flux"]
                                     * modification_from_basis(basis, v))
+
+
+def init_test(**param_kwargs):
+    """Instantiation example (native fallback; no external dependency)."""
+    params = [
+        Param(
+            name=f"daemon_{tag}", value=0.0 * ureg.dimensionless,
+            **param_kwargs,
+        )
+        for tag in DAEMON_PARAM_NAMES
+    ]
+    return daemon_flux(params=ParamSet(params), calc_mode="events")

@@ -14,13 +14,14 @@ from __future__ import annotations
 import numpy as np
 
 from pisa_tpu_torch import FTYPE
+from pisa_tpu_torch.core.param import Param, ParamSet
 from pisa_tpu_torch.core.stage import Stage
 from pisa_tpu_torch.utils.flux_weights import (
     calculate_2d_flux_weights,
     load_2d_table,
 )
 
-__all__ = ["honda_ip"]
+__all__ = ["honda_ip", "init_test"]
 
 _ALL_NU = [
     "nue_cc", "numu_cc", "nutau_cc", "nue_nc", "numu_nc", "nutau_nc",
@@ -83,3 +84,17 @@ class honda_ip(Stage):  # noqa: N801
             container["nubar_flux_nominal"] = nubar
 
         self.data.unlink_containers()
+
+
+def init_test(**param_kwargs):
+    """Instantiation example."""
+    param_set = ParamSet(
+        [
+            Param(
+                name="flux_table",
+                value="flux/honda-2015-spl-solmin-aa.d",
+                **param_kwargs,
+            )
+        ]
+    )
+    return honda_ip(params=param_set)

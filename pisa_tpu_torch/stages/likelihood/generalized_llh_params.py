@@ -21,7 +21,7 @@ from pisa_tpu_torch import FTYPE
 from pisa_tpu_torch.core.binning import MultiDimBinning
 from pisa_tpu_torch.core.stage import Stage
 
-__all__ = ["generalized_llh_params", "PSEUDO_WEIGHT"]
+__all__ = ["generalized_llh_params", "init_test", "PSEUDO_WEIGHT"]
 
 PSEUDO_WEIGHT = 0.001
 
@@ -101,3 +101,20 @@ class generalized_llh_params(Stage):  # noqa: N801
             container["llh_betas"] = beta
             container["old_sum"] = sum_w
             container["weights"] = sum_w_f
+
+
+def init_test(**param_kwargs):
+    """Instantiation example."""
+    from pisa_tpu_torch import ureg
+    from pisa_tpu_torch.core.binning import OneDimBinning
+
+    binning = MultiDimBinning(
+        [
+            OneDimBinning(
+                "true_energy", num_bins=5, is_log=True,
+                domain=[1, 100] * ureg.GeV,
+            )
+        ],
+        name="test",
+    )
+    return generalized_llh_params(apply_mode=binning, calc_mode="events")

@@ -77,6 +77,7 @@ import torch
 
 from pisa_tpu_torch import TORCH_FTYPE, ureg
 from pisa_tpu_torch.core.binning import MultiDimBinning
+from pisa_tpu_torch.core.param import Param, ParamSet
 from pisa_tpu_torch.core.stage import Stage
 from pisa_tpu_torch.ops.osc.chain import (
     osc_probs,
@@ -100,7 +101,7 @@ from pisa_tpu_torch.ops.osc.nonstandard import (
 )
 from pisa_tpu_torch.ops.osc.pmns import dm_matrix, pmns_matrix, pmns_matrix_reparam
 
-__all__ = ["prob3", "LRI_TYPES", "NSI_TYPES", "TOMOGRAPHY_TYPES"]
+__all__ = ["prob3", "init_test", "LRI_TYPES", "NSI_TYPES", "TOMOGRAPHY_TYPES"]
 
 LRI_TYPES = ["emu-symmetry", "etau-symmetry", "mutau-symmetry"]
 NSI_TYPES = ["standard", "vacuum-like"]
@@ -667,3 +668,26 @@ class prob3(Stage):  # noqa: N801
                     nu_flux[..., 0] * container["prob_e"]
                     + nu_flux[..., 1] * container["prob_mu"]
                 )
+
+
+def init_test(**param_kwargs):
+    """Instantiation example."""
+    param_set = ParamSet(
+        [
+            Param(name="detector_depth", value=10 * ureg.km, **param_kwargs),
+            Param(name="prop_height", value=18 * ureg.km, **param_kwargs),
+            Param(
+                name="earth_model", value="osc/PREM_4layer.dat", **param_kwargs
+            ),
+            Param(name="YeI", value=0.5, **param_kwargs),
+            Param(name="YeO", value=0.5, **param_kwargs),
+            Param(name="YeM", value=0.5, **param_kwargs),
+            Param(name="theta12", value=33 * ureg.degree, **param_kwargs),
+            Param(name="theta13", value=8 * ureg.degree, **param_kwargs),
+            Param(name="theta23", value=50 * ureg.degree, **param_kwargs),
+            Param(name="deltam21", value=8e-5 * ureg.eV**2, **param_kwargs),
+            Param(name="deltam31", value=3e-3 * ureg.eV**2, **param_kwargs),
+            Param(name="deltacp", value=180 * ureg.degree, **param_kwargs),
+        ]
+    )
+    return prob3(include_nlo=True, params=param_set)

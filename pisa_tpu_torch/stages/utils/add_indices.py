@@ -13,7 +13,7 @@ from pisa_tpu_torch.core import translation
 from pisa_tpu_torch.core.binning import MultiDimBinning
 from pisa_tpu_torch.core.stage import Stage
 
-__all__ = ["add_indices"]
+__all__ = ["add_indices", "init_test"]
 
 
 class add_indices(Stage):  # noqa: N801
@@ -35,3 +35,20 @@ class add_indices(Stage):  # noqa: N801
             sample = [container[name] for name in binning.names]
             container["bin_indices"] = translation.lookup_indices_flat(
                 sample, binning)
+
+
+def init_test(**param_kwargs):
+    """Instantiation example."""
+    from pisa_tpu_torch import ureg
+    from pisa_tpu_torch.core.binning import OneDimBinning
+
+    binning = MultiDimBinning(
+        [
+            OneDimBinning(
+                "true_energy", num_bins=5, is_log=True,
+                domain=[1, 100] * ureg.GeV,
+            )
+        ],
+        name="test",
+    )
+    return add_indices(calc_mode=binning, apply_mode="events")

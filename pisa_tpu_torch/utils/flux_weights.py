@@ -1,7 +1,6 @@
 """
 Host copy of ``pisa_tpu/utils/flux_weights.py`` with its imports rewritten to
-``pisa_tpu_torch``; the 3-D (azimuth) tables, which the flagship does not
-read, are left out.
+``pisa_tpu_torch``.
 
 Atmospheric-flux table loading and integral-preserving evaluation.
 
@@ -48,6 +47,9 @@ __all__ = [
     "load_2d_hillas_table",
     "load_2d_table",
     "calculate_2d_flux_weights",
+    "load_3d_honda_table",
+    "load_3d_table",
+    "calculate_3d_flux_weights",
 ]
 
 PRIMARIES = ["numu", "numubar", "nue", "nuebar"]
@@ -246,3 +248,179 @@ def calculate_2d_flux_weights(
         out[...] = result
         return out
     return result
+
+
+# ---------------------------------------------------------------------------
+# 3-D (energy x coszen x azimuth) tables
+# (cf. reference ``flux_weights.py:352-604``)
+# ---------------------------------------------------------------------------
+class FluxTable3D:
+    """Integral-preserving 3-D (energy x coszen x azimuth) flux table.
+
+    Attributes
+    ----------
+    splines : dict primary -> CubicSpline over log10(E) whose y has shape
+        (n_knots, 12 az, 20 cz): cumulative flux-integral per band.
+    cz_spline_points : (21,) coszen knots for the second pass.
+    az_points_deg : (12,) table azimuth band centers (15..345 degrees).
+    name : 'honda'
+    """
+
+    def __init__(self, splines, cz_spline_points, az_points_deg, name):
+        self.splines = splines
+        self.cz_spline_points = np.asarray(cz_spline_points)
+        self.az_points_deg = np.asarray(az_points_deg)
+        self.name = name
+
+    def __getitem__(self, primary):
+        return self.splines[primary]
+
+    def keys(self):
+        return self.splines.keys()
+
+
+def load_3d_honda_table(flux_file, enpow=1):
+    """Honda azimuth-dependent table -> integral-preserving splines
+    (cf. reference ``flux_weights.py:352-430``). File layout: 20 coszen
+    blocks (descending from 0.95) x 12 azimuth blocks (ascending from 15
+    deg) x 101 energies."""
+    if not isinstance(enpow, int):
+        raise TypeError("Energy power must be an integer")
+    table = np.genfromtxt(find_resource(flux_file), usecols=range(5))
+    mask = np.all(np.isnan(table) | np.equal(table, 0), axis=1)
+    table = table[~mask].T
+    flux = dict(zip(["energy"] + PRIMARIES, table))
+
+    n_cz, n_az = 20, 12
+    energy = np.asarray(np.split(flux["energy"], n_cz * n_az))[0]
+    n_e = energy.size
+    logenergy_knots = np.linspace(-1.025, 4.025, n_e + 1)
+
+    splines = {}
+    for prim in PRIMARIES:
+        # (cz_desc, az, E) from file order -> (az, cz ascending, E)
+        bands = flux[prim].reshape(n_cz, n_az, n_e)
+        bands = np.swapaxes(bands, 0, 1)[:, ::-1, :]
+        cum = np.concatenate(
+            [
+                np.zeros((n_az, n_cz, 1)),
+                np.cumsum(bands * energy**enpow * 0.05, axis=2),
+            ],
+            axis=2,
+        )  # (12, 20, n_e+1)
+        splines[prim] = CubicSpline(
+            logenergy_knots,
+            np.moveaxis(cum, 2, 0),  # (n_knots, 12, 20)
+            axis=0,
+            bc_type="not-a-knot",
+        )
+    return FluxTable3D(
+        splines, np.linspace(-1, 1, n_cz + 1), np.linspace(15, 345, n_az),
+        "honda",
+    )
+
+
+def load_3d_table(flux_file, enpow=1):
+    """Dispatch for 3-D tables (cf. reference ``flux_weights.py:433``)."""
+    if "aa" in flux_file:
+        raise ValueError("Azimuth-dependent tables are expected")
+    if "honda" not in flux_file:
+        raise ValueError("Flux file must be from the Honda group")
+    return load_3d_honda_table(flux_file, enpow=enpow)
+
+
+def _percolumn_cubic_derivative(knots, int_vals, x):
+    """Derivative of a per-column not-a-knot cubic interpolant at each
+    column's own x: int_vals (M, n_knots), x (M,) -> (M,)."""
+    n_seg = knots.size - 1
+    spline = CubicSpline(knots, int_vals.T, axis=0, bc_type="not-a-knot")
+    c = spline.c  # (4, n_seg, M)
+    k = np.clip(np.searchsorted(knots, x, side="right") - 1, 0, n_seg - 1)
+    t = x - knots[k]
+    idx = np.arange(x.size)
+    c0 = c[0][k, idx]
+    c1 = c[1][k, idx]
+    c2 = c[2][k, idx]
+    return (3.0 * c0 * t + 2.0 * c1) * t + c2
+
+
+def calculate_3d_flux_weights(
+    true_energies, true_coszens, true_azimuths, en_splines, enpow=1,
+    az_linear=True,
+):
+    """Integral-preserving flux per (energy, coszen, azimuth) point,
+    vectorized (cf. reference ``flux_weights.py:474-604``: the reference
+    builds two scipy splines per event per azimuth band in a python loop;
+    here every stage is batched over all events).
+
+    Parameters
+    ----------
+    true_energies : (N,) GeV
+    true_coszens : (N,) in [-1, 1]
+    true_azimuths : (N,) radians, >= 0
+    en_splines : CubicSpline from a loaded :class:`FluxTable3D` (one
+        primary)
+    enpow : int
+        Power of E used when the table was loaded.
+    az_linear : bool
+        Linear (cyclic) azimuth interpolation (recommended and default);
+        False uses the integral-preserving treatment in azimuth too.
+    """
+    true_energies = np.asarray(true_energies, dtype=np.float64)
+    true_coszens = np.asarray(true_coszens, dtype=np.float64)
+    true_azimuths = np.asarray(true_azimuths, dtype=np.float64)
+    if not (
+        true_energies.shape == true_coszens.shape == true_azimuths.shape
+    ):
+        raise ValueError(
+            "length of energy, coszen and azimuth arrays must match"
+        )
+    if not ((true_coszens >= -1.0).all() and (true_coszens <= 1.0).all()):
+        raise ValueError("Not all coszens found between -1 and 1")
+    if not (true_azimuths >= 0.0).all():
+        raise ValueError(
+            "Azimuths should be given as the angle, so should all be"
+            " positive"
+        )
+    if not isinstance(enpow, int):
+        raise TypeError("Energy power must be an integer")
+
+    n = true_energies.size
+    log_e = np.log10(true_energies.ravel())
+
+    # (1) d(cumulative)/d(logE) at each event for all (az, cz) bands
+    d = en_splines.derivative(1)(log_e)  # (N, 12, 20)
+    n_az, n_cz = d.shape[1], d.shape[2]
+
+    # (2) per (event, az): integral-preserving coszen interpolation
+    int_vals = np.concatenate(
+        [np.zeros((n, n_az, 1)), np.cumsum(d, axis=2) * 0.1], axis=2
+    ).reshape(n * n_az, n_cz + 1)
+    cz_points = np.linspace(-1, 1, n_cz + 1)
+    cz_rep = np.repeat(true_coszens.ravel(), n_az)
+    az_vals = _percolumn_cubic_derivative(
+        cz_points, int_vals, cz_rep
+    ).reshape(n, n_az)  # (N, 12)
+
+    az_deg = true_azimuths.ravel() * (180.0 / np.pi)
+
+    if az_linear:
+        # cyclic linear interpolation on band centers 15..375 deg
+        vals = az_vals / true_energies.ravel()[:, None] ** enpow
+        vals = np.concatenate([vals, vals[:, :1]], axis=1)  # (N, 13)
+        az_shift = np.where(az_deg < 15.0, az_deg + 360.0, az_deg)
+        j = np.clip(((az_shift - 15.0) // 30.0).astype(int), 0, n_az - 1)
+        w = (az_shift - (15.0 + 30.0 * j)) / 30.0
+        idx = np.arange(n)
+        out = vals[idx, j] * (1.0 - w) + vals[idx, j + 1] * w
+    else:
+        # integral-preserving in azimuth as well (not recommended;
+        # reference ``flux_weights.py:580-590``)
+        az_int = np.concatenate(
+            [np.zeros((n, 1)), np.cumsum(az_vals, axis=1) * 30.0], axis=1
+        )  # (N, 13)
+        az_knots = np.linspace(0.0, 360.0, n_az + 1)
+        out = _percolumn_cubic_derivative(az_knots, az_int, az_deg)
+        out = out / true_energies.ravel() ** enpow
+
+    return out.reshape(true_energies.shape)

@@ -25,7 +25,7 @@ import numpy as np
 
 from pisa_tpu_torch.utils.cuda_build import BUILD_DIR
 
-__all__ = ["SOURCE", "library", "pg_log_mixture_c"]
+__all__ = ["SOURCE", "available", "library", "pg_log_mixture_c"]
 
 #: the port's copy of the C source
 SOURCE = os.path.join(
@@ -75,6 +75,16 @@ def library():
                                        _DOUBLES, _DOUBLES]
         _LIB = lib
     return _LIB
+
+
+def available():
+    """True if the library builds and loads (:func:`library` raises
+    otherwise)."""
+    try:
+        library()
+    except (OSError, RuntimeError):
+        return False
+    return True
 
 
 def pg_log_mixture_c(k, alphas, betas):

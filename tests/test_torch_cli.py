@@ -53,7 +53,10 @@ from pisa_tpu_torch.scripts import analysis, benchmark, compare
 from pisa_tpu_torch.scripts import convert_config, detectors
 from pisa_tpu_torch.scripts import distribution_maker, pipeline
 from pisa_tpu_torch.scripts import run_unit_tests, test_services
-from pisa_tpu_torch.testing.service_matrix import discover_services
+from pisa_tpu_torch.testing.service_matrix import (
+    discover_services,
+    run_service,
+)
 from pisa_tpu_torch.utils.fileio import from_file
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -329,12 +332,14 @@ def test_convert_text_matches_jax_on_packaged_configs():
 
 
 def test_convert_gates_what_the_port_cannot_run(tmp_path, capsys):
-    """GATED lists the services the JAX package has and the port lacks;
-    a reference-style config naming them is rewritten and noted, and the
-    rewritten flagship parses with --check."""
-    jax_only = ({f"{s}.{v}" for s, v in jax_discover_services()}
-                - {f"{s}.{v}" for s, v in discover_services()})
-    assert set(convert_config.GATED) == jax_only
+    """The port has every service of the JAX package, and GATED lists those
+    that run only with an external package (the port's matrix skips them
+    for it here); a reference-style config naming them is rewritten and
+    noted, and the rewritten flagship parses with --check."""
+    assert sorted(discover_services()) == sorted(jax_discover_services())
+    for name in convert_config.GATED:
+        assert run_service(*name.split("."), "events", device="cpu") \
+            .startswith("skip: could not import"), name
     text = ("[pipeline]\norder = data.pi_meows_loader, flux.pi_airs,"
             " osc.pi_prob3\n#include pisa_examples/resources/settings/"
             "binning/example.cfg as binning\n")
@@ -343,7 +348,8 @@ def test_convert_gates_what_the_port_cannot_run(tmp_path, capsys):
     assert "pi_" not in out and "pisa_examples" not in out
     # data.meows_loader runs in the port: flux.airs is the gated example
     assert _gating(notes) == [
-        "NOTE: service 'flux.airs' does not run in pisa_tpu_torch"]
+        "NOTE: service 'flux.airs' requires an external package and is"
+        " import-gated in pisa_tpu_torch"]
     outfile = str(tmp_path / "converted.cfg")
     convert_config.main([find_resource(
         "settings/pipeline/IceCube_3y_neutrinos.cfg"), outfile, "--check"])
